@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of spgemm_tpu: the block-sparse uint64 matrix chain
+product with the reference's wrap-then-mod fold, on an NVIDIA H100.
+
+Main path: cli.run -> utils/io_text.read_chain -> chain.chain_product ->
+ops/spgemm.spgemm_device (ops/symbolic planning, the CUDA numeric kernel in
+ops/cuda_spgemm.py + csrc/numeric_round.cu, one assembly gather) ->
+BlockSparseMatrix.prune_zeros -> io_text.write_matrix.
+
+Imports torch and numpy only: never jax and nothing of spgemm_tpu.
+"""

@@ -1,0 +1,116 @@
+"""The numeric round of the SpGEMM engine: a hand-written CUDA kernel for
+Hopper (csrc/numeric_round.cu) and its plain PyTorch version.
+
+Replaces the TPU kernel spgemm_tpu/ops/pallas_spgemm.py:numeric_round_pallas
+(mod variant).  Contract, for each output key and element (i, n):
+
+    acc = 0; for p in 0..P-1, then j in 0..k-1:
+        acc = addmod(acc, mulmod(A[pa[key, p]][i, j], B[pb[key, p]][j, n]))
+
+with the wrap-then-mod steps of SURVEY.md section 2.9, in exactly this order
+(addmod is not associative).  Slabs are (n, k, k) int64 bit-views with an
+all-zero sentinel tile last; sentinel pairs add exactly 0.
+
+The kernel is bound by the integer issue rate, not by bytes: each MAC is 9
+instructions on the integer pipe (compares, selects, the add's low half) beside
+the multiply's IMADs on the FMA pipe.  Its design is the simple one: one block
+per output key, threads over the tile's elements, the current tile pair
+staged through shared memory.  Left for a later PR: prefetching the next
+pair with cp.async or TMA, and several keys per block for small k.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from spgemm_tpu_torch.ops import _build, u64
+
+# Launches of the CUDA kernel, counted where it launches and nowhere else.
+launches = 0
+
+_KERNEL = "numeric_round"
+
+
+def _check(a_slab: torch.Tensor, b_slab: torch.Tensor, pa: torch.Tensor,
+           pb: torch.Tensor) -> int:
+    """Validate the operands; returns k."""
+    if a_slab.dtype != torch.int64 or b_slab.dtype != torch.int64:
+        raise TypeError(f"slabs must be int64 bit-views, got {a_slab.dtype}/{b_slab.dtype}")
+    if pa.dtype != torch.int32 or pb.dtype != torch.int32:
+        raise TypeError(f"pair indices must be int32, got {pa.dtype}/{pb.dtype}")
+    if a_slab.dim() != 3 or b_slab.dim() != 3:
+        raise ValueError("slabs must be (n, k, k)")
+    k = a_slab.shape[-1]
+    if a_slab.shape[1:] != (k, k) or b_slab.shape[1:] != (k, k):
+        raise ValueError(f"slab tiles must be k x k with one k, got "
+                         f"{tuple(a_slab.shape)}/{tuple(b_slab.shape)}")
+    if pa.shape != pb.shape or pa.dim() not in (2, 3):
+        raise ValueError(f"pa/pb must share a (K, P) or (R, K, P) shape, got "
+                         f"{tuple(pa.shape)}/{tuple(pb.shape)}")
+    devices = {t.device for t in (a_slab, b_slab, pa, pb)}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
+    if not all(t.is_contiguous() for t in (a_slab, b_slab, pa, pb)):
+        raise ValueError("operands must be contiguous")
+    return k
+
+
+def numeric_round_ref(a_slab: torch.Tensor, b_slab: torch.Tensor,
+                      pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on any device.
+
+    Loops over pair slots p, then j; each step gathers one (K, k, k) tile
+    per operand, so memory stays O(K * k^2).  A stacked (R, K, P) pa/pb
+    returns (R, K, k, k)."""
+    k = _check(a_slab, b_slab, pa, pb)
+    lead = pa.shape[:-1]
+    pa2, pb2 = pa.reshape(-1, pa.shape[-1]), pb.reshape(-1, pb.shape[-1])
+    acc = torch.zeros((pa2.shape[0], k, k), dtype=torch.int64, device=a_slab.device)
+    for p in range(pa2.shape[1]):
+        at = a_slab.index_select(0, pa2[:, p])
+        bt = b_slab.index_select(0, pb2[:, p])
+        for j in range(k):
+            acc = u64.mac(acc, at[:, :, j : j + 1], bt[:, j : j + 1, :])
+    return acc.reshape(*lead, k, k)
+
+
+def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
+                  pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """One numeric round: (K, P) or stacked (R, K, P) int32 indices into
+    the int64 slabs -> (K, k, k) or (R, K, k, k) int64.
+
+    On CUDA tensors it launches the kernel on the current stream or
+    raises; on CPU tensors it runs numeric_round_ref.  Every index must lie
+    in the slab it indexes (the planner builds them so, and
+    SpgemmPlan.check_operands ties a plan to its operands); the kernel does
+    not check them, since a device-side check would synchronise each launch."""
+    global launches
+    k = _check(a_slab, b_slab, pa, pb)
+    if a_slab.device.type == "cpu":
+        return numeric_round_ref(a_slab, b_slab, pa, pb)
+    if a_slab.device.type != "cuda":
+        raise ValueError(f"no numeric round for device {a_slab.device}")
+    if k > 2048:
+        raise ValueError(f"the kernel takes k <= 2048, got k={k}")
+    lead = pa.shape[:-1]
+    P = pa.shape[-1]
+    K = math.prod(lead)
+    out = torch.empty((*lead, k, k), dtype=torch.int64, device=a_slab.device)
+    if K == 0:
+        return out
+    lib = _build.load(_KERNEL)
+    fn = lib.spgemm_numeric_round
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(a_slab.device).cuda_stream
+    err = fn(a_slab.data_ptr(), b_slab.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+             out.data_ptr(), K, P, k, a_slab.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"numeric_round kernel launch failed: CUDA error {err} "
+                           f"(K={K}, P={P}, k={k})")
+    launches += 1
+    return out

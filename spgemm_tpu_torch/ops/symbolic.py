@@ -1,0 +1,239 @@
+"""Symbolic phase on the host: output-structure join + round bucketing (the
+port's copy of the JAX package's `ops/symbolic.py`, ladder layout only).
+
+The join is a vectorized sorted merge-join over the (already sorted)
+block-coordinate arrays -- O(nnzb + pairs) numpy, no hashing -- and
+"packing" is index arithmetic: the numeric kernel reads tiles on the device
+by index, so no staging copy exists.  Rounds are fixed-shape (K, P) index
+arrays padded with a sentinel index that points at an all-zero tile
+(mulmod(0, x) == 0 and addmod(acc, 0) == acc, so padding is exact).
+
+Ordering contract (SURVEY.md section 2.9): each output key's pair list is
+ordered by ascending inner block-coordinate j, the order the reference's
+sorted-map traversal produces.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class JoinResult:
+    """Output structure of A x B, in CSR-over-sorted-keys form.
+
+    keys     : (num_keys, 2) int64, sorted lexicographically -- output tile coords.
+    pair_ptr : (num_keys + 1,) int64 -- segment boundaries into pair_a/pair_b.
+    pair_a   : (total_pairs,) int32 -- A tile slab indices, per key j-ascending.
+    pair_b   : (total_pairs,) int32 -- B tile slab indices, aligned with pair_a.
+    """
+
+    keys: np.ndarray
+    pair_ptr: np.ndarray
+    pair_a: np.ndarray
+    pair_b: np.ndarray
+
+    @property
+    def num_keys(self) -> int:
+        return len(self.keys)
+
+    @functools.cached_property
+    def fanouts(self) -> np.ndarray:
+        """Per-key pair counts."""
+        return np.diff(self.pair_ptr)
+
+
+def _segment_expand(counts: np.ndarray):
+    """Ragged expansion: for segments of the given lengths, return
+    (segment_id, within_segment_offset) arrays of total length counts.sum()."""
+    total = int(counts.sum())
+    seg_id = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    seg_start = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    offs = np.arange(total, dtype=np.int64) - np.repeat(seg_start, counts)
+    return seg_id, offs
+
+
+def symbolic_join(a_coords: np.ndarray, b_coords: np.ndarray) -> JoinResult:
+    """Structure join: which (A-tile, B-tile) pairs feed which output tile.
+
+    Both coord arrays must be lexicographically sorted by (row, col) -- the
+    BlockSparseMatrix invariant."""
+    empty = JoinResult(
+        keys=np.zeros((0, 2), np.int64),
+        pair_ptr=np.zeros(1, np.int64),
+        pair_a=np.zeros(0, np.int32),
+        pair_b=np.zeros(0, np.int32),
+    )
+    if len(a_coords) == 0 or len(b_coords) == 0:
+        return empty
+
+    # For each A block (i, j): B blocks with row == j form the contiguous
+    # range [lo, hi) in the sorted B slab.
+    b_rows = b_coords[:, 0]
+    a_cols = a_coords[:, 1]
+    lo = np.searchsorted(b_rows, a_cols, side="left")
+    hi = np.searchsorted(b_rows, a_cols, side="right")
+    counts = hi - lo
+    total = int(counts.sum())
+    if total == 0:
+        return empty
+
+    # Pair stream in A-traversal order (sorted (i, j)), each A block
+    # contributing its B row-range in ascending-c order.
+    a_slot, offs = _segment_expand(counts)
+    b_slot = np.repeat(lo, counts) + offs
+
+    out_r = a_coords[a_slot, 0]
+    out_c = b_coords[b_slot, 1]
+
+    # Stable sort by output key: within a key the stream order is ascending
+    # inner coordinate j, which stability preserves.  One fused uint64 key
+    # takes numpy's radix path; past uint64's range, a stable lexsort.
+    span = int(b_coords[:, 1].max()) + 1
+    max_row = int(a_coords[:, 0].max())
+    if (max_row + 1) * span <= 1 << 64:
+        fused = out_r.astype(np.uint64) * np.uint64(span) + out_c.astype(np.uint64)
+        order = np.argsort(fused, kind="stable")
+        fused = fused[order]
+        a_slot, b_slot = a_slot[order], b_slot[order]
+        key_change = np.empty(total, dtype=bool)
+        key_change[0] = True
+        key_change[1:] = fused[1:] != fused[:-1]
+        key_starts = np.flatnonzero(key_change)
+        keys = np.stack(
+            [(fused[key_starts] // np.uint64(span)).astype(np.int64),
+             (fused[key_starts] % np.uint64(span)).astype(np.int64)], axis=1)
+    else:
+        order = np.lexsort((out_c, out_r))  # stable, last key primary
+        r_s, c_s = out_r[order], out_c[order]
+        a_slot, b_slot = a_slot[order], b_slot[order]
+        key_change = np.empty(total, dtype=bool)
+        key_change[0] = True
+        key_change[1:] = (r_s[1:] != r_s[:-1]) | (c_s[1:] != c_s[:-1])
+        key_starts = np.flatnonzero(key_change)
+        keys = np.stack([r_s[key_starts], c_s[key_starts]], axis=1)
+    pair_ptr = np.append(key_starts, total).astype(np.int64)
+
+    return JoinResult(keys=keys, pair_ptr=pair_ptr,
+                      pair_a=a_slot.astype(np.int32), pair_b=b_slot.astype(np.int32))
+
+
+@dataclass
+class Round:
+    """One numeric launch: up to key_cap keys of one fanout class, each
+    key's pair list sentinel-padded to the class width P."""
+
+    key_index: np.ndarray  # (n,) int64 -- positions into JoinResult.keys
+    pa: np.ndarray         # (K_pad, P) int32, sentinel-padded
+    pb: np.ndarray         # same shape as pa
+
+    @property
+    def out_rows(self) -> int:
+        """Output rows this round's launch produces (padded key count)."""
+        return self.pa.shape[0]
+
+
+def _floor_pow2(x: int) -> int:
+    return 1 << (max(int(x), 1).bit_length() - 1)
+
+
+def _ladder_floor(x: int) -> int:
+    """Largest pow2-or-3/4-pow2 ladder value <= x."""
+    p = _floor_pow2(x)
+    c = 3 * p // 2  # = 3/4 of the next pow2 rung
+    return c if p >= 2 and c <= x else p
+
+
+def _shape_class_vec(f: np.ndarray) -> np.ndarray:
+    """Round up to {1, 2, 3, 4, 6, 8, 12, 16, ...}: pow2 plus 3/4-pow2,
+    which caps padding waste at 25%.  np.log2 of an exact power of two is
+    exact in f64, so the ceil is safe."""
+    p = 1 << np.ceil(np.log2(np.maximum(f, 1))).astype(np.int64)
+    c34 = (3 * p) // 4
+    return np.where((p >= 4) & (f <= c34), c34, p)
+
+
+def _shape_class(x: int) -> int:
+    return int(_shape_class_vec(np.array([x]))[0])
+
+
+def assembly_permutation(rounds: list[Round], num_keys: int) -> np.ndarray:
+    """Inverse permutation for the assembly gather.
+
+    inv[key] = row of that key in the padded concatenation of the rounds'
+    outputs; the extra last entry maps the sentinel slot to a zero row
+    appended after the concatenation, so the assembly is one gather."""
+    total = sum(r.out_rows for r in rounds)
+    inv = np.full(num_keys + 1, total, np.int64)
+    off = 0
+    for r in rounds:
+        inv[r.key_index] = off + np.arange(len(r.key_index))
+        off += r.out_rows
+    return inv
+
+
+@dataclass
+class SpgemmPlan:
+    """Everything the host decides about one C = A x B before device work:
+    the structure join, the rounds and the assembly permutation.  Valid for
+    any operand pair with the planned block structures; check_operands
+    refuses any other pair before an out-of-bounds read can happen."""
+
+    k: int
+    join: JoinResult
+    rounds: list[Round]
+    take: np.ndarray       # assembly permutation
+    a_coords: np.ndarray
+    b_coords: np.ndarray
+
+    def check_operands(self, a, b) -> None:
+        """Refuse to drive a mismatched operand pair: the pa/pb indices
+        were built from the planned block structures."""
+        if (a.k, b.k) != (self.k, self.k):
+            raise ValueError(
+                f"plan built for k={self.k}, operands have k={a.k}/{b.k}")
+        if not (np.array_equal(a.coords, self.a_coords)
+                and np.array_equal(b.coords, self.b_coords)):
+            raise ValueError(
+                "plan built for a different block structure: operand coords "
+                "do not match the coords this plan was planned from")
+
+
+def plan_rounds(join: JoinResult, a_sentinel: int, b_sentinel: int,
+                key_cap: int = 8192) -> list[Round]:
+    """Bucket output keys by fanout class; one round per class, chopped at
+    key_cap keys.
+
+    The pair axis pads to the class width P (3/4-pow-2 ladder); the key
+    axis of each chunk pads to the same ladder, capped at the chunk cap
+    (key_cap floored onto the ladder).  Keys are disjoint across rounds and
+    each key's fold order lives inside its own pair list, so any chunking is
+    bit-exact.  The default key_cap is the JAX package's round-batched
+    ceiling; ops/spgemm.py passes the card's own cap."""
+    if key_cap < 1:
+        raise ValueError(f"key_cap must be >= 1, got {key_cap}")
+    rounds: list[Round] = []
+    if join.num_keys == 0:
+        return rounds
+    fan = join.fanouts
+    classes = _shape_class_vec(fan)
+    chunk_cap = max(1, _ladder_floor(key_cap))
+    for cls in np.unique(classes):
+        members = np.flatnonzero(classes == cls)
+        P = int(cls)
+        for start in range(0, len(members), chunk_cap):
+            chunk = members[start : start + chunk_cap]
+            K_pad = min(_shape_class(len(chunk)), chunk_cap)
+            lens = fan[chunk]
+            rows, cols = _segment_expand(lens)
+            src = np.repeat(join.pair_ptr[chunk], lens) + cols
+            pa = np.full((K_pad, P), a_sentinel, dtype=np.int32)
+            pb = np.full((K_pad, P), b_sentinel, dtype=np.int32)
+            # scatter each key's pair list into its row
+            pa[rows, cols] = join.pair_a[src]
+            pb[rows, cols] = join.pair_b[src]
+            rounds.append(Round(key_index=chunk, pa=pa, pb=pb))
+    return rounds
