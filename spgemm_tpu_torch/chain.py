@@ -10,20 +10,20 @@ A multiply that fails raises: there is no failover to the host oracle.
 
 from __future__ import annotations
 
-from spgemm_tpu_torch.ops.cuda_spgemm import numeric_round
 from spgemm_tpu_torch.ops.device import ensure_device, resolve_device
-from spgemm_tpu_torch.ops.spgemm import spgemm_device
+from spgemm_tpu_torch.ops.spgemm import KERNELS, Folds, spgemm_device
 
 
 def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
-                  fold=numeric_round):
+                  backend: str = "exact", folds: Folds = KERNELS):
     """Reduce [M1, ..., MN] to M1 x M2 x ... x MN with helper2's pairing.
 
     matrices: host BlockSparseMatrix or DeviceBlockMatrix; host matrices
     are uploaded to `device` when first multiplied, and every partial
-    product stays on the device.  Returns the host result, or the
-    DeviceBlockMatrix with keep_device=True.  fold is forwarded to
-    ops/spgemm.execute."""
+    product stays on the device, carrying its value bound to the next
+    multiply.  Returns the host result, or the DeviceBlockMatrix with
+    keep_device=True.  backend and folds are forwarded to every multiply
+    (ops/spgemm.spgemm_device)."""
     if not matrices:
         raise ValueError("empty chain")
     device = resolve_device(device)
@@ -33,7 +33,8 @@ def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
         for i in range(0, len(arr) - 1, 2):
             # the reference's :301 progress line, printed unconditionally
             print(f"multiplying {i} {i + 1}", flush=True)
-            nxt.append(spgemm_device(arr[i], arr[i + 1], device=device, fold=fold))
+            nxt.append(spgemm_device(arr[i], arr[i + 1], device=device,
+                                     backend=backend, folds=folds))
             arr[i] = arr[i + 1] = None  # free consumed partials early
         if len(arr) % 2 == 1:
             nxt.append(arr[-1])  # odd element carried (:315-321)

@@ -1,6 +1,7 @@
 """CLI entry point: the reference's `a4` contract on PyTorch and CUDA.
 
     python -m spgemm_tpu_torch.cli <folder> [--device cuda|cpu]
+                                   [--backend exact|mxu|hybrid]
                                    [--output matrix] [--threads N] [-v]
 
 reads `<folder>/size` (N, k) and `<folder>/matrix1..matrixN`, computes the
@@ -10,7 +11,9 @@ then `time taken X seconds` (sparse_matrix_mult.cu:402-682).
 
 The default device is `cuda`; without a usable card that raises before any
 file is read or written.  `--device cpu` runs the kernels' plain PyTorch
-versions on the CPU.
+versions on the CPU.  `--backend` picks the numeric kernels
+(ops/spgemm.py): `exact` (default) and `hybrid` write the reference's
+bytes, `mxu` the chain's product in clean arithmetic mod 2^64 - 1.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import time
 
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.ops.device import resolve_device
+from spgemm_tpu_torch.ops.spgemm import BACKENDS
 from spgemm_tpu_torch.utils import io_text
 from spgemm_tpu_torch.utils.timers import PhaseTimers
 
@@ -35,6 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the chain runs (default: cuda; cpu runs the "
                         "kernels' plain PyTorch versions)")
+    p.add_argument("--backend", choices=list(BACKENDS), default="exact",
+                   help="numeric kernels (default: exact, the reference's "
+                        "fold; mxu = field-mode limb kernel on every round; "
+                        "hybrid = the limb kernel on rounds proven "
+                        "bit-exact, the exact fold elsewhere; "
+                        "SPGEMM_TPU_HYBRID_GATE=auto|proof sets its speed gate)")
     p.add_argument("--output", default="matrix",
                    help="output path (the reference writes ./matrix)")
     p.add_argument("--threads", type=int, default=None,
@@ -56,7 +66,7 @@ def run(argv: list[str] | None = None) -> int:
         matrices = io_text.read_chain(args.folder, 0, n - 1, k,
                                       max_workers=args.threads)
     with timers.phase("chain"):
-        result = chain_product(matrices, device=device)
+        result = chain_product(matrices, device=device, backend=args.backend)
     with timers.phase("prune+write"):
         io_text.write_matrix(args.output, result.prune_zeros())
     timers.log_report()

@@ -2,8 +2,8 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel spgemm_tpu/ops/pallas_spgemm.py:numeric_round_pallas
-// (mod variant).  For every output key and every element (i, n) of its k x k
-// tile:
+// (mod variant, and its no_mod variant below).  For every output key and
+// every element (i, n) of its k x k tile:
 //
 //   acc = 0
 //   for p in 0..P-1:            (the key's pair list, j-ascending, sentinel-padded)
@@ -24,6 +24,17 @@
 // lanes per SM per clock) beside 5 on the FMA pipe, so the integer pipe
 // bounds it.  A key's tile pair is read from device memory once per element
 // group, so bytes are a small share (PERF.md has the numbers).
+//
+// no_mod variant (template parameter kNoMod, its own entry point below): the
+// same fold with both compares with all-ones dropped, acc += a*b in plain
+// wrapping u64 arithmetic.  It equals the mod fold only where every product
+// and partial sum stays below 2^64 - 1, which the hybrid router proves per
+// round (safe_exact_bound, spgemm_tpu_torch/ops/mxu_spgemm.py) before it
+// picks this variant; it replaces numeric_round_pallas(no_mod=True).  With
+// the ISETP/ISETP.EX/SEL/SEL groups gone, a MAC is IMADs on the FMA pipe
+// beside a single IADD3 on the integer pipe, so the FMA pipe bounds it
+// (PERF.md has the count from the SASS).  The mod variant is the other
+// instantiation of the same template, so its code is what it was.
 //
 // Design (simple first):
 //   * one block per output key on gridDim.x; threads over the k x k output
@@ -50,6 +61,7 @@ constexpr int kEpt = 4;  // output elements per thread per pass
 
 __device__ __forceinline__ u64 collapse_max(u64 x) { return x == ~0ull ? 0ull : x; }
 
+template <bool kNoMod>
 __global__ void __launch_bounds__(kMaxThreads)
 numeric_round_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
                      const int32_t* __restrict__ pa, const int32_t* __restrict__ pb,
@@ -91,7 +103,11 @@ numeric_round_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
             const u64* arow = sa + i * jc;
             u64 s = acc[e];
             for (int j = 0; j < jn; ++j) {
-              s = collapse_max(s + collapse_max(arow[j] * sb[j * k + n]));
+              if constexpr (kNoMod) {
+                s += arow[j] * sb[j * k + n];
+              } else {
+                s = collapse_max(s + collapse_max(arow[j] * sb[j * k + n]));
+              }
             }
             acc[e] = s;
           }
@@ -106,6 +122,23 @@ numeric_round_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
   }
 }
 
+template <bool kNoMod>
+int launch_round(const void* a, const void* b, const void* pa, const void* pb, void* out,
+                 long long K, int P, int k, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (K <= 0) return (int)cudaSuccess;
+  if (K > 0x7fffffffLL || k < 1 || k > 2048 || P < 0) return (int)cudaErrorInvalidValue;
+  const int kk = k * k;
+  const int threads = kk < kMaxThreads ? kk : kMaxThreads;
+  const int jc = k < 2048 / k ? k : 2048 / k;
+  const size_t smem = (size_t)2 * k * jc * sizeof(u64);
+  numeric_round_kernel<kNoMod><<<(unsigned)K, threads, smem, (cudaStream_t)stream>>>(
+      (const u64*)a, (const u64*)b, (const int32_t*)pa, (const int32_t*)pb, (u64*)out,
+      P, k, jc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch one round on `stream` (a cudaStream_t) of device `device`.
@@ -116,16 +149,12 @@ numeric_round_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
 extern "C" int spgemm_numeric_round(const void* a, const void* b, const void* pa,
                                     const void* pb, void* out, long long K, int P,
                                     int k, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (K <= 0) return (int)cudaSuccess;
-  if (K > 0x7fffffffLL || k < 1 || k > 2048 || P < 0) return (int)cudaErrorInvalidValue;
-  const int kk = k * k;
-  const int threads = kk < kMaxThreads ? kk : kMaxThreads;
-  const int jc = k < 2048 / k ? k : 2048 / k;
-  const size_t smem = (size_t)2 * k * jc * sizeof(u64);
-  numeric_round_kernel<<<(unsigned)K, threads, smem, (cudaStream_t)stream>>>(
-      (const u64*)a, (const u64*)b, (const int32_t*)pa, (const int32_t*)pb, (u64*)out,
-      P, k, jc);
-  return (int)cudaGetLastError();
+  return launch_round<false>(a, b, pa, pb, out, K, P, k, device, stream);
+}
+
+// The no_mod variant, same arguments: exact only under the proof above.
+extern "C" int spgemm_numeric_round_nomod(const void* a, const void* b, const void* pa,
+                                          const void* pb, void* out, long long K, int P,
+                                          int k, int device, void* stream) {
+  return launch_round<true>(a, b, pa, pb, out, K, P, k, device, stream);
 }

@@ -1,19 +1,23 @@
 """The numeric round of the SpGEMM engine: a hand-written CUDA kernel for
 Hopper (csrc/numeric_round.cu) and its plain PyTorch version.
 
-Replaces the TPU kernel spgemm_tpu/ops/pallas_spgemm.py:numeric_round_pallas
-(mod variant).  Contract, for each output key and element (i, n):
+Replaces the TPU kernel spgemm_tpu/ops/pallas_spgemm.py:numeric_round_pallas,
+both its variants.  Contract, for each output key and element (i, n):
 
     acc = 0; for p in 0..P-1, then j in 0..k-1:
         acc = addmod(acc, mulmod(A[pa[key, p]][i, j], B[pb[key, p]][j, n]))
 
 with the wrap-then-mod steps of SURVEY.md section 2.9, in exactly this order
 (addmod is not associative).  Slabs are (n, k, k) int64 bit-views with an
-all-zero sentinel tile last; sentinel pairs add exactly 0.
+all-zero sentinel tile last; sentinel pairs add exactly 0.  The no_mod
+variant folds acc = acc + A*B in plain wrapping u64 arithmetic: it equals the
+mod fold only under the hybrid router's proof (ops/mxu_spgemm.
+safe_exact_bound), which is where the router runs it.
 
-The kernel is bound by the integer issue rate, not by bytes: each MAC is 9
-instructions on the integer pipe (compares, selects, the add's low half) beside
-the multiply's IMADs on the FMA pipe.  Its design is the simple one: one block
+The mod kernel is bound by the integer issue rate, not by bytes: each MAC is
+9 instructions on the integer pipe (compares, selects, the add's low half)
+beside the multiply's IMADs on the FMA pipe.  The no_mod kernel drops the
+compares and selects, which leaves the FMA pipe as its bound.  Its design is the simple one: one block
 per output key, threads over the tile's elements, the current tile pair
 staged through shared memory.  Left for a later PR: prefetching the next
 pair with cp.async or TMA, and several keys per block for small k.
@@ -28,13 +32,15 @@ import torch
 
 from spgemm_tpu_torch.ops import _build, u64
 
-# Launches of the CUDA kernel, counted where it launches and nowhere else.
+# Launches of the CUDA kernel's two variants, counted where each launches
+# and nowhere else.
 launches = 0
+launches_no_mod = 0
 
 _KERNEL = "numeric_round"
 
 
-def _check(a_slab: torch.Tensor, b_slab: torch.Tensor, pa: torch.Tensor,
+def check_operands(a_slab: torch.Tensor, b_slab: torch.Tensor, pa: torch.Tensor,
            pb: torch.Tensor) -> int:
     """Validate the operands; returns k."""
     if a_slab.dtype != torch.int64 or b_slab.dtype != torch.int64:
@@ -59,13 +65,15 @@ def _check(a_slab: torch.Tensor, b_slab: torch.Tensor, pa: torch.Tensor,
 
 
 def numeric_round_ref(a_slab: torch.Tensor, b_slab: torch.Tensor,
-                      pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+                      pa: torch.Tensor, pb: torch.Tensor,
+                      no_mod: bool = False) -> torch.Tensor:
     """The plain PyTorch version of the kernel, on any device.
 
     Loops over pair slots p, then j; each step gathers one (K, k, k) tile
     per operand, so memory stays O(K * k^2).  A stacked (R, K, P) pa/pb
     returns (R, K, k, k)."""
-    k = _check(a_slab, b_slab, pa, pb)
+    k = check_operands(a_slab, b_slab, pa, pb)
+    step = u64.mac_nomod if no_mod else u64.mac
     lead = pa.shape[:-1]
     pa2, pb2 = pa.reshape(-1, pa.shape[-1]), pb.reshape(-1, pb.shape[-1])
     acc = torch.zeros((pa2.shape[0], k, k), dtype=torch.int64, device=a_slab.device)
@@ -73,24 +81,26 @@ def numeric_round_ref(a_slab: torch.Tensor, b_slab: torch.Tensor,
         at = a_slab.index_select(0, pa2[:, p])
         bt = b_slab.index_select(0, pb2[:, p])
         for j in range(k):
-            acc = u64.mac(acc, at[:, :, j : j + 1], bt[:, j : j + 1, :])
+            acc = step(acc, at[:, :, j : j + 1], bt[:, j : j + 1, :])
     return acc.reshape(*lead, k, k)
 
 
 def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
-                  pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+                  pa: torch.Tensor, pb: torch.Tensor,
+                  no_mod: bool = False) -> torch.Tensor:
     """One numeric round: (K, P) or stacked (R, K, P) int32 indices into
-    the int64 slabs -> (K, k, k) or (R, K, k, k) int64.
+    the int64 slabs -> (K, k, k) or (R, K, k, k) int64.  no_mod runs the
+    variant that is exact only under the hybrid router's proof.
 
     On CUDA tensors it launches the kernel on the current stream or
     raises; on CPU tensors it runs numeric_round_ref.  Every index must lie
     in the slab it indexes (the planner builds them so, and
     SpgemmPlan.check_operands ties a plan to its operands); the kernel does
     not check them, since a device-side check would synchronise each launch."""
-    global launches
-    k = _check(a_slab, b_slab, pa, pb)
+    global launches, launches_no_mod
+    k = check_operands(a_slab, b_slab, pa, pb)
     if a_slab.device.type == "cpu":
-        return numeric_round_ref(a_slab, b_slab, pa, pb)
+        return numeric_round_ref(a_slab, b_slab, pa, pb, no_mod=no_mod)
     if a_slab.device.type != "cuda":
         raise ValueError(f"no numeric round for device {a_slab.device}")
     if k > 2048:
@@ -102,7 +112,7 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
     if K == 0:
         return out
     lib = _build.load(_KERNEL)
-    fn = lib.spgemm_numeric_round
+    fn = lib.spgemm_numeric_round_nomod if no_mod else lib.spgemm_numeric_round
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -111,6 +121,9 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
              out.data_ptr(), K, P, k, a_slab.device.index, stream)
     if err != 0:
         raise RuntimeError(f"numeric_round kernel launch failed: CUDA error {err} "
-                           f"(K={K}, P={P}, k={k})")
-    launches += 1
+                           f"(K={K}, P={P}, k={k}, no_mod={no_mod})")
+    if no_mod:
+        launches_no_mod += 1
+    else:
+        launches += 1
     return out

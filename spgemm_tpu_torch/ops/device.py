@@ -39,6 +39,12 @@ class DeviceBlockMatrix:
     coords     : (nnzb, 2) int64 on the host, sorted lexicographically.
     slab       : (nnzb + 1, k, k) int64 bit-views on the device; sentinel
                  zero tile last.
+    val_bound  : inclusive upper bound on the element values (python int),
+                 which the hybrid and mxu backends read through bound().
+                 None until first read: bound() then takes the tile max on
+                 the device, so the exact backend, which never reads it,
+                 pays nothing.  A multiply sets it on its result
+                 (ops/spgemm.execute).
     """
 
     rows: int
@@ -46,6 +52,7 @@ class DeviceBlockMatrix:
     k: int
     coords: np.ndarray
     slab: torch.Tensor
+    val_bound: int | None = None
 
     @property
     def nnzb(self) -> int:
@@ -54,6 +61,13 @@ class DeviceBlockMatrix:
     @property
     def device(self) -> torch.device:
         return self.slab.device
+
+    def bound(self) -> int:
+        """val_bound, taken as the tile max (one reduction on the device)
+        when nothing set it."""
+        if self.val_bound is None:
+            self.val_bound = u64.max_unsigned(self.slab)
+        return self.val_bound
 
     @classmethod
     def from_host(cls, m: BlockSparseMatrix, device) -> "DeviceBlockMatrix":
@@ -85,7 +99,8 @@ class DeviceBlockMatrix:
     def empty(cls, rows: int, cols: int, k: int, device) -> "DeviceBlockMatrix":
         return cls(rows=rows, cols=cols, k=k, coords=np.zeros((0, 2), np.int64),
                    slab=torch.zeros((1, k, k), dtype=torch.int64,
-                                    device=resolve_device(device)))
+                                    device=resolve_device(device)),
+                   val_bound=0)
 
     def to_host(self) -> BlockSparseMatrix:
         """Fetch the tiles to the host (one device-to-host copy)."""

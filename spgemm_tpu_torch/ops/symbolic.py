@@ -129,6 +129,8 @@ class Round:
     key_index: np.ndarray  # (n,) int64 -- positions into JoinResult.keys
     pa: np.ndarray         # (K_pad, P) int32, sentinel-padded
     pb: np.ndarray         # same shape as pa
+    max_fanout: int = 0    # real (unpadded) max fanout among the round's keys
+                           # -- what the hybrid proof reads (sentinel pairs add 0)
 
     @property
     def out_rows(self) -> int:
@@ -188,6 +190,8 @@ class SpgemmPlan:
     take: np.ndarray       # assembly permutation
     a_coords: np.ndarray
     b_coords: np.ndarray
+    backend: str = "exact"            # exact | mxu | hybrid (ops/spgemm.BACKENDS)
+    split_fanout: int | None = None   # hybrid proof partition threshold
 
     def check_operands(self, a, b) -> None:
         """Refuse to drive a mismatched operand pair: the pa/pb indices
@@ -203,9 +207,14 @@ class SpgemmPlan:
 
 
 def plan_rounds(join: JoinResult, a_sentinel: int, b_sentinel: int,
-                key_cap: int = 8192) -> list[Round]:
+                key_cap: int = 8192, split_fanout: int | None = None) -> list[Round]:
     """Bucket output keys by fanout class; one round per class, chopped at
     key_cap keys.
+
+    split_fanout: if set, each class's keys are partitioned into fanout <=
+    split_fanout and > split_fanout before chopping -- the hybrid router's
+    exactness proof is a fanout threshold, so routing stays per key while
+    each (class, kernel) part is still one launch.
 
     The pair axis pads to the class width P (3/4-pow-2 ladder); the key
     axis of each chunk pads to the same ladder, capped at the chunk cap
@@ -222,18 +231,25 @@ def plan_rounds(join: JoinResult, a_sentinel: int, b_sentinel: int,
     classes = _shape_class_vec(fan)
     chunk_cap = max(1, _ladder_floor(key_cap))
     for cls in np.unique(classes):
-        members = np.flatnonzero(classes == cls)
+        members_all = np.flatnonzero(classes == cls)
         P = int(cls)
-        for start in range(0, len(members), chunk_cap):
-            chunk = members[start : start + chunk_cap]
-            K_pad = min(_shape_class(len(chunk)), chunk_cap)
-            lens = fan[chunk]
-            rows, cols = _segment_expand(lens)
-            src = np.repeat(join.pair_ptr[chunk], lens) + cols
-            pa = np.full((K_pad, P), a_sentinel, dtype=np.int32)
-            pb = np.full((K_pad, P), b_sentinel, dtype=np.int32)
-            # scatter each key's pair list into its row
-            pa[rows, cols] = join.pair_a[src]
-            pb[rows, cols] = join.pair_b[src]
-            rounds.append(Round(key_index=chunk, pa=pa, pb=pb))
+        parts = [members_all]
+        if split_fanout is not None:
+            f = fan[members_all]
+            parts = [part for part in (members_all[f <= split_fanout],
+                                       members_all[f > split_fanout]) if len(part)]
+        for members in parts:
+            for start in range(0, len(members), chunk_cap):
+                chunk = members[start : start + chunk_cap]
+                K_pad = min(_shape_class(len(chunk)), chunk_cap)
+                lens = fan[chunk]
+                rows, cols = _segment_expand(lens)
+                src = np.repeat(join.pair_ptr[chunk], lens) + cols
+                pa = np.full((K_pad, P), a_sentinel, dtype=np.int32)
+                pb = np.full((K_pad, P), b_sentinel, dtype=np.int32)
+                # scatter each key's pair list into its row
+                pa[rows, cols] = join.pair_a[src]
+                pb[rows, cols] = join.pair_b[src]
+                rounds.append(Round(key_index=chunk, pa=pa, pb=pb,
+                                    max_fanout=int(lens.max())))
     return rounds

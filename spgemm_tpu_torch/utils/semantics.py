@@ -86,3 +86,36 @@ def spgemm_oracle(a_blocks: dict, b_blocks: dict, k: int) -> dict:
                 acc = np.zeros((k, k), dtype=np.uint64)
             out[key] = tile_pair_mac_np(acc, a_tile, b_blocks[(ac, bc)])
     return out
+
+
+def field_spgemm_oracle(a_blocks: dict, b_blocks: dict, k: int) -> dict:
+    """Clean mod-(2^64 - 1) block-sparse matmul in python ints: ground truth
+    for the field-mode route (`--backend mxu`).  Order-free, because the
+    clean residue arithmetic is associative; it agrees with spgemm_oracle
+    exactly when no product or partial sum reaches 2^64 - 1."""
+    b_by_row: dict = {}
+    for (br, bc), tile in b_blocks.items():
+        b_by_row.setdefault(br, []).append((bc, tile))
+    out: dict = {}
+    for (ar, ac), a_tile in a_blocks.items():
+        a_obj = np.asarray(a_tile, np.uint64).astype(object)
+        for bc, b_tile in b_by_row.get(ac, ()):
+            prod = a_obj.dot(np.asarray(b_tile, np.uint64).astype(object))  # exact ints
+            acc = out.get((ar, bc))
+            out[(ar, bc)] = prod if acc is None else acc + prod
+    return {key: (tile % MAX_INT).astype(np.uint64) for key, tile in out.items()}
+
+
+def chain_oracle(matrices: list, k: int, multiply=spgemm_oracle) -> dict:
+    """Pairwise-halving chain product matching helper2
+    (sparse_matrix_mult.cu:287-327): adjacent pairs, the odd element carried
+    to the end.  matrices: block dicts; multiply: spgemm_oracle (the
+    reference's fold, which is not associative, so the tree matters) or
+    field_spgemm_oracle."""
+    arr = list(matrices)
+    while len(arr) > 1:
+        nxt = [multiply(arr[i], arr[i + 1], k) for i in range(0, len(arr) - 1, 2)]
+        if len(arr) % 2 == 1:
+            nxt.append(arr[-1])
+        arr = nxt
+    return arr[0]

@@ -1,5 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernel against its
-plain PyTorch version on the card.  Tolerance: exact (torch.equal).
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels (kernel 1 in
+both variants, the limb kernel) against their plain PyTorch versions on the
+card, and the hybrid chain against the exact one.  Tolerance: exact
+(torch.equal).
 
 Imports torch, numpy and the port only, so it runs on a machine without JAX.
 There, the shared tests/conftest.py (which imports jax) is skipped:
@@ -13,7 +15,8 @@ import pytest
 import torch
 
 from spgemm_tpu_torch.chain import chain_product
-from spgemm_tpu_torch.ops import cuda_spgemm
+from spgemm_tpu_torch.ops import cuda_mxu, cuda_spgemm, mxu_spgemm
+from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.utils.gen import random_chain, random_values
 
 
@@ -24,8 +27,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(rng, k, lead, P, n_tiles, device):
-    tiles = [random_values((n_tiles + 1, k, k), rng, "adversarial") for _ in range(2)]
+def _case(rng, k, lead, P, n_tiles, device, dist="adversarial"):
+    tiles = [random_values((n_tiles + 1, k, k), rng, dist) for _ in range(2)]
     for t in tiles:
         t[-1] = 0
     pa = rng.integers(0, n_tiles, size=(*lead, P)).astype(np.int32)
@@ -56,3 +59,48 @@ def test_chain_on_card_matches_cpu(cuda):
     got = chain_product(mats, device=cuda)
     want = chain_product(mats, device="cpu")
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,lead,P", [(1, (37,), 5), (8, (3, 9), 3), (32, (40,), 7),
+                                      (64, (5,), 4), (32, (4,), 300), (16, (0,), 4)])
+def test_no_mod_kernel_matches_plain_version(cuda, k, lead, P):
+    args = _case(np.random.default_rng(k + P + 1), k, lead, P, 30, cuda)
+    before = cuda_spgemm.launches_no_mod
+    got = cuda_spgemm.numeric_round(*args, no_mod=True)
+    want = cuda_spgemm.numeric_round_ref(*args, no_mod=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cuda_spgemm.launches_no_mod == before + (1 if np.prod(lead) else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,lead,P,limbs,dist", [
+    (1, (37,), 5, 10, "adversarial"), (8, (3, 9), 3, 10, "adversarial"),
+    (32, (40,), 7, 10, "adversarial"), (64, (5,), 4, 3, "small"),
+    (32, (6,), 300, 3, "small"), (4, (9,), 6, 1, "small"), (16, (0,), 4, 5, "small")])
+def test_mxu_kernel_matches_plain_version(cuda, k, lead, P, limbs, dist):
+    args = _case(np.random.default_rng(k + P + 2), k, lead, P, 30, cuda, dist)
+    before = cuda_mxu.launches
+    got = cuda_mxu.numeric_round_mxu(*args, a_limbs=limbs, b_limbs=limbs)
+    want = mxu_spgemm.numeric_round_mxu_ref(*args, a_limbs=limbs, b_limbs=limbs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cuda_mxu.launches == before + (1 if np.prod(lead) else 0)
+
+
+@pytest.mark.cuda
+def test_mxu_kernel_refuses_deep_rounds(cuda):
+    args = _case(np.random.default_rng(4), 32, (2,), 4097, 30, cuda, "small")
+    with pytest.raises(ValueError, match="2\\^17"):
+        cuda_mxu.numeric_round_mxu(*args)
+
+
+@pytest.mark.cuda
+def test_hybrid_chain_on_card_matches_exact(cuda, monkeypatch):
+    monkeypatch.setenv("SPGEMM_TPU_HYBRID_GATE", "proof")
+    mats = random_chain(4, 6, 8, 0.4, np.random.default_rng(6), "small")
+    before = dict(engine.rounds_by_kernel)
+    got = chain_product(mats, device=cuda, backend="hybrid")
+    assert engine.rounds_by_kernel["mxu"] > before["mxu"]
+    assert got == chain_product(mats, device=cuda)
