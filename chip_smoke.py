@@ -14,6 +14,11 @@ the script exits non-zero without printing a result:
                fanouts; k in 1, 2, 4, 8, 32, 64) and the limb kernel on the
                same shapes at 10x10 limbs on EDGE values, 3x3 and 1x1 limbs
                on values below 2^16, plus a P*k > 2^17 round that must raise;
+               the two bsmm kernels against bsmm_ref in float32 and bfloat16
+               (k in 16, 32, 128, a ragged W2 fan-in with pad tiles, gelu
+               fused and not), equal to each other and across block_m, and
+               two shapes that must raise (a resident panel that does not
+               fit, k = 8);
   4. cli     -- `python -m spgemm_tpu_torch.cli` on the golden inputs, byte
                equality with the expected files, one small multiply against
                the numpy oracle, and a small-valued chain under each
@@ -33,7 +38,16 @@ the script exits non-zero without printing a result:
                round is too deep for the limb kernel, on the no_mod fold.
                Each run is a main path with the counts zeroed before and read
                after.  Then the three kernels timed on the same level-1
-               rounds, the numbers the speed gate weighs.
+               rounds, the numbers the speed gate weighs;
+  7. ffn     -- the block-sparse FFN forward at full width
+               (BlockSparseFFNConfig(), x (8, 1024, 4096) bf16, weights from
+               init_params on a generator seeded with SEED): (i) block_m 128,
+               (ii) the same with gelu fused, (iii) block_m 16 with the
+               resident gate deciding, each a main path with the bsmm counts
+               zeroed before and read after, each against the plain
+               ffn_forward in float32; then each kernel per matmul, each
+               forward, the plain versions and the dense x @ W product
+               timed.
 
 Then one JSON line describing every ported kernel and, last, the device line
 `{"ok": true, "device": {...}}`.  Imports torch, numpy and the port only.
@@ -58,7 +72,8 @@ import numpy as np
 import torch
 
 from spgemm_tpu_torch.chain import chain_product
-from spgemm_tpu_torch.ops import _build, crossover, cuda_mxu, cuda_spgemm, mxu_spgemm
+from spgemm_tpu_torch.models import ffn
+from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_mxu, cuda_spgemm, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.ops.spgemm import Folds, plan, spgemm
@@ -78,6 +93,26 @@ EDGE = [0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
 MEDIUM = {"n": 10, "block_dim": 1111, "bandwidth": 4, "k": 32}
 KERNEL_REPEATS = 3  # timed kernel runs; the median is reported
 HUB_FANOUT = 4500   # > 2^17 / 32: the round's class is too deep for the limb kernel
+# bsmm cases (k, M, nb_in, nbc, rpc, block_m); kernel 4 runs each where its
+# panel fits and must raise where it does not
+BSMM_CASES = [(16, 96, 8, 6, 3, 32), (32, 128, 6, 5, 4, 64), (128, 256, 8, 4, 3, 16),
+              (128, 64, 32, 7, 3, 16)]
+# bsmm against bsmm_ref, (rtol, atol): both sum the same products in float32
+# in another order; bfloat16 then rounds once, so one bf16 ulp (2^-7 relative)
+BSMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-4)}
+# The FFN at full width: BlockSparseFFNConfig() and M = 8 x 1024 tokens
+# (benchmarks/ffn_sweep.py:98-100).  The kernel forward against the plain
+# forward in float32, (rtol, atol): the kernel path rounds h to bfloat16
+# (twice when gelu is not fused) and y once, 2^-9 relative each.  The same
+# arithmetic on the CPU (bsmm_ref in bfloat16) at this width with 512 tokens
+# gave an error of standard deviation 1.9e-3 and at most 1.33e-2 against y
+# of standard deviation 0.63; atol 2^-5 with rtol 2^-7 leaves a margin of
+# about 2 over that maximum.
+FFN_CFG = ffn.BlockSparseFFNConfig()
+FFN_BATCH, FFN_SEQ = 8, 1024
+FFN_TOL = (2 ** -7, 2 ** -5)
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor cores
+L2_BYTES = 50 << 20
 
 # H100 SXM peaks (NVIDIA data sheet).  The fp32 rate, 67e12 FLOP/s, is
 # 2 flops x 128 fp32 lanes per SM per clock; an SM issues 64 32-bit integer
@@ -193,6 +228,98 @@ def phase_kernel(rng) -> dict:
            f"EDGE, 3x3 and 1x1 below 2^16) == plain versions on {len(cases)} + "
            f"{len(small)} rounds (k in 1..64, stacked, empty, hub P*k<=2^17); "
            f"P*k > 2^17 raises; max_abs_err {worst}")
+    worst.update(_bsmm_cases(rng))
+    return worst
+
+
+def _check_close(what: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
+                 atol: float) -> float:
+    """|got - want| <= atol + rtol |want| everywhere, or raise; returns the
+    max abs error."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise RuntimeError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                           f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise RuntimeError(f"{what}: non-finite values")
+    diff = (g - w).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if (diff > atol + rtol * w.abs()).any():
+        raise RuntimeError(f"{what}: kernel != plain version beyond rtol {rtol}, atol "
+                           f"{atol}; max abs err {err}")
+    return err
+
+
+def _bsmm_operands(rng, M: int, nb_in: int, nbc: int, rpc: int, k: int, dtype):
+    x = rng.standard_normal((M, nb_in * k)).astype(np.float32)
+    rows = np.stack([rng.permutation(nb_in)[:rpc] for _ in range(nbc)]).astype(np.int32)
+    tiles = (rng.standard_normal((nbc, rpc, k, k)) / np.sqrt(rpc * k)).astype(np.float32)
+    return (torch.from_numpy(x).to(DEVICE, dtype), torch.from_numpy(rows).to(DEVICE),
+            torch.from_numpy(tiles).to(DEVICE, dtype))
+
+
+def _must_raise(what: str, fn, *args, **kw) -> None:
+    try:
+        fn(*args, **kw)
+    except ValueError:
+        return
+    raise RuntimeError(f"{what} did not raise")
+
+
+def _bsmm_cases(rng) -> dict:
+    """Kernels 3 and 4 against bsmm_ref on the card; returns their max abs
+    errors."""
+    t0 = time.perf_counter()
+    worst = {"bsmm": 0.0, "bsmm_resident": 0.0}
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, M, nb_in, nbc, rpc, block_m in BSMM_CASES:
+            cases.append((f"k={k} M={M} d_in={nb_in * k} nbc={nbc} rpc={rpc} {dtype}",
+                          *_bsmm_operands(rng, M, nb_in, nbc, rpc, k, dtype), block_m))
+        # a ragged W2 fan-in, padded with zero tiles by w2_to_column_major
+        cfg = ffn.BlockSparseFFNConfig(d_model=512, d_ff=1024, k=32, block_density=0.3,
+                                       dtype=str(dtype).removeprefix("torch."))
+        params = ffn.init_params(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+        w2 = ffn.prepare_kernel_params(params, cfg)["w2cm"]
+        fan = torch.bincount(params["w2"]["cols"].reshape(-1).long(), minlength=cfg.nb_model)
+        if int(fan.min()) == int(fan.max()):
+            raise RuntimeError("the ragged W2 case has no pad tiles")
+        h = torch.from_numpy(rng.standard_normal((128, cfg.d_ff)).astype(np.float32))
+        cases.append((f"ragged W2 fan-in {fan.tolist()} {dtype}", h.to(DEVICE, dtype),
+                      w2["rows"], w2["tiles"], 16))
+    n_resident = 0
+    for what, x, rows, tiles, block_m in cases:
+        rtol, atol = BSMM_TOL[x.dtype]
+        for fuse_gelu in (False, True):
+            want = cuda_bsmm.bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu)
+            got = cuda_bsmm.bsmm(x, rows, tiles, block_m=block_m, fuse_gelu=fuse_gelu)
+            tag = f"{what} block_m={block_m} gelu={fuse_gelu}"
+            worst["bsmm"] = max(worst["bsmm"], _check_close(f"bsmm {tag}", got, want, rtol, atol))
+            wide = cuda_bsmm.bsmm(x, rows, tiles, block_m=x.shape[0], fuse_gelu=fuse_gelu)
+            torch.cuda.synchronize()
+            if not torch.equal(wide, got):
+                raise RuntimeError(f"bsmm {tag}: block_m={x.shape[0]} gives other bits")
+            if not cuda_bsmm.resident_panel_fits(x.shape[1], block_m, x.element_size(),
+                                                 tiles.shape[-1]):
+                _must_raise(f"bsmm_resident {tag} (panel does not fit)",
+                            cuda_bsmm.bsmm_resident, x, rows, tiles, block_m=block_m)
+                continue
+            res = cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=block_m, fuse_gelu=fuse_gelu)
+            n_resident += 1
+            worst["bsmm_resident"] = max(worst["bsmm_resident"], _check_close(
+                f"bsmm_resident {tag}", res, want, rtol, atol))
+            if not torch.equal(res, got):
+                raise RuntimeError(f"bsmm_resident {tag} != bsmm at the same block_m")
+    x, rows, tiles = _bsmm_operands(rng, 32, 8, 2, 2, 8, torch.bfloat16)
+    _must_raise("bsmm at k=8", cuda_bsmm.bsmm, x, rows, tiles, block_m=16)
+    x, rows, tiles = _bsmm_operands(rng, 16, 128, 1, 1, 128, torch.bfloat16)  # d_in 16384
+    _must_raise("bsmm_resident with a 16 x 16384 panel", cuda_bsmm.bsmm_resident, x, rows,
+                tiles, block_m=16)
+    _phase("kernel", t0, f"bsmm == bsmm_ref on {len(cases)} cases x gelu on/off (f32 and "
+           f"bf16; k in 16, 32, 128; ragged W2 fan-in), bits equal across block_m; "
+           f"bsmm_resident on {n_resident} of them, == bsmm bit for bit, raises where its "
+           f"panel does not fit; k=8 and a 16 x 16384 bf16 panel raise; max_abs_err {worst}")
     return worst
 
 
@@ -667,11 +794,196 @@ def phase_medium_small() -> list[dict]:
     return [no_mod_row, mxu_row]
 
 
+def _median_ms(fn, flush: torch.Tensor) -> tuple[float, list[float], object]:
+    """fn() timed with CUDA events: one warm-up, then KERNEL_REPEATS runs,
+    each after the L2 cache was overwritten outside the window; returns the
+    median ms, the runs and the last result."""
+    out = fn()
+    runs = []
+    for _ in range(KERNEL_REPEATS):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+    return sorted(runs)[len(runs) // 2], runs, out
+
+
+def _bsmm_bound(x: torch.Tensor, rows_read: int, n_tiles: int, nbc: int, k: int) -> dict:
+    """The least time for one matmul's useful work: 2 M k^2 flops per real
+    tile on the bf16 tensor cores, against the bytes of the rows_read x
+    block-rows it needs, its real tiles and its output, each once."""
+    M = x.shape[0]
+    es = x.element_size()
+    flops = 2 * M * n_tiles * k * k
+    nbytes = (rows_read * M * k + n_tiles * k * k + M * nbc * k) * es
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = _bound(ops_ms, bytes_ms)
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _dense(rows: torch.Tensor, tiles: torch.Tensor, n_in: int, n_out: int,
+           column_major: bool) -> torch.Tensor:
+    """The dense (n_in * k, n_out * k) weight of a block-sparse one."""
+    nb, per, k, _ = tiles.shape
+    w = torch.zeros((n_in, k, n_out, k), dtype=tiles.dtype, device=tiles.device)
+    own = torch.arange(nb, device=tiles.device)[:, None].expand(nb, per).reshape(-1)
+    idx = rows.reshape(-1).long()
+    if column_major:   # tiles[c, r] sits at block (rows[c, r], c)
+        w[idx, :, own, :] = tiles.reshape(-1, k, k)
+    else:              # tiles[r, j] sits at block (r, cols[r, j])
+        w[own, :, idx, :] = tiles.reshape(-1, k, k)
+    return w.reshape(n_in * k, n_out * k)
+
+
+def _expect_launches(run: str, got: tuple[int, int], want: tuple[int, int]) -> None:
+    if got != want:
+        raise RuntimeError(f"ffn run {run}: (bsmm, bsmm_resident) launches {got}, want {want}")
+
+
+def phase_ffn() -> list[dict]:
+    t0 = time.perf_counter()
+    cfg = FFN_CFG
+    gen = torch.Generator().manual_seed(SEED)
+    params = ffn.init_params(cfg, gen, device=DEVICE)
+    x = torch.randn((FFN_BATCH, FFN_SEQ, cfg.d_model), generator=gen).to(DEVICE, torch.bfloat16)
+    pparams = ffn.prepare_kernel_params(params, cfg)
+    w1, w2 = pparams["w1"], pparams["w2cm"]
+    fan = torch.bincount(params["w2"]["cols"].reshape(-1).long(), minlength=cfg.nb_model)
+    params32 = {name: {key: t.float() if t.is_floating_point() else t for key, t in w.items()}
+                for name, w in params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = ffn.ffn_forward(params32, x.float(), cfg)
+    torch.cuda.synchronize()
+    _phase("ffn", t0, f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, k {cfg.k}, density "
+           f"{cfg.block_density}, x {tuple(x.shape)} bf16; W1 rpc {cfg.rpc}; W2 fan-in "
+           f"{int(fan.min())}..{int(fan.max())} (mean {float(fan.float().mean()):.3f}), so "
+           f"column-major rpc {w2['rows'].shape[1]} with {w2['rows'].numel() - int(fan.sum())} "
+           f"zero pad tiles of {w2['rows'].numel()}; plain float32 forward done")
+
+    # the main path: runs (i), (ii), (iii), counts zeroed before, read after
+    t0 = time.perf_counter()
+    rtol, atol = FFN_TOL
+    runs = {"i": {"block_m": 128}, "ii": {"block_m": 128, "fuse_gelu": True},
+            "iii": {"block_m": 16}}
+    want_launches = {"i": (2, 0), "ii": (2, 0), "iii": (1, 1)}
+    outs, counts, errs = {}, {}, {}
+    for run, kw in runs.items():
+        torch.cuda.synchronize()
+        cuda_bsmm.launches = cuda_bsmm.launches_resident = 0
+        y = ffn.ffn_forward_kernels(pparams, x, cfg, **kw)
+        torch.cuda.synchronize()
+        counts[run] = (cuda_bsmm.launches, cuda_bsmm.launches_resident)
+        _expect_launches(run, counts[run], want_launches[run])
+        err = _check_close(f"ffn run {run} {kw}", y.float(), want, rtol, atol)
+        big = want.abs() >= atol
+        rel = float(((y.float() - want).abs()[big] / want.abs()[big]).max())
+        outs[run], errs[run] = y, {"max_abs_err": err, "max_rel_err": rel}
+    if not torch.equal(outs["i"], outs["iii"]):
+        raise RuntimeError("ffn runs (i) and (iii) differ: the kernels' bits depend on block_m")
+    peak = torch.cuda.max_memory_allocated()
+    _phase("ffn", t0, f"main path: (i) block_m 128, (ii) fused gelu, (iii) block_m 16, "
+           f"resident gate: (bsmm, bsmm_resident) launches {counts}; each == plain "
+           f"float32 forward within rtol {rtol}, atol {atol}: {errs} (rel over "
+           f"|want| >= {atol}); (i) == (iii) bit for bit; peak device memory "
+           f"{peak / 2**30:.3f} GiB (the plain float32 forward included)")
+    del outs
+
+    t0 = time.perf_counter()
+    xf = x.reshape(-1, cfg.d_model)
+    h = cuda_bsmm.gelu(cuda_bsmm.bsmm(xf, w1["rows"], w1["tiles"]))
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    mm1, mm2 = (xf, w1["rows"], w1["tiles"]), (h, w2["rows"], w2["tiles"])
+    t = {}
+    t["k3_mm1"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm1, block_m=128), flush)
+    t["k3_mm1_gelu"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm1, block_m=128, fuse_gelu=True),
+                                  flush)
+    t["k3_mm2"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm2, block_m=128), flush)
+    t["k4_mm1"] = _median_ms(lambda: cuda_bsmm.bsmm_resident(*mm1, block_m=16), flush)
+    t["k3_mm2_16"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm2, block_m=16), flush)
+    for run, kw in runs.items():
+        t[f"fwd_{run}"] = _median_ms(lambda: ffn.ffn_forward_kernels(pparams, x, cfg, **kw),
+                                     flush)
+    t["plain_mm1"] = _median_ms(lambda: cuda_bsmm.bsmm_ref(*mm1), flush)
+    t["plain_mm2"] = _median_ms(lambda: cuda_bsmm.bsmm_ref(*mm2), flush)
+    t["plain_fwd"] = _median_ms(lambda: ffn.ffn_forward(params32, x.float(), cfg), flush)
+    err = {"bsmm": max(_check_close("bsmm matmul 1 at full width", t["k3_mm1"][2],
+                                    t["plain_mm1"][2], *BSMM_TOL[torch.bfloat16]),
+                       _check_close("bsmm matmul 2 at full width", t["k3_mm2"][2],
+                                    t["plain_mm2"][2], *BSMM_TOL[torch.bfloat16])),
+           "bsmm_resident": _check_close("bsmm_resident matmul 1 at full width",
+                                         t["k4_mm1"][2], t["plain_mm1"][2],
+                                         *BSMM_TOL[torch.bfloat16])}
+    if not torch.equal(t["k4_mm1"][2], t["k3_mm1"][2]):
+        raise RuntimeError("bsmm_resident != bsmm on matmul 1 at full width")
+    del want
+    w1_dense = _dense(params["w1"]["rows"], params["w1"]["tiles"], cfg.nb_model, cfg.nb_ff, True)
+    w2_dense = _dense(params["w2"]["cols"], params["w2"]["tiles"], cfg.nb_ff, cfg.nb_model, False)
+    t["lib_mm1"] = _median_ms(lambda: torch.matmul(xf, w1_dense), flush)
+    t["lib_mm2"] = _median_ms(lambda: torch.matmul(h, w2_dense), flush)
+    # a check that W1_dense is W1: cuBLAS may reduce in bf16 (split-K), so
+    # the FFN tolerance, not the one-ulp one
+    lib_err = _check_close("x @ W1_dense against bsmm", t["lib_mm1"][2], t["k3_mm1"][2],
+                           *FFN_TOL)
+    del w1_dense, w2_dense, flush
+    # W1: the distinct x block-rows its lists name; W2: every block-row of h
+    # owns cpc real tiles (the pad tiles are not work)
+    b1 = _bsmm_bound(xf, len(torch.unique(w1["rows"])), w1["rows"].numel(), cfg.nb_ff, cfg.k)
+    b2 = _bsmm_bound(h, cfg.nb_ff, params["w2"]["cols"].numel(), cfg.nb_model, cfg.k)
+    ms = {name: v[0] for name, v in t.items()}
+    ms_runs = {name: v[1] for name, v in t.items()}
+    _phase("ffn", t0, f"medians of {KERNEL_REPEATS} (ms): {ms}; runs {ms_runs}; bound "
+           f"matmul 1 {b1['bound_ms']:.6f} ms ({b1['bound_by']}: {b1['flops'] / 1e9:.3f} "
+           f"GFLOP -> {b1['ops_ms']:.6f} ms, {b1['bytes'] / 1e6:.3f} MB -> "
+           f"{b1['bytes_ms']:.6f} ms), matmul 2 {b2['bound_ms']:.6f} ms ({b2['bound_by']}: "
+           f"{b2['flops'] / 1e9:.3f} GFLOP, {b2['bytes'] / 1e6:.3f} MB); kernels vs bsmm_ref "
+           f"max abs err {err}, x @ W1_dense vs bsmm {lib_err}")
+
+    launches = {run: {"bsmm": c[0], "bsmm_resident": c[1]} for run, c in counts.items()}
+    common = {"route": "cuda", "source": "spgemm_tpu_torch/csrc/bsmm.cu", "equal_3_4": True,
+              "library_call": "torch.matmul in bf16 of x by the dense W (built outside the "
+                              "window)", "ffn_errors": errs, "ffn_wall_ms": {
+                  run: ms[f"fwd_{run}"] for run in runs}, "ffn_plain_ms": ms["plain_fwd"],
+              "peak_bytes": peak}
+    stream_row = {
+        "name": "bsmm", "replaces": "spgemm_tpu/ops/pallas_bsmm.py:57",
+        "launches": sum(c[0] for c in counts.values()),
+        "launches_by_run": {run: v["bsmm"] for run, v in launches.items()},
+        "max_abs_err": err["bsmm"], "ms": ms["k3_mm1"] + ms["k3_mm2"],
+        "plain_ms": ms["plain_mm1"] + ms["plain_mm2"],
+        "bound_ms": b1["bound_ms"] + b2["bound_ms"],
+        "bound_by": b1["bound_by"] if b1["bound_ms"] >= b2["bound_ms"] else b2["bound_by"],
+        "library_ms": ms["lib_mm1"] + ms["lib_mm2"],
+        "timed_on": "both matmuls of the full-width FFN forward, block_m 128",
+        "ms_by_matmul": {"mm1": ms["k3_mm1"], "mm1_gelu": ms["k3_mm1_gelu"],
+                         "mm2": ms["k3_mm2"], "mm2_block_m16": ms["k3_mm2_16"]},
+        "bound_by_matmul": {"mm1": b1, "mm2": b2},
+        "plain_ms_by_matmul": {"mm1": ms["plain_mm1"], "mm2": ms["plain_mm2"]},
+        "library_ms_by_matmul": {"mm1": ms["lib_mm1"], "mm2": ms["lib_mm2"]}, **common}
+    resident_row = {
+        "name": "bsmm_resident", "replaces": "spgemm_tpu/ops/pallas_bsmm.py:104",
+        "launches": sum(c[1] for c in counts.values()),
+        "launches_by_run": {run: v["bsmm_resident"] for run, v in launches.items()},
+        "max_abs_err": err["bsmm_resident"], "ms": ms["k4_mm1"], "plain_ms": ms["plain_mm1"],
+        "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": ms["lib_mm1"],
+        "timed_on": "matmul 1 of the full-width FFN forward, block_m 16", **common}
+    return [stream_row, resident_row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
+    # float32 products in full float32, never TF32, in every plain version
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -700,7 +1012,11 @@ def main() -> int:
     no_mod_row, mxu_row = phase_medium_small()
     no_mod_row["max_abs_err"] = max(no_mod_row["max_abs_err"], kernel_err["no_mod"])
     mxu_row["max_abs_err"] = max(mxu_row["max_abs_err"], kernel_err["mxu"])
-    print(json.dumps({"kernels": [row, no_mod_row, mxu_row]}), flush=True)
+    torch.cuda.empty_cache()
+    ffn_rows = phase_ffn()
+    for r in ffn_rows:
+        r["max_abs_err"] = max(r["max_abs_err"], kernel_err[r["name"]])
+    print(json.dumps({"kernels": [row, no_mod_row, mxu_row, *ffn_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,7 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (kernel 1 in
-both variants, the limb kernel) against their plain PyTorch versions on the
-card, and the hybrid chain against the exact one.  Tolerance: exact
-(torch.equal).
+both variants, the limb kernel, the two bsmm kernels) against their plain
+PyTorch versions on the card, the hybrid chain against the exact one, and
+the FFN forward against its plain version.  Tolerance: exact (torch.equal)
+for the integer kernels and between the two bsmm kernels; for bsmm against
+bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
+both sum the same products in float32 in another order and round once.
 
 Imports torch, numpy and the port only, so it runs on a machine without JAX.
 There, the shared tests/conftest.py (which imports jax) is skipped:
@@ -15,7 +18,8 @@ import pytest
 import torch
 
 from spgemm_tpu_torch.chain import chain_product
-from spgemm_tpu_torch.ops import cuda_mxu, cuda_spgemm, mxu_spgemm
+from spgemm_tpu_torch.models import ffn
+from spgemm_tpu_torch.ops import cuda_bsmm, cuda_mxu, cuda_spgemm, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.utils.gen import random_chain, random_values
 
@@ -104,3 +108,67 @@ def test_hybrid_chain_on_card_matches_exact(cuda, monkeypatch):
     got = chain_product(mats, device=cuda, backend="hybrid")
     assert engine.rounds_by_kernel["mxu"] > before["mxu"]
     assert got == chain_product(mats, device=cuda)
+
+
+BSMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-4)}
+
+
+def _bsmm_case(seed, M, nb_in, nbc, rpc, k, dtype, device):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, nb_in * k)).astype(np.float32)
+    rows = np.stack([rng.permutation(nb_in)[:rpc] for _ in range(nbc)]).astype(np.int32)
+    tiles = (rng.standard_normal((nbc, rpc, k, k)) / np.sqrt(rpc * k)).astype(np.float32)
+    return (torch.from_numpy(x).to(device, dtype), torch.from_numpy(rows).to(device),
+            torch.from_numpy(tiles).to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fuse_gelu", [False, True], ids=["plain", "gelu"])
+@pytest.mark.parametrize("k,M,nb_in,nbc,rpc,block_m", [
+    (16, 96, 8, 6, 3, 32), (32, 128, 6, 5, 4, 64), (64, 64, 4, 3, 2, 64),
+    (128, 256, 8, 4, 3, 16)])
+def test_bsmm_kernels_match_plain_version(cuda, dtype, fuse_gelu, k, M, nb_in, nbc, rpc,
+                                          block_m):
+    x, rows, tiles = _bsmm_case(k + M, M, nb_in, nbc, rpc, k, dtype, cuda)
+    before = (cuda_bsmm.launches, cuda_bsmm.launches_resident)
+    got = cuda_bsmm.bsmm(x, rows, tiles, block_m=block_m, fuse_gelu=fuse_gelu)
+    got_res = cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=block_m, fuse_gelu=fuse_gelu)
+    want = cuda_bsmm.bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu)
+    torch.cuda.synchronize()
+    assert (cuda_bsmm.launches, cuda_bsmm.launches_resident) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (M, nbc * k)
+    rtol, atol = BSMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, got_res)  # one device body: the same bits
+    # nor do the bits depend on block_m
+    assert torch.equal(got, cuda_bsmm.bsmm(x, rows, tiles, block_m=M, fuse_gelu=fuse_gelu))
+
+
+@pytest.mark.cuda
+def test_bsmm_kernels_refuse_what_they_do_not_take(cuda):
+    x, rows, tiles = _bsmm_case(1, 32, 8, 2, 2, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="k in"):
+        cuda_bsmm.bsmm(x, rows, tiles, block_m=16)
+    x, rows, tiles = _bsmm_case(2, 16, 128, 1, 1, 128, torch.bfloat16, cuda)  # d_in 16384
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=16)
+    x, rows, tiles = _bsmm_case(3, 32, 4, 2, 2, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cuda_bsmm.bsmm(x, rows, tiles, block_m=8)
+    with pytest.raises(TypeError):
+        cuda_bsmm.bsmm(x.half(), rows, tiles.half(), block_m=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", [False, True, None], ids=["stream", "resident", "auto"])
+def test_ffn_forward_kernels_on_card(cuda, resident):
+    cfg = ffn.BlockSparseFFNConfig(d_model=512, d_ff=1024, k=32, block_density=0.3,
+                                   dtype="float32")
+    params = ffn.init_params(cfg, torch.Generator().manual_seed(4), device=cuda)
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(5)).to(cuda)
+    before = cuda_bsmm.launches + cuda_bsmm.launches_resident
+    got = ffn.BlockSparseFFN(params, cfg, device=cuda, block_m=16, resident=resident)(x)
+    torch.cuda.synchronize()
+    assert cuda_bsmm.launches + cuda_bsmm.launches_resident == before + 2
+    torch.testing.assert_close(got, ffn.ffn_forward(params, x, cfg), rtol=1e-4, atol=1e-4)

@@ -16,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(spgemm_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm"):
+for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
+             "models.ffn", "ops.cuda_bsmm"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
