@@ -16,7 +16,8 @@ the script exits non-zero without printing a result:
                on values below 2^16, plus a P*k > 2^17 round that must raise;
                the two bsmm kernels against bsmm_ref in float32 and bfloat16
                (k in 16, 32, 128, a ragged W2 fan-in with pad tiles, gelu
-               fused and not), equal to each other and across block_m, and
+               fused and not), equal to each other and across block_m and
+               the streaming kernel's row tile (16, 32, 64, 128), and
                two shapes that must raise (a resident panel that does not
                fit, k = 8);
   4. cli     -- `python -m spgemm_tpu_torch.cli` on the golden inputs, byte
@@ -41,13 +42,18 @@ the script exits non-zero without printing a result:
                rounds, the numbers the speed gate weighs;
   7. ffn     -- the block-sparse FFN forward at full width
                (BlockSparseFFNConfig(), x (8, 1024, 4096) bf16, weights from
-               init_params on a generator seeded with SEED): (i) block_m 128,
-               (ii) the same with gelu fused, (iii) block_m 16 with the
-               resident gate deciding, each a main path with the bsmm counts
-               zeroed before and read after, each against the plain
-               ffn_forward in float32; then each kernel per matmul, each
+               init_params on a generator seeded with SEED): first the launch
+               geometry of kernels 3 and 4 on each matmul (kernel 3's row
+               tile, kernel 4's column chunks); then
+               (i) block_m 128, (ii) the same with gelu fused, (iii) block_m
+               16 with the resident gate deciding, (iv) x (1, 256, 4096) at
+               block_m 16, each a main path with the bsmm counts zeroed
+               before and read after, each against the plain ffn_forward in
+               float32, (i) bit-equal to (iii) and (iv) to block_m 128 on its
+               x; then each kernel per matmul (full width and M = 256), each
                forward, the plain versions and the dense x @ W product
-               timed.
+               timed, kernel 4 bit-equal to kernel 3 on matmul 1 and kernel
+               3 on matmul 2 bit-equal across the row tiles 16 to 128.
 
 Then one JSON line describing every ported kernel and, last, the device line
 `{"ok": true, "device": {...}}`.  Imports torch, numpy and the port only.
@@ -94,9 +100,10 @@ MEDIUM = {"n": 10, "block_dim": 1111, "bandwidth": 4, "k": 32}
 KERNEL_REPEATS = 3  # timed kernel runs; the median is reported
 HUB_FANOUT = 4500   # > 2^17 / 32: the round's class is too deep for the limb kernel
 # bsmm cases (k, M, nb_in, nbc, rpc, block_m); kernel 4 runs each where its
-# panel fits and must raise where it does not
+# panel fits and must raise where it does not (the last: 128 panels over
+# uneven column chunks, and kernel 3 at a row tile of 64)
 BSMM_CASES = [(16, 96, 8, 6, 3, 32), (32, 128, 6, 5, 4, 64), (128, 256, 8, 4, 3, 16),
-              (128, 64, 32, 7, 3, 16)]
+              (128, 64, 32, 7, 3, 16), (64, 2048, 8, 5, 3, 16)]
 # bsmm against bsmm_ref, (rtol, atol): both sum the same products in float32
 # in another order; bfloat16 then rounds once, so one bf16 ulp (2^-7 relative)
 BSMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-4)}
@@ -110,6 +117,7 @@ BSMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-4)}
 # about 2 over that maximum.
 FFN_CFG = ffn.BlockSparseFFNConfig()
 FFN_BATCH, FFN_SEQ = 8, 1024
+FFN_SMALL_SEQ = 256   # run (iv): one sequence of 256 tokens, the small-M shape
 FFN_TOL = (2 ** -7, 2 ** -5)
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor cores
 L2_BYTES = 50 << 20
@@ -267,6 +275,19 @@ def _must_raise(what: str, fn, *args, **kw) -> None:
     raise RuntimeError(f"{what} did not raise")
 
 
+def _same_at_row_tiles(what: str, got, x, rows, tiles, fuse_gelu: bool = False) -> list:
+    """Kernel 3 launched at every row tile br of 16, 32, 64 and 128 that
+    divides M, in place of row_tile's: each must give got's bits.  Returns
+    the row tiles checked."""
+    brs = [br for br in (16, 32, 64, 128) if x.shape[0] % br == 0]
+    for br in brs:
+        other = cuda_bsmm._launch(x, rows, tiles, 16, fuse_gelu, resident=False, br=br)
+        torch.cuda.synchronize()
+        if not torch.equal(other, got):
+            raise RuntimeError(f"{what}: row tile {br} gives other bits")
+    return brs
+
+
 def _bsmm_cases(rng) -> dict:
     """Kernels 3 and 4 against bsmm_ref on the card; returns their max abs
     errors."""
@@ -300,6 +321,7 @@ def _bsmm_cases(rng) -> dict:
             torch.cuda.synchronize()
             if not torch.equal(wide, got):
                 raise RuntimeError(f"bsmm {tag}: block_m={x.shape[0]} gives other bits")
+            _same_at_row_tiles(f"bsmm {tag}", got, x, rows, tiles, fuse_gelu)
             if not cuda_bsmm.resident_panel_fits(x.shape[1], block_m, x.element_size(),
                                                  tiles.shape[-1]):
                 _must_raise(f"bsmm_resident {tag} (panel does not fit)",
@@ -317,7 +339,8 @@ def _bsmm_cases(rng) -> dict:
     _must_raise("bsmm_resident with a 16 x 16384 panel", cuda_bsmm.bsmm_resident, x, rows,
                 tiles, block_m=16)
     _phase("kernel", t0, f"bsmm == bsmm_ref on {len(cases)} cases x gelu on/off (f32 and "
-           f"bf16; k in 16, 32, 128; ragged W2 fan-in), bits equal across block_m; "
+           f"bf16; k in 16, 32, 128; ragged W2 fan-in), bits equal across block_m and "
+           f"across every row tile of 16, 32, 64, 128 that divides M; "
            f"bsmm_resident on {n_resident} of them, == bsmm bit for bit, raises where its "
            f"panel does not fit; k=8 and a 16 x 16384 bf16 panel raise; max_abs_err {worst}")
     return worst
@@ -852,6 +875,8 @@ def phase_ffn() -> list[dict]:
     gen = torch.Generator().manual_seed(SEED)
     params = ffn.init_params(cfg, gen, device=DEVICE)
     x = torch.randn((FFN_BATCH, FFN_SEQ, cfg.d_model), generator=gen).to(DEVICE, torch.bfloat16)
+    x_small = torch.randn((1, FFN_SMALL_SEQ, cfg.d_model), generator=gen).to(DEVICE,
+                                                                            torch.bfloat16)
     pparams = ffn.prepare_kernel_params(params, cfg)
     w1, w2 = pparams["w1"], pparams["w2cm"]
     fan = torch.bincount(params["w2"]["cols"].reshape(-1).long(), minlength=cfg.nb_model)
@@ -860,6 +885,7 @@ def phase_ffn() -> list[dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     want = ffn.ffn_forward(params32, x.float(), cfg)
+    want_small = ffn.ffn_forward(params32, x_small.float(), cfg)
     torch.cuda.synchronize()
     _phase("ffn", t0, f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, k {cfg.k}, density "
            f"{cfg.block_density}, x {tuple(x.shape)} bf16; W1 rpc {cfg.rpc}; W2 fan-in "
@@ -867,31 +893,50 @@ def phase_ffn() -> list[dict]:
            f"column-major rpc {w2['rows'].shape[1]} with {w2['rows'].numel() - int(fan.sum())} "
            f"zero pad tiles of {w2['rows'].numel()}; plain float32 forward done")
 
-    # the main path: runs (i), (ii), (iii), counts zeroed before, read after
+    # the launch geometry of each kernel on each matmul the runs below take
+    sms = cuda_bsmm.sm_count(torch.cuda.current_device())
+    m_full, m_small = x.shape[0] * x.shape[1], x_small.shape[0] * x_small.shape[1]
+    geometry = {
+        f"{name} M={M}": cuda_bsmm.launch_geometry(M, nbc, 16, resident, sms).__dict__
+        for M in (m_full, m_small)
+        for name, nbc, resident in (("kernel 3 matmul 1", cfg.nb_ff, False),
+                                    ("kernel 3 matmul 2", cfg.nb_model, False),
+                                    ("kernel 4 matmul 1", cfg.nb_ff, True))}
+    print(f"[ffn] launch geometry on {sms} SMs (kernel 3: br from row_tile, any block_m; "
+          f"kernel 4 at block_m 16: br rows, col_blocks chunks of col_chunk columns): "
+          f"{geometry}", flush=True)
+
+    # the main path: runs (i), (ii), (iii), (iv), counts zeroed before, read after
     t0 = time.perf_counter()
     rtol, atol = FFN_TOL
-    runs = {"i": {"block_m": 128}, "ii": {"block_m": 128, "fuse_gelu": True},
-            "iii": {"block_m": 16}}
-    want_launches = {"i": (2, 0), "ii": (2, 0), "iii": (1, 1)}
+    runs = {"i": (x, {"block_m": 128}), "ii": (x, {"block_m": 128, "fuse_gelu": True}),
+            "iii": (x, {"block_m": 16}), "iv": (x_small, {"block_m": 16})}
+    wants = {"i": want, "ii": want, "iii": want, "iv": want_small}
+    want_launches = {"i": (2, 0), "ii": (2, 0), "iii": (1, 1), "iv": (1, 1)}
     outs, counts, errs = {}, {}, {}
-    for run, kw in runs.items():
+    for run, (xin, kw) in runs.items():
         torch.cuda.synchronize()
         cuda_bsmm.launches = cuda_bsmm.launches_resident = 0
-        y = ffn.ffn_forward_kernels(pparams, x, cfg, **kw)
+        y = ffn.ffn_forward_kernels(pparams, xin, cfg, **kw)
         torch.cuda.synchronize()
         counts[run] = (cuda_bsmm.launches, cuda_bsmm.launches_resident)
         _expect_launches(run, counts[run], want_launches[run])
-        err = _check_close(f"ffn run {run} {kw}", y.float(), want, rtol, atol)
-        big = want.abs() >= atol
-        rel = float(((y.float() - want).abs()[big] / want.abs()[big]).max())
+        w = wants[run]
+        err = _check_close(f"ffn run {run} {kw}", y.float(), w, rtol, atol)
+        big = w.abs() >= atol
+        rel = float(((y.float() - w).abs()[big] / w.abs()[big]).max())
         outs[run], errs[run] = y, {"max_abs_err": err, "max_rel_err": rel}
     if not torch.equal(outs["i"], outs["iii"]):
         raise RuntimeError("ffn runs (i) and (iii) differ: the kernels' bits depend on block_m")
+    # (iv) against kernel 3 at block_m 128 on the same x (outside the counted run)
+    if not torch.equal(outs["iv"], ffn.ffn_forward_kernels(pparams, x_small, cfg, block_m=128)):
+        raise RuntimeError("ffn run (iv) differs from kernel 3 at block_m 128 on its x")
     peak = torch.cuda.max_memory_allocated()
     _phase("ffn", t0, f"main path: (i) block_m 128, (ii) fused gelu, (iii) block_m 16, "
-           f"resident gate: (bsmm, bsmm_resident) launches {counts}; each == plain "
-           f"float32 forward within rtol {rtol}, atol {atol}: {errs} (rel over "
-           f"|want| >= {atol}); (i) == (iii) bit for bit; peak device memory "
+           f"resident gate, (iv) x {tuple(x_small.shape)} at block_m 16: (bsmm, "
+           f"bsmm_resident) launches {counts}; each == plain float32 forward within rtol "
+           f"{rtol}, atol {atol}: {errs} (rel over |want| >= {atol}); (i) == (iii) and "
+           f"(iv) == block_m 128 on its x, bit for bit; peak device memory "
            f"{peak / 2**30:.3f} GiB (the plain float32 forward included)")
     del outs
 
@@ -907,9 +952,17 @@ def phase_ffn() -> list[dict]:
     t["k3_mm2"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm2, block_m=128), flush)
     t["k4_mm1"] = _median_ms(lambda: cuda_bsmm.bsmm_resident(*mm1, block_m=16), flush)
     t["k3_mm2_16"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm2, block_m=16), flush)
-    for run, kw in runs.items():
-        t[f"fwd_{run}"] = _median_ms(lambda: ffn.ffn_forward_kernels(pparams, x, cfg, **kw),
-                                     flush)
+    # the launch block_m 16 took before row_tile: 16-row blocks
+    t["k3_mm2_br16"] = _median_ms(
+        lambda: cuda_bsmm._launch(*mm2, 16, False, resident=False, br=16), flush)
+    xs = x_small.reshape(-1, cfg.d_model)
+    hs = cuda_bsmm.gelu(cuda_bsmm.bsmm(xs, w1["rows"], w1["tiles"], block_m=16))
+    mm1s, mm2s = (xs, w1["rows"], w1["tiles"]), (hs, w2["rows"], w2["tiles"])
+    t["k4_mm1_small"] = _median_ms(lambda: cuda_bsmm.bsmm_resident(*mm1s, block_m=16), flush)
+    t["k3_mm2_small"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm2s, block_m=16), flush)
+    for run, (xin, kw) in runs.items():
+        t[f"fwd_{run}"] = _median_ms(
+            lambda: ffn.ffn_forward_kernels(pparams, xin, cfg, **kw), flush)
     t["plain_mm1"] = _median_ms(lambda: cuda_bsmm.bsmm_ref(*mm1), flush)
     t["plain_mm2"] = _median_ms(lambda: cuda_bsmm.bsmm_ref(*mm2), flush)
     t["plain_fwd"] = _median_ms(lambda: ffn.ffn_forward(params32, x.float(), cfg), flush)
@@ -922,11 +975,26 @@ def phase_ffn() -> list[dict]:
                                          *BSMM_TOL[torch.bfloat16])}
     if not torch.equal(t["k4_mm1"][2], t["k3_mm1"][2]):
         raise RuntimeError("bsmm_resident != bsmm on matmul 1 at full width")
+    if not torch.equal(t["k3_mm2_16"][2], t["k3_mm2"][2]):
+        raise RuntimeError("bsmm at block_m 16 != block_m 128 on matmul 2 at full width")
+    brs = _same_at_row_tiles("bsmm matmul 2 at full width", t["k3_mm2"][2], *mm2)
+    _same_at_row_tiles(f"bsmm matmul 2 at M = {xs.shape[0]}", t["k3_mm2_small"][2], *mm2s)
+    err_small = {
+        "bsmm": _check_close(f"bsmm matmul 2 at M = {xs.shape[0]}", t["k3_mm2_small"][2],
+                             cuda_bsmm.bsmm_ref(*mm2s), *BSMM_TOL[torch.bfloat16]),
+        "bsmm_resident": _check_close(f"bsmm_resident matmul 1 at M = {xs.shape[0]}",
+                                      t["k4_mm1_small"][2], cuda_bsmm.bsmm_ref(*mm1s),
+                                      *BSMM_TOL[torch.bfloat16])}
+    if not torch.equal(t["k4_mm1_small"][2], cuda_bsmm.bsmm(*mm1s, block_m=xs.shape[0])):
+        raise RuntimeError(f"bsmm_resident != bsmm on matmul 1 at M = {xs.shape[0]}")
+    err = {name: max(e, err_small[name]) for name, e in err.items()}
     del want
     w1_dense = _dense(params["w1"]["rows"], params["w1"]["tiles"], cfg.nb_model, cfg.nb_ff, True)
     w2_dense = _dense(params["w2"]["cols"], params["w2"]["tiles"], cfg.nb_ff, cfg.nb_model, False)
     t["lib_mm1"] = _median_ms(lambda: torch.matmul(xf, w1_dense), flush)
     t["lib_mm2"] = _median_ms(lambda: torch.matmul(h, w2_dense), flush)
+    t["lib_mm1_small"] = _median_ms(lambda: torch.matmul(xs, w1_dense), flush)
+    t["lib_mm2_small"] = _median_ms(lambda: torch.matmul(hs, w2_dense), flush)
     # a check that W1_dense is W1: cuBLAS may reduce in bf16 (split-K), so
     # the FFN tolerance, not the one-ulp one
     lib_err = _check_close("x @ W1_dense against bsmm", t["lib_mm1"][2], t["k3_mm1"][2],
@@ -936,21 +1004,27 @@ def phase_ffn() -> list[dict]:
     # owns cpc real tiles (the pad tiles are not work)
     b1 = _bsmm_bound(xf, len(torch.unique(w1["rows"])), w1["rows"].numel(), cfg.nb_ff, cfg.k)
     b2 = _bsmm_bound(h, cfg.nb_ff, params["w2"]["cols"].numel(), cfg.nb_model, cfg.k)
+    b1s = _bsmm_bound(xs, len(torch.unique(w1["rows"])), w1["rows"].numel(), cfg.nb_ff, cfg.k)
+    b2s = _bsmm_bound(hs, cfg.nb_ff, params["w2"]["cols"].numel(), cfg.nb_model, cfg.k)
     ms = {name: v[0] for name, v in t.items()}
     ms_runs = {name: v[1] for name, v in t.items()}
     _phase("ffn", t0, f"medians of {KERNEL_REPEATS} (ms): {ms}; runs {ms_runs}; bound "
            f"matmul 1 {b1['bound_ms']:.6f} ms ({b1['bound_by']}: {b1['flops'] / 1e9:.3f} "
            f"GFLOP -> {b1['ops_ms']:.6f} ms, {b1['bytes'] / 1e6:.3f} MB -> "
            f"{b1['bytes_ms']:.6f} ms), matmul 2 {b2['bound_ms']:.6f} ms ({b2['bound_by']}: "
-           f"{b2['flops'] / 1e9:.3f} GFLOP, {b2['bytes'] / 1e6:.3f} MB); kernels vs bsmm_ref "
-           f"max abs err {err}, x @ W1_dense vs bsmm {lib_err}")
+           f"{b2['flops'] / 1e9:.3f} GFLOP, {b2['bytes'] / 1e6:.3f} MB); at M = "
+           f"{xs.shape[0]}: bound matmul 1 {b1s['bound_ms']:.6f} ms ({b1s['bound_by']}), "
+           f"matmul 2 {b2s['bound_ms']:.6f} ms ({b2s['bound_by']}); kernels vs bsmm_ref max "
+           f"abs err {err}, x @ W1_dense vs bsmm {lib_err}; kernel 4 == kernel 3 on matmul 1 "
+           f"at both sizes, kernel 3 on matmul 2 the same bits at row tiles {brs} and at "
+           f"block_m 16 and 128")
 
     launches = {run: {"bsmm": c[0], "bsmm_resident": c[1]} for run, c in counts.items()}
     common = {"route": "cuda", "source": "spgemm_tpu_torch/csrc/bsmm.cu", "equal_3_4": True,
               "library_call": "torch.matmul in bf16 of x by the dense W (built outside the "
                               "window)", "ffn_errors": errs, "ffn_wall_ms": {
                   run: ms[f"fwd_{run}"] for run in runs}, "ffn_plain_ms": ms["plain_fwd"],
-              "peak_bytes": peak}
+              "peak_bytes": peak, "small_m": xs.shape[0], "geometry": geometry}
     stream_row = {
         "name": "bsmm", "replaces": "spgemm_tpu/ops/pallas_bsmm.py:57",
         "launches": sum(c[0] for c in counts.values()),
@@ -962,17 +1036,22 @@ def phase_ffn() -> list[dict]:
         "library_ms": ms["lib_mm1"] + ms["lib_mm2"],
         "timed_on": "both matmuls of the full-width FFN forward, block_m 128",
         "ms_by_matmul": {"mm1": ms["k3_mm1"], "mm1_gelu": ms["k3_mm1_gelu"],
-                         "mm2": ms["k3_mm2"], "mm2_block_m16": ms["k3_mm2_16"]},
-        "bound_by_matmul": {"mm1": b1, "mm2": b2},
+                         "mm2": ms["k3_mm2"], "mm2_block_m16": ms["k3_mm2_16"],
+                         "mm2_row_tile_16": ms["k3_mm2_br16"],
+                         "mm2_small_m_block_m16": ms["k3_mm2_small"]},
+        "bound_by_matmul": {"mm1": b1, "mm2": b2, "mm2_small_m": b2s},
         "plain_ms_by_matmul": {"mm1": ms["plain_mm1"], "mm2": ms["plain_mm2"]},
-        "library_ms_by_matmul": {"mm1": ms["lib_mm1"], "mm2": ms["lib_mm2"]}, **common}
+        "library_ms_by_matmul": {"mm1": ms["lib_mm1"], "mm2": ms["lib_mm2"],
+                                 "mm2_small_m": ms["lib_mm2_small"]}, **common}
     resident_row = {
         "name": "bsmm_resident", "replaces": "spgemm_tpu/ops/pallas_bsmm.py:104",
         "launches": sum(c[1] for c in counts.values()),
         "launches_by_run": {run: v["bsmm_resident"] for run, v in launches.items()},
         "max_abs_err": err["bsmm_resident"], "ms": ms["k4_mm1"], "plain_ms": ms["plain_mm1"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": ms["lib_mm1"],
-        "timed_on": "matmul 1 of the full-width FFN forward, block_m 16", **common}
+        "timed_on": "matmul 1 of the full-width FFN forward, block_m 16",
+        "ms_small_m": ms["k4_mm1_small"], "bound_small_m": b1s,
+        "library_ms_small_m": ms["lib_mm1_small"], **common}
     return [stream_row, resident_row]
 
 

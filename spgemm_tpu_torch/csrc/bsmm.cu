@@ -19,33 +19,42 @@
 // gathered x blocks out of device memory (the plain version materialises
 // them), keeps every sum in registers, and runs bf16 on the tensor cores.
 //
-// Design (simple first):
+// Design:
 //   * one device body (accumulate, store_tile) for both kernels, so at the
 //     same inputs they give identical bits: each output element is owned by
 //     one thread, which adds the pairs r in ascending order, and within a
 //     pair the 16-deep steps of mma.sync.m16n8k16 (bf16 x bf16 -> f32) in
 //     ascending order.  The element's sum does not depend on which block or
-//     warp owns it, so the bits do not depend on block_m either.  float32
-//     runs the same ownership on plain FMA (j ascending), not TF32;
+//     warp owns it, so the bits depend on neither the row tile nor block_m.
+//     float32 runs the same ownership on plain FMA (j ascending), not TF32;
 //   * a block has 8 warps and owns br rows (16, 32, 64 or 128) of one output
 //     block-column at a time; warp w owns 16 rows and a run of the column's
 //     8-wide n-tiles (br / 16 warps down, 8 / (br / 16) across);
 //   * kernel 3: a 1-D grid over (M / br row panels) x nbc columns, column
 //     fastest, so neighbouring blocks share their x rows in L2.  Per pair the
 //     block stages the x block at column rows[c, r]*k and the tile through
-//     shared memory (cp.async, 16 bytes a thread), then multiplies;
+//     shared memory (cp.async, 16 bytes a thread), then multiplies.  br is
+//     the wrapper's row_tile, the widest that still gives every SM a block,
+//     not block_m: a block of 16 rows would restage each 32 KB tile for 16
+//     rows of work;
 //   * kernel 4: a block loads its br x d_in x panel into dynamic shared memory
-//     once and sweeps a chunk of output columns (all nbc when there are at
-//     least 2 blocks per SM without chunking), staging only the tiles, two
-//     buffers deep so the next tile loads while the current one multiplies;
-//     the pair's x slice is read from the panel at rows[c, r]*k.  The
-//     wrapper's resident_panel_fits keeps panel plus two tiles within a
-//     block's 232,448 bytes of shared memory;
+//     once and sweeps a chunk of col_chunk output columns (the wrapper splits
+//     the columns only as far as about 2 blocks per SM need), staging only
+//     the tiles, two buffers deep so the next tile loads while the current
+//     one multiplies; the pair's x slice is read from the panel at
+//     rows[c, r]*k.  The wrapper's resident_panel_fits keeps panel plus two
+//     tiles within a block's 232,448 bytes of shared memory.  At block_m 16
+//     and d_in 4096 the panel fills the SM, one tile is in flight per SM, and
+//     that latency sets the pace: rotating each block's start column and
+//     multicasting the tiles across a cluster of 8 blocks (bulk copies, a
+//     cluster barrier per step) were both measured on the H100, the first
+//     moved nothing and the second was 1.4x slower (PERF.md);
 //   * shared rows are padded by 16 bytes, so ldmatrix's 8 row addresses hit
 //     distinct banks;
 //   * no masking: M % br == 0 and d_in % k == 0 are checked.
-// Left for a later PR: wgmma with TMA-fed tiles, a multi-stage ring so loads
-// overlap the products, wider warp tiles, a persistent grid.
+// Left for later: wgmma, tiles fed by tensor-map TMA into swizzled
+// buffers (a deeper ring beside kernel 4's panel, then multicast), wider warp
+// tiles, a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -308,7 +317,7 @@ struct Args {
   const void* tiles;
   void* out;
   long long M;
-  int d_in, nbc, rpc, br, fuse_gelu, device;
+  int d_in, nbc, rpc, br, col_chunk, fuse_gelu, device;
   cudaStream_t stream;
 };
 
@@ -329,24 +338,16 @@ int launch(const Args& a, bool resident) {
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)a.br * (a.d_in + pad_elems<T>()) * sizeof(T) + 2 * tile_bytes;
-  if (smem > (size_t)kSmemBytes) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a.device);
-  if (err != cudaSuccess) return (int)err;
-  // Split the columns only as far as needed for about 2 blocks per SM: each
-  // extra chunk loads the panel once more.
-  long long want = (2LL * sms + panels - 1) / panels;
-  const int col_blocks0 = (int)(want < 1 ? 1 : (want > a.nbc ? a.nbc : want));
-  const int col_chunk = (a.nbc + col_blocks0 - 1) / col_blocks0;
-  const int col_blocks = (a.nbc + col_chunk - 1) / col_chunk;
+  if (smem > (size_t)kSmemBytes || a.col_chunk < 1) return (int)cudaErrorInvalidValue;
+  const int col_blocks = (a.nbc + a.col_chunk - 1) / a.col_chunk;
   const long long blocks = panels * col_blocks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(bsmm_resident_kernel<T, K>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(bsmm_resident_kernel<T, K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   bsmm_resident_kernel<T, K><<<(unsigned)blocks, kThreads, smem, a.stream>>>(
       (const T*)a.x, (const int32_t*)a.rows, (const T*)a.tiles, (T*)a.out, a.d_in, a.nbc,
-      a.rpc, a.br, col_blocks, col_chunk, a.fuse_gelu);
+      a.rpc, a.br, col_blocks, a.col_chunk, a.fuse_gelu);
   return (int)cudaGetLastError();
 }
 
@@ -362,15 +363,15 @@ int launch_k(const Args& a, int k, bool resident) {
 }
 
 int launch_any(const void* x, const void* rows, const void* tiles, void* out, long long M,
-               int d_in, int nbc, int rpc, int k, int br, int dtype, int fuse_gelu, int device,
-               void* stream, bool resident) {
+               int d_in, int nbc, int rpc, int k, int br, int col_chunk, int dtype, int fuse_gelu,
+               int device, void* stream, bool resident) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || nbc <= 0) return (int)cudaSuccess;
   if ((br != 16 && br != 32 && br != 64 && br != 128) || M % br || rpc < 1 || k < 1 ||
       d_in < k || d_in % k)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, rows, tiles, out, M, d_in, nbc, rpc, br, fuse_gelu, device,
+  const Args a{x, rows, tiles, out, M, d_in, nbc, rpc, br, col_chunk, fuse_gelu, device,
                (cudaStream_t)stream};
   switch (dtype) {
     case 0: return launch_k<float>(a, k, resident);
@@ -392,15 +393,17 @@ int launch_any(const void* x, const void* rows, const void* tiles, void* out, lo
 extern "C" int spgemm_bsmm(const void* x, const void* rows, const void* tiles, void* out,
                            long long M, int d_in, int nbc, int rpc, int k, int br, int dtype,
                            int fuse_gelu, int device, void* stream) {
-  return launch_any(x, rows, tiles, out, M, d_in, nbc, rpc, k, br, dtype, fuse_gelu, device,
+  return launch_any(x, rows, tiles, out, M, d_in, nbc, rpc, k, br, 1, dtype, fuse_gelu, device,
                     stream, false);
 }
 
-// Kernel 4, same arguments; the br x d_in panel plus two padded tiles must
-// fit a block's shared memory, or it returns cudaErrorInvalidValue.
+// Kernel 4, the same arguments and col_chunk >= 1, the output block-columns
+// one block sweeps; the br x d_in panel plus two padded tiles must fit a
+// block's shared memory, or it returns cudaErrorInvalidValue.
 extern "C" int spgemm_bsmm_resident(const void* x, const void* rows, const void* tiles,
                                     void* out, long long M, int d_in, int nbc, int rpc, int k,
-                                    int br, int dtype, int fuse_gelu, int device, void* stream) {
-  return launch_any(x, rows, tiles, out, M, d_in, nbc, rpc, k, br, dtype, fuse_gelu, device,
-                    stream, true);
+                                    int br, int col_chunk, int dtype, int fuse_gelu, int device,
+                                    void* stream) {
+  return launch_any(x, rows, tiles, out, M, d_in, nbc, rpc, k, br, col_chunk, dtype, fuse_gelu,
+                    device, stream, true);
 }

@@ -13,6 +13,11 @@ mma.sync m16n8k16, float32 on plain FMA), so at the same inputs they give
 identical bits, whatever the block_m.  What bounds them at the FFN's full
 width is operations and bytes about equally (PERF.md).
 
+block_m is the TPU's row tile (the BlockSpec's); here it says what M is a
+multiple of and where kernel 4 may run.  launch_geometry derives each grid
+from the shapes: kernel 3 takes row_tile's rows per block, kernel 4
+block_rows(block_m) rows (its panel must fit shared memory).
+
 The resident gate changes its verdict from the TPU's.  The JAX gate
 (spgemm_tpu/ops/pallas_bsmm.py:149) takes a 4 MB VMEM panel budget and
 needs k % 128 == 0.  A Hopper thread block has 232,448 bytes of shared
@@ -28,6 +33,8 @@ matmul 1 only.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -70,6 +77,49 @@ def resident_panel_fits(d_in: int, block_m: int, dtype_bytes: int = 2,
     panel = block_rows(block_m) * (d_in * dtype_bytes + _ROW_PAD_BYTES)
     tile = k * (k * dtype_bytes + _ROW_PAD_BYTES)
     return panel + 2 * tile <= SMEM_BYTES
+
+
+def row_tile(M: int, nbc: int, sms: int) -> int:
+    """Rows of x one block of kernel 3 owns: the largest of 128, 64, 32 and
+    16 that divides M and still gives every SM a block ((M / br) * nbc >=
+    sms), and 16 where none does.  It does not depend on block_m: no bit of
+    the output depends on which block owns a row."""
+    for br in (128, 64, 32, 16):
+        if M % br == 0 and (M // br) * nbc >= sms:
+            return br
+    return 16
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch of kernel 3 or 4: br rows per block, `panels` row panels,
+    and the output block-columns cut into col_blocks chunks of col_chunk."""
+    br: int
+    panels: int
+    col_chunk: int
+    col_blocks: int
+
+
+def launch_geometry(M: int, nbc: int, block_m: int, resident: bool, sms: int) -> Geometry:
+    """The grid each kernel launches on a card with `sms` SMs.  Kernel 3:
+    br = row_tile, one block per (panel, column).  Kernel 4: br =
+    block_rows(block_m) (the panel must fit shared memory), the columns
+    split only as far as about 2 blocks per SM need (each extra chunk loads
+    the panel once more)."""
+    if not resident:
+        br = row_tile(M, nbc, sms)
+        return Geometry(br, M // br, 1, nbc)
+    br = block_rows(block_m)
+    panels = M // br
+    want = min(nbc, max(1, -(-2 * sms // panels)))
+    col_chunk = -(-nbc // want)
+    return Geometry(br, panels, col_chunk, -(-nbc // col_chunk))
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device `device_index`."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_operands(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor,
@@ -115,7 +165,10 @@ def bsmm_ref(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, *,
 
 
 def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: int,
-            fuse_gelu: bool, resident: bool) -> torch.Tensor:
+            fuse_gelu: bool, resident: bool, br: int | None = None) -> torch.Tensor:
+    """Launch kernel 3 or 4 on launch_geometry's grid; br, for kernel 3
+    only, replaces row_tile's rows per block (the checks that no bit
+    depends on the row tile give it)."""
     global launches, launches_resident
     M, d_in, nbc, rpc, k = check_operands(x, rows, tiles, block_m)
     if x.device.type == "cpu":
@@ -138,18 +191,25 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
     if M == 0 or nbc == 0:
         return out
     lib = _build.load(_KERNEL)
+    geo = launch_geometry(M, nbc, block_m, resident, sm_count(x.device.index))
+    if br is not None:
+        if resident:
+            raise ValueError("kernel 4's row tile is block_rows(block_m)")
+        geo = Geometry(br, M // br, 1, nbc)
+    # kernel 4 takes its column chunk after br; kernel 3 sweeps one column
+    chunk = [geo.col_chunk] if resident else []
     fn = lib.spgemm_bsmm_resident if resident else lib.spgemm_bsmm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * (8 + len(chunk)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), rows.data_ptr(), tiles.data_ptr(), out.data_ptr(), M, d_in,
-             nbc, rpc, k, block_rows(block_m), _DTYPE_CODES[x.dtype], int(fuse_gelu),
+             nbc, rpc, k, geo.br, *chunk, _DTYPE_CODES[x.dtype], int(fuse_gelu),
              x.device.index, stream)
     if err != 0:
         raise RuntimeError(f"bsmm kernel launch failed: CUDA error {err} (M={M}, "
                            f"d_in={d_in}, nbc={nbc}, rpc={rpc}, k={k}, block_m={block_m}, "
-                           f"{x.dtype}, resident={resident})")
+                           f"{x.dtype}, resident={resident}, {geo})")
     if resident:
         launches_resident += 1
     else:

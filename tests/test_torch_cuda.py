@@ -172,3 +172,39 @@ def test_ffn_forward_kernels_on_card(cuda, resident):
     torch.cuda.synchronize()
     assert cuda_bsmm.launches + cuda_bsmm.launches_resident == before + 2
     torch.testing.assert_close(got, ffn.ffn_forward(params, x, cfg), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.bfloat16, 128), (torch.float32, 64)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("M", [16, 32, 64, 128, 208, 2048, 8192])
+def test_bsmm_resident_panel_counts(cuda, dtype, k, M):
+    """Kernel 4 at 1 to 512 row panels of 16 rows: one column a block where
+    the panels are few, uneven chunks of columns at M = 2048 (on 132 SMs),
+    the whole sweep a block at M = 8192."""
+    x, rows, tiles = _bsmm_case(M + k, M, 4, 6, 3, k, dtype, cuda)
+    before = cuda_bsmm.launches_resident
+    got = cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=16)
+    torch.cuda.synchronize()
+    assert cuda_bsmm.launches_resident == before + 1
+    rtol, atol = BSMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), cuda_bsmm.bsmm_ref(x, rows, tiles).float(),
+                               rtol=rtol, atol=atol)
+    assert torch.equal(got, cuda_bsmm.bsmm(x, rows, tiles, block_m=M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [208, 1024])
+def test_bsmm_row_tile_at_block_m_16(cuda, dtype, M):
+    """Kernel 3 at block_m 16 takes row_tile's rows; launched at every row
+    tile of 16, 32, 64 and 128 that divides M, it gives the same bits."""
+    x, rows, tiles = _bsmm_case(M, M, 8, 5, 3, 128, dtype, cuda)
+    got = cuda_bsmm.bsmm(x, rows, tiles, block_m=16)
+    rtol, atol = BSMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), cuda_bsmm.bsmm_ref(x, rows, tiles).float(),
+                               rtol=rtol, atol=atol)
+    for br in (16, 32, 64, 128):
+        if M % br == 0:
+            other = cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, br=br)
+            assert torch.equal(got, other), br

@@ -13,6 +13,8 @@ params_from_jax exactly; the gelu at 1e-6.
 On the CPU the wrappers run the plain version; the kernels themselves are
 checked on the card by chip_smoke.py and tests/test_torch_cuda.py."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,6 +160,56 @@ def test_resident_panel_fits_on_hopper(d_in, block_m, dtype_bytes, k, fits):
 def test_block_rows():
     assert [cuda_bsmm.block_rows(b) for b in (16, 32, 48, 64, 96, 128, 256)] == \
         [16, 32, 16, 64, 32, 128, 128]
+
+
+@pytest.mark.parametrize("M,nbc,sms,br", [
+    (8192, 32, 132, 128),   # matmul 2 at full width: the block_m-128 grid at any block_m
+    (8192, 128, 132, 128),  # matmul 1 at full width
+    (256, 32, 132, 32),     # run (iv)'s matmul 2: 8 x 32 blocks
+    (256, 128, 132, 128),
+    (208, 128, 132, 16),    # 208 = 13 x 16: no wider tile divides it
+    (64, 1, 132, 16),       # too few blocks at any tile
+])
+def test_row_tile(M, nbc, sms, br):
+    assert cuda_bsmm.row_tile(M, nbc, sms) == br
+
+
+@pytest.mark.parametrize("M,nbc,col_chunk,col_blocks", [
+    (8192, 128, 128, 1),   # matmul 1 at full width: 512 panels, each block sweeps every column
+    (256, 128, 8, 16),     # run (iv): 16 panels, 16 chunks of 8 columns
+    (2048, 5, 2, 3),       # 128 panels: uneven chunks of 2, 2 and 1 columns
+    (16, 6, 1, 6),         # one panel: one column a block
+])
+def test_resident_column_chunks(M, nbc, col_chunk, col_blocks):
+    """Kernel 4 splits the columns only as far as about 2 blocks per SM need."""
+    g = cuda_bsmm.launch_geometry(M, nbc, 16, True, sms=132)
+    assert (g.br, g.panels, g.col_chunk, g.col_blocks) == (16, M // 16, col_chunk, col_blocks)
+
+
+def test_launch_geometry_at_full_width():
+    cfg = ffn.BlockSparseFFNConfig()
+    geo = functools.partial(cuda_bsmm.launch_geometry, sms=132)
+    for block_m in (16, 128):  # kernel 3: the row tile does not follow block_m
+        assert geo(8192, cfg.nb_ff, block_m, False) == cuda_bsmm.Geometry(128, 64, 1, 128)
+        assert geo(8192, cfg.nb_model, block_m, False) == cuda_bsmm.Geometry(128, 64, 1, 32)
+    # kernel 4 at block_m 16: 512 panels of 16 rows, every block sweeps all 128 columns
+    assert geo(8192, cfg.nb_ff, 16, True) == cuda_bsmm.Geometry(16, 512, 128, 1)
+    # run (iv), M = 256: 16 panels, 16 chunks of 8 columns; matmul 2 in 32-row blocks
+    assert geo(256, cfg.nb_ff, 16, True) == cuda_bsmm.Geometry(16, 16, 8, 16)
+    assert geo(256, cfg.nb_model, 16, False) == cuda_bsmm.Geometry(32, 8, 1, 32)
+
+
+@pytest.mark.parametrize("M", [16, 32, 64, 128, 208, 256, 1024, 8192])
+@pytest.mark.parametrize("nbc", [1, 5, 32, 128])
+@pytest.mark.parametrize("resident", [False, True], ids=["stream", "resident"])
+def test_launch_geometry_covers_the_output(M, nbc, resident):
+    g = cuda_bsmm.launch_geometry(M, nbc, 16, resident, sms=132)
+    assert g.br in (16, 32, 64, 128) and g.panels * g.br == M
+    assert (g.col_blocks - 1) * g.col_chunk < nbc <= g.col_blocks * g.col_chunk
+    if resident:  # the panel is block_m's
+        assert g.br == 16
+    else:
+        assert g.col_chunk == 1
 
 
 def test_full_width_config_matches_jax():
