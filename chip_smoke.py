@@ -11,9 +11,13 @@ the script exits non-zero without printing a result:
   3. kernel  -- each kernel against its plain PyTorch version on the card,
                exact equality: kernel 1 in both variants (EDGE values,
                sentinel padding, an empty round, stacked rounds, hub
-               fanouts; k in 1, 2, 4, 8, 32, 64) and the limb kernel on the
-               same shapes at 10x10 limbs on EDGE values, 3x3 and 1x1 limbs
-               on values below 2^16, plus a P*k > 2^17 round that must raise;
+               fanouts; k in 1, 2, 4, 8, 32, 64; then rounds heavy with
+               sentinel slots at k in 1..128 and P up to 384: all-pad keys,
+               one-sided sentinels, sentinels between real slots, a last
+               tile that is not zero, K = 0 and P = 0) and the limb kernel
+               on the same shapes at 10x10 limbs on EDGE values, 3x3 and
+               1x1 limbs on values below 2^16, plus a P*k > 2^17 round that
+               must raise;
                the two bsmm kernels against bsmm_ref in float32 and bfloat16
                (k in 16, 32, 128, a ragged W2 fan-in with pad tiles, gelu
                fused and not), equal to each other and across block_m and
@@ -30,6 +34,8 @@ the script exits non-zero without printing a result:
                a fixed seed: the exact path once with the launch counts zeroed
                before and read after, then timed runs of the kernel and of
                the plain version on the card, whose results must be equal;
+               the share of real pairs among the rounds' pair slots, kernel
+               1's registers and spills (ptxas) and its blocks per SM;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -187,6 +193,31 @@ def _round_case(rng, k: int, n_tiles: int, K: int, P: int, stack: int = 0,
             torch.from_numpy(pb).to(dev))
 
 
+def _sentinel_round(rng, k: int, K: int, P: int, pattern: str, n_tiles: int = 30):
+    """A round whose sentinel slots are laid out by `pattern`: "pad_keys"
+    (every third key all sentinel), "one_sided" (pa or pb alone a sentinel),
+    "between" (both, between real slots), "dirty" (the same with a last
+    tile that is not zero, which kernel 1 must skip as its plain version
+    does)."""
+    a, b, pa, pb = _round_case(rng, k, n_tiles, K, P)
+    pa = torch.from_numpy(rng.integers(0, n_tiles, size=(K, P)).astype(np.int32)).to(DEVICE)
+    pb = torch.from_numpy(rng.integers(0, n_tiles, size=(K, P)).astype(np.int32)).to(DEVICE)
+    hole = torch.from_numpy(rng.random((K, P)) < 0.4).to(DEVICE)
+    if pattern == "pad_keys":
+        pa[::3] = n_tiles
+        pb[::3] = n_tiles
+    elif pattern == "one_sided":
+        pa[hole] = n_tiles
+        pb[~hole & torch.from_numpy(rng.random((K, P)) < 0.4).to(DEVICE)] = n_tiles
+    else:
+        pa[hole] = n_tiles
+        pb[hole] = n_tiles
+    if pattern == "dirty":
+        a[-1] = a[0]
+        b[-1] = b[1]
+    return a, b, pa, pb
+
+
 def _check_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> int:
     """torch.equal or raise; returns the max abs error (0)."""
     torch.cuda.synchronize()
@@ -225,6 +256,20 @@ def phase_kernel(rng) -> dict:
             want = mxu_spgemm.numeric_round_mxu_ref(*args, a_limbs=limbs, b_limbs=limbs)
             worst["mxu"] = max(worst["mxu"], _check_equal(
                 f"numeric_round_mxu {limbs}x{limbs} k={k} K={K} P={P}", got, want))
+    # kernel 1 on rounds heavy with sentinel slots, both variants
+    sentinel = [(k, K, P, pattern) for k, K, P in ((1, 300, 9), (2, 300, 9), (4, 300, 9),
+                                                   (8, 300, 9), (16, 60, 7), (32, 40, 8),
+                                                   (64, 8, 5), (128, 3, 4))
+                for pattern in ("pad_keys", "one_sided", "dirty")]
+    sentinel += [(32, 4, 384, "between"), (8, 20, 384, "one_sided"), (16, 0, 4, "between"),
+                 (16, 3, 0, "between")]
+    for k, K, P, pattern in sentinel:
+        args = _sentinel_round(rng, k, K, P, pattern)
+        for name, no_mod in (("mod", False), ("no_mod", True)):
+            got = cuda_spgemm.numeric_round(*args, no_mod=no_mod)
+            want = cuda_spgemm.numeric_round_ref(*args, no_mod=no_mod)
+            worst[name] = max(worst[name], _check_equal(
+                f"numeric_round {name} k={k} K={K} P={P} {pattern}", got, want))
     args = _round_case(rng, 32, 20, 3, 4097, 0, small=True)  # P*k > 2^17
     for fn in (cuda_mxu.numeric_round_mxu, mxu_spgemm.numeric_round_mxu_ref):
         try:
@@ -235,7 +280,10 @@ def phase_kernel(rng) -> dict:
     _phase("kernel", t0, f"numeric_round (mod, no_mod) and numeric_round_mxu (10x10 "
            f"EDGE, 3x3 and 1x1 below 2^16) == plain versions on {len(cases)} + "
            f"{len(small)} rounds (k in 1..64, stacked, empty, hub P*k<=2^17); "
-           f"P*k > 2^17 raises; max_abs_err {worst}")
+           f"numeric_round (mod, no_mod) == plain version on {len(sentinel)} rounds heavy "
+           f"with sentinel slots (k in 1..128, P up to 384; all-pad keys, one-sided, between "
+           f"real slots, a last tile not zero, K = 0, P = 0); P*k > 2^17 raises; "
+           f"max_abs_err {worst}")
     worst.update(_bsmm_cases(rng))
     return worst
 
@@ -421,14 +469,16 @@ def phase_cli(rng) -> None:
 
 class TimedFold:
     """A numeric-round function wrapped in CUDA events, counting the work
-    the run's data needs: real tile pairs, their u64 MACs, their int8 limb
-    MACs (a_limbs * b_limbs per u64 MAC, for the limb kernel) and bytes
-    (each referenced tile, index and output element once)."""
+    the run's data needs: pair slots, real tile pairs (neither index the
+    sentinel), their u64 MACs, their int8 limb MACs (a_limbs * b_limbs per
+    u64 MAC, for the limb kernel) and bytes (each referenced tile, index and
+    output element once)."""
 
     def __init__(self, fn):
         self.fn = fn
         self.events = []
         self.pairs = 0
+        self.slots = 0
         self.macs = 0
         self.limb_macs = 0
         self.bytes = 0
@@ -436,8 +486,9 @@ class TimedFold:
     def __call__(self, a, b, pa, pb, **kw):
         k = a.shape[-1]
         tile = k * k * 8
-        real = int((pa != a.shape[0] - 1).sum())
+        real = int(((pa != a.shape[0] - 1) & (pb != b.shape[0] - 1)).sum())
         self.pairs += real
+        self.slots += pa.numel()
         self.macs += real * k ** 3
         self.limb_macs += real * k ** 3 * kw.get("a_limbs", 1) * kw.get("b_limbs", 1)
         self.bytes += (len(torch.unique(pa)) + len(torch.unique(pb))) * tile \
@@ -497,6 +548,24 @@ def _plan_chain_s(mats) -> float:
             nxt.append(SimpleNamespace(k=p.k, nnzb=p.join.num_keys, coords=p.join.keys))
         arr = nxt + arr[len(nxt) * 2:]
     return time.perf_counter() - t0
+
+
+def _kernel1_build_report() -> dict:
+    """Registers and spill bytes of kernel 1's two instances, from the
+    ptxas report _build keeps beside the library."""
+    log = _build.build("numeric_round").with_suffix(".log").read_text()
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        m = re.search(r"numeric_round_kernelILb([01])E", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        if m and regs and spill:
+            out["no_mod" if m.group(1) == "1" else "mod"] = {
+                "registers": int(regs.group(1)), "spill_stores": int(spill.group(1)),
+                "spill_loads": int(spill.group(2))}
+    if set(out) != {"mod", "no_mod"}:
+        raise RuntimeError(f"no ptxas report for both numeric_round_kernel instances: {out}")
+    return out
 
 
 def _zero_counts() -> None:
@@ -620,6 +689,12 @@ def phase_medium() -> dict:
            f"{kern.macs / 1e9:.3f} G MACs -> integer bound {ops_ms:.3f} ms, "
            f"{kern.bytes / 1e9:.3f} GB -> bytes bound {bytes_ms:.3f} ms; "
            f"kernel at {bound_ms / kern_ms * 100:.1f}% of bound")
+    ptxas = _kernel1_build_report()
+    geometry = {name: cuda_spgemm.geometry(cfg["k"], no_mod=no_mod)
+                for name, no_mod in (("mod", False), ("no_mod", True))}
+    print(f"[medium] kernel 1: {kern.pairs} real pairs in {kern.slots} pair slots "
+          f"({kern.pairs / kern.slots * 100:.2f}% real; sentinel slots skipped); ptxas "
+          f"(registers, spill bytes) {ptxas}; at k={cfg['k']}: {geometry}", flush=True)
     return {"name": "numeric_round", "route": "cuda",
             "source": "spgemm_tpu_torch/csrc/numeric_round.cu",
             "replaces": "spgemm_tpu/ops/pallas_spgemm.py:188",
@@ -627,7 +702,8 @@ def phase_medium() -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "equal": True, "variant": "mod",
             "ms_runs": runs_ms, "chain_wall_s": wall, "plan_s": t_plan, "macs": kern.macs,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "pairs": kern.pairs, "slots": kern.slots, "ptxas": ptxas,
+            "geometry": geometry}
 
 
 def _same(x: DeviceBlockMatrix, y: DeviceBlockMatrix) -> bool:
@@ -1090,6 +1166,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     no_mod_row, mxu_row = phase_medium_small()
     no_mod_row["max_abs_err"] = max(no_mod_row["max_abs_err"], kernel_err["no_mod"])
+    no_mod_row["ptxas"] = row["ptxas"]["no_mod"]
+    no_mod_row["geometry"] = row["geometry"]["no_mod"]
     mxu_row["max_abs_err"] = max(mxu_row["max_abs_err"], kernel_err["mxu"])
     torch.cuda.empty_cache()
     ffn_rows = phase_ffn()

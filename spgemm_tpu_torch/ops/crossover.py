@@ -15,6 +15,15 @@ Any other value of SPGEMM_TPU_HYBRID_GATE raises.  The cache is a JSON file,
 (default ~/.cache/spgemm_tpu_torch).  A measurement that fails raises: it
 does not route to either kernel by default.  Timing inputs are random slabs,
 since both kernels take the same time whatever the values.
+
+The measurement's rounds are pad-free: every slot of its (K, P) indices is a
+real pair.  The planner's rounds carry sentinel slots (the pair axis and the
+key axis pad to the shape ladder), which kernel 1 skips and the limb kernel
+still folds, so on a padded round kernel 1 is faster than the measurement
+says and the gate may pick the limb kernel where kernel 1 would win.  Both
+give the same bits.  The key's version names the kernel 1 that was timed:
+v2 is the design that skips sentinel slots, so a cache written for the
+earlier kernel is not read.
 """
 
 from __future__ import annotations
@@ -58,11 +67,11 @@ def cache_path() -> str:
 
 
 def cache_key(device, a_limbs: int, b_limbs: int, k: int, K: int, P: int) -> str:
-    """The cache key of one measurement: the card's name, the limb counts,
-    k, the key class and P."""
+    """The cache key of one measurement: the version of the timed kernels,
+    the card's name, the limb counts, k, the key class and P."""
     dev = torch.device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    return f"v1:{name}:l{a_limbs}x{b_limbs}:k{k}:K{K}:P{P}"
+    return f"v2:{name}:l{a_limbs}x{b_limbs}:k{k}:K{K}:P{P}"
 
 
 def _load() -> dict:

@@ -4,23 +4,31 @@ Hopper (csrc/numeric_round.cu) and its plain PyTorch version.
 Replaces the TPU kernel spgemm_tpu/ops/pallas_spgemm.py:numeric_round_pallas,
 both its variants.  Contract, for each output key and element (i, n):
 
-    acc = 0; for p in 0..P-1, then j in 0..k-1:
+    acc = 0; for p in 0..P-1, skipping sentinel slots, then j in 0..k-1:
         acc = addmod(acc, mulmod(A[pa[key, p]][i, j], B[pb[key, p]][j, n]))
 
 with the wrap-then-mod steps of SURVEY.md section 2.9, in exactly this order
 (addmod is not associative).  Slabs are (n, k, k) int64 bit-views with an
-all-zero sentinel tile last; sentinel pairs add exactly 0.  The no_mod
-variant folds acc = acc + A*B in plain wrapping u64 arithmetic: it equals the
-mod fold only under the hybrid router's proof (ops/mxu_spgemm.
+all-zero sentinel tile last.  A slot whose pa is a_slab's last index or whose
+pb is b_slab's last index is a sentinel slot: the kernel and the plain
+version skip it, which on the planner's slabs (sentinel tile zero) is
+exactly folding it, since acc is canonical and addmod(acc, 0) == acc.  The
+no_mod variant folds acc = acc + A*B in plain wrapping u64 arithmetic: it
+equals the mod fold only under the hybrid router's proof (ops/mxu_spgemm.
 safe_exact_bound), which is where the router runs it.
 
 The mod kernel is bound by the integer issue rate, not by bytes: each MAC is
 9 instructions on the integer pipe (compares, selects, the add's low half)
 beside the multiply's IMADs on the FMA pipe.  The no_mod kernel drops the
-compares and selects, which leaves the FMA pipe as its bound.  Its design is the simple one: one block
-per output key, threads over the tile's elements, the current tile pair
-staged through shared memory.  Left for a later PR: prefetching the next
-pair with cp.async or TMA, and several keys per block for small k.
+compares and selects, which leaves the FMA pipe as its bound.  Its design:
+a group of threads per key walks the key's real pairs only (a pad key just
+writes zeros); each thread owns a register micro-tile of the output (2x4
+for mod, 4x2 for no_mod), so it has that many independent chains and loads
+a row and a column of values per j; the next pair is staged into a second
+shared-memory buffer with cp.async while the current one folds.  Small k
+packs several keys into a block, large k makes several passes.  geometry()
+reports the launch shape and the blocks per SM the card reaches.  Left for a
+later PR: TMA, and a shorter instruction sequence per MAC.
 """
 
 from __future__ import annotations
@@ -70,18 +78,23 @@ def numeric_round_ref(a_slab: torch.Tensor, b_slab: torch.Tensor,
     """The plain PyTorch version of the kernel, on any device.
 
     Loops over pair slots p, then j; each step gathers one (K, k, k) tile
-    per operand, so memory stays O(K * k^2).  A stacked (R, K, P) pa/pb
-    returns (R, K, k, k)."""
+    per operand, so memory stays O(K * k^2).  A slot whose pa is the last
+    tile of a_slab or whose pb is the last tile of b_slab (the sentinels)
+    leaves its keys' accumulators as they were, as the kernel skips it.  A
+    stacked (R, K, P) pa/pb returns (R, K, k, k)."""
     k = check_operands(a_slab, b_slab, pa, pb)
     step = u64.mac_nomod if no_mod else u64.mac
-    lead = pa.shape[:-1]
-    pa2, pb2 = pa.reshape(-1, pa.shape[-1]), pb.reshape(-1, pb.shape[-1])
+    lead, P = pa.shape[:-1], pa.shape[-1]
+    pa2, pb2 = pa.reshape(math.prod(lead), P), pb.reshape(math.prod(lead), P)
+    real = (pa2 != a_slab.shape[0] - 1) & (pb2 != b_slab.shape[0] - 1)
     acc = torch.zeros((pa2.shape[0], k, k), dtype=torch.int64, device=a_slab.device)
-    for p in range(pa2.shape[1]):
+    for p in range(P):
         at = a_slab.index_select(0, pa2[:, p])
         bt = b_slab.index_select(0, pb2[:, p])
+        folded = acc
         for j in range(k):
-            acc = step(acc, at[:, :, j : j + 1], bt[:, j : j + 1, :])
+            folded = step(folded, at[:, :, j : j + 1], bt[:, j : j + 1, :])
+        acc = torch.where(real[:, p, None, None], folded, acc)
     return acc.reshape(*lead, k, k)
 
 
@@ -93,10 +106,12 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
     variant that is exact only under the hybrid router's proof.
 
     On CUDA tensors it launches the kernel on the current stream or
-    raises; on CPU tensors it runs numeric_round_ref.  Every index must lie
-    in the slab it indexes (the planner builds them so, and
-    SpgemmPlan.check_operands ties a plan to its operands); the kernel does
-    not check them, since a device-side check would synchronise each launch."""
+    raises; on CPU tensors it runs numeric_round_ref.  Sentinel slots (an
+    index equal to its slab's last) are skipped, see the module docstring.
+    Every index must lie in the slab it indexes (the planner builds them so,
+    and SpgemmPlan.check_operands ties a plan to its operands); the kernel
+    does not check them, since a device-side check would synchronise each
+    launch."""
     global launches, launches_no_mod
     k = check_operands(a_slab, b_slab, pa, pb)
     if a_slab.device.type == "cpu":
@@ -113,12 +128,14 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
         return out
     lib = _build.load(_KERNEL)
     fn = lib.spgemm_numeric_round_nomod if no_mod else lib.spgemm_numeric_round
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(a_slab.device).cuda_stream
+    # the sentinels: the planner's padding target, the last tile of each slab
     err = fn(a_slab.data_ptr(), b_slab.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-             out.data_ptr(), K, P, k, a_slab.device.index, stream)
+             out.data_ptr(), K, P, k, a_slab.shape[0] - 1, b_slab.shape[0] - 1,
+             a_slab.device.index, stream)
     if err != 0:
         raise RuntimeError(f"numeric_round kernel launch failed: CUDA error {err} "
                            f"(K={K}, P={P}, k={k}, no_mod={no_mod})")
@@ -127,3 +144,22 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
     else:
         launches += 1
     return out
+
+
+def geometry(k: int, no_mod: bool = False, device=None) -> dict:
+    """The kernel's launch shape at k on a card: threads and keys per block,
+    dynamic shared memory per block (bytes) and the blocks per SM that
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel's geometry needs a CUDA device, got {dev}")
+    fn = _build.load(_KERNEL).spgemm_numeric_round_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = fn(k, int(no_mod), index, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"numeric_round geometry query failed: CUDA error {err} (k={k})")
+    return {"threads": info[0], "keys_per_block": info[1], "smem_bytes": info[2],
+            "blocks_per_sm": info[3]}

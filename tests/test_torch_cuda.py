@@ -78,6 +78,75 @@ def test_no_mod_kernel_matches_plain_version(cuda, k, lead, P):
     assert cuda_spgemm.launches_no_mod == before + (1 if np.prod(lead) else 0)
 
 
+def _sentinel_case(rng, k, K, P, n_tiles, pattern, device, dist):
+    """A round whose sentinel slots are laid out by `pattern`: "pad_keys"
+    (every third key all sentinel), "one_sided" (pa or pb alone a sentinel),
+    "between" (both, between real slots), "dirty" (the same with a last tile
+    that is not zero: the kernel must skip it as the plain version does)."""
+    a, b, pa, pb = _case(rng, k, (K,), P, n_tiles, "cpu", dist)
+    pa, pb = pa.numpy(), pb.numpy()
+    pa[:] = rng.integers(0, n_tiles, size=pa.shape)
+    pb[:] = rng.integers(0, n_tiles, size=pb.shape)
+    hole = rng.random(pa.shape) < 0.4
+    if pattern == "pad_keys":
+        pa[::3] = n_tiles
+        pb[::3] = n_tiles
+    elif pattern == "one_sided":
+        pa[hole] = n_tiles
+        pb[(~hole) & (rng.random(pa.shape) < 0.4)] = n_tiles
+    else:
+        pa[hole] = n_tiles
+        pb[hole] = n_tiles
+    if pattern == "dirty":
+        a[-1] = a[0]
+        b[-1] = b[1]
+    return [t.to(device) for t in (a, b, torch.from_numpy(pa), torch.from_numpy(pb))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("no_mod", [False, True], ids=["mod", "no_mod"])
+@pytest.mark.parametrize("pattern", ["pad_keys", "one_sided", "between", "dirty"])
+@pytest.mark.parametrize("k,K,P", [(1, 300, 9), (2, 200, 7), (4, 90, 6), (8, 70, 5),
+                                   (16, 40, 5), (32, 30, 6), (64, 6, 4), (128, 3, 3),
+                                   (32, 3, 384), (33, 5, 4)])
+def test_kernel_skips_sentinel_slots(cuda, no_mod, pattern, k, K, P):
+    rng = np.random.default_rng(k * 1000 + P + len(pattern))
+    args = _sentinel_case(rng, k, K, P, 20, pattern, cuda,
+                          "small" if no_mod else "adversarial")
+    got = cuda_spgemm.numeric_round(*args, no_mod=no_mod)
+    want = cuda_spgemm.numeric_round_ref(*args, no_mod=no_mod)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("no_mod", [False, True], ids=["mod", "no_mod"])
+def test_kernel_on_a_hub_round_and_empty_rounds(cuda, no_mod):
+    """Two keys of 4500 real pairs each at k = 32, then K = 0 and P = 0."""
+    rng = np.random.default_rng(5)
+    dist = "small" if no_mod else "adversarial"
+    args = _case(rng, 32, (2,), 4500, 300, cuda, dist)
+    args[2][:] = torch.arange(4500, device=cuda, dtype=torch.int32) % 300
+    args[3][:] = torch.arange(4500, device=cuda, dtype=torch.int32).flip(0) % 300
+    got = cuda_spgemm.numeric_round(*args, no_mod=no_mod)
+    assert torch.equal(got, cuda_spgemm.numeric_round_ref(*args, no_mod=no_mod))
+    for lead, P in (((0,), 4), ((3,), 0)):
+        args = _case(rng, 16, lead, P, 5, cuda, dist)
+        got = cuda_spgemm.numeric_round(*args, no_mod=no_mod)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_spgemm.numeric_round_ref(*args, no_mod=no_mod))
+        assert tuple(got.shape) == (*lead, 16, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("no_mod", [False, True], ids=["mod", "no_mod"])
+def test_kernel_geometry_at_k32(cuda, no_mod):
+    """At k = 32 the design keeps at least four keys on each SM."""
+    g = cuda_spgemm.geometry(32, no_mod=no_mod, device=cuda)
+    assert g["blocks_per_sm"] * g["keys_per_block"] >= 4
+    assert g["threads"] <= 256 and g["smem_bytes"] <= 48 * 1024
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,lead,P,limbs,dist", [
     (1, (37,), 5, 10, "adversarial"), (8, (3, 9), 3, 10, "adversarial"),

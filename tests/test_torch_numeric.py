@@ -120,3 +120,111 @@ def test_from_hilo_rejects_nonzero_sentinel():
     hi = np.ones((2, 2, 2), np.uint32)
     with pytest.raises(ValueError, match="sentinel"):
         DeviceBlockMatrix.from_hilo(2, 2, 2, [[0, 0]], hi, hi, "cpu")
+
+
+# Rounds heavy with sentinel slots.  The kernel and its plain version skip a
+# slot whose pa or pb is the slab's last index; the JAX kernels fold it
+# against the all-zero sentinel tile.  Both give the same bits, because the
+# accumulator is canonical and adding 0 leaves it as it was.
+SENTINEL_PATTERNS = ["pad_keys", "pa_sentinel", "pb_sentinel", "between", "stacked",
+                     "edge_then_pad"]
+
+
+def _sentinel_case(pattern, k, seed, n_tiles=9, P=6):
+    """Slabs as (hi, lo) planes and (…, P) indices with sentinel slots laid
+    out by `pattern`."""
+    rng = np.random.default_rng(seed)
+    a_hi, a_lo = _slab_planes(rng, n_tiles, k)
+    b_hi, b_lo = _slab_planes(rng, n_tiles, k)
+    lead = (3, 4) if pattern == "stacked" else (8,)
+    pa = rng.integers(0, n_tiles, size=(*lead, P)).astype(np.int32)
+    pb = rng.integers(0, n_tiles, size=(*lead, P)).astype(np.int32)
+    s = n_tiles  # the sentinel index of both slabs
+    if pattern == "pad_keys":       # whole pad keys between real ones
+        pa[1::2] = s
+        pb[1::2] = s
+    elif pattern == "pa_sentinel":  # pa sentinel, pb a real tile
+        pa[:, 1::2] = s
+    elif pattern == "pb_sentinel":  # pb sentinel, pa a real tile
+        pb[:, ::2] = s
+    elif pattern in ("between", "stacked"):  # both, scattered between real slots
+        hole = rng.random(pa.shape) < 0.4
+        pa[hole] = s
+        pb[hole] = s
+        pa[..., 0, :] = s  # and one whole pad key
+        pb[..., 0, :] = s
+    elif pattern == "edge_then_pad":
+        # tile 0 of A: column 0 is 2^64 - 2, the rest 0; tile 1 of B: row 0
+        # is 1.  Slot 0 takes every acc to 2^64 - 2, pad slots follow, and
+        # the last slot adds 1: 2^64 - 1 collapses to 0 under mod.
+        a = jax_u64.hilo_to_u64(a_hi, a_lo)
+        b = jax_u64.hilo_to_u64(b_hi, b_lo)
+        a[0] = 0
+        a[0, :, 0] = MAX - 1
+        a[1] = 0
+        a[1, :, 0] = 1
+        b[1] = 0
+        b[1, 0, :] = 1
+        a_hi, a_lo = jax_u64.u64_to_hilo(a)
+        b_hi, b_lo = jax_u64.u64_to_hilo(b)
+        pa[:] = s
+        pb[:] = s
+        pa[:, 0], pb[:, 0] = 0, 1
+        pa[:, -1], pb[:, -1] = 1, 1
+        pa[1::2, 2] = 0  # one-sided sentinels among the pads
+        pb[::2, 3] = 1
+    port = (_port_slab(a_hi, a_lo, k), _port_slab(b_hi, b_lo, k),
+            torch.from_numpy(pa), torch.from_numpy(pb))
+    jax_args = tuple(map(jnp.asarray, (a_hi, a_lo, b_hi, b_lo, pa, pb)))
+    return port, jax_args
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("pattern", SENTINEL_PATTERNS)
+def test_ref_skips_sentinel_slots_like_pallas_and_xla(pattern, k):
+    port, jax_args = _sentinel_case(pattern, k, seed=len(pattern) * 10 + k)
+    got = u64.t_to_u64(cuda_spgemm.numeric_round_ref(*port))
+    pallas = jax_u64.hilo_to_u64(*numeric_round_pallas(*jax_args, interpret=True))
+    xla = jax_u64.hilo_to_u64(*numeric_round_impl(*jax_args))
+    assert np.array_equal(got, pallas)
+    assert np.array_equal(got, xla)
+    if pattern == "edge_then_pad":
+        assert np.all(got == 0)  # 2^64 - 2, pads, then + 1 collapses
+
+
+@pytest.mark.parametrize("pattern", SENTINEL_PATTERNS)
+def test_ref_no_mod_skips_sentinel_slots_like_pallas(pattern):
+    """The no_mod fold on values below 2^16 (the proof holds) against the
+    Pallas kernel's no_mod variant and the mod fold."""
+    port, jax_args = _sentinel_case(pattern, 2, seed=len(pattern) + 7)
+    small = tuple(t & 0xFFFF for t in port[:2]) + port[2:]
+    hi, lo = (jax_args[0] * 0, jax_args[1] & 0xFFFF), (jax_args[2] * 0, jax_args[3] & 0xFFFF)
+    got = u64.t_to_u64(cuda_spgemm.numeric_round_ref(*small, no_mod=True))
+    pallas = jax_u64.hilo_to_u64(*numeric_round_pallas(*hi, *lo, *jax_args[4:], interpret=True,
+                                                       no_mod=True))
+    assert np.array_equal(got, pallas)
+    assert np.array_equal(got, u64.t_to_u64(cuda_spgemm.numeric_round_ref(*small)))
+
+
+@pytest.mark.parametrize("no_mod", [False, True], ids=["mod", "no_mod"])
+@pytest.mark.parametrize("pattern", ["pa_sentinel", "pb_sentinel", "between"])
+def test_ref_skips_sentinel_slots_of_a_nonzero_last_tile(pattern, no_mod):
+    """The contract keeps the sentinel tile zero; where it is not, the plain
+    version (like the kernel) still skips sentinel slots, one-sided ones
+    included: it equals the JAX kernel on the same slabs with the last tile
+    zeroed."""
+    port, jax_args = _sentinel_case(pattern, 4, seed=31)
+    a, b, pa, pb = port
+    dirty = [t.clone() for t in (a, b)]
+    for t in dirty:
+        t[-1] = torch.arange(1, 17, dtype=torch.int64).reshape(4, 4) * 0x1000193
+    if no_mod:
+        dirty = [t & 0xFFFF for t in dirty]
+        jax_args = (jax_args[0] * 0, jax_args[1] & 0xFFFF, jax_args[2] * 0,
+                    jax_args[3] & 0xFFFF, *jax_args[4:])
+    got = u64.t_to_u64(cuda_spgemm.numeric_round_ref(*dirty, pa, pb, no_mod=no_mod))
+    want = jax_u64.hilo_to_u64(*numeric_round_pallas(*jax_args, interpret=True, no_mod=no_mod))
+    assert np.array_equal(got, want)
+    # the wrapper on the CPU is the plain version
+    assert np.array_equal(u64.t_to_u64(cuda_spgemm.numeric_round(*dirty, pa, pb, no_mod=no_mod)),
+                          got)
