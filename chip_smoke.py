@@ -16,8 +16,13 @@ the script exits non-zero without printing a result:
                one-sided sentinels, sentinels between real slots, a last
                tile that is not zero, K = 0 and P = 0) and the limb kernel
                on the same shapes at 10x10 limbs on EDGE values, 3x3 and
-               1x1 limbs on values below 2^16, plus a P*k > 2^17 round that
-               must raise;
+               1x1 limbs on values below 2^16, on the same sentinel-heavy
+               rounds at 10x10, over the limb grid (a_limbs 1..10 against
+               b_limbs 1, 5, 10 and the mirror, k 1, 8, 32, values at the top
+               of each range), at P*k = 2^17 with nearly all bytes 255 (the
+               fragments' flush), at ragged k (3, 31, 33, 64, 128) and on
+               slabs 8 bytes off a 16-byte boundary, plus a P*k > 2^17 round
+               that must raise;
                the two bsmm kernels against bsmm_ref in float32 and bfloat16
                (k in 16, 32, 128, a ragged W2 fan-in with pad tiles, gelu
                fused and not), equal to each other and across block_m and
@@ -35,7 +40,8 @@ the script exits non-zero without printing a result:
                before and read after, then timed runs of the kernel and of
                the plain version on the card, whose results must be equal;
                the share of real pairs among the rounds' pair slots, kernel
-               1's registers and spills (ptxas) and its blocks per SM;
+               1's registers and spills (ptxas) and its blocks per SM, and
+               kernel 2's at 8x8 and 3x3 byte limbs;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -44,7 +50,9 @@ the script exits non-zero without printing a result:
                limb kernel's plain version; (e) a hub multiply whose proven
                round is too deep for the limb kernel, on the no_mod fold.
                Each run is a main path with the counts zeroed before and read
-               after.  Then the three kernels timed on the same level-1
+               after.  Kernel 2's bound counts byte-limb MACs (bytes_for_limbs7
+               of each operand's limbs per u64 MAC); the 7-bit count is printed
+               beside it.  Then the three kernels timed on the same level-1
                rounds, the numbers the speed gate weighs;
   7. ffn     -- the block-sparse FFN forward at full width
                (BlockSparseFFNConfig(), x (8, 1024, 4096) bf16, weights from
@@ -270,6 +278,7 @@ def phase_kernel(rng) -> dict:
             want = cuda_spgemm.numeric_round_ref(*args, no_mod=no_mod)
             worst[name] = max(worst[name], _check_equal(
                 f"numeric_round {name} k={k} K={K} P={P} {pattern}", got, want))
+    worst["mxu"] = max(worst["mxu"], _mxu_cases(rng, sentinel))
     args = _round_case(rng, 32, 20, 3, 4097, 0, small=True)  # P*k > 2^17
     for fn in (cuda_mxu.numeric_round_mxu, mxu_spgemm.numeric_round_mxu_ref):
         try:
@@ -285,6 +294,78 @@ def phase_kernel(rng) -> dict:
            f"real slots, a last tile not zero, K = 0, P = 0); P*k > 2^17 raises; "
            f"max_abs_err {worst}")
     worst.update(_bsmm_cases(rng))
+    return worst
+
+
+def _range_tiles(rng, n_tiles: int, k: int, n_limbs: int) -> np.ndarray:
+    """(n_tiles + 1, k, k) uint64 below 2^(7 * n_limbs), sentinel zero tile
+    last: a third the range's top, a third EDGE values in range, a third
+    uniform in range."""
+    top = min(MAX, (1 << (7 * n_limbs)) - 1)
+    shape = (n_tiles + 1, k, k)
+    edge = np.array([e for e in EDGE if e <= top], np.uint64)
+    pick = rng.integers(0, 3, size=shape)
+    tiles = np.where(pick == 0, np.uint64(top), edge[rng.integers(0, len(edge), size=shape)])
+    tiles = np.where(pick == 2, rng.integers(0, top, size=shape, dtype=np.uint64,
+                                             endpoint=True), tiles)
+    tiles[-1] = 0
+    return tiles
+
+
+def _on_card(*arrays) -> list[torch.Tensor]:
+    return [torch.from_numpy(x.view(np.int64) if x.dtype == np.uint64 else x).to(DEVICE)
+            for x in arrays]
+
+
+def _mxu_cases(rng, sentinel: list) -> int:
+    """Kernel 2 against its plain version on the rounds that stress the
+    byte-limb design; returns the max abs error (0)."""
+    t0 = time.perf_counter()
+    worst, n = 0, 0
+
+    def check(what, args, **limbs):
+        nonlocal worst, n
+        got = cuda_mxu.numeric_round_mxu(*args, **limbs)
+        want = mxu_spgemm.numeric_round_mxu_ref(*args, **limbs)
+        worst = max(worst, _check_equal(f"numeric_round_mxu {what} {limbs}", got, want))
+        n += 1
+
+    # kernel 1's sentinel-heavy rounds: all-pad keys, one-sided, between,
+    # a last tile that is not zero, K = 0, P = 0
+    for k, K, P, pattern in sentinel:
+        check(f"k={k} K={K} P={P} {pattern}", _sentinel_round(rng, k, K, P, pattern))
+    # every a_limbs against b_limbs 1, 5, 10 and the mirror, at the top of
+    # each limb count's range
+    grid = sorted({(a, b) for a in range(1, 11) for b in (1, 5, 10)}
+                  | {(a, b) for a in (1, 5, 10) for b in range(1, 11)})
+    for a_limbs, b_limbs in grid:
+        for k in (1, 8, 32):
+            n_tiles, K, P = 9, 11, 4
+            tiles = (_range_tiles(rng, n_tiles, k, a_limbs), _range_tiles(rng, n_tiles, k, b_limbs))
+            pairs = rng.integers(0, n_tiles + 1, size=(2, K, P)).astype(np.int32)  # sentinels too
+            check(f"limb grid k={k}", _on_card(*tiles, *pairs), a_limbs=a_limbs, b_limbs=b_limbs)
+    # P * k = 2^17 real pairs of values whose bytes are nearly all 255: the
+    # s32 fragments must fold before they overflow
+    for k in (32, 64):
+        n_tiles, P = 40, (1 << 17) // k
+        tiles = [MAX - rng.integers(0, 256, size=(n_tiles + 1, k, k), dtype=np.uint64)
+                 for _ in range(2)]
+        pairs = rng.integers(0, n_tiles, size=(2, 2, P)).astype(np.int32)
+        check(f"flush k={k} P={P} full range", _on_card(*tiles, *pairs))
+    # ragged k (odd k takes 8-byte copies) and slabs 8 bytes off a 16-byte
+    # boundary (8-byte copies at any k)
+    for k in (3, 31, 33, 64, 128):
+        a, b, pa, pb = _round_case(rng, k, 12, 6, 5)
+        check(f"ragged k={k}", (a, b, pa, pb))
+        a, b = [torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape) for x in (a, b)]
+        if a.data_ptr() % 16 != 8 or b.data_ptr() % 16 != 8:
+            raise RuntimeError("the unaligned slab case is aligned")
+        check(f"unaligned slabs k={k}", (a, b, pa, pb))
+    _phase("kernel", t0, f"numeric_round_mxu == plain version on {n} more rounds: "
+           f"{len(sentinel)} heavy with sentinel slots (10x10), {3 * len(grid)} over the limb "
+           f"grid (a_limbs 1..10 x b_limbs 1, 5, 10 and the mirror; k 1, 8, 32; the top of "
+           f"each range), P*k = 2^17 at k 32 and 64 with bytes nearly all 255, ragged k "
+           f"3, 31, 33, 64, 128 on aligned and unaligned slabs; max_abs_err {worst}")
     return worst
 
 
@@ -470,9 +551,11 @@ def phase_cli(rng) -> None:
 class TimedFold:
     """A numeric-round function wrapped in CUDA events, counting the work
     the run's data needs: pair slots, real tile pairs (neither index the
-    sentinel), their u64 MACs, their int8 limb MACs (a_limbs * b_limbs per
-    u64 MAC, for the limb kernel) and bytes (each referenced tile, index and
-    output element once)."""
+    sentinel), their u64 MACs, their int8 limb MACs for the limb kernel
+    (bytes_for_limbs7(a_limbs) * bytes_for_limbs7(b_limbs) byte products per
+    u64 MAC, the least int8 work for the function; limb7_macs counts the
+    a_limbs * b_limbs 7-bit products of the earlier design) and bytes (each
+    referenced tile, index and output element once)."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -481,6 +564,7 @@ class TimedFold:
         self.slots = 0
         self.macs = 0
         self.limb_macs = 0
+        self.limb7_macs = 0
         self.bytes = 0
 
     def __call__(self, a, b, pa, pb, **kw):
@@ -490,7 +574,11 @@ class TimedFold:
         self.pairs += real
         self.slots += pa.numel()
         self.macs += real * k ** 3
-        self.limb_macs += real * k ** 3 * kw.get("a_limbs", 1) * kw.get("b_limbs", 1)
+        a_limbs = kw.get("a_limbs", mxu_spgemm.N_LIMBS)
+        b_limbs = kw.get("b_limbs", mxu_spgemm.N_LIMBS)
+        self.limb_macs += real * k ** 3 * mxu_spgemm.bytes_for_limbs7(a_limbs) \
+            * mxu_spgemm.bytes_for_limbs7(b_limbs)
+        self.limb7_macs += real * k ** 3 * a_limbs * b_limbs
         self.bytes += (len(torch.unique(pa)) + len(torch.unique(pb))) * tile \
             + (pa.numel() + pb.numel()) * 4 + pa.numel() // pa.shape[-1] * tile
         start = torch.cuda.Event(enable_timing=True)
@@ -550,22 +638,29 @@ def _plan_chain_s(mats) -> float:
     return time.perf_counter() - t0
 
 
-def _kernel1_build_report() -> dict:
-    """Registers and spill bytes of kernel 1's two instances, from the
-    ptxas report _build keeps beside the library."""
-    log = _build.build("numeric_round").with_suffix(".log").read_text()
+def _ptxas_report() -> dict:
+    """Registers and spill bytes of kernel 1's two instances and of kernel
+    2's instances at 8x8 and 3x3 byte limbs (10 and 3 7-bit limbs), from
+    the ptxas reports _build keeps beside the libraries."""
     out = {}
-    for chunk in log.split("Compiling entry function")[1:]:
-        m = re.search(r"numeric_round_kernelILb([01])E", chunk)
-        regs = re.search(r"Used (\d+) registers", chunk)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
-        if m and regs and spill:
-            out["no_mod" if m.group(1) == "1" else "mod"] = {
-                "registers": int(regs.group(1)), "spill_stores": int(spill.group(1)),
-                "spill_loads": int(spill.group(2))}
-    if set(out) != {"mod", "no_mod"}:
-        raise RuntimeError(f"no ptxas report for both numeric_round_kernel instances: {out}")
-    return out
+    for lib, pattern, name in (
+            ("numeric_round", r"numeric_round_kernelILb([01])E",
+             lambda m: "no_mod" if m.group(1) == "1" else "mod"),
+            ("numeric_round_mxu", r"numeric_round_mxu_kernelILi(\d)ELi(\d)E",
+             lambda m: f"mxu {m.group(1)}x{m.group(2)}")):
+        log = _build.build(lib).with_suffix(".log").read_text()
+        for chunk in log.split("Compiling entry function")[1:]:
+            m = re.search(pattern, chunk)
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+            if m and regs and spill:
+                out[name(m)] = {"registers": int(regs.group(1)),
+                                "spill_stores": int(spill.group(1)),
+                                "spill_loads": int(spill.group(2))}
+    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3"}
+    if not want <= set(out):
+        raise RuntimeError(f"no ptxas report for {sorted(want - set(out))}: {out}")
+    return {name: out[name] for name in sorted(want)}
 
 
 def _zero_counts() -> None:
@@ -689,12 +784,13 @@ def phase_medium() -> dict:
            f"{kern.macs / 1e9:.3f} G MACs -> integer bound {ops_ms:.3f} ms, "
            f"{kern.bytes / 1e9:.3f} GB -> bytes bound {bytes_ms:.3f} ms; "
            f"kernel at {bound_ms / kern_ms * 100:.1f}% of bound")
-    ptxas = _kernel1_build_report()
+    ptxas = _ptxas_report()
     geometry = {name: cuda_spgemm.geometry(cfg["k"], no_mod=no_mod)
                 for name, no_mod in (("mod", False), ("no_mod", True))}
     print(f"[medium] kernel 1: {kern.pairs} real pairs in {kern.slots} pair slots "
           f"({kern.pairs / kern.slots * 100:.2f}% real; sentinel slots skipped); ptxas "
-          f"(registers, spill bytes) {ptxas}; at k={cfg['k']}: {geometry}", flush=True)
+          f"(registers, spill bytes) {ptxas['mod']}, {ptxas['no_mod']}; at k={cfg['k']}: "
+          f"{geometry}", flush=True)
     return {"name": "numeric_round", "route": "cuda",
             "source": "spgemm_tpu_torch/csrc/numeric_round.cu",
             "replaces": "spgemm_tpu/ops/pallas_spgemm.py:188",
@@ -823,14 +919,23 @@ def phase_medium_small() -> list[dict]:
     if not (_same(res_d, res_p) and _same(res_k, res_p)):
         raise RuntimeError(f"mxu chain: kernel != plain version (max abs err {err_d})")
     ops_ms = 2 * kern.limb_macs / INT8_TENSOR_OPS_PER_S * 1e3
+    ops7_ms = 2 * kern.limb7_macs / INT8_TENSOR_OPS_PER_S * 1e3
     bytes_ms = kern.bytes / HBM_BYTES_PER_S * 1e3
     mxu_bound, mxu_by = _bound(ops_ms, bytes_ms)
+    mxu7_bound = max(ops7_ms, bytes_ms)
+    ptxas = {name: v for name, v in _ptxas_report().items() if name.startswith("mxu")}
+    geometry = {f"{limbs}x{limbs} limbs": cuda_mxu.geometry(cfg["k"], limbs, limbs)
+                for limbs in (10, 3)}
     _phase("medium-small", t0, f"(d) mxu: chain wall {wall_d:.6f} s, launches {counts_d}; "
            f"kernel total {kern_ms:.3f} ms (median of {', '.join(f'{t:.3f}' for t in runs_ms)}), "
            f"plain version {plain_ms:.3f} ms of which its float64 torch.bmm {bmm_ms:.3f} ms; "
-           f"results equal; {kern.pairs} real pairs, {kern.limb_macs / 1e12:.3f} T int8 limb "
-           f"MACs -> tensor-core bound {ops_ms:.3f} ms, {kern.bytes / 1e9:.3f} GB -> bytes bound "
-           f"{bytes_ms:.3f} ms; kernel at {mxu_bound / kern_ms * 100:.2f}% of bound")
+           f"results equal; {kern.pairs} real pairs in {kern.slots} pair slots, "
+           f"{kern.limb_macs / 1e12:.3f} T int8 byte-limb MACs -> tensor-core bound "
+           f"{ops_ms:.3f} ms, {kern.bytes / 1e9:.3f} GB -> bytes bound {bytes_ms:.3f} ms; kernel "
+           f"at {mxu_bound / kern_ms * 100:.2f}% of bound (7-bit limbs, as counted before: "
+           f"{kern.limb7_macs / 1e12:.3f} T MACs -> {ops7_ms:.3f} ms, "
+           f"{mxu7_bound / kern_ms * 100:.2f}%); kernel 2 ptxas (registers, spill bytes) "
+           f"{ptxas}; at k={cfg['k']}: {geometry}")
     del res_d, res_k, res_p
 
     t0 = time.perf_counter()
@@ -883,10 +988,12 @@ def phase_medium_small() -> list[dict]:
         "launches_by_run": {run: c["mxu"] for run, c in mxu_runs.items()},
         "max_abs_err": err_d, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": mxu_bound, "bound_by": mxu_by, "library_ms": bmm_ms,
-        "library_call": "torch.bmm in float64 of the limb-packed operands: the product "
-                        "alone, without the limb split or the fold",
+        "library_call": "torch.bmm in float64 of the plain version's byte-limb operands: "
+                        "the product alone, without the split or the fold",
         "equal": True, "ms_runs": runs_ms, "timed_on": "Medium-small chain, --backend mxu",
-        "limb_macs": kern.limb_macs, "pairs": kern.pairs,
+        "limb_macs": kern.limb_macs, "limb7_macs": kern.limb7_macs,
+        "bound_ms_limbs7": mxu7_bound, "pairs": kern.pairs, "slots": kern.slots,
+        "ptxas": ptxas, "geometry": geometry,
         "chain_wall_s": {"a_exact": wall_a, "b_hybrid_proof": wall_b,
                          "c_hybrid_auto": wall_c, "d_mxu": wall_d},
         "gate": decisions}

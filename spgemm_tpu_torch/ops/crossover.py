@@ -18,12 +18,12 @@ since both kernels take the same time whatever the values.
 
 The measurement's rounds are pad-free: every slot of its (K, P) indices is a
 real pair.  The planner's rounds carry sentinel slots (the pair axis and the
-key axis pad to the shape ladder), which kernel 1 skips and the limb kernel
-still folds, so on a padded round kernel 1 is faster than the measurement
-says and the gate may pick the limb kernel where kernel 1 would win.  Both
-give the same bits.  The key's version names the kernel 1 that was timed:
-v2 is the design that skips sentinel slots, so a cache written for the
-earlier kernel is not read.
+key axis pad to the shape ladder), which both kernels skip, so the padding
+costs each of them little beside its real pairs, and both give the same
+bits.  The key's version names the kernels that were timed: v3 is the limb
+kernel on byte limbs that skips sentinel slots (v2 timed the earlier limb
+kernel beside the kernel 1 that skips them), so a cache written for earlier
+kernels is not read.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def cache_key(device, a_limbs: int, b_limbs: int, k: int, K: int, P: int) -> str
     the card's name, the limb counts, k, the key class and P."""
     dev = torch.device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    return f"v2:{name}:l{a_limbs}x{b_limbs}:k{k}:K{K}:P{P}"
+    return f"v3:{name}:l{a_limbs}x{b_limbs}:k{k}:K{K}:P{P}"
 
 
 def _load() -> dict:

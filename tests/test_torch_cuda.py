@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (kernel 1 in
 both variants, the limb kernel, the two bsmm kernels) against their plain
-PyTorch versions on the card, the hybrid chain against the exact one, and
-the FFN forward against its plain version.  Tolerance: exact (torch.equal)
+PyTorch versions on the card (the limb kernel also on sentinel slots, every
+limb count, the deepest rounds at full range, ragged k and unaligned
+slabs), the hybrid chain against the exact one, and the FFN forward against
+its plain version.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -151,7 +153,8 @@ def test_kernel_geometry_at_k32(cuda, no_mod):
 @pytest.mark.parametrize("k,lead,P,limbs,dist", [
     (1, (37,), 5, 10, "adversarial"), (8, (3, 9), 3, 10, "adversarial"),
     (32, (40,), 7, 10, "adversarial"), (64, (5,), 4, 3, "small"),
-    (32, (6,), 300, 3, "small"), (4, (9,), 6, 1, "small"), (16, (0,), 4, 5, "small")])
+    (32, (6,), 300, 3, "small"), (4, (9,), 6, 1, "small"), (16, (0,), 4, 5, "small"),
+    (16, (3,), 0, 5, "small")])
 def test_mxu_kernel_matches_plain_version(cuda, k, lead, P, limbs, dist):
     args = _case(np.random.default_rng(k + P + 2), k, lead, P, 30, cuda, dist)
     before = cuda_mxu.launches
@@ -160,6 +163,110 @@ def test_mxu_kernel_matches_plain_version(cuda, k, lead, P, limbs, dist):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert cuda_mxu.launches == before + (1 if np.prod(lead) else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["pad_keys", "one_sided", "between", "dirty"])
+@pytest.mark.parametrize("k,K,P", [(1, 300, 9), (2, 200, 7), (4, 90, 6), (8, 70, 5),
+                                   (16, 40, 5), (32, 30, 6), (64, 6, 4), (128, 3, 3),
+                                   (32, 3, 384), (33, 5, 4)])
+def test_mxu_kernel_skips_sentinel_slots(cuda, pattern, k, K, P):
+    rng = np.random.default_rng(k * 1000 + P + len(pattern) + 7)
+    args = _sentinel_case(rng, k, K, P, 20, pattern, cuda, "adversarial")
+    got = cuda_mxu.numeric_round_mxu(*args)
+    want = mxu_spgemm.numeric_round_mxu_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+MAX = (1 << 64) - 1
+EDGE = np.array([0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
+                 (1 << 63) - 1, 1 << 63, MAX - 2, MAX - 1, MAX], dtype=np.uint64)
+LIMB_GRID = sorted({(a, b) for a in range(1, 11) for b in (1, 5, 10)}
+                   | {(a, b) for a in (1, 5, 10) for b in range(1, 11)})
+
+
+def _range_tiles(rng, n_tiles, k, n_limbs):
+    """(n_tiles + 1, k, k) uint64 below 2^(7 * n_limbs), sentinel zero tile
+    last: a third the range's top, a third EDGE values in range, a third
+    uniform in range."""
+    top = min(MAX, (1 << (7 * n_limbs)) - 1)
+    shape = (n_tiles + 1, k, k)
+    edge = EDGE[EDGE <= top]
+    pick = rng.integers(0, 3, size=shape)
+    tiles = np.where(pick == 0, np.uint64(top), edge[rng.integers(0, len(edge), size=shape)])
+    tiles = np.where(pick == 2, rng.integers(0, top, size=shape, dtype=np.uint64,
+                                             endpoint=True), tiles)
+    tiles[-1] = 0
+    return tiles
+
+
+def _to_card(device, *arrays):
+    return [torch.from_numpy(x.view(np.int64) if x.dtype == np.uint64 else x).to(device)
+            for x in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("a_limbs,b_limbs", LIMB_GRID)
+def test_mxu_kernel_at_every_limb_count(cuda, k, a_limbs, b_limbs):
+    """Each byte count and the template classes between them, mixed, at the
+    top of each limb count's range."""
+    rng = np.random.default_rng(1000 * a_limbs + 10 * b_limbs + k)
+    n_tiles, K, P = 9, 11, 4
+    a, b = _range_tiles(rng, n_tiles, k, a_limbs), _range_tiles(rng, n_tiles, k, b_limbs)
+    pa = rng.integers(0, n_tiles + 1, size=(K, P)).astype(np.int32)  # sentinels too
+    pb = rng.integers(0, n_tiles + 1, size=(K, P)).astype(np.int32)
+    args = _to_card(cuda, a, b, pa, pb)
+    got = cuda_mxu.numeric_round_mxu(*args, a_limbs=a_limbs, b_limbs=b_limbs)
+    want = mxu_spgemm.numeric_round_mxu_ref(*args, a_limbs=a_limbs, b_limbs=b_limbs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 64])
+def test_mxu_kernel_flushes_at_full_depth_and_range(cuda, k):
+    """P * k = 2^17 real pairs of values whose bytes are almost all 255: the
+    s32 fragments must fold before they overflow."""
+    rng = np.random.default_rng(k)
+    n_tiles, K, P = 40, 2, (1 << 17) // k
+    tiles = [MAX - rng.integers(0, 256, size=(n_tiles + 1, k, k), dtype=np.uint64)
+             for _ in range(2)]
+    pa = rng.integers(0, n_tiles, size=(K, P)).astype(np.int32)
+    pb = rng.integers(0, n_tiles, size=(K, P)).astype(np.int32)
+    args = _to_card(cuda, *tiles, pa, pb)
+    got = cuda_mxu.numeric_round_mxu(*args)
+    want = mxu_spgemm.numeric_round_mxu_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got != 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 31, 33, 64, 128])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+def test_mxu_kernel_ragged_k_and_unaligned_slabs(cuda, k, aligned):
+    """k that is not a multiple of 32 (odd k takes 8-byte copies), and slabs
+    that start 8 bytes past a 16-byte boundary (8-byte copies at any k)."""
+    rng = np.random.default_rng(k + 5 * aligned)
+    a, b, pa, pb = _case(rng, k, (6,), 5, 12, cuda)
+    if not aligned:
+        a, b = [torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape) for x in (a, b)]
+        assert a.data_ptr() % 16 == 8 and b.data_ptr() % 16 == 8
+    got = cuda_mxu.numeric_round_mxu(a, b, pa, pb)
+    want = mxu_spgemm.numeric_round_mxu_ref(a, b, pa, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limbs", [10, 3])
+def test_mxu_kernel_geometry(cuda, limbs):
+    """Three keys share an SM at 8 x 8 bytes, four at 3 x 3."""
+    g = cuda_mxu.geometry(32, limbs, limbs, device=cuda)
+    assert g["bytes"] == (mxu_spgemm.bytes_for_limbs7(limbs),) * 2
+    assert g["threads"] == 256 and g["blocks_per_sm"] >= (3 if limbs == 10 else 4)
 
 
 @pytest.mark.cuda

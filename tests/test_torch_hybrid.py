@@ -217,7 +217,7 @@ def test_auto_gate_routes_to_measured_winner_and_caches_by_path(winner, monkeypa
     assert used["mod"] == 0 and used[winner] > 0 and sum(used.values()) == used[winner]
     entries = crossover.entries()
     assert timed and len(timed) == 2 * len(entries)
-    assert all(key.startswith("v2:cpu:l3x3:k2:") for key in entries)
+    assert all(key.startswith("v3:cpu:l3x3:k2:") for key in entries)
     assert os.path.exists(tmp_path / "one" / crossover.CACHE_FILE)
     # a second run reads the cache: nothing is measured again
     spgemm(a, b, device="cpu", backend="hybrid")
@@ -230,8 +230,9 @@ def test_auto_gate_routes_to_measured_winner_and_caches_by_path(winner, monkeypa
 
 
 def test_auto_gate_does_not_read_entries_timed_on_the_earlier_kernel(monkeypatch, tmp_path):
-    """A cache written before kernel 1 skipped sentinel slots holds v1 keys;
-    the gate measures anew under v2 keys and keeps the old entries."""
+    """A cache written before kernel 1 skipped sentinel slots holds v1 keys,
+    one written before the limb kernel moved to byte limbs and skipped them
+    v2 keys; the gate measures anew under v3 keys and keeps the old entries."""
     monkeypatch.setenv("SPGEMM_TPU_HYBRID_GATE", "auto")
     monkeypatch.setenv("SPGEMM_TPU_CROSSOVER_CACHE", str(tmp_path))
     timed = []
@@ -246,7 +247,9 @@ def test_auto_gate_does_not_read_entries_timed_on_the_earlier_kernel(monkeypatch
     b = _port(random_block_sparse(6, 6, 2, 0.5, rng, "small"))
     keys = [crossover.cache_key("cpu", 3, 3, 2, K, P) for K in (1, 2, 4, 8, 16) for P in
             (1, 2, 3, 4, 6, 8)]
-    old = {"v1" + key.removeprefix("v2"): {"exact_s": 2.0, "mxu_s": 1.0} for key in keys}
+    assert all(key.startswith("v3:") for key in keys)
+    old = {version + key.removeprefix("v3"): {"exact_s": 2.0, "mxu_s": 1.0}
+           for key in keys for version in ("v1", "v2")}
     (tmp_path / crossover.CACHE_FILE).write_text(json.dumps(old))
     before = dict(engine.rounds_by_kernel)
     got = spgemm(a, b, device="cpu", backend="hybrid")
@@ -255,7 +258,8 @@ def test_auto_gate_does_not_read_entries_timed_on_the_earlier_kernel(monkeypatch
     assert timed and used["mxu"] == 0 and used["no_mod"] > 0
     entries = json.loads((tmp_path / crossover.CACHE_FILE).read_text())
     assert set(old) <= set(entries)
-    assert any(key.startswith("v2:") for key in entries)
+    new = [key for key in entries if key.startswith("v3:")]
+    assert new and len(timed) == 2 * len(new)
 
 
 def test_unknown_backend_raises():

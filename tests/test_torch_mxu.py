@@ -1,10 +1,13 @@
 """The port's field-mode limb round and its no_mod exact fold against the JAX
-package: the limb split (ops/mxu_spgemm.limbs7), the plain version of the
-limb kernel (numeric_round_mxu_ref) against the XLA formulation
-numeric_round_mxu and the TPU kernel numeric_round_mxu_pallas in interpret
-mode, the no_mod plain version against numeric_round_pallas(no_mod=True) in
-interpret mode, and the proof helpers against their JAX twins.  Operands
-cross from the JAX package's (hi, lo) uint32 planes.  Tolerance: exact.
+package: the 7-bit limb split (ops/mxu_spgemm.limbs7) and the byte count
+that holds it (bytes_for_limbs7), the plain version of the limb kernel
+(numeric_round_mxu_ref, which splits into bytes) against the XLA
+formulation numeric_round_mxu and the TPU kernel numeric_round_mxu_pallas in
+interpret mode, over every limb count and at the top of each count's range,
+its skipping of sentinel slots against a python-int field sum, the no_mod
+plain version against numeric_round_pallas(no_mod=True) in interpret mode,
+and the proof helpers against their JAX twins.  Operands cross from the JAX
+package's (hi, lo) uint32 planes.  Tolerance: exact.
 
 On the CPU the wrappers run the plain versions; the kernels themselves are
 checked on the card by chip_smoke.py and tests/test_torch_cuda.py."""
@@ -89,6 +92,99 @@ def test_mxu_ref_matches_xla_and_pallas_interpret(k, lead, limbs, small):
         assert np.array_equal(got, got10)
 
 
+@pytest.mark.parametrize("n_limbs,n_bytes", [(1, 1), (2, 2), (3, 3), (4, 4), (5, 5), (6, 6),
+                                             (7, 7), (8, 7), (9, 8), (10, 8)])
+def test_bytes_for_limbs7(n_limbs, n_bytes):
+    assert mxu_spgemm.bytes_for_limbs7(n_limbs) == n_bytes
+    top = min(MAX, (1 << (7 * n_limbs)) - 1)  # the largest value of n_limbs limbs
+    x = u64.u64_to_t(np.array([top], np.uint64))
+    parts = mxu_spgemm.limbs8(x, n_bytes)
+    assert sum(int(p) << (8 * i) for i, p in enumerate(parts)) == top
+    if n_bytes < 8:  # one byte fewer drops the top
+        assert top >> (8 * (n_bytes - 1)) > 0
+
+
+def _range_tiles(rng, n_tiles: int, k: int, n_limbs: int) -> np.ndarray:
+    """(n_tiles + 1, k, k) uint64 below 2^(7 * n_limbs), sentinel zero tile
+    last: a third the range's top, a third EDGE values in range, a third
+    uniform in range."""
+    top = min(MAX, (1 << (7 * n_limbs)) - 1)
+    shape = (n_tiles + 1, k, k)
+    edge = EDGE[EDGE <= top]
+    pick = rng.integers(0, 3, size=shape)
+    tiles = np.where(pick == 0, np.uint64(top), edge[rng.integers(0, len(edge), size=shape)])
+    uniform = rng.integers(0, top, size=shape, dtype=np.uint64, endpoint=True)
+    tiles = np.where(pick == 2, uniform, tiles)
+    tiles[-1] = 0
+    return tiles
+
+
+LIMB_GRID = sorted({(a, b) for a in range(1, 11) for b in (1, 5, 10)}
+                   | {(a, b) for a in (1, 5, 10) for b in range(1, 11)})
+
+
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("a_limbs,b_limbs", LIMB_GRID)
+def test_byte_split_matches_jax_at_every_limb_count(k, a_limbs, b_limbs, monkeypatch):
+    monkeypatch.setenv("SPGEMM_TPU_DELTA", "0")
+    rng = np.random.default_rng(1000 * a_limbs + 10 * b_limbs + k)
+    n_tiles, K, P = 5, 3, 3
+    a, b = _range_tiles(rng, n_tiles, k, a_limbs), _range_tiles(rng, n_tiles, k, b_limbs)
+    pa = rng.integers(0, n_tiles + 1, size=(K, P)).astype(np.int32)  # sentinels too
+    pb = rng.integers(0, n_tiles + 1, size=(K, P)).astype(np.int32)
+    got = u64.t_to_u64(mxu_spgemm.numeric_round_mxu_ref(
+        u64.u64_to_t(a), u64.u64_to_t(b), torch.from_numpy(pa), torch.from_numpy(pb),
+        a_limbs=a_limbs, b_limbs=b_limbs))
+    want = jax_u64.hilo_to_u64(*jax_numeric_round_mxu(*map(jnp.asarray, (
+        *jax_u64.u64_to_hilo(a), *jax_u64.u64_to_hilo(b), pa, pb))))
+    assert np.array_equal(got, want)
+
+
+def _field_sum_skipping_sentinels(a, b, pa, pb) -> np.ndarray:
+    """The python-int field sum of each key's real slots (neither index its
+    slab's last tile), canonical residues mod 2^64 - 1."""
+    K, P = pa.shape
+    k = a.shape[-1]
+    out = np.zeros((K, k, k), np.uint64)
+    for key in range(K):
+        acc = np.zeros((k, k), dtype=object)
+        for p in range(P):
+            if pa[key, p] == len(a) - 1 or pb[key, p] == len(b) - 1:
+                continue
+            acc = acc + a[pa[key, p]].astype(object).dot(b[pb[key, p]].astype(object))
+        out[key] = np.array([[x % MAX for x in row] for row in acc], dtype=np.uint64)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("limbs", [10, 3])
+@pytest.mark.parametrize("sentinel", ["dirty", "zero"])
+def test_mxu_ref_skips_sentinel_slots(k, limbs, sentinel):
+    """One-sided and two-sided sentinel slots: with a last tile that is not
+    zero the plain version still adds nothing for them, as the kernel skips
+    them; with the planner's zero sentinel it also equals JAX."""
+    rng = np.random.default_rng(30 * k + limbs)
+    n_tiles, K, P = 6, 7, 5
+    a, b = _range_tiles(rng, n_tiles, k, limbs), _range_tiles(rng, n_tiles, k, limbs)
+    pa = rng.integers(0, n_tiles, size=(K, P)).astype(np.int32)
+    pb = rng.integers(0, n_tiles, size=(K, P)).astype(np.int32)
+    hole = rng.random((K, P))
+    pa[hole < 0.4] = n_tiles
+    pb[(hole > 0.2) & (hole < 0.6)] = n_tiles
+    pa[0], pb[1] = n_tiles, n_tiles  # a whole pad key on each side
+    if sentinel == "dirty":
+        a[-1], b[-1] = a[0], b[1]
+    got = u64.t_to_u64(mxu_spgemm.numeric_round_mxu_ref(
+        u64.u64_to_t(a), u64.u64_to_t(b), torch.from_numpy(pa), torch.from_numpy(pb),
+        a_limbs=limbs, b_limbs=limbs))
+    assert np.array_equal(got, _field_sum_skipping_sentinels(a, b, pa, pb))
+    assert not got[:2].any()
+    if sentinel == "zero":
+        want = jax_u64.hilo_to_u64(*jax_numeric_round_mxu(*map(jnp.asarray, (
+            *jax_u64.u64_to_hilo(a), *jax_u64.u64_to_hilo(b), pa, pb))))
+        assert np.array_equal(got, want)
+
+
 def test_mxu_ref_chunks_keys_exactly(monkeypatch):
     port, _ = _case(3, 4, (9,), 5, False)
     whole = mxu_spgemm.numeric_round_mxu_ref(*port)
@@ -143,6 +239,10 @@ def test_empty_round():
     port, _ = _case(7, 8, (0,), 4, False)
     for fn in (cuda_mxu.numeric_round_mxu, mxu_spgemm.numeric_round_mxu_ref):
         assert tuple(fn(*port).shape) == (0, 8, 8)
+    a, b = _case(7, 8, (3,), 4, False)[0][:2]
+    none = torch.zeros((3, 0), dtype=torch.int32)  # P = 0: every key's tile is zero
+    for fn in (cuda_mxu.numeric_round_mxu, mxu_spgemm.numeric_round_mxu_ref):
+        assert torch.equal(fn(a, b, none, none), torch.zeros((3, 8, 8), dtype=torch.int64))
 
 
 def test_mxu_rejects_deep_rounds_bad_limbs_and_other_devices():
