@@ -41,7 +41,22 @@ the script exits non-zero without printing a result:
                the plain version on the card, whose results must be equal;
                the share of real pairs among the rounds' pair slots, kernel
                1's registers and spills (ptxas) and its blocks per SM, and
-               kernel 2's at 8x8 and 3x3 byte limbs;
+               kernel 2's at 8x8 and 3x3 byte limbs; then the host half:
+               `[medium] host planning` (the planner with the native join
+               and with SPGEMM_TPU_NO_NATIVE=1, plans identical),
+               `[medium] plan-ahead` (the chain's wall at
+               SPGEMM_TPU_PLAN_AHEAD 0 and 2 in turns, medians of 3, results
+               equal, ENGINE's plan / plan_wait / upload split, the pinned
+               host memory statistics, and the stream synchronizations inside
+               execute over one chain, which must be 0), `[medium-cli]` (the
+               chain written as text by the native writer, `python -m
+               spgemm_tpu_torch.cli <dir> -v` with the default loader
+               threads, with --threads 1 (the default's load must be faster)
+               and with SPGEMM_TPU_NO_NATIVE=1, each ./matrix read back equal
+               to the in-memory result after prune_zeros; about 4 GB under
+               TMPDIR, deleted after) and `[medium] parity fold` (kernel 1's
+               output of every level-1 multiply against the native u64 fold,
+               every key, 0 bad keys);
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -81,10 +96,13 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from types import SimpleNamespace
 
@@ -95,12 +113,14 @@ from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
 from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_mxu, cuda_spgemm, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
+from spgemm_tpu_torch.ops import symbolic
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.ops.spgemm import Folds, plan, spgemm
-from spgemm_tpu_torch.utils import io_text
+from spgemm_tpu_torch.utils import io_text, native
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.gen import banded_block_sparse, random_block_sparse, random_chain
 from spgemm_tpu_torch.utils.semantics import chain_oracle, field_spgemm_oracle, spgemm_oracle
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -624,18 +644,39 @@ def _banded_coords(block_dim: int, bandwidth: int) -> np.ndarray:
     return np.argwhere(np.abs(r - c) <= bandwidth).astype(np.int64)
 
 
-def _plan_chain_s(mats) -> float:
+def _plan_chain(mats) -> tuple[float, float, list]:
     """Host seconds the chain's planner (join + rounds + permutation) takes
-    alone, on the block structures only."""
+    alone, on the block structures only, the seconds of its joins alone,
+    and the plans."""
     arr = [SimpleNamespace(k=m.k, nnzb=m.nnzb, coords=m.coords) for m in mats]
+    plans, join_s = [], 0.0
     t0 = time.perf_counter()
     while len(arr) > 1:
         nxt = []
         for i in range(0, len(arr) - 1, 2):
             p = plan(arr[i], arr[i + 1])
+            plans.append(p)
             nxt.append(SimpleNamespace(k=p.k, nnzb=p.join.num_keys, coords=p.join.keys))
         arr = nxt + arr[len(nxt) * 2:]
-    return time.perf_counter() - t0
+    total = time.perf_counter() - t0
+    for p in plans:
+        t1 = time.perf_counter()
+        symbolic.symbolic_join(p.a_coords, p.b_coords)
+        join_s += time.perf_counter() - t1
+    return total, join_s, plans
+
+
+def _same_plans(xs: list, ys: list) -> bool:
+    """Equal keys, pair lists, rounds and assembly permutations."""
+    def arrays(p):
+        yield from (p.join.keys, p.join.pair_ptr, p.join.pair_a, p.join.pair_b, p.take)
+        for r in p.rounds:
+            yield from (r.key_index, r.pa, r.pb, np.array([r.max_fanout]))
+
+    return len(xs) == len(ys) and all(
+        len(x.rounds) == len(y.rounds) and all(
+            u.dtype == v.dtype and np.array_equal(u, v) for u, v in zip(arrays(x), arrays(y)))
+        for x, y in zip(xs, ys))
 
 
 def _ptxas_report() -> dict:
@@ -722,7 +763,7 @@ def _main_path(dev_mats, backend: str, **env):
     return res, wall, counts, handler.multiplies
 
 
-def phase_medium() -> dict:
+def phase_medium() -> tuple[dict, SimpleNamespace]:
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     cfg = MEDIUM
@@ -753,7 +794,7 @@ def phase_medium() -> dict:
     if not np.array_equal(res.coords, want_coords) or \
             tuple(res.slab.shape) != (len(want_coords) + 1, cfg["k"], cfg["k"]):
         raise RuntimeError("Medium result structure is not the expected band")
-    t_plan = _plan_chain_s(mats)
+    t_plan = _plan_chain(mats)[0]
     _phase("medium", t0, f"main path: chain wall {wall:.6f} s (host planning "
            f"alone {t_plan:.6f} s), numeric_round "
            f"launches {launches} (no_mod 0, mxu 0), result {res.nnzb} tiles, peak "
@@ -799,11 +840,238 @@ def phase_medium() -> dict:
             "library_ms": None, "equal": True, "variant": "mod",
             "ms_runs": runs_ms, "chain_wall_s": wall, "plan_s": t_plan, "macs": kern.macs,
             "peak_bytes": peak, "pairs": kern.pairs, "slots": kern.slots, "ptxas": ptxas,
-            "geometry": geometry}
+            "geometry": geometry}, SimpleNamespace(mats=mats, dev_mats=dev_mats, res=res)
 
 
 def _same(x: DeviceBlockMatrix, y: DeviceBlockMatrix) -> bool:
     return np.array_equal(x.coords, y.coords) and torch.equal(x.slab, y.slab)
+
+
+def _execute_syncs(dev_mats) -> dict:
+    """Stream synchronizations inside ops/spgemm.execute during one Medium
+    chain at the default plan-ahead: calls of torch.cuda.synchronize and
+    Stream.synchronize, and the synchronizing CUDA operations that torch's
+    sync debug mode ("warn") reports while execute runs (checked first on a
+    blocking .item(), which it must report)."""
+    counts = {"synchronize": 0, "Stream.synchronize": 0, "sync_debug": 0}
+    inside = []
+    real_execute, real_sync = engine.execute, torch.cuda.synchronize
+    real_stream_sync = torch.cuda.Stream.synchronize
+
+    def sync(*args, **kw):
+        counts["synchronize"] += bool(inside)
+        return real_sync(*args, **kw)
+
+    def stream_sync(self):
+        counts["Stream.synchronize"] += bool(inside)
+        return real_stream_sync(self)
+
+    def execute(*args, **kw):
+        inside.append(1)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real_execute(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                inside.pop()
+                counts["sync_debug"] += sum("called a synchronizing CUDA operation"
+                                            in str(w.message) for w in caught)
+
+    # the control: a blocking fetch must be reported, or a 0 means nothing
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.ones(1, device=DEVICE).item()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    if not any("called a synchronizing CUDA operation" in str(w.message) for w in caught):
+        raise RuntimeError("torch's sync debug mode did not report a blocking .item()")
+    engine.execute, torch.cuda.synchronize, torch.cuda.Stream.synchronize = \
+        execute, sync, stream_sync
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            chain_product(dev_mats, device=DEVICE, keep_device=True)
+        torch.cuda.synchronize()
+    finally:
+        engine.execute, torch.cuda.synchronize, torch.cuda.Stream.synchronize = \
+            real_execute, real_sync, real_stream_sync
+    return counts
+
+
+def _pinned_stats() -> dict | str:
+    """PyTorch's caching host allocator's statistics (pinned host memory),
+    as torch.cuda.host_memory_stats gives them."""
+    stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    return {name: v for name, v in stats.items() if "bytes" in name or "host_" in name} \
+        or "not measured (torch.cuda.host_memory_stats gives nothing)"
+
+
+def phase_medium_host(medium) -> dict:
+    """The main path's host half on the Medium chain: the planner with the
+    native join and with SPGEMM_TPU_NO_NATIVE=1 (plans identical), then the
+    chain's wall at SPGEMM_TPU_PLAN_AHEAD 0 and 2 in turns (results equal to
+    the main path's) with ENGINE's plan / plan_wait / upload split, and the
+    stream synchronizations execute makes (must be 0)."""
+    mats, dev_mats, res = medium.mats, medium.dev_mats, medium.res
+    t0 = time.perf_counter()
+    native_s, native_join_s, native_plans = _plan_chain(mats)
+    with _env(SPGEMM_TPU_NO_NATIVE="1"):
+        numpy_s, numpy_join_s, numpy_plans = _plan_chain(mats)
+    if not _same_plans(native_plans, numpy_plans):
+        raise RuntimeError("Medium planner: the native join's plans differ from the numpy join's")
+    _phase("medium", t0, f"host planning alone: native join {native_s:.6f} s (joins "
+           f"{native_join_s:.6f} s), SPGEMM_TPU_NO_NATIVE=1 {numpy_s:.6f} s (joins "
+           f"{numpy_join_s:.6f} s) over {len(native_plans)} multiplies; keys, pair lists, "
+           "rounds and permutations identical")
+
+    t0 = time.perf_counter()
+    if hasattr(torch.cuda, "reset_peak_host_memory_stats"):
+        torch.cuda.reset_peak_host_memory_stats()
+    walls, splits = {0: [], 2: []}, {0: [], 2: []}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for _ in range(KERNEL_REPEATS):
+            for ahead in (0, 2):
+                with _env(SPGEMM_TPU_PLAN_AHEAD=str(ahead)):
+                    torch.cuda.synchronize()
+                    ENGINE.reset()
+                    t1 = time.perf_counter()
+                    got = chain_product(dev_mats, device=DEVICE, keep_device=True)
+                    torch.cuda.synchronize()
+                    walls[ahead].append(time.perf_counter() - t1)
+                    splits[ahead].append(ENGINE.snapshot())
+                if not _same(got, res):
+                    raise RuntimeError(f"Medium chain at SPGEMM_TPU_PLAN_AHEAD={ahead} "
+                                       "differs from the main path's result")
+    del got
+    pinned = _pinned_stats()
+    syncs = _execute_syncs(dev_mats)
+    if any(syncs.values()):
+        raise RuntimeError(f"execute synchronized the stream: {syncs}")
+    med = {}
+    for ahead, ws in walls.items():
+        i = sorted(range(len(ws)), key=ws.__getitem__)[len(ws) // 2]
+        med[ahead] = {"wall_s": ws[i], "walls_s": ws,
+                      **{name: splits[ahead][i].get(name, 0.0)
+                         for name in ("plan", "plan_wait", "upload")}}
+    _phase("medium", t0, "plan-ahead: chain wall (median of "
+           f"{KERNEL_REPEATS}, in turns) SPGEMM_TPU_PLAN_AHEAD=0 {med[0]['wall_s']:.6f} s "
+           f"(runs {', '.join(f'{w:.6f}' for w in walls[0])}; plan {med[0]['plan']:.6f}, "
+           f"plan_wait {med[0]['plan_wait']:.6f}, upload {med[0]['upload']:.6f} s), =2 "
+           f"{med[2]['wall_s']:.6f} s (runs {', '.join(f'{w:.6f}' for w in walls[2])}; plan "
+           f"{med[2]['plan']:.6f}, plan_wait {med[2]['plan_wait']:.6f}, upload "
+           f"{med[2]['upload']:.6f} s); results equal; stream synchronizations inside "
+           f"execute over one chain: {syncs}; pinned host memory over the 6 chains {pinned}")
+    return {"plan_native_s": native_s, "plan_numpy_s": numpy_s, "join_native_s": native_join_s,
+            "join_numpy_s": numpy_join_s, "plan_ahead": med, "execute_syncs": syncs,
+            "pinned": pinned}
+
+
+def _write_text_dir(folder: str, mats: list) -> None:
+    """The chain's input directory, one writer thread per file."""
+    os.makedirs(folder)
+    with open(os.path.join(folder, "size"), "w") as f:
+        f.write(f"{len(mats)} {mats[0].k}\n")
+    with ThreadPoolExecutor(max_workers=len(mats)) as pool:
+        list(pool.map(lambda i: io_text.write_matrix(os.path.join(folder, f"matrix{i + 1}"),
+                                                     mats[i]), range(len(mats))))
+
+
+def phase_medium_cli(medium) -> dict:
+    """The port's CLI on the Medium chain's text directory (written by the
+    native writer), run as `python -m spgemm_tpu_torch.cli <dir> -v` with
+    the default loader threads, with --threads 1 (the default's load must
+    be faster) and with SPGEMM_TPU_NO_NATIVE=1 (the numpy paths); each
+    ./matrix, read back with the native parser, must equal the in-memory
+    result after prune_zeros.  Needs about 4 GB of disk under TMPDIR and
+    deletes it."""
+    t0 = time.perf_counter()
+    want = medium.res.to_host().prune_zeros()
+    k = want.k
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_medium_cli_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"[medium-cli] free disk space under {tempfile.gettempdir()}: "
+              f"{free / 1e9:.3f} GB", flush=True)
+        folder = os.path.join(tmp, "medium")
+        t1 = time.perf_counter()
+        _write_text_dir(folder, medium.mats)
+        out["write_dir_s"] = time.perf_counter() - t1
+        out["text_bytes"] = sum(os.path.getsize(os.path.join(folder, f"matrix{i + 1}"))
+                                for i in range(len(medium.mats)))
+        env = {**os.environ, "PYTHONPATH": REPO}
+        for name, extra, knob in (("default", [], {}), ("threads_1", ["--threads", "1"], {}),
+                                  ("no_native", [], {"SPGEMM_TPU_NO_NATIVE": "1"})):
+            proc = subprocess.run(
+                [sys.executable, "-m", "spgemm_tpu_torch.cli", folder, "-v", "--device", DEVICE,
+                 *extra], cwd=tmp, env={**env, **knob}, capture_output=True, text=True,
+                timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"cli on the Medium directory {extra} exited "
+                                   f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+            lines = proc.stdout.splitlines()
+            taken = re.fullmatch(r"time taken (\S+) seconds", lines[-1] if lines else "")
+            if lines[:-1] != _multiplying_lines(len(medium.mats)) or not taken:
+                raise RuntimeError(f"cli stdout on the Medium directory is not the "
+                                   f"reference's:\n{proc.stdout[-2000:]}")
+            phases = {m.group(1): float(m.group(2))
+                      for m in re.finditer(r"phase (\S+): ([0-9.]+)s", proc.stderr)}
+            matrix = os.path.join(tmp, "matrix")
+            t1 = time.perf_counter()
+            got = io_text.read_matrix(matrix, k)
+            read_s = time.perf_counter() - t1
+            if (got.rows, got.cols) != (want.rows, want.cols) or \
+                    not np.array_equal(got.coords, want.coords) or \
+                    not np.array_equal(got.tiles, want.tiles):
+                raise RuntimeError(f"cli ./matrix on the Medium directory ({name}) differs "
+                                   "from the in-memory chain result after prune_zeros")
+            out[name] = {"time_taken_s": float(taken.group(1)), "phases": phases,
+                         "matrix_bytes": os.path.getsize(matrix), "read_back_s": read_s}
+            os.remove(matrix)
+    d, t, n = out["default"], out["threads_1"], out["no_native"]
+    if not d["phases"]["load"] < t["phases"]["load"]:
+        raise RuntimeError(f"the CLI's load with the default threads ({d['phases']['load']} s) "
+                           f"is not faster than with --threads 1 ({t['phases']['load']} s)")
+    _phase("medium-cli", t0, f"wrote {len(medium.mats)} files, {out['text_bytes'] / 1e9:.3f} "
+           f"GB of text in {out['write_dir_s']:.3f} s (native writer, a thread per file); "
+           f"cli -v: time taken {d['time_taken_s']:.6f} s: load {d['phases'].get('load')}, "
+           f"chain {d['phases'].get('chain')}, prune+write {d['phases'].get('prune+write')} s "
+           f"(plan {d['phases'].get('plan')}, plan_wait {d['phases'].get('plan_wait')}, "
+           f"upload {d['phases'].get('upload')} s); --threads 1: time taken "
+           f"{t['time_taken_s']:.6f} s, load {t['phases'].get('load')} s; "
+           f"SPGEMM_TPU_NO_NATIVE=1 (numpy text I/O and join): time taken "
+           f"{n['time_taken_s']:.6f} s, load {n['phases'].get('load')}, chain "
+           f"{n['phases'].get('chain')}, prune+write {n['phases'].get('prune+write')} s; "
+           f"./matrix ({d['matrix_bytes'] / 1e9:.3f} GB) read back in {d['read_back_s']:.3f} s "
+           "equals the in-memory result after prune_zeros (all three runs)")
+    return out
+
+
+def phase_medium_parity(medium) -> dict:
+    """Kernel 1's output of every level-1 multiply of the Medium chain,
+    fetched to the host, against the native u64 fold (native/parityfold.cpp,
+    which shares no code with the port's numeric path), every key."""
+    t0 = time.perf_counter()
+    mats, dev_mats = medium.mats, medium.dev_mats
+    fold_s, keys, pairs = 0.0, 0, 0
+    for i in range(0, len(mats) - 1, 2):
+        p = plan(dev_mats[i], dev_mats[i + 1])
+        got = engine.execute(p, dev_mats[i], dev_mats[i + 1]).to_host()
+        t1 = time.perf_counter()
+        n_bad, first = native.parity_fold_check(mats[i].tiles, mats[i + 1].tiles, p.join.pair_ptr,
+                                                p.join.pair_a, p.join.pair_b, got.tiles)
+        fold_s += time.perf_counter() - t1
+        if n_bad:
+            raise RuntimeError(f"parity fold: {n_bad} keys of level-1 multiply {i} {i + 1} "
+                               f"differ from kernel 1 (first key {first})")
+        keys += p.join.num_keys
+        pairs += len(p.join.pair_a)
+    _phase("medium", t0, f"parity fold: kernel 1's output of all {len(mats) // 2} level-1 "
+           f"multiplies ({keys} keys, {pairs} tile pairs) against the native u64 fold: 0 bad "
+           f"keys; the fold took {fold_s:.3f} s on {os.cpu_count()} host cores")
+    return {"fold_s": fold_s, "keys": keys, "pairs": pairs, "host_cores": os.cpu_count()}
 
 
 def _hub_operands(rng, k: int):
@@ -1268,8 +1536,12 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kernel_err = phase_kernel(rng)
     phase_cli(rng)
-    row = phase_medium()
+    row, medium = phase_medium()
     row["max_abs_err"] = max(row["max_abs_err"], kernel_err["mod"])
+    row["host"] = phase_medium_host(medium)
+    row["cli"] = phase_medium_cli(medium)
+    row["parity_fold"] = phase_medium_parity(medium)
+    del medium
     torch.cuda.empty_cache()
     no_mod_row, mxu_row = phase_medium_small()
     no_mod_row["max_abs_err"] = max(no_mod_row["max_abs_err"], kernel_err["no_mod"])

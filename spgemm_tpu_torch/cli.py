@@ -14,6 +14,10 @@ file is read or written.  `--device cpu` runs the kernels' plain PyTorch
 versions on the CPU.  `--backend` picks the numeric kernels
 (ops/spgemm.py): `exact` (default) and `hybrid` write the reference's
 bytes, `mxu` the chain's product in clean arithmetic mod 2^64 - 1.
+
+`-v` logs the seconds of load, chain and prune+write, and inside the chain
+those of the engine's host phases (utils/timers.ENGINE): plan, plan_wait and
+upload.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.ops.device import resolve_device
 from spgemm_tpu_torch.ops.spgemm import BACKENDS
 from spgemm_tpu_torch.utils import io_text
-from spgemm_tpu_torch.utils.timers import PhaseTimers
+from spgemm_tpu_torch.utils.timers import ENGINE, PhaseTimers
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,6 +65,7 @@ def run(argv: list[str] | None = None) -> int:
     device = resolve_device(args.device)
     t_start = time.perf_counter()
     timers = PhaseTimers()
+    ENGINE.reset()
     with timers.phase("load"):
         n, k = io_text.read_size(args.folder)
         matrices = io_text.read_chain(args.folder, 0, n - 1, k,
@@ -70,6 +75,7 @@ def run(argv: list[str] | None = None) -> int:
     with timers.phase("prune+write"):
         io_text.write_matrix(args.output, result.prune_zeros())
     timers.log_report()
+    ENGINE.log_report()  # the chain's host phases: plan, plan_wait, upload
     # byte-parity with the reference's only surviving print (:679)
     print(f"time taken {time.perf_counter() - t_start} seconds")
     return 0

@@ -36,9 +36,10 @@ import time
 import numpy as np
 import torch
 
+from spgemm_tpu_torch.utils import knobs
+
 log = logging.getLogger("spgemm_tpu_torch.crossover")
 
-POLICIES = ("auto", "proof")
 CACHE_FILE = "hybrid_crossover.json"
 # The measurement's key axis: per-key cost is flat past a few thousand keys,
 # so larger classes share one measurement at this many keys.
@@ -52,16 +53,14 @@ _CACHE: dict[str, dict] = {}
 
 def gate_policy(device) -> str:
     """'auto' or 'proof' for rounds on `device` (see the module docstring)."""
-    env = os.environ.get("SPGEMM_TPU_HYBRID_GATE")
-    if env is not None:
-        if env not in POLICIES:
-            raise ValueError(f"SPGEMM_TPU_HYBRID_GATE must be one of {POLICIES}, got {env!r}")
-        return env
+    policy = knobs.get("SPGEMM_TPU_HYBRID_GATE")
+    if policy is not None:
+        return policy
     return "auto" if torch.device(device).type == "cuda" else "proof"
 
 
 def cache_path() -> str:
-    root = os.environ.get("SPGEMM_TPU_CROSSOVER_CACHE") or os.path.join(
+    root = knobs.get("SPGEMM_TPU_CROSSOVER_CACHE") or os.path.join(
         os.path.expanduser("~"), ".cache", "spgemm_tpu_torch")
     return os.path.join(root, CACHE_FILE)
 

@@ -50,6 +50,7 @@ from spgemm_tpu_torch.ops.mxu_spgemm import MAX_PAIR_DEPTH, safe_exact_bound
 from spgemm_tpu_torch.ops.symbolic import (SpgemmPlan, _shape_class, assembly_permutation,
                                            plan_rounds, symbolic_join)
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 log = logging.getLogger("spgemm_tpu_torch.spgemm")
 
@@ -104,23 +105,40 @@ def _proof_fanout_cap(a_bound: int, b_bound: int, k: int) -> int | None:
 
 
 def plan(a, b, *, backend: str = "exact") -> SpgemmPlan:
-    """Host planning half: join + rounds + assembly permutation.  Operands
-    need only coords/nnzb/k, and under `hybrid` a bound() (DeviceBlockMatrix)
-    for the proof split."""
+    """Host planning half: join + rounds + assembly permutation, timed as
+    ENGINE's `plan`.  Operands need only coords/nnzb/k, and under `hybrid` a
+    bound() (DeviceBlockMatrix) for the proof split.  Host-only when the
+    bounds are already resolved (chain.py's planner thread relies on it)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if a.k != b.k:
         raise ValueError(f"tile size mismatch: {a.k} vs {b.k}")
-    split = None
-    if backend == "hybrid":
-        split = _proof_fanout_cap(a.bound(), b.bound(), a.k)
-    join = symbolic_join(a.coords, b.coords)
-    rounds = plan_rounds(join, a_sentinel=a.nnzb, b_sentinel=b.nnzb,
-                         key_cap=launch_key_cap(a.k), split_fanout=split)
-    return SpgemmPlan(k=a.k, join=join,
-                      rounds=rounds, take=assembly_permutation(rounds, join.num_keys),
-                      a_coords=np.asarray(a.coords), b_coords=np.asarray(b.coords),
-                      backend=backend, split_fanout=split)
+    with ENGINE.phase("plan"):
+        split = None
+        if backend == "hybrid":
+            split = _proof_fanout_cap(a.bound(), b.bound(), a.k)
+        join = symbolic_join(a.coords, b.coords)
+        rounds = plan_rounds(join, a_sentinel=a.nnzb, b_sentinel=b.nnzb,
+                             key_cap=launch_key_cap(a.k), split_fanout=split)
+        return SpgemmPlan(k=a.k, join=join,
+                          rounds=rounds, take=assembly_permutation(rounds, join.num_keys),
+                          a_coords=np.asarray(a.coords), b_coords=np.asarray(b.coords),
+                          backend=backend, split_fanout=split)
+
+
+_plan = plan  # spgemm_device's `plan` argument shadows the name
+
+
+def _upload(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host index array on `dev` without blocking the host: on CUDA it is
+    staged in pinned memory and copied with non_blocking=True.  PyTorch's
+    caching host allocator records the copy on the stream and reuses the
+    pinned block only after the copy has run, so the block stays alive
+    however soon the tensor is dropped."""
+    t = torch.from_numpy(x)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def _assemble(outs: list[torch.Tensor], take: torch.Tensor) -> torch.Tensor:
@@ -163,9 +181,14 @@ def _hybrid_router(a: DeviceBlockMatrix, b: DeviceBlockMatrix, k: int, folds: Fo
 
 def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
             folds: Folds = KERNELS) -> DeviceBlockMatrix:
-    """Device half: one launch per round on the kernel p.backend picks for
-    it, then the assembly gather.  folds: the functions dispatched to (the
-    CUDA kernels' wrappers by default)."""
+    """Device half: the rounds' indices and the assembly permutation queued
+    to the card from pinned memory (ENGINE's `upload`), one launch per round
+    on the kernel p.backend picks for it, then the assembly gather.  On the
+    exact backend nothing here waits for the stream, so the host goes on to
+    the next multiply while the card works; under hybrid and mxu an
+    operand's first bound() (one reduction) and the `auto` gate's one
+    measurement per shape do.  folds: the functions dispatched to (the CUDA
+    kernels' wrappers by default)."""
     p.check_operands(a, b)
     if a.device != b.device:
         raise ValueError(f"operands lie on {a.device} and {b.device}")
@@ -184,16 +207,18 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
     else:
         def choose(rnd):
             return "mod", folds.exact, False
+    with ENGINE.phase("upload"):
+        indices = [(_upload(rnd.pa, dev), _upload(rnd.pb, dev)) for rnd in p.rounds]
+        take = _upload(p.take, dev)
     outs, proven_rounds, used = [], 0, dict.fromkeys(rounds_by_kernel, 0)
-    for rnd in p.rounds:
+    for rnd, (pa, pb) in zip(p.rounds, indices):
         name, fold, proven = choose(rnd)
-        outs.append(fold(a.slab, b.slab, torch.from_numpy(rnd.pa).to(dev),
-                         torch.from_numpy(rnd.pb).to(dev)))
+        outs.append(fold(a.slab, b.slab, pa, pb))
         proven_rounds += proven
         used[name] += 1
     for name, n in used.items():
         rounds_by_kernel[name] += n
-    slab = _assemble(outs, torch.from_numpy(p.take).to(dev))
+    slab = _assemble(outs, take)
     out_bound = MAX_BOUND
     if p.backend == "hybrid":
         log.info("spgemm[hybrid mxu=%d/%d no_mod=%d]: keys=%d", used["mxu"],
@@ -207,17 +232,25 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
 
 
 def spgemm_device(a, b, *, device="cuda", backend: str = "exact",
-                  folds: Folds = KERNELS) -> DeviceBlockMatrix:
+                  folds: Folds = KERNELS, plan: SpgemmPlan | None = None) -> DeviceBlockMatrix:
     """C = A x B, tiles staying on the device.
 
     a, b: DeviceBlockMatrix, or host BlockSparseMatrix (uploaded to
     `device` on entry).  backend: one of BACKENDS; exact and hybrid give the
-    reference's bytes, mxu field mode.  The result keeps all-zero output
-    tiles (pruning happens only at final output, sparse_matrix_mult.cu:
-    577-592) and carries rows=a.rows, cols=b.cols (:281-282)."""
+    reference's bytes, mxu field mode.  plan: a prepared plan of this pair
+    for this backend (chain.py's plan-ahead worker), or None to plan here,
+    timed as ENGINE's `plan_wait`; the bytes are the same either way.  The
+    result keeps all-zero output tiles (pruning happens only at final
+    output, sparse_matrix_mult.cu:577-592) and carries rows=a.rows,
+    cols=b.cols (:281-282)."""
     a = ensure_device(a, device)
     b = ensure_device(b, device)
-    return execute(plan(a, b, backend=backend), a, b, folds=folds)
+    if plan is None:
+        with ENGINE.phase("plan_wait"):
+            plan = _plan(a, b, backend=backend)
+    elif plan.backend != backend:
+        raise ValueError(f"plan built for backend {plan.backend!r}, asked for {backend!r}")
+    return execute(plan, a, b, folds=folds)
 
 
 def spgemm(a: BlockSparseMatrix, b: BlockSparseMatrix, *,

@@ -1,12 +1,13 @@
 """Symbolic phase on the host: output-structure join + round bucketing (the
 port's copy of the JAX package's `ops/symbolic.py`, ladder layout only).
 
-The join is a vectorized sorted merge-join over the (already sorted)
-block-coordinate arrays -- O(nnzb + pairs) numpy, no hashing -- and
-"packing" is index arithmetic: the numeric kernel reads tiles on the device
-by index, so no staging copy exists.  Rounds are fixed-shape (K, P) index
-arrays padded with a sentinel index that points at an all-zero tile
-(mulmod(0, x) == 0 and addmod(acc, 0) == acc, so padding is exact).
+The join is a sorted merge-join over the (already sorted) block-coordinate
+arrays -- O(nnzb + pairs), no hashing; in C++ (native/symbolic.cpp), with a
+numpy plain version -- and "packing" is index arithmetic: the numeric kernel
+reads tiles on the device by index, so no staging copy exists.  Rounds are
+fixed-shape (K, P) index arrays padded with a sentinel index that points at
+an all-zero tile (mulmod(0, x) == 0 and addmod(acc, 0) == acc, so padding is
+exact).
 
 Ordering contract (SURVEY.md section 2.9): each output key's pair list is
 ordered by ascending inner block-coordinate j, the order the reference's
@@ -19,6 +20,8 @@ import functools
 from dataclasses import dataclass
 
 import numpy as np
+
+from spgemm_tpu_torch.utils import native
 
 
 @dataclass
@@ -60,7 +63,25 @@ def symbolic_join(a_coords: np.ndarray, b_coords: np.ndarray) -> JoinResult:
     """Structure join: which (A-tile, B-tile) pairs feed which output tile.
 
     Both coord arrays must be lexicographically sorted by (row, col) -- the
-    BlockSparseMatrix invariant."""
+    BlockSparseMatrix invariant.
+
+    Runs the native join (native/symbolic.cpp through utils/native.py) where
+    its fused uint64 key row * span + col cannot wrap, as the JAX package's
+    join does (its `native_safe`); the numpy join, symbolic_join_plain,
+    elsewhere and under SPGEMM_TPU_NO_NATIVE=1.  The two give the same
+    arrays (tests hold them equal)."""
+    native_safe = (
+        len(a_coords) == 0 or len(b_coords) == 0
+        or (int(a_coords[:, 0].max()) + 1) * (int(b_coords[:, 1].max()) + 1) <= 1 << 64)
+    if native_safe and native.enabled():
+        keys, pair_ptr, pair_a, pair_b = native.symbolic_join_native(a_coords, b_coords)
+        return JoinResult(keys=keys, pair_ptr=pair_ptr, pair_a=pair_a, pair_b=pair_b)
+    return symbolic_join_plain(a_coords, b_coords)
+
+
+def symbolic_join_plain(a_coords: np.ndarray, b_coords: np.ndarray) -> JoinResult:
+    """The numpy join: searchsorted ranges, then a stable sort by output key
+    (a fused uint64 key where it fits, a stable lexsort past it)."""
     empty = JoinResult(
         keys=np.zeros((0, 2), np.int64),
         pair_ptr=np.zeros(1, np.int64),

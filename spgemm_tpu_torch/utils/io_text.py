@@ -14,7 +14,12 @@ byte-identical to the reference's (:595-608): "R C\\n", "blocks\\n", then per
 tile (sorted (r, c) order) "r c\\n" and k lines of space-separated values with
 no trailing space.
 
-Parsing is token-vectorized numpy per file plus a thread pool across files.
+Reading and writing go through the native host library (utils/native.py:
+a byte tokenizer and a formatter in C++, called without the GIL, so the
+loader's thread pool parses files in parallel).  The numpy code below is
+their plain version: the tests hold the native path against it, and
+SPGEMM_TPU_NO_NATIVE=1 selects it.  Either way a missing file raises
+FileNotFoundError and a malformed or truncated one ValueError.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from spgemm_tpu_torch.utils import native
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 
 
@@ -38,8 +44,17 @@ def read_size(folder: str) -> tuple[int, int]:
 
 
 def read_matrix(path: str, k: int) -> BlockSparseMatrix:
-    """Parse one matrix file: everything after the 3-token header is one
-    uint64 parse + reshape to (blocks, 2 + k*k)."""
+    """Parse one matrix file with the native tokenizer (read_matrix_plain
+    under SPGEMM_TPU_NO_NATIVE=1)."""
+    if not native.enabled():
+        return read_matrix_plain(path, k)
+    rows, cols, coords, tiles = native.parse_matrix(path, k)
+    return BlockSparseMatrix.from_blocks(rows, cols, k, coords, tiles)
+
+
+def read_matrix_plain(path: str, k: int) -> BlockSparseMatrix:
+    """The plain version of read_matrix: everything after the 3-token header
+    is one uint64 parse + reshape to (blocks, 2 + k*k)."""
     with open(path, "rb") as f:
         toks = f.read().split()
     if len(toks) < 3:
@@ -52,7 +67,10 @@ def read_matrix(path: str, k: int) -> BlockSparseMatrix:
             f"matrix file {path!r}: expected {need} tokens for {blocks} blocks, got {len(toks)}")
     if blocks == 0:
         return BlockSparseMatrix(rows=rows, cols=cols, k=k)
-    flat = np.array(toks[3:need], dtype=np.uint64).reshape(blocks, per)
+    try:
+        flat = np.array(toks[3:need], dtype=np.uint64).reshape(blocks, per)
+    except (ValueError, OverflowError) as e:
+        raise ValueError(f"malformed matrix file {path!r}: {e}") from e
     coords = flat[:, :2].astype(np.int64)
     tiles = flat[:, 2:].reshape(blocks, k, k)
     return BlockSparseMatrix.from_blocks(rows, cols, k, coords, tiles)
@@ -62,7 +80,8 @@ def read_chain(folder: str, start: int, end: int, k: int,
                max_workers: int | None = None) -> list[BlockSparseMatrix]:
     """Load matrix{start+1}..matrix{end+1} (0-based range, 1-indexed files,
     sparse_matrix_mult.cu:338-345) concurrently -- the reference's OpenMP
-    task-per-file pattern (:334-341) as a thread pool.
+    task-per-file pattern (:334-341) as a thread pool.  The native parser
+    runs without the GIL, so the pool's threads parse files in parallel.
 
     max_workers=None picks min(16, 4x host cores); an explicit value is
     honored as given (outputs are identical either way)."""
@@ -87,9 +106,13 @@ def format_matrix(m: BlockSparseMatrix) -> bytes:
 
 
 def write_matrix(path: str, m: BlockSparseMatrix) -> None:
-    """Write `m` to `path` byte-identically to the reference (C16).  The
+    """Write `m` to `path` byte-identically to the reference (C16), with
+    the native formatter (format_matrix under SPGEMM_TPU_NO_NATIVE=1).  The
     reference prunes all-zero tiles before writing; callers do that via
     m.prune_zeros()."""
+    if native.enabled():
+        native.write_matrix(path, m.rows, m.cols, m.k, m.coords, m.tiles)
+        return
     with open(path, "wb") as f:
         f.write(format_matrix(m))
 

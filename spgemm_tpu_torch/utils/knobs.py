@@ -1,0 +1,86 @@
+"""Registry of the `SPGEMM_TPU_*` environment knobs the port reads (the
+port's copy of the JAX package's `utils/knobs.py`, cut to those knobs).
+
+Each knob keeps the JAX package's name, kind and parsing: an empty or unset
+value means the default (None where the knob has none, False for a flag),
+surrounding whitespace is stripped, and an invalid value raises ValueError
+naming the knob.  Reads are lazy: the environment is consulted at each
+`get()`, so tests may set a value mid-process.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class Knob:
+    """One registered knob.
+
+    kind: 'enum' | 'int' | 'flag' | 'path'; a flag is true when set to a
+      non-empty string.
+    default: the default in string form, or None: get() then returns None
+      (False for a flag) and the consuming module owns the fallback.
+    minimum: inclusive lower bound of an int.
+    doc: what the knob does, and the module that reads it.
+    """
+
+    name: str
+    kind: str
+    doc: str
+    default: str | None = None
+    choices: tuple[str, ...] | None = None
+    minimum: int | None = None
+
+
+_KNOBS = (
+    Knob("SPGEMM_TPU_PLAN_AHEAD", "int",
+         "Chain plan-ahead depth: up to N upcoming pairs of a pass are planned "
+         "by a host worker thread while the main thread dispatches the current "
+         "pair; 0 = inline planning (bit-identical either way).  Read by chain.py.",
+         default="2", minimum=0),
+    Knob("SPGEMM_TPU_NO_NATIVE", "flag",
+         "Use the numpy text reader/writer and join instead of the native host "
+         "library (never build or load it).  Read by utils/native.py."),
+    Knob("SPGEMM_TPU_HYBRID_GATE", "enum",
+         "Hybrid speed-gate policy: auto = measured per-shape crossover, proof "
+         "= route on the exactness proof alone (unset: auto on CUDA, proof on "
+         "the CPU).  Read by ops/crossover.py.",
+         choices=("auto", "proof")),
+    Knob("SPGEMM_TPU_CROSSOVER_CACHE", "path",
+         "Crossover-measurement cache directory (unset: "
+         "~/.cache/spgemm_tpu_torch).  Read by ops/crossover.py."),
+)
+
+REGISTRY: dict[str, Knob] = {kb.name: kb for kb in _KNOBS}
+
+
+def _parse(kb: Knob, raw: str):
+    if kb.kind == "enum":
+        if raw not in kb.choices:
+            raise ValueError(f"{kb.name} must be one of {'|'.join(kb.choices)}, got {raw!r}")
+        return raw
+    if kb.kind == "int":
+        try:
+            val = int(raw)
+        except ValueError:
+            val = None
+        if val is None or (kb.minimum is not None and val < kb.minimum):
+            bound = f" >= {kb.minimum}" if kb.minimum is not None else ""
+            raise ValueError(f"{kb.name} must be an integer{bound}, got {raw!r}")
+        return val
+    if kb.kind == "path":
+        return raw
+    raise AssertionError(f"unknown knob kind {kb.kind!r}")  # registry bug
+
+
+def get(name: str):
+    """Typed, validated value of a registered knob: a non-empty environment
+    value, else the default.  Unregistered names raise KeyError."""
+    kb = REGISTRY[name]
+    raw = os.environ.get(name)
+    if kb.kind == "flag":
+        return bool(raw)
+    raw = (raw or "").strip() or kb.default
+    return None if raw is None else _parse(kb, raw)

@@ -1,4 +1,17 @@
-"""Per-phase wall-clock timers and event counters for the CLI's `-v` report."""
+"""Per-phase wall-clock timers and event counters for the CLI's `-v` report.
+
+ENGINE is the process-wide registry of the chain engine's host phases:
+
+  * plan      -- ops/spgemm.plan (join, rounds, assembly permutation), on
+                 the plan-ahead worker thread or inline;
+  * plan_wait -- how long the dispatching thread waited for a plan (the
+                 whole plan when it plans inline, near zero when the
+                 worker is ahead);
+  * upload    -- ops/spgemm.execute staging each round's indices and the
+                 assembly permutation in pinned memory and queueing their
+                 copies to the card.
+
+The CLI resets it before a run and reports it with `-v`."""
 
 from __future__ import annotations
 
@@ -36,11 +49,26 @@ class PhaseTimers:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
+    def reset(self):
+        """Zero every phase and counter."""
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
+            self.counters.clear()
+
+    def snapshot(self) -> dict[str, float]:
+        """Seconds per phase."""
+        with self._lock:
+            return dict(self.totals)
+
     def log_report(self):
         with self._lock:
             totals, counts = dict(self.totals), dict(self.counts)
             counters = dict(self.counters)
         for name, total in totals.items():
-            log.info("phase %s: %.4fs (x%d)", name, total, counts.get(name, 0))
+            log.info("phase %s: %.6fs (x%d)", name, total, counts.get(name, 0))
         for name, n in counters.items():
             log.info("counter %s: %d", name, n)
+
+
+ENGINE = PhaseTimers()

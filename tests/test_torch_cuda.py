@@ -23,6 +23,7 @@ from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
 from spgemm_tpu_torch.ops import cuda_bsmm, cuda_mxu, cuda_spgemm, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
+from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.utils.gen import random_chain, random_values
 
 
@@ -284,6 +285,43 @@ def test_hybrid_chain_on_card_matches_exact(cuda, monkeypatch):
     got = chain_product(mats, device=cuda, backend="hybrid")
     assert engine.rounds_by_kernel["mxu"] > before["mxu"]
     assert got == chain_product(mats, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ahead", ["0", "2"])
+def test_execute_makes_no_stream_synchronization(cuda, monkeypatch, ahead):
+    """On the exact backend, execute queues its index uploads (pinned,
+    non_blocking) and launches without waiting for the stream: no call of
+    torch.cuda.synchronize or Stream.synchronize, and no synchronizing CUDA
+    operation under torch's sync debug mode "error", during a whole chain.
+    The result equals the CPU chain's."""
+    monkeypatch.setenv("SPGEMM_TPU_PLAN_AHEAD", ahead)
+    mats = random_chain(6, 8, 8, 0.4, np.random.default_rng(8), "adversarial")
+    want = chain_product(mats, device="cpu")
+    dev_mats = [DeviceBlockMatrix.from_host(m, cuda) for m in mats]
+    chain_product(dev_mats, device=cuda, keep_device=True)  # builds the kernel
+    torch.cuda.synchronize()
+    calls, inside = [], []
+    real_execute = engine.execute
+
+    def execute(*args, **kw):
+        inside.append(1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_execute(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            inside.pop()
+
+    monkeypatch.setattr(engine, "execute", execute)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **kw: calls.append("synchronize") if inside else None)
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        lambda self: calls.append("Stream.synchronize") if inside else None)
+    got = chain_product(dev_mats, device=cuda, keep_device=True)
+    monkeypatch.undo()
+    assert calls == []
+    assert got.to_host() == want
 
 
 BSMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-4)}
