@@ -56,7 +56,25 @@ the script exits non-zero without printing a result:
                to the in-memory result after prune_zeros; about 4 GB under
                TMPDIR, deleted after) and `[medium] parity fold` (kernel 1's
                output of every level-1 multiply against the native u64 fold,
-               every key, 0 bad keys);
+               every key, 0 bad keys).  The main path's line reports the plan
+               cache's hits and misses from an empty cache; the planner's
+               timings above run with SPGEMM_TPU_PLAN_CACHE=0, so they time
+               the planner, not lookups.  `[medium] plan cache` (walls,
+               ENGINE plan and plan_wait, hits and misses with the cache off
+               and empty, in turns, then warm; then the same off/empty
+               walls on a chain of distinct structures, input i's band
+               shifted i blocks, where 0 hits are required, and the
+               fingerprints' and freezing's host time), `[medium] device busy share`
+               (a torch.profiler trace of one chain: the union of the kernels'
+               intervals over the chain's host range, empty and warm cache),
+               `[medium-ooc]` (spgemm_outofcore chained over the host
+               matrices at SPGEMM_TPU_OOC_DEPTH 1, 2 and 4: wall, peak device
+               memory against the resident path's, rounds, bytes uploaded,
+               ENGINE stage_prep / dispatch / assembly; bytes equal to the
+               resident result) and, in `[medium-cli]`, `--ranks 8`: time
+               taken, the tiles that differ from P = 1, ./matrix equal to
+               chain_product_partitioned(mats, 8, multiply=spgemm_outofcore)
+               in memory;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -67,9 +85,18 @@ the script exits non-zero without printing a result:
                Each run is a main path with the counts zeroed before and read
                after.  Kernel 2's bound counts byte-limb MACs (bytes_for_limbs7
                of each operand's limbs per u64 MAC); the 7-bit count is printed
-               beside it.  Then the three kernels timed on the same level-1
-               rounds, the numbers the speed gate weighs;
-  7. ffn     -- the block-sparse FFN forward at full width
+               beside it.  Out-of-core hybrid (gate proof) over the host
+               matrices must give (a)'s bytes and launch the limb kernel.
+               Then the three kernels timed on the same level-1 rounds, the
+               numbers the speed gate weighs;
+  7. cli-modes -- on a small chain: --checkpoint-dir resuming after a
+               failure injected after pass 1, run with --profile, whose
+               trace must hold kernel 1's launches, and failover=True with a
+               failing fold injected through Folds: with the real probe,
+               which finds the card working, the error must be raised; with
+               the probe standing in for a lost card, one stderr line and
+               the oracle's bytes;
+  8. ffn     -- the block-sparse FFN forward at full width
                (BlockSparseFFNConfig(), x (8, 1024, 4096) bf16, weights from
                init_params on a generator seeded with SEED): first the launch
                geometry of kernels 3 and 4 on each matmul (kernel 3's row
@@ -112,11 +139,12 @@ import torch
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
 from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_mxu, cuda_spgemm, mxu_spgemm
+from spgemm_tpu_torch.ops import plancache, symbolic
 from spgemm_tpu_torch.ops import spgemm as engine
-from spgemm_tpu_torch.ops import symbolic
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
-from spgemm_tpu_torch.ops.spgemm import Folds, plan, spgemm
-from spgemm_tpu_torch.utils import io_text, native
+from spgemm_tpu_torch.ops.spgemm import Folds, plan, spgemm, spgemm_device, spgemm_outofcore
+from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned
+from spgemm_tpu_torch.utils import backend_probe, io_text, native
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.gen import banded_block_sparse, random_block_sparse, random_chain
 from spgemm_tpu_torch.utils.semantics import chain_oracle, field_spgemm_oracle, spgemm_oracle
@@ -646,19 +674,23 @@ def _banded_coords(block_dim: int, bandwidth: int) -> np.ndarray:
 
 def _plan_chain(mats) -> tuple[float, float, list]:
     """Host seconds the chain's planner (join + rounds + permutation) takes
-    alone, on the block structures only, the seconds of its joins alone,
-    and the plans."""
-    arr = [SimpleNamespace(k=m.k, nnzb=m.nnzb, coords=m.coords) for m in mats]
+    alone, on the block structures only, with the plan cache off (so the
+    planner, not a lookup, is timed), the seconds of its joins alone, and
+    the plans."""
+    arr = [SimpleNamespace(k=m.k, nnzb=m.nnzb, coords=m.coords, rows=m.rows, cols=m.cols)
+           for m in mats]
     plans, join_s = [], 0.0
-    t0 = time.perf_counter()
-    while len(arr) > 1:
-        nxt = []
-        for i in range(0, len(arr) - 1, 2):
-            p = plan(arr[i], arr[i + 1])
-            plans.append(p)
-            nxt.append(SimpleNamespace(k=p.k, nnzb=p.join.num_keys, coords=p.join.keys))
-        arr = nxt + arr[len(nxt) * 2:]
-    total = time.perf_counter() - t0
+    with _env(SPGEMM_TPU_PLAN_CACHE="0"):
+        t0 = time.perf_counter()
+        while len(arr) > 1:
+            nxt = []
+            for i in range(0, len(arr) - 1, 2):
+                p = plan(arr[i], arr[i + 1])
+                plans.append(p)
+                nxt.append(SimpleNamespace(k=p.k, nnzb=p.join.num_keys, coords=p.join.keys,
+                                           rows=arr[i].rows, cols=arr[i + 1].cols))
+            arr = nxt + arr[len(nxt) * 2:]
+        total = time.perf_counter() - t0
     for p in plans:
         t1 = time.perf_counter()
         symbolic.symbolic_join(p.a_coords, p.b_coords)
@@ -776,14 +808,21 @@ def phase_medium() -> tuple[dict, SimpleNamespace]:
            f"{tiles} tiles of {cfg['k']}x{cfg['k']} uint64 "
            f"({tiles * cfg['k'] ** 2 * 8 / 1e6:.0f} MB)")
 
-    # the main path, once: counts zeroed just before, read just after
+    # the main path, once, with an empty plan cache: counts zeroed just
+    # before, read just after
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plancache.clear()
+    ENGINE.reset()
     _zero_counts()
     res = chain_product(dev_mats, device=DEVICE, keep_device=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts()
+    cache = {"hits": ENGINE.counters.get("plan_cache_hits", 0),
+             "misses": ENGINE.counters.get("plan_cache_misses", 0),
+             "plan_s": ENGINE.snapshot().get("plan", 0.0)}
     launches = counts["mod"]
     peak = torch.cuda.max_memory_allocated()
     if launches <= 0:
@@ -795,10 +834,12 @@ def phase_medium() -> tuple[dict, SimpleNamespace]:
             tuple(res.slab.shape) != (len(want_coords) + 1, cfg["k"], cfg["k"]):
         raise RuntimeError("Medium result structure is not the expected band")
     t_plan = _plan_chain(mats)[0]
-    _phase("medium", t0, f"main path: chain wall {wall:.6f} s (host planning "
-           f"alone {t_plan:.6f} s), numeric_round "
+    _phase("medium", t0, f"main path (empty plan cache): chain wall {wall:.6f} s (host "
+           f"planning alone, cache off, {t_plan:.6f} s; ENGINE plan {cache['plan_s']:.6f} s, "
+           f"plan cache hits {cache['hits']}, misses {cache['misses']}), numeric_round "
            f"launches {launches} (no_mod 0, mxu 0), result {res.nnzb} tiles, peak "
-           f"device memory {peak / 2**30:.3f} GiB")
+           f"device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+           f"the {base / 2**30:.3f} GiB of its inputs)")
 
     t0 = time.perf_counter()
     kerns = [TimedFold(cuda_spgemm.numeric_round) for _ in range(KERNEL_REPEATS)]
@@ -839,7 +880,8 @@ def phase_medium() -> tuple[dict, SimpleNamespace]:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "equal": True, "variant": "mod",
             "ms_runs": runs_ms, "chain_wall_s": wall, "plan_s": t_plan, "macs": kern.macs,
-            "peak_bytes": peak, "pairs": kern.pairs, "slots": kern.slots, "ptxas": ptxas,
+            "peak_bytes": peak, "peak_above_inputs_bytes": peak - base,
+            "plan_cache_main_path": cache, "pairs": kern.pairs, "slots": kern.slots, "ptxas": ptxas,
             "geometry": geometry}, SimpleNamespace(mats=mats, dev_mats=dev_mats, res=res)
 
 
@@ -918,6 +960,7 @@ def phase_medium_host(medium) -> dict:
     mats, dev_mats, res = medium.mats, medium.dev_mats, medium.res
     t0 = time.perf_counter()
     native_s, native_join_s, native_plans = _plan_chain(mats)
+    medium.plans = native_plans
     with _env(SPGEMM_TPU_NO_NATIVE="1"):
         numpy_s, numpy_join_s, numpy_plans = _plan_chain(mats)
     if not _same_plans(native_plans, numpy_plans):
@@ -931,7 +974,8 @@ def phase_medium_host(medium) -> dict:
     if hasattr(torch.cuda, "reset_peak_host_memory_stats"):
         torch.cuda.reset_peak_host_memory_stats()
     walls, splits = {0: [], 2: []}, {0: [], 2: []}
-    with contextlib.redirect_stdout(io.StringIO()):
+    # the plan cache off: these time the planner, as before the cache
+    with contextlib.redirect_stdout(io.StringIO()), _env(SPGEMM_TPU_PLAN_CACHE="0"):
         for _ in range(KERNEL_REPEATS):
             for ahead in (0, 2):
                 with _env(SPGEMM_TPU_PLAN_AHEAD=str(ahead)):
@@ -956,7 +1000,7 @@ def phase_medium_host(medium) -> dict:
         med[ahead] = {"wall_s": ws[i], "walls_s": ws,
                       **{name: splits[ahead][i].get(name, 0.0)
                          for name in ("plan", "plan_wait", "upload")}}
-    _phase("medium", t0, "plan-ahead: chain wall (median of "
+    _phase("medium", t0, "plan-ahead (plan cache off): chain wall (median of "
            f"{KERNEL_REPEATS}, in turns) SPGEMM_TPU_PLAN_AHEAD=0 {med[0]['wall_s']:.6f} s "
            f"(runs {', '.join(f'{w:.6f}' for w in walls[0])}; plan {med[0]['plan']:.6f}, "
            f"plan_wait {med[0]['plan_wait']:.6f}, upload {med[0]['upload']:.6f} s), =2 "
@@ -988,7 +1032,7 @@ def phase_medium_cli(medium) -> dict:
     result after prune_zeros.  Needs about 4 GB of disk under TMPDIR and
     deletes it."""
     t0 = time.perf_counter()
-    want = medium.res.to_host().prune_zeros()
+    want = medium.res_host.prune_zeros()
     k = want.k
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_medium_cli_") as tmp:
@@ -1030,6 +1074,7 @@ def phase_medium_cli(medium) -> dict:
             out[name] = {"time_taken_s": float(taken.group(1)), "phases": phases,
                          "matrix_bytes": os.path.getsize(matrix), "read_back_s": read_s}
             os.remove(matrix)
+        out["ranks_8"] = _medium_cli_ranks(medium, folder, tmp, env, want)
     d, t, n = out["default"], out["threads_1"], out["no_native"]
     if not d["phases"]["load"] < t["phases"]["load"]:
         raise RuntimeError(f"the CLI's load with the default threads ({d['phases']['load']} s) "
@@ -1045,8 +1090,48 @@ def phase_medium_cli(medium) -> dict:
            f"{n['time_taken_s']:.6f} s, load {n['phases'].get('load')}, chain "
            f"{n['phases'].get('chain')}, prune+write {n['phases'].get('prune+write')} s; "
            f"./matrix ({d['matrix_bytes'] / 1e9:.3f} GB) read back in {d['read_back_s']:.3f} s "
-           "equals the in-memory result after prune_zeros (all three runs)")
+           "equals the in-memory result after prune_zeros (all three runs); --ranks 8: time "
+           f"taken {out['ranks_8']['time_taken_s']:.6f} s (chain "
+           f"{out['ranks_8']['phases'].get('chain')} s), "
+           f"{out['ranks_8']['tiles_differing_from_p1']} of {out['ranks_8']['tiles']} tiles "
+           "differ from P = 1, ./matrix == chain_product_partitioned(mats, 8, "
+           f"multiply=spgemm_outofcore) in memory ({out['ranks_8']['in_memory_ooc_s']:.3f} s)")
     return out
+
+
+def _medium_cli_ranks(medium, folder: str, tmp: str, env: dict, p1) -> dict:
+    """`--ranks 8` on the Medium text directory: its ./matrix against
+    chain_product_partitioned(mats, 8, multiply=spgemm_outofcore) run in
+    memory (a data path that shares no slab with the CLI's), and the tiles
+    whose bytes differ from the P = 1 result."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "spgemm_tpu_torch.cli", folder, "-v", "--device", DEVICE,
+         "--ranks", "8"], cwd=tmp, env=env, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli --ranks 8 on the Medium directory exited {proc.returncode}:"
+                           f"\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    taken = re.fullmatch(r"time taken (\S+) seconds", lines[-1] if lines else "")
+    # ranks 0-6 hold one matrix each, rank 7 three; the combine reduces 8
+    want_lines = _multiplying_lines(3) + _multiplying_lines(8)
+    if lines[:-1] != want_lines or not taken:
+        raise RuntimeError(f"cli --ranks 8 stdout:\n{proc.stdout[-2000:]}")
+    matrix = os.path.join(tmp, "matrix")
+    got = io_text.read_matrix(matrix, p1.k)
+    os.remove(matrix)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mem = chain_product_partitioned(medium.mats, 8, multiply=spgemm_outofcore,
+                                        device=DEVICE).prune_zeros()
+    mem_s = time.perf_counter() - t1
+    if not _host_equal(got, mem):
+        raise RuntimeError("cli --ranks 8 ./matrix differs from chain_product_partitioned "
+                           "with spgemm_outofcore in memory")
+    phases = {m.group(1): float(m.group(2))
+              for m in re.finditer(r"phase (\S+): ([0-9.]+)s", proc.stderr)}
+    return {"time_taken_s": float(taken.group(1)), "phases": phases,
+            "tiles": got.nnzb, "tiles_differing_from_p1": _differing_tiles(got, p1),
+            "in_memory_ooc_s": mem_s}
 
 
 def phase_medium_parity(medium) -> dict:
@@ -1074,6 +1159,358 @@ def phase_medium_parity(medium) -> dict:
     return {"fold_s": fold_s, "keys": keys, "pairs": pairs, "host_cores": os.cpu_count()}
 
 
+def _timed_chain(dev_mats, want: DeviceBlockMatrix, **env) -> dict:
+    """One chain on the card, as the main path runs it: wall, ENGINE plan
+    and plan_wait, plan cache hits and misses; the result must equal want."""
+    with _env(**env), contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        ENGINE.reset()
+        t0 = time.perf_counter()
+        got = chain_product(dev_mats, device=DEVICE, keep_device=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not _same(got, want):
+        raise RuntimeError(f"chain under {env} differs from its reference result")
+    phases = ENGINE.snapshot()
+    return {"wall_s": wall, "plan": phases.get("plan", 0.0),
+            "plan_wait": phases.get("plan_wait", 0.0),
+            "hits": ENGINE.counters.get("plan_cache_hits", 0),
+            "misses": ENGINE.counters.get("plan_cache_misses", 0)}
+
+
+def _median_run(runs: list) -> dict:
+    return sorted(runs, key=lambda r: r["wall_s"])[len(runs) // 2]
+
+
+def phase_medium_plancache(medium) -> dict:
+    """The Medium main path with an empty plan cache against
+    SPGEMM_TPU_PLAN_CACHE=0, in turns (medians of KERNEL_REPEATS), then once
+    more with the cache warm; and the tile pairs of the multiplies that hit,
+    from the cache-off plans (_plan_chain)."""
+    t0 = time.perf_counter()
+    runs = {"off": [], "empty": []}
+    for _ in range(KERNEL_REPEATS):
+        for mode in ("off", "empty"):
+            plancache.clear()
+            runs[mode].append(_timed_chain(medium.dev_mats, medium.res,
+                                           SPGEMM_TPU_PLAN_CACHE="0" if mode == "off" else "1"))
+    warm = _timed_chain(medium.dev_mats, medium.res, SPGEMM_TPU_PLAN_CACHE="1")
+    med = {mode: _median_run(rs) for mode, rs in runs.items()}
+    walls = {mode: ", ".join(f"{r['wall_s']:.6f}" for r in rs) for mode, rs in runs.items()}
+    keys = [(p.a_coords.tobytes(), p.b_coords.tobytes()) for p in medium.plans]
+    pairs = [len(p.join.pair_a) for p in medium.plans]
+    hit_pairs = sum(n for i, n in enumerate(pairs) if keys[i] in keys[:i])
+    want = {"hits": len(keys) - len(set(keys)), "misses": len(set(keys))}
+    if {x: med["empty"][x] for x in want} != want or warm["hits"] != len(keys):
+        raise RuntimeError(f"plan cache on the Medium chain: {med['empty']} (want {want}), "
+                           f"warm {warm}")
+    _phase("medium", t0, f"plan cache, medians of {KERNEL_REPEATS} in turns: "
+           f"SPGEMM_TPU_PLAN_CACHE=0 wall {med['off']['wall_s']:.6f} s (plan "
+           f"{med['off']['plan']:.6f}, plan_wait {med['off']['plan_wait']:.6f} s; runs "
+           f"{walls['off']}); empty cache "
+           f"wall {med['empty']['wall_s']:.6f} s (plan {med['empty']['plan']:.6f}, plan_wait "
+           f"{med['empty']['plan_wait']:.6f} s; hits {med['empty']['hits']}, misses "
+           f"{med['empty']['misses']}; runs {walls['empty']}); warm cache "
+           f"wall {warm['wall_s']:.6f} s (plan {warm['plan']:.6f}, plan_wait "
+           f"{warm['plan_wait']:.6f} s; hits {warm['hits']}, misses {warm['misses']}); tile "
+           f"pairs per multiply {pairs}, {hit_pairs} of {sum(pairs)} "
+           f"({hit_pairs / sum(pairs) * 100:.2f}%) in the multiplies that hit; results equal")
+    return {"off": med["off"], "empty": med["empty"], "warm": warm,
+            "runs": runs, "pairs": pairs, "hit_pairs": hit_pairs,
+            "distinct": _plancache_distinct(medium)}
+
+
+def _plancache_distinct(medium) -> dict:
+    """What the cache costs where it cannot help: the Medium inputs, input
+    i with its band shifted i blocks to the right (tiles past the last
+    column dropped), so that no two multiplies of the chain share an
+    operand structure: the products' bands are centred on distinct sums.  Walls with the cache off and
+    empty, in turns (medians of KERNEL_REPEATS), 0 hits required, results
+    equal; and the cache's own host work on these 9 multiplies timed alone:
+    the fingerprints and the freezing of each plan."""
+    t0 = time.perf_counter()
+    mats = []
+    for i, m in enumerate(medium.mats):
+        coords = m.coords + np.array([0, i], m.coords.dtype)
+        keep = coords[:, 1] < m.cols // m.k
+        mats.append(BlockSparseMatrix(rows=m.rows, cols=m.cols, k=m.k, coords=coords[keep],
+                                      tiles=m.tiles[keep]))
+    dev_mats = [DeviceBlockMatrix.from_host(m, DEVICE) for m in mats]
+    with contextlib.redirect_stdout(io.StringIO()), _env(SPGEMM_TPU_PLAN_CACHE="0"):
+        want = chain_product(dev_mats, device=DEVICE, keep_device=True)
+    runs = {"off": [], "empty": []}
+    for _ in range(KERNEL_REPEATS):
+        for mode in ("off", "empty"):
+            plancache.clear()
+            runs[mode].append(_timed_chain(dev_mats, want,
+                                           SPGEMM_TPU_PLAN_CACHE="0" if mode == "off" else "1"))
+    med = {mode: _median_run(rs) for mode, rs in runs.items()}
+    if med["empty"]["hits"] != 0 or med["empty"]["misses"] != len(mats) - 1:
+        raise RuntimeError(f"plan cache on distinct structures: {med['empty']}")
+    plans = _plan_chain(mats)[2]
+    t1 = time.perf_counter()
+    for p in plans:
+        plancache.fingerprint(p.a_coords, p.b_coords, (p.k, p.backend))
+    hash_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for p in plans:
+        engine._freeze(p)
+    freeze_s = time.perf_counter() - t1
+    plancache.clear()
+    walls = {mode: ", ".join(f"{r['wall_s']:.6f}" for r in rs) for mode, rs in runs.items()}
+    _phase("medium", t0, f"plan cache on distinct structures (input i's band shifted "
+           f"i blocks), medians of {KERNEL_REPEATS} in turns: SPGEMM_TPU_PLAN_CACHE=0 wall "
+           f"{med['off']['wall_s']:.6f} s (plan {med['off']['plan']:.6f} s; runs "
+           f"{walls['off']}); empty cache wall {med['empty']['wall_s']:.6f} s (plan "
+           f"{med['empty']['plan']:.6f} s; hits {med['empty']['hits']}, misses "
+           f"{med['empty']['misses']}; runs {walls['empty']}); the cache's own work on the "
+           f"{len(plans)} multiplies alone: fingerprints {hash_s:.6f} s, freezing "
+           f"{freeze_s:.6f} s; results equal")
+    return {"off": med["off"], "empty": med["empty"], "runs": runs,
+            "fingerprint_s": hash_s, "freeze_s": freeze_s}
+
+
+def _busy_share(trace_path: str, window: str) -> dict:
+    """From a torch.profiler Chrome trace: the union of the device kernels'
+    intervals inside the host range named `window`, over that range."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    wins = [e for e in events if e.get("name") == window and e.get("cat") == "user_annotation"]
+    if len(wins) != 1:
+        raise RuntimeError(f"the trace holds {len(wins)} ranges named {window!r}")
+    start = float(wins[0]["ts"])
+    end = start + float(wins[0]["dur"])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = sorted((max(float(e["ts"]), start), min(float(e["ts"]) + float(e["dur"]), end))
+                   for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in spans:
+        if e0 <= s0:
+            continue
+        if cur_e is None or s0 > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    k1 = [e for e in kernels if "numeric_round_kernel" in e.get("name", "")]
+    return {"window_ms": (end - start) / 1e3, "busy_ms": busy / 1e3,
+            "share": busy / (end - start), "kernels": len(kernels), "kernel1_launches": len(k1),
+            "kernel1_ms": sum(float(e["dur"]) for e in k1) / 1e3}
+
+
+def phase_medium_busy(medium) -> dict:
+    """The device's busy share over one Medium main-path chain, from a
+    torch.profiler trace (CPU and CUDA activity) of the chain, closed by a
+    synchronize: with an empty plan cache and with a warm one."""
+    t0 = time.perf_counter()
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        for state in ("empty", "warm"):
+            if state == "empty":
+                plancache.clear()
+            torch.cuda.synchronize()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    torch.profiler.profile(activities=acts) as prof:
+                with torch.profiler.record_function("medium_chain"):
+                    got = chain_product(medium.dev_mats, device=DEVICE, keep_device=True)
+                    torch.cuda.synchronize()
+            path = os.path.join(tmp, f"{state}.json")
+            prof.export_chrome_trace(path)
+            if not _same(got, medium.res):
+                raise RuntimeError("the profiled Medium chain differs from the main path's result")
+            out[state] = _busy_share(path, "medium_chain")
+            if out[state]["kernel1_launches"] <= 0:
+                raise RuntimeError(f"the profiler trace of the Medium chain holds no launch of "
+                                   f"kernel 1: {out[state]}")
+    _phase("medium", t0, "device busy share over one Medium main-path chain (torch.profiler, "
+           "union of kernel intervals over the chain's host range, profiler on): empty plan "
+           f"cache {out['empty']['share'] * 100:.2f}% ({out['empty']['busy_ms']:.3f} of "
+           f"{out['empty']['window_ms']:.3f} ms; {out['empty']['kernels']} kernels, kernel 1 "
+           f"{out['empty']['kernel1_launches']} launches, {out['empty']['kernel1_ms']:.3f} ms), "
+           f"warm {out['warm']['share'] * 100:.2f}% ({out['warm']['busy_ms']:.3f} of "
+           f"{out['warm']['window_ms']:.3f} ms; kernel 1 {out['warm']['kernel1_ms']:.3f} ms)")
+    return out
+
+
+def _host_equal(x: BlockSparseMatrix, y: BlockSparseMatrix) -> bool:
+    return (x.rows, x.cols, x.k) == (y.rows, y.cols, y.k) and \
+        np.array_equal(x.coords, y.coords) and np.array_equal(x.tiles, y.tiles)
+
+
+def _ooc_chain(mats, backend: str = "exact", **env) -> tuple:
+    """chain_product over host matrices with spgemm_outofcore: (result, wall
+    s, peak device bytes above the memory allocated at its start, launches,
+    ENGINE phases and counters)."""
+    with _env(**env), contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ENGINE.reset()
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = chain_product(mats, device=DEVICE, backend=backend, multiply=spgemm_outofcore)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return got, {"wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                 "launches": _read_counts(), "phases": ENGINE.snapshot(),
+                 "counters": dict(ENGINE.counters)}
+
+
+def phase_medium_ooc(medium, resident_peak: int, resident_above: int) -> dict:
+    """spgemm_outofcore chained over the Medium chain's host matrices at
+    SPGEMM_TPU_OOC_DEPTH 1, 2 and 4: wall, peak device memory against the
+    resident main path's, rounds, bytes uploaded, ENGINE's stage_prep,
+    dispatch and assembly; each result equal to the resident result."""
+    t0 = time.perf_counter()
+    out = {}
+    for depth in (1, 2, 4):
+        got, out[depth] = _ooc_chain(medium.mats, SPGEMM_TPU_OOC_DEPTH=str(depth))
+        if not _host_equal(got, medium.res_host):
+            raise RuntimeError(f"out-of-core Medium chain at depth {depth} != resident result")
+        if out[depth]["launches"]["mod"] <= 0 or not out[depth]["peak_bytes"] < resident_above:
+            raise RuntimeError(f"out-of-core at depth {depth}: {out[depth]} (resident peak "
+                               f"above its inputs {resident_above})")
+        del got
+
+    def line(d):
+        r = out[d]
+        return (f"depth {d}: wall {r['wall_s']:.6f} s, peak {r['peak_bytes'] / 2**20:.3f} MiB, "
+                f"{r['counters'].get('ooc_rounds')} rounds, "
+                f"{r['counters'].get('ooc_upload_bytes', 0) / 1e9:.3f} GB uploaded, kernel 1 "
+                f"{r['launches']['mod']} launches, stage_prep "
+                f"{r['phases'].get('stage_prep', 0):.6f} s, dispatch "
+                f"{r['phases'].get('dispatch', 0):.6f} s, assembly "
+                f"{r['phases'].get('assembly', 0):.6f} s, plan {r['phases'].get('plan', 0):.6f} s")
+    _phase("medium-ooc", t0, f"{'; '.join(line(d) for d in out)}; each == the resident "
+           f"result; the resident main path's peak {resident_peak / 2**30:.3f} GiB "
+           f"({resident_above / 2**30:.3f} GiB above its inputs)")
+    return out
+
+
+def _differing_tiles(x: BlockSparseMatrix, y: BlockSparseMatrix) -> int:
+    """Keys whose tiles differ between x and y, a key held by one only
+    counting as differing."""
+    kx = {tuple(c): i for i, c in enumerate(x.coords.tolist())}
+    ky = {tuple(c): i for i, c in enumerate(y.coords.tolist())}
+    both = sorted(kx.keys() & ky.keys())
+    ix = np.array([kx[c] for c in both], np.int64)
+    iy = np.array([ky[c] for c in both], np.int64)
+    same = np.all(x.tiles[ix] == y.tiles[iy], axis=(1, 2)) if both else np.zeros(0, bool)
+    return int((~same).sum()) + len(kx.keys() ^ ky.keys())
+
+
+def phase_cli_modes(rng) -> dict:
+    """On a small chain (k=8, 7 matrices, EDGE-like values): --checkpoint-dir
+    resuming after a failure injected after pass 1, run with --profile, whose
+    trace must hold kernel 1's launches; failover=True with a failing fold
+    injected through Folds, raised on this working card and answered by the
+    oracle when the probe reports a lost card.  Each against the oracle's
+    bytes."""
+    t0 = time.perf_counter()
+    k = 8
+    mats = random_chain(7, 10, k, 0.4, rng, "adversarial")
+    want = io_text.format_matrix(BlockSparseMatrix.from_dict(
+        mats[0].rows, mats[-1].cols, k, chain_oracle([m.to_dict() for m in mats], k)
+    ).prune_zeros())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_modes_") as tmp:
+        folder = os.path.join(tmp, "chain")
+        io_text.write_chain_dir(folder, mats, k)
+        env = {**os.environ, "PYTHONPATH": REPO}
+        # checkpoint: pass 1 has 3 multiplies; the 4th raises
+        ck = os.path.join(tmp, "ck")
+        calls = []
+
+        def failing(a, b, **kw):
+            calls.append(1)
+            if len(calls) == 4:
+                raise RuntimeError("failure injected after pass 1")
+            return spgemm_device(a, b, **kw)
+
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                chain_product(mats, device=DEVICE, multiply=failing, checkpoint_dir=ck)
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        else:
+            raise RuntimeError("the injected failure did not raise")
+        if sorted(os.listdir(ck)) != ["pass_1.npz"]:
+            raise RuntimeError(f"checkpoint dir after the failure: {os.listdir(ck)}")
+        # the resume runs under --profile too: its trace must hold kernel 1
+        matrix = os.path.join(tmp, "ck.matrix")
+        prof = os.path.join(tmp, "prof")
+        lines = _cli(folder, matrix, tmp, env, "--checkpoint-dir", ck,
+                     "--profile", prof).splitlines()
+        with open(matrix, "rb") as f:
+            if f.read() != want:
+                raise RuntimeError("--checkpoint-dir resume differs from the oracle's bytes")
+        if lines[:-1] != _multiplying_lines(4):  # passes 2 and 3 only: it resumed
+            raise RuntimeError(f"--checkpoint-dir did not resume from pass 1: {lines}")
+        out["checkpoint"] = {"resumed_lines": len(lines) - 1,
+                             "passes": sorted(os.listdir(ck))}
+        # failover with a failing fold: first with the real probe, which
+        # finds this card working, so the error must be raised; then with
+        # the probe standing in for a lost card, so the oracle answers
+        def failing_folds():
+            calls = []
+
+            def fold(*args, **kw):
+                calls.append(1)
+                if len(calls) >= 2:
+                    raise RuntimeError("fold failure injected")
+                return cuda_spgemm.numeric_round(*args, **kw)
+
+            return Folds(exact=fold)
+
+        err = io.StringIO()
+        t1 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+                chain_product(mats, device=DEVICE, failover=True, folds=failing_folds())
+        except RuntimeError as e:
+            if "fold failure injected" not in str(e):
+                raise
+        else:
+            raise RuntimeError("failover on a working card answered instead of raising")
+        if err.getvalue():
+            raise RuntimeError(f"failover on a working card wrote to stderr: {err.getvalue()}")
+        live_s = time.perf_counter() - t1
+        err = io.StringIO()
+        real_probe = backend_probe.probe_default_backend
+        backend_probe.probe_default_backend = lambda: "error"
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+                got = chain_product(mats, device=DEVICE, failover=True, folds=failing_folds())
+        finally:
+            backend_probe.probe_default_backend = real_probe
+        err_lines = err.getvalue().splitlines()
+        if len(err_lines) != 1 or not err_lines[0].startswith("chain failover:"):
+            raise RuntimeError(f"failover's stderr: {err_lines}")
+        if io_text.format_matrix(got.prune_zeros()) != want:
+            raise RuntimeError("failover's result differs from the oracle's bytes")
+        out["failover"] = {"stderr": err_lines[0], "live_card_raised_after_s": live_s}
+        (trace,) = os.listdir(prof)
+        with open(os.path.join(prof, trace)) as f:
+            events = json.load(f)["traceEvents"]
+        k1 = [e for e in events if e.get("cat") == "kernel"
+              and "numeric_round_kernel" in e.get("name", "")]
+        if not k1:
+            raise RuntimeError("the --profile trace holds no launch of kernel 1")
+        out["profile"] = {"kernel1_launches": len(k1), "trace_bytes":
+                          os.path.getsize(os.path.join(prof, trace))}
+    _phase("cli-modes", t0, f"7-matrix k=8 chain: --checkpoint-dir resumed after a failure "
+           f"injected after pass 1 ({out['checkpoint']['resumed_lines']} multiplies left), "
+           f"bytes == oracle, its --profile trace holding "
+           f"{out['profile']['kernel1_launches']} kernel 1 launches; failover=True with a "
+           f"failing fold: the real probe found the card working and the error was raised "
+           f"({out['failover']['live_card_raised_after_s']:.3f} s, probe included); with the "
+           f"probe standing in for a lost card, one stderr line, bytes == oracle")
+    return out
+
+
 def _hub_operands(rng, k: int):
     """One output row whose two keys each contract HUB_FANOUT tile pairs,
     values below 2^16: the proof holds, but the fanout class times k passes
@@ -1098,8 +1535,8 @@ def _level1_timings(dev_mats) -> dict:
         limbs = {"a_limbs": cuda_mxu.limbs_for_bound(a.bound()),
                  "b_limbs": cuda_mxu.limbs_for_bound(b.bound())}
         for rnd in p.rounds:
-            rounds.append((a.slab, b.slab, torch.from_numpy(rnd.pa).to(DEVICE),
-                           torch.from_numpy(rnd.pb).to(DEVICE), limbs))
+            rounds.append((a.slab, b.slab, torch.tensor(rnd.pa, device=DEVICE),
+                           torch.tensor(rnd.pb, device=DEVICE), limbs))
     runs = {"mxu": [], "no_mod": [], "mod": []}
     err = 0
     for _ in range(KERNEL_REPEATS):
@@ -1132,7 +1569,6 @@ def phase_medium_small() -> list[dict]:
     mats = [banded_block_sparse(cfg["block_dim"], cfg["k"], cfg["bandwidth"], rng, dist="small")
             for _ in range(cfg["n"])]
     dev_mats = [DeviceBlockMatrix.from_host(m, DEVICE) for m in mats]
-    del mats
     torch.cuda.synchronize()
     _phase("medium-small", t0, f"generated + uploaded the Medium chain with values "
            f"below 2^16, {sum(m.nnzb for m in dev_mats)} tiles")
@@ -1140,6 +1576,16 @@ def phase_medium_small() -> list[dict]:
     t0 = time.perf_counter()
     res_a, wall_a, counts_a, _ = _main_path(dev_mats, "exact")
     _phase("medium-small", t0, f"(a) exact: chain wall {wall_a:.6f} s, launches {counts_a}")
+
+    t0 = time.perf_counter()
+    ooc, ooc_run = _ooc_chain(mats, "hybrid", SPGEMM_TPU_HYBRID_GATE="proof")
+    if not _host_equal(ooc, res_a.to_host()) or ooc_run["launches"]["mxu"] <= 0:
+        raise RuntimeError(f"out-of-core hybrid on the Medium-small chain != exact, or no "
+                           f"limb-kernel launch: {ooc_run['launches']}")
+    del ooc, mats
+    _phase("medium-small", t0, f"out-of-core hybrid (gate proof): wall "
+           f"{ooc_run['wall_s']:.6f} s, byte-equal to (a); launches {ooc_run['launches']}; "
+           f"peak {ooc_run['peak_bytes'] / 2**20:.3f} MiB above its start")
 
     t0 = time.perf_counter()
     res_b, wall_b, counts_b, mult_b = _main_path(dev_mats, "hybrid", SPGEMM_TPU_HYBRID_GATE="proof")
@@ -1264,7 +1710,7 @@ def phase_medium_small() -> list[dict]:
         "ptxas": ptxas, "geometry": geometry,
         "chain_wall_s": {"a_exact": wall_a, "b_hybrid_proof": wall_b,
                          "c_hybrid_auto": wall_c, "d_mxu": wall_d},
-        "gate": decisions}
+        "gate": decisions, "ooc_hybrid": ooc_run}
     return [no_mod_row, mxu_row]
 
 
@@ -1539,6 +1985,10 @@ def main() -> int:
     row, medium = phase_medium()
     row["max_abs_err"] = max(row["max_abs_err"], kernel_err["mod"])
     row["host"] = phase_medium_host(medium)
+    row["plan_cache"] = phase_medium_plancache(medium)
+    row["busy_share"] = phase_medium_busy(medium)
+    medium.res_host = medium.res.to_host()
+    row["ooc"] = phase_medium_ooc(medium, row["peak_bytes"], row["peak_above_inputs_bytes"])
     row["cli"] = phase_medium_cli(medium)
     row["parity_fold"] = phase_medium_parity(medium)
     del medium
@@ -1548,6 +1998,7 @@ def main() -> int:
     no_mod_row["ptxas"] = row["ptxas"]["no_mod"]
     no_mod_row["geometry"] = row["geometry"]["no_mod"]
     mxu_row["max_abs_err"] = max(mxu_row["max_abs_err"], kernel_err["mxu"])
+    row["cli_modes"] = phase_cli_modes(rng)
     torch.cuda.empty_cache()
     ffn_rows = phase_ffn()
     for r in ffn_rows:

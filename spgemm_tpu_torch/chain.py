@@ -10,21 +10,40 @@ Plan-ahead (SPGEMM_TPU_PLAN_AHEAD, default 2; the JAX package's chain.py:
 dispatches pair i a host worker thread plans pairs i+1..i+ahead.  Planning
 is deterministic and the dispatch order does not change, so the bytes are
 the same at any depth; 0 plans inline.  Plans stay within a pass, as in the
-JAX package.
+JAX package, and the worker runs only for the default multiply.
 
-A multiply that fails raises: there is no failover to the host oracle.
+The multiply is spgemm_device by default (partials stay on the card); the
+CLI's --stream and --out-of-core pass ops/spgemm.spgemm and
+spgemm_outofcore, whose partials stay in host memory.  checkpoint_dir
+snapshots each pass (utils/checkpoint.py) and resumes from the newest
+written for the same inputs.
+failover=True is for a lost card: when a multiply raises, the card is
+probed in a subprocess (utils/backend_probe.py), and only if the probe
+finds no working card is the pass restarted on the host oracle
+(oracle_multiply), from host copies of the pass's input fetched while the
+card still worked (after a sticky CUDA error nothing on the card can be
+read).  On a card that still computes, the error is the program's (a kernel
+that fails to build or launch, a bad argument) and is raised as it is.
+Failover happens only when asked for, and only an Exception triggers it: a
+BaseException (an abort) passes through.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
+import sys
 import threading
 from functools import partial
 
-from spgemm_tpu_torch.ops.device import ensure_device, resolve_device
+from spgemm_tpu_torch.ops.device import DeviceBlockMatrix, ensure_device, resolve_device
 from spgemm_tpu_torch.ops.spgemm import KERNELS, Folds, plan, spgemm_device
-from spgemm_tpu_torch.utils import knobs
+from spgemm_tpu_torch.utils import backend_probe, checkpoint, knobs
+from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+from spgemm_tpu_torch.utils.semantics import spgemm_oracle
 from spgemm_tpu_torch.utils.timers import ENGINE
+
+log = logging.getLogger("spgemm_tpu_torch.chain")
 
 
 class _PlanAheadWorker:
@@ -82,9 +101,9 @@ def _plan_ahead_depth() -> int:
     return knobs.get("SPGEMM_TPU_PLAN_AHEAD")
 
 
-def _make_planner(backend: str):
+def _make_planner(backend: str, round_size: int | None):
     """The (a, b) -> SpgemmPlan function the worker runs."""
-    return partial(plan, backend=backend)
+    return partial(plan, backend=backend, round_size=round_size)
 
 
 def _with_bound(m, device):
@@ -96,48 +115,116 @@ def _with_bound(m, device):
     return m
 
 
+def _to_host(m) -> BlockSparseMatrix:
+    return m.to_host() if isinstance(m, DeviceBlockMatrix) else m
+
+
+def oracle_multiply(a, b, **_ignored) -> BlockSparseMatrix:
+    """The host-only multiply with the reference's semantics
+    (utils/semantics.spgemm_oracle): failover's multiply, which needs no
+    card.  Slow by design."""
+    a, b = _to_host(a), _to_host(b)
+    return BlockSparseMatrix.from_dict(a.rows, b.cols, a.k,
+                                       spgemm_oracle(a.to_dict(), b.to_dict(), a.k))
+
+
+def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int) -> list:
+    """One helper2 pass over arr: the products of adjacent pairs, the odd
+    element carried.  Consumed entries of arr are set to None."""
+    odd_carry = arr[-1] if len(arr) % 2 == 1 else None
+    pairs = [(arr[i], arr[i + 1]) for i in range(0, len(arr) - 1, 2)]
+    worker = None
+    if ahead > 0 and len(pairs) > 1 and multiply is spgemm_device:
+        if kwargs["backend"] == "hybrid":
+            pairs = [(_with_bound(a, kwargs["device"]), _with_bound(b, kwargs["device"]))
+                     for a, b in pairs]
+        worker = _PlanAheadWorker(pairs, _make_planner(kwargs["backend"], kwargs["round_size"]),
+                                  ahead)
+    nxt = []
+    try:
+        for p, (a, b) in enumerate(pairs):
+            i = 2 * p
+            # the reference's :301 progress line, printed unconditionally
+            print(f"multiplying {i} {i + 1}", flush=True)
+            extra = {}
+            if worker is not None:
+                got, extra["plan"] = worker.get()
+                if got != p:
+                    raise RuntimeError(f"planner returned pair {got} for pair {p}")
+            nxt.append(multiply(a, b, **kwargs, **extra))
+            arr[i] = arr[i + 1] = pairs[p] = None  # free consumed partials early
+    finally:
+        if worker is not None:
+            worker.close()
+    if odd_carry is not None:
+        nxt.append(odd_carry)  # odd element carried (:315-321)
+    return nxt
+
+
 def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
-                  backend: str = "exact", folds: Folds = KERNELS):
+                  backend: str = "exact", folds: Folds = KERNELS, multiply=None,
+                  round_size: int | None = None, checkpoint_dir: str | None = None,
+                  resume: bool = True, failover: bool = False):
     """Reduce [M1, ..., MN] to M1 x M2 x ... x MN with helper2's pairing.
 
-    matrices: host BlockSparseMatrix or DeviceBlockMatrix; host matrices
-    are uploaded to `device` when first multiplied (under hybrid with
-    plan-ahead, when their pass starts), and every partial product stays on
-    the device, carrying its value bound to the next multiply.  Returns the
-    host result, or the DeviceBlockMatrix with keep_device=True.  backend
-    and folds are forwarded to every multiply (ops/spgemm.spgemm_device)."""
+    matrices: host BlockSparseMatrix or DeviceBlockMatrix.  multiply: the
+    binary op, called as multiply(a, b, device=, backend=, folds=,
+    round_size=) (default ops/spgemm.spgemm_device: host matrices are
+    uploaded when first multiplied, or under hybrid with plan-ahead when
+    their pass starts, and every partial stays on the card, carrying its
+    value bound to the next multiply).  Returns the host result, or with
+    keep_device=True the default multiply's DeviceBlockMatrix (another
+    multiply's host result as it is).
+
+    checkpoint_dir: after each pass the surviving partials are fetched and
+    written as pass_<i>.npz, tagged with a fingerprint of `matrices`; with
+    resume=True a run starts from the newest pass there whose tag is not
+    another chain's.  failover: when a multiply raises an Exception and the
+    probe then finds no working card, the pass restarts from host copies of
+    its input on oracle_multiply, after one line on stderr, and the rest of
+    the chain runs there too; with a working card the error is raised."""
     if not matrices:
         raise ValueError("empty chain")
-    device = resolve_device(device)
+    if multiply is None:
+        multiply = spgemm_device
+    if multiply is not oracle_multiply:
+        device = resolve_device(device)
     ahead = _plan_ahead_depth()  # read once: an invalid value raises before any multiply
     arr = list(matrices)
+    pass_idx = 0
+    inputs_fp = None
+    if checkpoint_dir:
+        inputs_fp = checkpoint.inputs_fingerprint([_to_host(m) for m in matrices])
+    if checkpoint_dir and resume:
+        found = checkpoint.latest_pass(checkpoint_dir, inputs_fp)
+        if found is not None:
+            pass_idx, arr = found
+            log.info("resumed from checkpoint pass %d (%d partials)", pass_idx, len(arr))
+    need_host = failover or bool(checkpoint_dir)
+    # the failover restart point: host copies of the current pass's input
+    arr_host = [_to_host(m) for m in arr] if failover else None
+    kwargs = {"device": device, "backend": backend, "folds": folds, "round_size": round_size}
     while len(arr) > 1:
-        odd_carry = arr[-1] if len(arr) % 2 == 1 else None
-        pairs = [(arr[i], arr[i + 1]) for i in range(0, len(arr) - 1, 2)]
-        worker = None
-        if ahead > 0 and len(pairs) > 1:
-            if backend == "hybrid":
-                pairs = [(_with_bound(a, device), _with_bound(b, device)) for a, b in pairs]
-            worker = _PlanAheadWorker(pairs, _make_planner(backend), ahead)
-        nxt = []
         try:
-            for p, (a, b) in enumerate(pairs):
-                i = 2 * p
-                # the reference's :301 progress line, printed unconditionally
-                print(f"multiplying {i} {i + 1}", flush=True)
-                pln = None
-                if worker is not None:
-                    got, pln = worker.get()
-                    if got != p:
-                        raise RuntimeError(f"planner returned pair {got} for pair {p}")
-                nxt.append(spgemm_device(a, b, device=device, backend=backend,
-                                         folds=folds, plan=pln))
-                arr[i] = arr[i + 1] = pairs[p] = None  # free consumed partials early
-        finally:
-            if worker is not None:
-                worker.close()
-        if odd_carry is not None:
-            nxt.append(odd_carry)  # odd element carried (:315-321)
-        arr = nxt
-    result = ensure_device(arr[0], device)
-    return result if keep_device else result.to_host()
+            nxt = _reduce_pass(arr, multiply, kwargs, ahead)
+            nxt_host = [_to_host(m) for m in nxt] if need_host else None
+        except Exception as e:  # noqa: BLE001 -- device loss is the use case
+            if not failover or multiply is oracle_multiply:
+                raise
+            probe = backend_probe.probe_default_backend()
+            if probe == "ok":
+                raise  # the card still computes: not a lost card
+            print(f"chain failover: a multiply of pass {pass_idx + 1} failed ({e!r}); "
+                  f"CUDA probe: {probe}; restarting the pass on the host oracle",
+                  file=sys.stderr, flush=True)
+            # a copy: the retry sets consumed entries of its list to None
+            arr = list(arr_host)
+            multiply, keep_device = oracle_multiply, False
+            continue
+        arr, arr_host = nxt, nxt_host
+        pass_idx += 1
+        if checkpoint_dir:
+            checkpoint.save_pass(checkpoint_dir, pass_idx, arr_host, inputs_fp)
+    if not keep_device:
+        return arr_host[0] if arr_host is not None else _to_host(arr[0])
+    return ensure_device(arr[0], device) if multiply is spgemm_device else arr[0]

@@ -1,0 +1,124 @@
+"""Structure-keyed LRU cache of SpgemmPlan (the port's copy of the run-once
+part of the JAX package's `ops/plancache.py`).
+
+A plan (ops/spgemm.plan) depends only on the operands' block structures and
+the plan parameters, never on tile values, so a multiply whose structures
+were planned before can reuse that plan.  The key is a content fingerprint
+over the coordinate arrays and a tuple of those parameters.  A chain whose
+inputs share one structure repeats its operand structures level by level
+(the Medium chain's 9 multiplies have 4).
+
+Knobs (utils/knobs.py):
+  SPGEMM_TPU_PLAN_CACHE      0|1 (default 1): memoization on or off.
+  SPGEMM_TPU_PLAN_CACHE_CAP  int >= 1 (default 32): LRU capacity, read at
+                             each store.
+
+Cached plans are shared by every multiply that hits them, so ops/spgemm
+makes their arrays read-only before storing them.  One lock guards the
+cache and is held only for a lookup or a store, never for a build:
+ops/spgemm.plan goes through get_or_build, which marks a key in flight
+while its plan is built, so two planners (chain.py's planner thread and the
+dispatching thread) build two keys at once, and never both build one key.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from collections import OrderedDict
+
+import numpy as np
+
+from spgemm_tpu_torch.utils import knobs
+
+LOCK = threading.RLock()
+_CACHE: "OrderedDict[str, object]" = OrderedDict()  # guarded by LOCK
+_STATS = {"hits": 0, "misses": 0, "evictions": 0}  # guarded by LOCK
+_BUILDING: "dict[str, threading.Event]" = {}  # keys in flight, guarded by LOCK
+
+
+def enabled() -> bool:
+    """SPGEMM_TPU_PLAN_CACHE (default 1)."""
+    return knobs.get("SPGEMM_TPU_PLAN_CACHE")
+
+
+def fingerprint(a_coords: np.ndarray, b_coords: np.ndarray, meta: tuple) -> str:
+    """blake2b over both coordinate arrays (shape, dtype and bytes, so two
+    arrays of other shapes never collide) and the repr of meta, the plan
+    parameters."""
+    h = hashlib.blake2b(digest_size=32)
+    for arr in (a_coords, b_coords):
+        arr = np.ascontiguousarray(arr)
+        h.update(repr((arr.shape, str(arr.dtype))).encode())
+        h.update(arr.tobytes())
+        h.update(b"|")
+    h.update(repr(meta).encode())
+    return h.hexdigest()
+
+
+def lookup(key: str):
+    """The cached plan for key, or None; a hit becomes the most recent."""
+    with LOCK:
+        plan = _CACHE.get(key)
+        if plan is None:
+            _STATS["misses"] += 1
+            return None
+        _CACHE.move_to_end(key)
+        _STATS["hits"] += 1
+        return plan
+
+
+def store(key: str, plan) -> int:
+    """Insert a plan, evicting the least recent past the capacity; returns
+    the number evicted."""
+    cap = knobs.get("SPGEMM_TPU_PLAN_CACHE_CAP")
+    evicted = 0
+    with LOCK:
+        _CACHE[key] = plan
+        _CACHE.move_to_end(key)
+        while len(_CACHE) > cap:
+            _CACHE.popitem(last=False)
+            evicted += 1
+        _STATS["evictions"] += evicted
+    return evicted
+
+
+def get_or_build(key: str, build):
+    """(plan, hit): the cached plan for key, or build()'s, stored.  A miss
+    on a key that another thread is building waits for that build and
+    counts as a hit; if that build fails, this thread builds in turn."""
+    while True:
+        with LOCK:
+            plan = _CACHE.get(key)
+            if plan is not None:
+                _CACHE.move_to_end(key)
+                _STATS["hits"] += 1
+                return plan, True
+            pending = _BUILDING.get(key)
+            if pending is None:
+                pending = _BUILDING[key] = threading.Event()
+                _STATS["misses"] += 1
+                break
+        pending.wait()
+    try:
+        plan = build()
+        store(key, plan)
+        return plan, False
+    finally:
+        with LOCK:
+            del _BUILDING[key]
+        pending.set()
+
+
+def stats() -> dict:
+    """Hits, misses and evictions since the last clear(), and the entries held."""
+    with LOCK:
+        return {**_STATS, "entries": len(_CACHE)}
+
+
+def clear() -> None:
+    """Drop every plan and zero the statistics."""
+    with LOCK:
+        _CACHE.clear()
+        for name in _STATS:
+            _STATS[name] = 0

@@ -18,11 +18,11 @@ from dataclasses import dataclass
 class Knob:
     """One registered knob.
 
-    kind: 'enum' | 'int' | 'flag' | 'path'; a flag is true when set to a
-      non-empty string.
+    kind: 'enum' | 'int' | 'float' | 'bool01' | 'flag' | 'path'; a flag is
+      true when set to a non-empty string, a bool01 is 0 or 1.
     default: the default in string form, or None: get() then returns None
       (False for a flag) and the consuming module owns the fallback.
-    minimum: inclusive lower bound of an int.
+    minimum: inclusive lower bound of an int or a float.
     doc: what the knob does, and the module that reads it.
     """
 
@@ -31,7 +31,7 @@ class Knob:
     doc: str
     default: str | None = None
     choices: tuple[str, ...] | None = None
-    minimum: int | None = None
+    minimum: float | None = None
 
 
 _KNOBS = (
@@ -40,6 +40,25 @@ _KNOBS = (
          "by a host worker thread while the main thread dispatches the current "
          "pair; 0 = inline planning (bit-identical either way).  Read by chain.py.",
          default="2", minimum=0),
+    Knob("SPGEMM_TPU_OOC_DEPTH", "int",
+         "Out-of-core pipeline depth: 1 = synchronous, each round landed before "
+         "the next is staged; >= 2 = staging, device and landing stages overlap "
+         "with at most N rounds on the card.  Read by ops/spgemm.py.",
+         default="2", minimum=1),
+    Knob("SPGEMM_TPU_PLAN_CACHE", "bool01",
+         "Structure-keyed plan memoization: 1 = a multiply whose operand "
+         "structures and plan parameters were planned before reuses that plan, "
+         "0 = plan every multiply (bit-identical either way).  Read by "
+         "ops/plancache.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_PLAN_CACHE_CAP", "int",
+         "Plan-cache LRU capacity in plans (a plan holds its padded pair index "
+         "arrays, about 8 bytes per tile pair).  Read by ops/plancache.py.",
+         default="32", minimum=1),
+    Knob("SPGEMM_TPU_PROBE_TIMEOUT", "float",
+         "Seconds the CUDA liveness probe's subprocess may take (a card that "
+         "hangs never raises).  Read by utils/backend_probe.py.",
+         default="150", minimum=0),
     Knob("SPGEMM_TPU_NO_NATIVE", "flag",
          "Use the numpy text reader/writer and join instead of the native host "
          "library (never build or load it).  Read by utils/native.py."),
@@ -57,18 +76,23 @@ REGISTRY: dict[str, Knob] = {kb.name: kb for kb in _KNOBS}
 
 
 def _parse(kb: Knob, raw: str):
+    if kb.kind == "bool01":
+        if raw not in ("0", "1"):
+            raise ValueError(f"{kb.name} must be 0 or 1, got {raw!r}")
+        return raw == "1"
     if kb.kind == "enum":
         if raw not in kb.choices:
             raise ValueError(f"{kb.name} must be one of {'|'.join(kb.choices)}, got {raw!r}")
         return raw
-    if kb.kind == "int":
+    if kb.kind in ("int", "float"):
+        what = "an integer" if kb.kind == "int" else "a number"
         try:
-            val = int(raw)
+            val = int(raw) if kb.kind == "int" else float(raw)
         except ValueError:
             val = None
         if val is None or (kb.minimum is not None and val < kb.minimum):
-            bound = f" >= {kb.minimum}" if kb.minimum is not None else ""
-            raise ValueError(f"{kb.name} must be an integer{bound}, got {raw!r}")
+            bound = f" >= {kb.minimum:g}" if kb.minimum is not None else ""
+            raise ValueError(f"{kb.name} must be {what}{bound}, got {raw!r}")
         return val
     if kb.kind == "path":
         return raw

@@ -9,14 +9,22 @@ ENGINE is the process-wide registry of the chain engine's host phases:
                  worker is ahead);
   * upload    -- ops/spgemm.execute staging each round's indices and the
                  assembly permutation in pinned memory and queueing their
-                 copies to the card.
+                 copies to the card;
+  * stage_prep, dispatch, assembly -- ops/spgemm.spgemm_outofcore's three
+                 stages: gathering a round's tiles into pinned memory,
+                 its upload and launch, landing its result on the host.
 
-The CLI resets it before a run and reports it with `-v`."""
+and counters: plan_cache_hits and plan_cache_misses (ops/spgemm.plan),
+ooc_rounds and ooc_upload_bytes (spgemm_outofcore).  The CLI resets it
+before a run and reports it with `-v`.
+
+maybe_profile wraps a region in torch.profiler for the CLI's --profile."""
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import threading
 import time
 
@@ -72,3 +80,23 @@ class PhaseTimers:
 
 
 ENGINE = PhaseTimers()
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: str | None, device=None):
+    """torch.profiler over the block when trace_dir is set: CPU activity,
+    and CUDA activity when `device` is a CUDA device; on exit one Chrome
+    trace, trace_<pid>_<ns>.json, is written into trace_dir."""
+    if not trace_dir:
+        yield None
+        return
+    import torch  # noqa: PLC0415 -- only a profiled run needs it here
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

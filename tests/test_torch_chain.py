@@ -102,7 +102,7 @@ def test_failing_planner_reraises_and_worker_closes(monkeypatch, capsys):
     worker.close()
     assert not worker._thread.is_alive()
 
-    monkeypatch.setattr(chain, "_make_planner", lambda backend: planner)
+    monkeypatch.setattr(chain, "_make_planner", lambda backend, round_size: planner)
     mats = [BlockSparseMatrix.from_reference(m)
             for m in random_chain(8, 5, 2, 0.5, np.random.default_rng(2))]
     with pytest.raises(ValueError, match="third pair"):
@@ -150,8 +150,8 @@ def test_planner_thread_never_calls_torch(monkeypatch, capsys):
     planned = []
     real = chain._make_planner
 
-    def spy(backend):
-        fn = real(backend)
+    def spy(backend, round_size):
+        fn = real(backend, round_size)
         return lambda a, b: planned.append(threading.current_thread().name) or fn(a, b)
 
     monkeypatch.setattr(chain, "_make_planner", spy)
@@ -185,6 +185,10 @@ def test_engine_phases(monkeypatch, capsys):
     ("SPGEMM_TPU_NO_NATIVE", [None, "", "1", "0", " "]),
     ("SPGEMM_TPU_HYBRID_GATE", [None, "", "auto", " proof ", "fast", "AUTO"]),
     ("SPGEMM_TPU_CROSSOVER_CACHE", [None, "", "/tmp/x", " /tmp/y "]),
+    ("SPGEMM_TPU_OOC_DEPTH", [None, "", " 4 ", "1", "0", "-2", "x", "2.5"]),
+    ("SPGEMM_TPU_PLAN_CACHE", [None, "", "0", " 1 ", "2", "yes", "-1"]),
+    ("SPGEMM_TPU_PLAN_CACHE_CAP", [None, "", "1", " 64 ", "0", "x"]),
+    ("SPGEMM_TPU_PROBE_TIMEOUT", [None, "", "0", " 2.5 ", "30", "-1", "-0.5", "x", "1e3"]),
 ])
 def test_knobs_parse_like_jax(name, values, monkeypatch):
     for value in values:

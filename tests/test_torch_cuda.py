@@ -2,8 +2,10 @@
 both variants, the limb kernel, the two bsmm kernels) against their plain
 PyTorch versions on the card (the limb kernel also on sentinel slots, every
 limb count, the deepest rounds at full range, ragged k and unaligned
-slabs), the hybrid chain against the exact one, and the FFN forward against
-its plain version.  Tolerance: exact (torch.equal)
+slabs), the hybrid chain against the exact one, out-of-core and --ranks on
+the card against the resident and CPU results, failover with a failing
+fold (falling back when the probe reports a lost card, raising when the
+real probe finds the card working), and the FFN forward against its plain version.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -422,3 +424,84 @@ def test_bsmm_row_tile_at_block_m_16(cuda, dtype, M):
         if M % br == 0:
             other = cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, br=br)
             assert torch.equal(got, other), br
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_size", [None, 3])
+@pytest.mark.parametrize("depth", ["1", "2", "4"])
+@pytest.mark.parametrize("backend,dist", [("exact", "adversarial"), ("hybrid", "small"),
+                                          ("mxu", "small")])
+def test_outofcore_on_card_matches_resident(cuda, backend, dist, depth, round_size,
+                                            monkeypatch, capsys):
+    """Out-of-core on the card: its pinned staging, copy stream and landing
+    events give the resident chain's bytes at every depth and round size."""
+    monkeypatch.setenv("SPGEMM_TPU_OOC_DEPTH", depth)
+    mats = random_chain(5, 8, 8, 0.4, np.random.default_rng(90), dist)
+    want = chain_product(mats, device=cuda, backend=backend)
+    got = chain_product(mats, device=cuda, backend=backend, round_size=round_size,
+                        multiply=engine.spgemm_outofcore)
+    assert got == want
+    assert chain_product(mats, device="cpu", backend=backend) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 3, 8])
+def test_ranks_on_card_match_cpu(cuda, p, tmp_path, capsys):
+    from spgemm_tpu_torch import cli
+    from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned
+    from spgemm_tpu_torch.utils import io_text
+
+    mats = random_chain(9, 6, 8, 0.4, np.random.default_rng(91), "adversarial")
+    want = chain_product_partitioned(mats, p, device="cpu")
+    assert chain_product_partitioned(mats, p, device=cuda) == want
+    assert chain_product_partitioned(mats, p, device=cuda,
+                                     multiply=engine.spgemm_outofcore) == want
+    folder = str(tmp_path / "chain")
+    io_text.write_chain_dir(folder, mats, 8)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = str(tmp_path / device)
+        assert cli.run([folder, "--device", device, "--ranks", str(p), "--output",
+                        outs[device]]) == 0
+    with open(outs["cuda"], "rb") as f, open(outs["cpu"], "rb") as g:
+        assert f.read() == g.read()
+
+
+def _failing_kernel1(n: int):
+    """Kernel 1's fold raising on its n-th call and after."""
+    calls = []
+
+    def fold(*args, **kw):
+        calls.append(1)
+        if len(calls) >= n:
+            raise RuntimeError("fold failure injected")
+        return cuda_spgemm.numeric_round(*args, **kw)
+
+    return engine.Folds(exact=fold)
+
+
+@pytest.mark.cuda
+def test_failover_on_card_gives_the_oracle_bytes(cuda, capsys, monkeypatch):
+    """With the probe standing in for a lost card, the pass restarts on
+    the oracle."""
+    from spgemm_tpu_torch.utils import backend_probe
+    from spgemm_tpu_torch.utils.semantics import chain_oracle
+    from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+
+    monkeypatch.setattr(backend_probe, "probe_default_backend", lambda: "error")
+    mats = random_chain(5, 6, 8, 0.4, np.random.default_rng(92), "adversarial")
+    got = chain_product(mats, device=cuda, failover=True, folds=_failing_kernel1(3))
+    want = BlockSparseMatrix.from_dict(mats[0].rows, mats[-1].cols, 8,
+                                       chain_oracle([m.to_dict() for m in mats], 8))
+    assert got == want
+    assert capsys.readouterr().err.startswith("chain failover:")
+
+
+@pytest.mark.cuda
+def test_failover_on_a_working_card_raises(cuda, capsys):
+    """The real probe finds the card working: the injected fold error is
+    raised, not answered by the oracle."""
+    mats = random_chain(5, 6, 8, 0.4, np.random.default_rng(92), "adversarial")
+    with pytest.raises(RuntimeError, match="fold failure injected"):
+        chain_product(mats, device=cuda, failover=True, folds=_failing_kernel1(3))
+    assert "chain failover:" not in capsys.readouterr().err
