@@ -75,6 +75,24 @@ the script exits non-zero without printing a result:
                taken, the tiles that differ from P = 1, ./matrix equal to
                chain_product_partitioned(mats, 8, multiply=spgemm_outofcore)
                in memory;
+               every phase so far runs with SPGEMM_TPU_DELTA=0 (and the
+               estimator off, the port's default); then, on the Medium chain of distinct
+               structures, `[delta]` (four submits from host leaves with delta on
+               in one process: first contact, unchanged, 11 contiguous tile rows
+               of M5 given new values, 11 rows spread evenly; each equal to the
+               delta-off chain, whose walls are printed beside; rows recomputed
+               per level, ENGINE delta_diff / delta_splice / plan, the splice's
+               CUDA-event ms, the bytes the store retains; the row digests of the
+               leaves alone on one thread and on the pool, in pairs of alternating
+               order, with the pairs each won; the splice kernel
+               against splice_ref on the splices of the two edited submits, timed
+               beside the plain version and index_copy_ on a clone; the Medium
+               chain of one structure twice: the hits its shared keys allow),
+               `[warm]` (this script as two subprocesses, `--warm-child first`
+               and `second`, on one SPGEMM_TPU_WARM_DIR: the second must find
+               every plan and delta entry, recompute no row and give the first's
+               bytes) and `[estimate]` (the estimator on and off from an empty
+               plan cache, in turns; the bytes equal);
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -111,13 +129,14 @@ the script exits non-zero without printing a result:
                timed, kernel 4 bit-equal to kernel 3 on matmul 1 and kernel
                3 on matmul 2 bit-equal across the row tiles 16 to 128.
 
-Then one JSON line describing every ported kernel and, last, the device line
+Then one JSON line describing every ported kernel (the splice last) and, last, the device line
 `{"ok": true, "device": {...}}`.  Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import logging
@@ -138,8 +157,8 @@ import torch
 
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
-from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_mxu, cuda_spgemm, mxu_spgemm
-from spgemm_tpu_torch.ops import plancache, symbolic
+from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_mxu, cuda_splice, cuda_spgemm
+from spgemm_tpu_torch.ops import delta, estimate, mxu_spgemm, plancache, symbolic, warmstore
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.ops.spgemm import Folds, plan, spgemm, spgemm_device, spgemm_outofcore
@@ -738,13 +757,15 @@ def _ptxas_report() -> dict:
 
 def _zero_counts() -> None:
     cuda_spgemm.launches = cuda_spgemm.launches_no_mod = cuda_mxu.launches = 0
+    cuda_splice.launches = 0
     for name in engine.rounds_by_kernel:
         engine.rounds_by_kernel[name] = 0
 
 
 def _read_counts() -> dict:
     return {"mod": cuda_spgemm.launches, "no_mod": cuda_spgemm.launches_no_mod,
-            "mxu": cuda_mxu.launches, "rounds": dict(engine.rounds_by_kernel)}
+            "mxu": cuda_mxu.launches, "splice": cuda_splice.launches,
+            "rounds": dict(engine.rounds_by_kernel)}
 
 
 @contextlib.contextmanager
@@ -795,12 +816,32 @@ def _main_path(dev_mats, backend: str, **env):
     return res, wall, counts, handler.multiplies
 
 
-def phase_medium() -> tuple[dict, SimpleNamespace]:
-    t0 = time.perf_counter()
+def _medium_mats() -> list:
+    """The Medium chain's host matrices, from SEED."""
     rng = np.random.default_rng(SEED)
     cfg = MEDIUM
-    mats = [banded_block_sparse(cfg["block_dim"], cfg["k"], cfg["bandwidth"], rng)
+    return [banded_block_sparse(cfg["block_dim"], cfg["k"], cfg["bandwidth"], rng)
             for _ in range(cfg["n"])]
+
+
+def _distinct_mats(mats: list) -> list:
+    """The Medium chain of distinct structures: input i with its band
+    shifted i blocks to the right (tiles past the last column dropped), so
+    that no two multiplies of the chain share an operand structure: the
+    products' bands are centred on distinct sums."""
+    out = []
+    for i, m in enumerate(mats):
+        coords = m.coords + np.array([0, i], m.coords.dtype)
+        keep = coords[:, 1] < m.cols // m.k
+        out.append(BlockSparseMatrix(rows=m.rows, cols=m.cols, k=m.k, coords=coords[keep],
+                                     tiles=m.tiles[keep]))
+    return out
+
+
+def phase_medium() -> tuple[dict, SimpleNamespace]:
+    t0 = time.perf_counter()
+    cfg = MEDIUM
+    mats = _medium_mats()
     dev_mats = [DeviceBlockMatrix.from_host(m, DEVICE) for m in mats]
     torch.cuda.synchronize()
     tiles = sum(m.nnzb for m in mats)
@@ -1174,8 +1215,11 @@ def _timed_chain(dev_mats, want: DeviceBlockMatrix, **env) -> dict:
     phases = ENGINE.snapshot()
     return {"wall_s": wall, "plan": phases.get("plan", 0.0),
             "plan_wait": phases.get("plan_wait", 0.0),
+            "plan_exact": phases.get("plan_exact", 0.0),
             "hits": ENGINE.counters.get("plan_cache_hits", 0),
-            "misses": ENGINE.counters.get("plan_cache_misses", 0)}
+            "misses": ENGINE.counters.get("plan_cache_misses", 0),
+            "est_hits": ENGINE.counters.get("est_hits", 0),
+            "est_fallbacks": ENGINE.counters.get("est_fallbacks", 0)}
 
 
 def _median_run(runs: list) -> dict:
@@ -1221,20 +1265,13 @@ def phase_medium_plancache(medium) -> dict:
 
 
 def _plancache_distinct(medium) -> dict:
-    """What the cache costs where it cannot help: the Medium inputs, input
-    i with its band shifted i blocks to the right (tiles past the last
-    column dropped), so that no two multiplies of the chain share an
-    operand structure: the products' bands are centred on distinct sums.  Walls with the cache off and
+    """What the cache costs where it cannot help: the Medium chain of
+    distinct structures (_distinct_mats).  Walls with the cache off and
     empty, in turns (medians of KERNEL_REPEATS), 0 hits required, results
     equal; and the cache's own host work on these 9 multiplies timed alone:
     the fingerprints and the freezing of each plan."""
     t0 = time.perf_counter()
-    mats = []
-    for i, m in enumerate(medium.mats):
-        coords = m.coords + np.array([0, i], m.coords.dtype)
-        keep = coords[:, 1] < m.cols // m.k
-        mats.append(BlockSparseMatrix(rows=m.rows, cols=m.cols, k=m.k, coords=coords[keep],
-                                      tiles=m.tiles[keep]))
+    mats = _distinct_mats(medium.mats)
     dev_mats = [DeviceBlockMatrix.from_host(m, DEVICE) for m in mats]
     with contextlib.redirect_stdout(io.StringIO()), _env(SPGEMM_TPU_PLAN_CACHE="0"):
         want = chain_product(dev_mats, device=DEVICE, keep_device=True)
@@ -1254,7 +1291,7 @@ def _plancache_distinct(medium) -> dict:
     hash_s = time.perf_counter() - t1
     t1 = time.perf_counter()
     for p in plans:
-        engine._freeze(p)
+        p.freeze()
     freeze_s = time.perf_counter() - t1
     plancache.clear()
     walls = {mode: ", ".join(f"{r['wall_s']:.6f}" for r in rs) for mode, rs in runs.items()}
@@ -1952,11 +1989,377 @@ def phase_ffn() -> list[dict]:
     return [stream_row, resident_row]
 
 
+DELTA_EDIT_LEAF = 4    # M5, the A operand of level-1 multiply (4, 5)
+DELTA_EDIT_ROWS = 11   # 1% of the Medium chain's 1111 tile rows
+DELTA_LEVELS = (5, 2, 1, 1)  # multiplies per pass of a 10-matrix chain
+DIGEST_PAIRS = 6       # row digests, one thread against the pool, in alternating order
+WARM_MAX_MB = 16384    # the warm phase's budget: every entry of the chain stays
+
+
+class TimedSplice:
+    """cuda_splice.splice wrapped in CUDA events, counting the bytes the
+    function must move (each output row read once, from prev or sub, and
+    written once, plus the source map); with record on, each call's
+    arguments and output are kept for the comparison with the plain
+    version."""
+
+    def __init__(self):
+        self.events = []
+        self.bytes = 0
+        self.calls = []
+        self.record = False
+
+    def __call__(self, prev, sub, src):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cuda_splice.splice(prev, sub, src)
+        end.record()
+        self.events.append((start, end))
+        self.bytes += 2 * prev.nbytes + src.nbytes
+        if self.record:
+            self.calls.append((prev, sub, src, out))
+        return out
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def _edit_rows(m: BlockSparseMatrix, rows, rng) -> BlockSparseMatrix:
+    """The same structure with new uniform values in every tile of the
+    given tile-rows."""
+    tiles = m.tiles.copy()
+    mask = np.isin(m.coords[:, 0], np.asarray(rows, np.int64))
+    tiles[mask] = rng.integers(0, 1 << 64, size=(int(mask.sum()), m.k, m.k), dtype=np.uint64)
+    return BlockSparseMatrix(rows=m.rows, cols=m.cols, k=m.k, coords=m.coords, tiles=tiles)
+
+
+@contextlib.contextmanager
+def _per_multiply():
+    """Records (rows recomputed, rows total, full fallback) of each delta
+    multiply, in chain order, from ENGINE's counters around the engine's
+    _delta_execute."""
+    real = engine._delta_execute
+    log = []
+
+    def wrapped(*args, **kw):
+        names = ("delta_rows_recomputed", "delta_rows_total", "delta_full_fallbacks")
+        before = [ENGINE.counters.get(n, 0) for n in names]
+        out = real(*args, **kw)
+        log.append(tuple(ENGINE.counters.get(n, 0) - b for n, b in zip(names, before)))
+        return out
+
+    engine._delta_execute = wrapped
+    try:
+        yield log
+    finally:
+        engine._delta_execute = real
+
+
+def _by_level(log: list) -> list:
+    """[(recomputed, total), ...] per pass of the chain."""
+    out, i = [], 0
+    for n in DELTA_LEVELS:
+        part = log[i:i + n]
+        out.append((sum(r for r, _, _ in part), sum(t for _, t, _ in part)))
+        i += n
+    return out
+
+
+def _retained_bytes() -> int:
+    """Bytes of the distinct device slabs the delta store holds."""
+    seen = {}
+    for _, entry in delta.entries():
+        slab = entry.result.slab
+        seen[slab.data_ptr()] = slab.nbytes
+    return sum(seen.values())
+
+
+def _chain_on(inputs, folds=engine.KERNELS, **env) -> tuple:
+    """One chain from host leaves: (result, wall s)."""
+    with _env(**env), contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = chain_product(inputs, device=DEVICE, keep_device=True, folds=folds)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+
+def _splice_check(calls: list) -> dict:
+    """The splice kernel against splice_ref on the recorded calls (a real
+    submit's indices), and the kernel, the plain version and one PyTorch
+    call (index_copy_ on a clone) timed over the same calls, medians of
+    KERNEL_REPEATS; the bound is the bytes the function must move over HBM."""
+    err, equal = 0, True
+    for prev, sub, src, out in calls:
+        ref = cuda_splice.splice_ref(prev, sub, src)
+        equal &= torch.equal(out, ref)
+        err = max(err, _u64_max_abs_err(out, ref))
+    if not equal:
+        raise RuntimeError(f"splice kernel != splice_ref on the delta submits (max abs err {err})")
+    rows = [torch.nonzero(src >= 0).flatten() for _, _, src, _ in calls]
+
+    def timed(fn) -> float:
+        runs = []
+        for _ in range(KERNEL_REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for i, (prev, sub, src, _) in enumerate(calls):
+                fn(i, prev, sub, src)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        return sorted(runs)[len(runs) // 2]
+
+    before = cuda_splice.launches
+    ms = timed(lambda i, prev, sub, src: cuda_splice.splice(prev, sub, src))
+    cuda_splice.launches = before  # comparison launches are not the main path's
+    plain_ms = timed(lambda i, prev, sub, src: cuda_splice.splice_ref(prev, sub, src))
+    lib_ms = timed(lambda i, prev, sub, src:
+                   prev.clone().index_copy_(0, rows[i], sub[:len(rows[i])]))
+    nbytes = sum(2 * prev.nbytes + src.nbytes for prev, _, src, _ in calls)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "calls": len(calls)}
+
+
+def phase_delta(medium) -> dict:
+    """[delta]: four submits of the Medium chain of distinct structures from
+    host leaves in one process, SPGEMM_TPU_DELTA=1: (a) first contact, (b)
+    unchanged, (c) DELTA_EDIT_ROWS contiguous tile rows of M5 given new
+    values, (d) as many rows spread evenly.  Each result must equal the
+    delta-off chain on the same inputs, whose walls are printed beside; the
+    delta-off chains run first (plans cold for (a), warm after), then the
+    counts are zeroed, the plan cache and delta store emptied, and the four
+    submits run as the main path.  Then the splice kernel against
+    splice_ref on the calls of (c) and (d), and the Medium chain of one
+    structure submitted twice: the hits its shared keys allow."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    base = _distinct_mats(medium.mats)
+    leaf = base[DELTA_EDIT_LEAF]
+    n_rows = leaf.rows // leaf.k
+    mid = n_rows // 2
+    contiguous = np.arange(mid - DELTA_EDIT_ROWS // 2, mid - DELTA_EDIT_ROWS // 2 + DELTA_EDIT_ROWS)
+    spread = np.linspace(0, n_rows - 1, DELTA_EDIT_ROWS).astype(np.int64)
+    c_inputs = list(base)
+    c_inputs[DELTA_EDIT_LEAF] = _edit_rows(leaf, contiguous, rng)
+    d_inputs = list(c_inputs)
+    d_inputs[DELTA_EDIT_LEAF] = _edit_rows(c_inputs[DELTA_EDIT_LEAF], spread, rng)
+    submits = {"a": base, "b": base, "c": c_inputs, "d": d_inputs}
+    plancache.clear()
+    want, off = {}, {}
+    for name, inputs in submits.items():
+        want[name], off[name] = _chain_on(inputs, SPGEMM_TPU_DELTA="0")
+    _phase("delta", t0, "delta off, host leaves: walls " + ", ".join(
+        f"({n}) {w:.6f} s" for n, w in off.items()) + " (plans cold for (a), warm after)")
+    t0 = time.perf_counter()
+    modes = {"one thread": 1, "pool": None}
+    runs = {label: [] for label in modes}
+    wins = dict.fromkeys(modes, 0)
+    for i in range(DIGEST_PAIRS):
+        got = {}
+        for label in (("one thread", "pool") if i % 2 == 0 else ("pool", "one thread")):
+            t1 = time.perf_counter()
+            for m in base:
+                delta.row_digests(m.coords, m.tiles, workers=modes[label])
+            got[label] = time.perf_counter() - t1
+            runs[label].append(got[label])
+        wins[min(got, key=got.get)] += 1
+    digest_s = {label: sorted(rs)[len(rs) // 2] for label, rs in runs.items()}
+    leaf_bytes = sum(m.tiles.nbytes for m in base)
+    _phase("delta", t0, f"row digests of the {len(base)} host leaves "
+           f"({leaf_bytes / 1e6:.0f} MB) alone, {DIGEST_PAIRS} pairs in alternating order: "
+           f"one thread median {digest_s['one thread']:.6f} s, won {wins['one thread']}; a "
+           f"pool of {os.cpu_count()} threads (the engine's default) median "
+           f"{digest_s['pool']:.6f} s, won {wins['pool']}; runs " + "; ".join(
+               f"{label} " + ", ".join(f"{r:.6f}" for r in rs) for label, rs in runs.items())
+           + f"; load average {os.getloadavg()}")
+
+    timed = TimedSplice()
+    folds = Folds(splice=timed)
+    plancache.clear()
+    delta.clear()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    _zero_counts()
+    out = {}
+    for name, inputs in submits.items():
+        t1 = time.perf_counter()
+        ENGINE.reset()
+        timed.events = []
+        timed.record = name in ("c", "d")
+        before = _read_counts()
+        with _per_multiply() as log:
+            got, wall = _chain_on(inputs, folds=folds, SPGEMM_TPU_DELTA="1")
+        after = _read_counts()
+        if not _same(got, want[name]):
+            raise RuntimeError(f"[delta] submit ({name}) differs from the delta-off chain")
+        phases = ENGINE.snapshot()
+        rec = {"wall_s": wall, "wall_off_s": off[name], "levels": _by_level(log),
+               "fallbacks": sum(f for _, _, f in log),
+               "delta_diff": phases.get("delta_diff", 0.0),
+               "delta_splice": phases.get("delta_splice", 0.0),
+               "plan": phases.get("plan", 0.0), "plan_wait": phases.get("plan_wait", 0.0),
+               "splice_ms": timed.ms(), "splices": after["splice"] - before["splice"],
+               "mod_launches": after["mod"] - before["mod"],
+               "retained_bytes": _retained_bytes(),
+               "allocated_above_start": torch.cuda.memory_allocated() - base_mem}
+        out[name] = rec
+        del got
+        lv = ", ".join(f"{r}/{t}" for r, t in rec["levels"])
+        _phase("delta", t1, f"({name}) wall {wall:.6f} s (delta off {off[name]:.6f} s); rows "
+               f"recomputed/total per level {lv}; full fallbacks {rec['fallbacks']}; ENGINE "
+               f"delta_diff {rec['delta_diff']:.6f} s, delta_splice {rec['delta_splice']:.6f} s, "
+               f"plan {rec['plan']:.6f} s, plan_wait {rec['plan_wait']:.6f} s; splices "
+               f"{rec['splices']} ({rec['splice_ms']:.3f} ms by CUDA events); numeric_round "
+               f"launches {rec['mod_launches']}; the store holds "
+               f"{rec['retained_bytes'] / 2**30:.3f} GiB on the card (allocated "
+               f"{rec['allocated_above_start'] / 2**30:.3f} GiB above the start); result equal "
+               f"to the delta-off chain")
+    counts = _read_counts()
+    if out["a"]["fallbacks"] != sum(DELTA_LEVELS) or any(r for r, _ in out["b"]["levels"]) \
+            or out["b"]["mod_launches"] or not (out["c"]["splices"] and out["d"]["splices"]):
+        raise RuntimeError(f"[delta] counts off what the design gives: {out}")
+    if counts["splice"] <= 0:
+        raise RuntimeError("the delta submits launched the splice kernel 0 times")
+
+    t1 = time.perf_counter()
+    check = _splice_check(timed.calls)
+    timed.calls = []
+    _phase("delta", t1, f"splice kernel against splice_ref on the {check['calls']} splices of "
+           f"(c) and (d): equal; kernel {check['ms']:.3f} ms, plain version "
+           f"{check['plain_ms']:.3f} ms, index_copy_ on a clone {check['library_ms']:.3f} ms "
+           f"(medians of {KERNEL_REPEATS}); {check['bytes'] / 1e9:.3f} GB -> bytes bound "
+           f"{check['bound_ms']:.3f} ms, kernel at {check['bound_ms'] / check['ms'] * 100:.1f}%")
+
+    t1 = time.perf_counter()
+    delta.clear()
+    plancache.clear()
+    shared = []
+    for _ in range(2):
+        st0 = delta.stats()
+        _, wall = _chain_on(medium.mats, SPGEMM_TPU_DELTA="1")
+        st = delta.stats()
+        shared.append({"wall_s": wall, **{k: st[k] - st0[k] for k in
+                                          ("hits", "full_fallbacks", "rows_recomputed",
+                                           "rows_total")}})
+    _phase("delta", t1, f"the Medium chain of one structure, submitted twice: {shared[1]['hits']} "
+           f"delta hits and {shared[1]['full_fallbacks']} full fallbacks on the second, rows "
+           f"recomputed {shared[1]['rows_recomputed']} of {shared[1]['rows_total']} (the level's "
+           f"multiplies share one key); walls {shared[0]['wall_s']:.6f}, "
+           f"{shared[1]['wall_s']:.6f} s")
+    delta.clear()
+    plancache.clear()
+    torch.cuda.empty_cache()
+    return {"name": "delta_splice", "route": "cuda",
+            "source": "spgemm_tpu_torch/csrc/splice.cu",
+            "replaces": "spgemm_tpu/ops/spgemm.py:1100",
+            "launches": counts["splice"], "max_abs_err": check["max_abs_err"],
+            "ms": check["ms"], "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+            "bound_by": "bytes", "library_ms": check["library_ms"],
+            "submits": out, "splice_bytes": check["bytes"], "splice_calls": check["calls"],
+            "one_structure": shared, "digest_s": digest_s, "digest_runs": runs,
+            "digest_pairs_won": wins}
+
+
+def _warm_child(role: str) -> int:
+    """`chip_smoke.py --warm-child first|second`, run by phase_warm with
+    SPGEMM_TPU_WARM_DIR set: the Medium chain of distinct structures from
+    host leaves, delta on (the library's defaults); the first also flushes
+    the warm store.  Prints one JSON line."""
+    mats = _distinct_mats(_medium_mats())
+    ENGINE.reset()
+    res, wall = _chain_on(mats, SPGEMM_TPU_DELTA="1")
+    h = hashlib.sha256(res.coords.tobytes() + res.slab.cpu().numpy().tobytes()).hexdigest()
+    t0 = time.perf_counter()
+    flushed = warmstore.flush() if role == "first" else None
+    flush_s = time.perf_counter() - t0
+    phases = ENGINE.snapshot()
+    print(json.dumps({"wall_s": wall, "hash": h, "flushed": flushed, "flush_s": flush_s,
+                      "counters": ENGINE.counters, "warm_load_s": phases.get("warm_load", 0.0),
+                      "warm": warmstore.stats(), "delta": delta.stats()}, default=str), flush=True)
+    return 0
+
+
+def phase_warm() -> dict:
+    """[warm]: a subprocess runs the Medium chain of distinct structures
+    with SPGEMM_TPU_WARM_DIR set to a temporary directory and flushes the
+    store; a second subprocess runs it again and must find every plan and
+    delta entry there, recompute no row and give the first's bytes."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="warm-") as d:
+        env = {**os.environ, "SPGEMM_TPU_WARM_DIR": d, "SPGEMM_TPU_WARM_MAX_MB": str(WARM_MAX_MB)}
+        runs = {}
+        for role in ("first", "second"):
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--warm-child", role],
+                                  env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"[warm] {role} process exited {proc.returncode}:\n"
+                                   f"{proc.stderr[-4000:]}")
+            runs[role] = json.loads(proc.stdout.strip().splitlines()[-1])
+        disk = warmstore.scan(d)
+    first, second = runs["first"], runs["second"]
+    w, c = second["warm"], second["counters"]
+    n = sum(DELTA_LEVELS)
+    if second["hash"] != first["hash"] or w["plan_hits"] != n or w["delta_hits"] != n \
+            or c.get("delta_rows_recomputed", 0) != 0 or w["corrupt"]:
+        raise RuntimeError(f"[warm] second process: {second}")
+    _phase("warm", t0, f"first process: wall {first['wall_s']:.6f} s, flushed "
+           f"{first['flushed']} in {first['flush_s']:.3f} s; the store holds {disk['plans']} "
+           f"plans and {disk['deltas']} delta entries, {disk['bytes'] / 1e9:.3f} GB on disk; "
+           f"second process: first submit's wall {second['wall_s']:.6f} s (warm_load "
+           f"{second['warm_load_s']:.6f} s), warm hits {w['plan_hits']} plans and "
+           f"{w['delta_hits']} delta entries, rows recomputed 0 of "
+           f"{c.get('delta_rows_total', 0)}; result equal to the first process's")
+    return {"first": first, "second": second, "disk": disk}
+
+
+def phase_estimate(medium) -> dict:
+    """[estimate]: the Medium chain of distinct structures (device leaves,
+    delta off) from an empty plan cache with the estimator on and off, in
+    turns (medians of KERNEL_REPEATS): est_hits, est_fallbacks, ENGINE
+    plan / plan_exact / plan_wait; the bytes must equal the estimator-off
+    chain's."""
+    t0 = time.perf_counter()
+    dev_mats = [DeviceBlockMatrix.from_host(m, DEVICE) for m in _distinct_mats(medium.mats)]
+    with contextlib.redirect_stdout(io.StringIO()), _env(SPGEMM_TPU_PLAN_ESTIMATE="0",
+                                                         SPGEMM_TPU_DELTA="0"):
+        want = chain_product(dev_mats, device=DEVICE, keep_device=True)
+    runs = {"off": [], "on": []}
+    for _ in range(KERNEL_REPEATS):
+        for mode in ("off", "on"):
+            plancache.clear()
+            runs[mode].append(_timed_chain(dev_mats, want, SPGEMM_TPU_DELTA="0",
+                                           SPGEMM_TPU_PLAN_ESTIMATE="0" if mode == "off" else "1"))
+    med = {mode: _median_run(rs) for mode, rs in runs.items()}
+    if not med["on"]["est_hits"] or med["off"]["est_hits"] or med["off"]["est_fallbacks"]:
+        raise RuntimeError(f"[estimate] estimator counts: {med}")
+    walls = {mode: ", ".join(f"{r['wall_s']:.6f}" for r in rs) for mode, rs in runs.items()}
+    plancache.clear()
+    _phase("estimate", t0, "Medium chain of distinct structures, empty plan cache, medians of "
+           f"{KERNEL_REPEATS} in turns: estimator off wall {med['off']['wall_s']:.6f} s (plan "
+           f"{med['off']['plan']:.6f}, plan_wait {med['off']['plan_wait']:.6f} s; runs "
+           f"{walls['off']}); on wall {med['on']['wall_s']:.6f} s (plan {med['on']['plan']:.6f}, "
+           f"plan_exact {med['on']['plan_exact']:.6f}, plan_wait {med['on']['plan_wait']:.6f} s; "
+           f"est_hits {med['on']['est_hits']}, est_fallbacks {med['on']['est_fallbacks']}; runs "
+           f"{walls['on']}); results equal")
+    return {"off": med["off"], "on": med["on"], "runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--warm-child"]:
+        return _warm_child(sys.argv[2])
+    # every phase before [delta] runs without delta recompute, so its numbers
+    # compare with earlier runs; the later phases set it themselves.  The
+    # estimator keeps the port's default (off) everywhere but [estimate].
+    os.environ["SPGEMM_TPU_DELTA"] = "0"
     # float32 products in full float32, never TF32, in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1977,6 +2380,8 @@ def main() -> int:
             text = log.read_text().strip().splitlines()
             print("\n".join(line for line in text if "registers" in line or "spill" in line
                             or "Compiling entry" in line), flush=True)
+    for lib in libs:
+        _build.load(lib)  # loaded here, so no timed launch pays the first load
     _phase("build", t0, f"built {', '.join(sorted(libs))} with nvcc")
 
     rng = np.random.default_rng(SEED)
@@ -1991,6 +2396,9 @@ def main() -> int:
     row["ooc"] = phase_medium_ooc(medium, row["peak_bytes"], row["peak_above_inputs_bytes"])
     row["cli"] = phase_medium_cli(medium)
     row["parity_fold"] = phase_medium_parity(medium)
+    splice_row = phase_delta(medium)
+    splice_row["warm"] = phase_warm()
+    splice_row["estimate"] = phase_estimate(medium)
     del medium
     torch.cuda.empty_cache()
     no_mod_row, mxu_row = phase_medium_small()
@@ -2003,7 +2411,8 @@ def main() -> int:
     ffn_rows = phase_ffn()
     for r in ffn_rows:
         r["max_abs_err"] = max(r["max_abs_err"], kernel_err[r["name"]])
-    print(json.dumps({"kernels": [row, no_mod_row, mxu_row, *ffn_rows]}), flush=True)
+    print(json.dumps({"kernels": [row, no_mod_row, mxu_row, *ffn_rows, splice_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

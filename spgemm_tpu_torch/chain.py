@@ -10,22 +10,29 @@ Plan-ahead (SPGEMM_TPU_PLAN_AHEAD, default 2; the JAX package's chain.py:
 dispatches pair i a host worker thread plans pairs i+1..i+ahead.  Planning
 is deterministic and the dispatch order does not change, so the bytes are
 the same at any depth; 0 plans inline.  Plans stay within a pass, as in the
-JAX package, and the worker runs only for the default multiply.
+JAX package, and the worker runs only for the default multiply.  The worker
+also builds a deferred (estimator-routed) plan's exact join and, where the
+multiply will take the delta path (delta and the plan cache on), computes
+both operands' row digests (ops/delta.stash_digests), so neither lands on
+the dispatching thread; the digests go with the plan to that multiply
+alone.
 
 The multiply is spgemm_device by default (partials stay on the card); the
 CLI's --stream and --out-of-core pass ops/spgemm.spgemm and
 spgemm_outofcore, whose partials stay in host memory.  checkpoint_dir
-snapshots each pass (utils/checkpoint.py) and resumes from the newest
-written for the same inputs.
-failover=True is for a lost card: when a multiply raises, the card is
-probed in a subprocess (utils/backend_probe.py), and only if the probe
-finds no working card is the pass restarted on the host oracle
-(oracle_multiply), from host copies of the pass's input fetched while the
-card still worked (after a sticky CUDA error nothing on the card can be
-read).  On a card that still computes, the error is the program's (a kernel
-that fails to build or launch, a bad argument) and is raised as it is.
-Failover happens only when asked for, and only an Exception triggers it: a
-BaseException (an abort) passes through.
+snapshots each pass (utils/checkpoint.py), tagged with the inputs and the
+arithmetic, and resumes from the newest written for both.
+failover=True is for a lost card: when a multiply of a chain that runs on
+a card raises, the card is probed in a subprocess
+(utils/backend_probe.py), and only if the probe finds no working card is
+the pass restarted on the host, in the backend's arithmetic
+(oracle_multiply, or field_oracle_multiply under mxu), from host copies of
+the pass's input fetched while the card still worked (after a sticky CUDA
+error nothing on the card can be read).  On a card that still computes, or
+on a chain that runs on the CPU (no card to lose), the error is the
+program's and is raised as it is.  Failover happens only when asked for,
+and only an Exception triggers it: a BaseException (an abort) passes
+through.
 """
 
 from __future__ import annotations
@@ -34,13 +41,15 @@ import logging
 import queue
 import sys
 import threading
-from functools import partial
 
+import torch
+
+from spgemm_tpu_torch.ops import delta, plancache
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix, ensure_device, resolve_device
 from spgemm_tpu_torch.ops.spgemm import KERNELS, Folds, plan, spgemm_device
 from spgemm_tpu_torch.utils import backend_probe, checkpoint, knobs
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
-from spgemm_tpu_torch.utils.semantics import spgemm_oracle
+from spgemm_tpu_torch.utils.semantics import field_spgemm_oracle, spgemm_oracle
 from spgemm_tpu_torch.utils.timers import ENGINE
 
 log = logging.getLogger("spgemm_tpu_torch.chain")
@@ -51,9 +60,9 @@ class _PlanAheadWorker:
 
     Plans come out strictly in pair order; the semaphore bounds the plans
     made and not yet taken to `ahead` (each holds its padded index arrays
-    in host memory).  The worker is host-only: the planner it runs is numpy
-    and the native join, and never calls into torch, so it neither touches
-    the card nor launches anything."""
+    in host memory).  The worker is host-only: the planner it runs is numpy,
+    the native join and hashlib, and never calls into torch, so it neither
+    touches the card nor launches anything."""
 
     def __init__(self, pairs, planner, ahead: int):
         self._outq: queue.Queue = queue.Queue()
@@ -102,8 +111,21 @@ def _plan_ahead_depth() -> int:
 
 
 def _make_planner(backend: str, round_size: int | None):
-    """The (a, b) -> SpgemmPlan function the worker runs."""
-    return partial(plan, backend=backend, round_size=round_size)
+    """The (a, b) -> SpgemmPlan function the worker runs: the plan, its
+    exact join built if it was deferred (JAX chain.py:121-135).  Host-only."""
+    def planner(a, b):
+        return plan(a, b, backend=backend, round_size=round_size).ensure_exact()
+
+    return planner
+
+
+def _with_digests(planner):
+    """planner extended to (plan, digests): both operands' row digests
+    (delta.stash_digests) where the multiply will take the delta path
+    (delta and the plan cache on, read as the pass starts), else None."""
+    if not (delta.enabled() and plancache.enabled()):
+        return lambda a, b: (planner(a, b), None)
+    return lambda a, b: (planner(a, b), delta.stash_digests(a, b))
 
 
 def _with_bound(m, device):
@@ -121,11 +143,35 @@ def _to_host(m) -> BlockSparseMatrix:
 
 def oracle_multiply(a, b, **_ignored) -> BlockSparseMatrix:
     """The host-only multiply with the reference's semantics
-    (utils/semantics.spgemm_oracle): failover's multiply, which needs no
-    card.  Slow by design."""
+    (utils/semantics.spgemm_oracle): failover's multiply under exact and
+    hybrid, which needs no card.  Slow by design."""
     a, b = _to_host(a), _to_host(b)
     return BlockSparseMatrix.from_dict(a.rows, b.cols, a.k,
                                        spgemm_oracle(a.to_dict(), b.to_dict(), a.k))
+
+
+def field_oracle_multiply(a, b, **_ignored) -> BlockSparseMatrix:
+    """The host-only multiply in field mode, clean arithmetic mod 2^64 - 1
+    (utils/semantics.field_spgemm_oracle): failover's multiply under mxu.
+    The JAX package fails over to the reference's fold whatever the
+    backend; the port keeps the backend's arithmetic."""
+    a, b = _to_host(a), _to_host(b)
+    return BlockSparseMatrix.from_dict(a.rows, b.cols, a.k,
+                                       field_spgemm_oracle(a.to_dict(), b.to_dict(), a.k))
+
+
+_HOST_MULTIPLIES = (oracle_multiply, field_oracle_multiply)
+
+
+def _host_multiply(backend: str):
+    """Failover's host multiply for backend: the arithmetic stays its own."""
+    return field_oracle_multiply if backend == "mxu" else oracle_multiply
+
+
+def _on_card(device) -> bool:
+    """Whether the chain's multiplies run on a card: only then can a failed
+    multiply be a lost card."""
+    return device is not None and torch.device(device).type == "cuda"
 
 
 def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int) -> list:
@@ -138,8 +184,8 @@ def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int) -> list:
         if kwargs["backend"] == "hybrid":
             pairs = [(_with_bound(a, kwargs["device"]), _with_bound(b, kwargs["device"]))
                      for a, b in pairs]
-        worker = _PlanAheadWorker(pairs, _make_planner(kwargs["backend"], kwargs["round_size"]),
-                                  ahead)
+        planner = _make_planner(kwargs["backend"], kwargs["round_size"])
+        worker = _PlanAheadWorker(pairs, _with_digests(planner), ahead)
     nxt = []
     try:
         for p, (a, b) in enumerate(pairs):
@@ -148,7 +194,7 @@ def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int) -> list:
             print(f"multiplying {i} {i + 1}", flush=True)
             extra = {}
             if worker is not None:
-                got, extra["plan"] = worker.get()
+                got, (extra["plan"], extra["digests"]) = worker.get()
                 if got != p:
                     raise RuntimeError(f"planner returned pair {got} for pair {p}")
             nxt.append(multiply(a, b, **kwargs, **extra))
@@ -177,26 +223,30 @@ def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
     multiply's host result as it is).
 
     checkpoint_dir: after each pass the surviving partials are fetched and
-    written as pass_<i>.npz, tagged with a fingerprint of `matrices`; with
-    resume=True a run starts from the newest pass there whose tag is not
-    another chain's.  failover: when a multiply raises an Exception and the
-    probe then finds no working card, the pass restarts from host copies of
-    its input on oracle_multiply, after one line on stderr, and the rest of
-    the chain runs there too; with a working card the error is raised."""
+    written as pass_<i>.npz, tagged with a fingerprint of `matrices` and the
+    backend's arithmetic (checkpoint.arithmetic); with resume=True a run
+    starts from the newest pass there whose tags are not another chain's or
+    another arithmetic's.  failover: when a multiply of a chain on a card
+    raises an Exception and the probe then finds no working card, the pass
+    restarts from host copies of its input on the backend's host multiply
+    (_host_multiply), after one line on stderr, and the rest of the chain
+    runs there too; with a working card, or on the CPU, the error is
+    raised."""
     if not matrices:
         raise ValueError("empty chain")
     if multiply is None:
         multiply = spgemm_device
-    if multiply is not oracle_multiply:
+    if multiply not in _HOST_MULTIPLIES:
         device = resolve_device(device)
     ahead = _plan_ahead_depth()  # read once: an invalid value raises before any multiply
     arr = list(matrices)
     pass_idx = 0
     inputs_fp = None
+    arith = checkpoint.arithmetic(backend)
     if checkpoint_dir:
         inputs_fp = checkpoint.inputs_fingerprint([_to_host(m) for m in matrices])
     if checkpoint_dir and resume:
-        found = checkpoint.latest_pass(checkpoint_dir, inputs_fp)
+        found = checkpoint.latest_pass(checkpoint_dir, inputs_fp, arith)
         if found is not None:
             pass_idx, arr = found
             log.info("resumed from checkpoint pass %d (%d partials)", pass_idx, len(arr))
@@ -209,22 +259,23 @@ def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
             nxt = _reduce_pass(arr, multiply, kwargs, ahead)
             nxt_host = [_to_host(m) for m in nxt] if need_host else None
         except Exception as e:  # noqa: BLE001 -- device loss is the use case
-            if not failover or multiply is oracle_multiply:
-                raise
+            if not failover or multiply in _HOST_MULTIPLIES or not _on_card(device):
+                raise  # no card to lose
             probe = backend_probe.probe_default_backend()
             if probe == "ok":
                 raise  # the card still computes: not a lost card
+            multiply, keep_device = _host_multiply(backend), False
             print(f"chain failover: a multiply of pass {pass_idx + 1} failed ({e!r}); "
-                  f"CUDA probe: {probe}; restarting the pass on the host oracle",
+                  f"CUDA probe: {probe}; restarting the pass on the host "
+                  f"{'field-mode oracle' if multiply is field_oracle_multiply else 'oracle'}",
                   file=sys.stderr, flush=True)
             # a copy: the retry sets consumed entries of its list to None
             arr = list(arr_host)
-            multiply, keep_device = oracle_multiply, False
             continue
         arr, arr_host = nxt, nxt_host
         pass_idx += 1
         if checkpoint_dir:
-            checkpoint.save_pass(checkpoint_dir, pass_idx, arr_host, inputs_fp)
+            checkpoint.save_pass(checkpoint_dir, pass_idx, arr_host, inputs_fp, arith)
     if not keep_device:
         return arr_host[0] if arr_host is not None else _to_host(arr[0])
     return ensure_device(arr[0], device) if multiply is spgemm_device else arr[0]

@@ -42,20 +42,34 @@ seconds` (sparse_matrix_mult.cu:402-682).  The flags are the JAX package's
 
 `-v` logs the seconds of load, chain and prune+write, and the engine's host
 phases and counters (utils/timers.ENGINE).
+
+A run pins SPGEMM_TPU_DELTA to 0 unless it is exported: delta recompute
+(ops/delta) pays off only in a process that outlives one chain, and a
+run-once process would hash its inputs and retain results it throws away.
+
+    python -m spgemm_tpu_torch.cli warm [--stat | --clear | --clone SRC]
+        [--dir PATH] [--json]
+
+inspects (the default), empties or seeds from another directory the
+persistent warm store (ops/warmstore): plans and delta entries a later
+process reads back.  The directory is --dir, else SPGEMM_TPU_WARM_DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import sys
 import time
 
 from spgemm_tpu_torch.chain import chain_product
+from spgemm_tpu_torch.ops import warmstore
 from spgemm_tpu_torch.ops.device import resolve_device
 from spgemm_tpu_torch.ops.spgemm import BACKENDS, spgemm, spgemm_outofcore
 from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned
-from spgemm_tpu_torch.utils import backend_probe, io_text
+from spgemm_tpu_torch.utils import backend_probe, io_text, knobs
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.semantics import chain_oracle
 from spgemm_tpu_torch.utils.timers import ENGINE, PhaseTimers, maybe_profile
@@ -126,8 +140,74 @@ def _chain(args, matrices: list, k: int, device):
     return chain_product(matrices, **kwargs)
 
 
+def run_warm(argv: list[str]) -> int:
+    """`warm [--stat|--clear|--clone SRC] [--dir PATH] [--json]` (the JAX
+    package's cli.run_warm; the port has no daemon socket, so the
+    directory is --dir or SPGEMM_TPU_WARM_DIR)."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch warm",
+                                description="inspect (--stat, the default), empty "
+                                            "(--clear) or seed from another directory "
+                                            "(--clone) the persistent warm store")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--stat", action="store_true",
+                   help="entry counts, bytes, budget, and whether a live process holds it")
+    g.add_argument("--clear", action="store_true",
+                   help="delete every entry; refuses while a live process holds the dir")
+    g.add_argument("--clone", default=None, metavar="SRC_DIR",
+                   help="copy SRC_DIR's entries in, each envelope-checked; entries "
+                        "already here are kept")
+    p.add_argument("--dir", default=None, metavar="PATH",
+                   help="warm dir (default: SPGEMM_TPU_WARM_DIR)")
+    p.add_argument("--json", action="store_true", dest="as_json")
+    args = p.parse_args(argv)
+    target = args.dir or knobs.get("SPGEMM_TPU_WARM_DIR")
+    if not target:
+        print("warm: no directory: pass --dir or set SPGEMM_TPU_WARM_DIR", file=sys.stderr)
+        return 2
+    try:
+        if args.clear:
+            removed = warmstore.clear(target)
+            print(f"warm: cleared {removed} entries from {target}")
+            return 0
+        if args.clone:
+            result = warmstore.clone(args.clone, target)
+            if args.as_json:
+                print(json.dumps(result, indent=2))
+            else:
+                print(f"warm: cloned {result['copied']} entries {args.clone} -> {target} "
+                      f"({result['skipped']} skipped"
+                      + (f": {result['skip_reasons']}" if result["skip_reasons"] else "") + ")")
+            return 0
+    except RuntimeError as e:
+        print(f"warm: {e}", file=sys.stderr)
+        return 1
+    info = warmstore.scan(target)
+    if args.as_json:
+        print(json.dumps(info, indent=2))
+        return 0
+    state = ("missing" if not info["exists"]
+             else "in use by a live process" if info["locked"] else "idle")
+    print(f"warm store {target}: {state}")
+    print(f"  plans={info['plans']} deltas={info['deltas']} bytes={info['bytes']} "
+          f"budget={info['budget_bytes']}")
+    return 0
+
+
 def run(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # a `warm` directory holding a chain keeps its meaning as the folder
+    if argv and argv[0] == "warm" and not os.path.exists(os.path.join(argv[0], "size")):
+        return run_warm(argv[1:])
     args = build_parser().parse_args(argv)
+    restore = knobs.pin_unless_exported("SPGEMM_TPU_DELTA", "0")
+    try:
+        return _run_chain(args)
+    finally:
+        restore()
+
+
+def _run_chain(args) -> int:
+    """The chain run of run(), inside its delta pin."""
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(name)s %(message)s")
     device = None

@@ -45,6 +45,11 @@ class DeviceBlockMatrix:
                  the device, so the exact backend, which never reads it,
                  pays nothing.  A multiply sets it on its result
                  (ops/spgemm.execute).
+
+    Two attributes ride along outside the fields, as in the JAX package:
+    `_host`, the BlockSparseMatrix a from_host matrix was uploaded from
+    (ops/delta digests it, so a digest never copies from the card), and
+    `_delta_tag`, the provenance ops/delta puts on a result it served.
     """
 
     rows: int
@@ -71,11 +76,14 @@ class DeviceBlockMatrix:
 
     @classmethod
     def from_host(cls, m: BlockSparseMatrix, device) -> "DeviceBlockMatrix":
-        """Upload a host matrix: one host-to-device copy of tiles + sentinel."""
+        """Upload a host matrix: one host-to-device copy of tiles + sentinel;
+        the result keeps m as `_host`."""
         from spgemm_tpu_torch.ops.spgemm import pack_tiles  # noqa: PLC0415 -- import cycle
 
-        return cls(rows=m.rows, cols=m.cols, k=m.k, coords=m.coords,
-                   slab=pack_tiles(m, device))
+        out = cls(rows=m.rows, cols=m.cols, k=m.k, coords=m.coords,
+                  slab=pack_tiles(m, device))
+        out._host = m
+        return out
 
     @classmethod
     def from_hilo(cls, rows: int, cols: int, k: int, coords, hi: np.ndarray,

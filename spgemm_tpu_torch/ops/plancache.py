@@ -30,6 +30,7 @@ from collections import OrderedDict
 import numpy as np
 
 from spgemm_tpu_torch.utils import knobs
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 LOCK = threading.RLock()
 _CACHE: "OrderedDict[str, object]" = OrderedDict()  # guarded by LOCK
@@ -42,16 +43,23 @@ def enabled() -> bool:
     return knobs.get("SPGEMM_TPU_PLAN_CACHE")
 
 
+def hash_update(h, arr: np.ndarray) -> None:
+    """Feed one array into an open hashlib digest: its shape and dtype, so
+    two arrays of other shapes never collide, then its bytes.  The one
+    content-hashing step: fingerprint below and ops/delta's row digests
+    both go through it."""
+    arr = np.ascontiguousarray(arr)
+    h.update(repr((arr.shape, str(arr.dtype))).encode())
+    h.update(memoryview(arr).cast("B") if arr.size else b"")
+    h.update(b"|")
+
+
 def fingerprint(a_coords: np.ndarray, b_coords: np.ndarray, meta: tuple) -> str:
-    """blake2b over both coordinate arrays (shape, dtype and bytes, so two
-    arrays of other shapes never collide) and the repr of meta, the plan
-    parameters."""
+    """blake2b over both coordinate arrays (hash_update) and the repr of
+    meta, the plan parameters."""
     h = hashlib.blake2b(digest_size=32)
     for arr in (a_coords, b_coords):
-        arr = np.ascontiguousarray(arr)
-        h.update(repr((arr.shape, str(arr.dtype))).encode())
-        h.update(arr.tobytes())
-        h.update(b"|")
+        hash_update(h, arr)
     h.update(repr(meta).encode())
     return h.hexdigest()
 
@@ -86,7 +94,8 @@ def store(key: str, plan) -> int:
 def get_or_build(key: str, build):
     """(plan, hit): the cached plan for key, or build()'s, stored.  A miss
     on a key that another thread is building waits for that build and
-    counts as a hit; if that build fails, this thread builds in turn."""
+    counts as a hit; if that build fails, this thread builds in turn.
+    Evictions of the store are ENGINE's `plan_cache_evictions`."""
     while True:
         with LOCK:
             plan = _CACHE.get(key)
@@ -102,7 +111,9 @@ def get_or_build(key: str, build):
         pending.wait()
     try:
         plan = build()
-        store(key, plan)
+        evicted = store(key, plan)
+        if evicted:
+            ENGINE.incr("plan_cache_evictions", evicted)
         return plan, False
     finally:
         with LOCK:
@@ -110,10 +121,27 @@ def get_or_build(key: str, build):
         pending.set()
 
 
-def stats() -> dict:
-    """Hits, misses and evictions since the last clear(), and the entries held."""
+def entries() -> list:
+    """A copy of the live (key, plan) pairs, least recent first (the warm
+    store's flush walks it without holding the lock)."""
     with LOCK:
-        return {**_STATS, "entries": len(_CACHE)}
+        return list(_CACHE.items())
+
+
+def baseline() -> dict:
+    """The counters now, for stats(since=): a caller that wants the hits,
+    misses and evictions of one job takes a baseline before it."""
+    with LOCK:
+        return dict(_STATS)
+
+
+def stats(since: dict | None = None) -> dict:
+    """Hits, misses and evictions since the last clear(), or since the
+    baseline() `since`, and the entries held."""
+    base = since or {}
+    with LOCK:
+        return {**{name: n - base.get(name, 0) for name, n in _STATS.items()},
+                "entries": len(_CACHE)}
 
 
 def clear() -> None:

@@ -17,7 +17,8 @@ sorted-map traversal produces.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -142,6 +143,23 @@ def symbolic_join_plain(a_coords: np.ndarray, b_coords: np.ndarray) -> JoinResul
                       pair_a=a_slot.astype(np.int32), pair_b=b_slot.astype(np.int32))
 
 
+def slice_join(join: JoinResult, keep: np.ndarray) -> tuple[JoinResult, np.ndarray]:
+    """The sub-join of the keys the boolean mask `keep` selects, each kept
+    key's pair list copied whole and in order (the JAX package's
+    slice_join).  The delta path's exactness rests on it: a kept key folds
+    the same tiles in the same j-ascending order under the sub-plan as
+    under the full plan.  Returns (sub_join, kept_key_indices), the
+    indices mapping the sub-join's keys back into the full key list."""
+    kept = np.flatnonzero(keep)
+    lens = join.fanouts[kept]
+    ptr = np.zeros(len(kept) + 1, np.int64)
+    np.cumsum(lens, out=ptr[1:])
+    _, offs = _segment_expand(lens)
+    src = np.repeat(join.pair_ptr[kept], lens) + offs
+    return JoinResult(keys=join.keys[kept], pair_ptr=ptr, pair_a=join.pair_a[src],
+                      pair_b=join.pair_b[src]), kept
+
+
 @dataclass
 class Round:
     """One numeric launch: up to key_cap keys of one fanout class, each
@@ -203,16 +221,76 @@ class SpgemmPlan:
     """Everything the host decides about one C = A x B before device work:
     the structure join, the rounds and the assembly permutation.  Valid for
     any operand pair with the planned block structures; check_operands
-    refuses any other pair before an out-of-bounds read can happen."""
+    refuses any other pair before an out-of-bounds read can happen.
+
+    key_cap: the most keys one round holds (ops/spgemm.plan's launch cap or
+    round_size); a sub-plan rebuilds its rounds under the same cap.
+    fingerprint: the plan-cache key the plan was stored under, None when the
+    cache was off (ops/spgemm's delta path needs one).
+    estimate / plan_route: the sampled estimate that steered the plan
+    (ops/estimate) and 'estimated' (exact join deferred) or 'exact'.
+    join, rounds and take are None on a deferred plan until ensure_exact()
+    builds them; every consumer calls it first."""
 
     k: int
-    join: JoinResult
-    rounds: list[Round]
-    take: np.ndarray       # assembly permutation
+    join: JoinResult | None
+    rounds: list[Round] | None
+    take: np.ndarray | None  # assembly permutation
     a_coords: np.ndarray
     b_coords: np.ndarray
     backend: str = "exact"            # exact | mxu | hybrid (ops/spgemm.BACKENDS)
     split_fanout: int | None = None   # hybrid proof partition threshold
+    key_cap: int = 8192
+    fingerprint: str | None = None
+    estimate: object | None = None    # ops/estimate.StructureEstimate
+    plan_route: str = "exact"
+    # fills join/rounds/take in place on a deferred plan; dropped once run
+    _exact_builder: object | None = field(default=None, repr=False)
+    _frozen: bool = field(default=False, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def _arrays(self) -> list:
+        arrays = [self.a_coords, self.b_coords]
+        if self.join is not None:
+            arrays += [self.join.keys, self.join.pair_ptr, self.join.pair_a,
+                       self.join.pair_b, self.join.fanouts, self.take]
+            for r in self.rounds:
+                arrays += [r.key_index, r.pa, r.pb]
+        return arrays
+
+    def freeze(self) -> "SpgemmPlan":
+        """Make the plan's arrays read-only before the plan cache shares it:
+        one plan then serves several multiplies, and a result's coords
+        alias its join.keys.  The operand coords are copied first, so the
+        caller's own arrays stay writable.  A deferred plan freezes the
+        arrays ensure_exact adds when it adds them."""
+        with self._lock:
+            self.a_coords, self.b_coords = np.array(self.a_coords), np.array(self.b_coords)
+            self._frozen = True
+            for x in self._arrays():
+                x.flags.writeable = False
+        return self
+
+    @property
+    def is_deferred(self) -> bool:
+        """True while the exact join has not been built (estimated route)."""
+        with self._lock:
+            return self._exact_builder is not None
+
+    def ensure_exact(self) -> "SpgemmPlan":
+        """Build a deferred plan's join, rounds and permutation in place and
+        return self; a no-op on a plan built inline.  Under the plan's lock,
+        so two threads that force one cached plan build it once, and a
+        frozen plan's new arrays are frozen before any other thread sees
+        them."""
+        with self._lock:
+            if self._exact_builder is not None:
+                self._exact_builder(self)
+                self._exact_builder = None
+                if self._frozen:
+                    for x in self._arrays():
+                        x.flags.writeable = False
+        return self
 
     def check_operands(self, a, b) -> None:
         """Refuse to drive a mismatched operand pair: the pa/pb indices
@@ -274,3 +352,70 @@ def plan_rounds(join: JoinResult, a_sentinel: int, b_sentinel: int,
                 rounds.append(Round(key_index=chunk, pa=pa, pb=pb,
                                     max_fanout=int(lens.max())))
     return rounds
+
+
+# ------------------------------------------------------ plan <-> arrays codec --
+# The port's own flat-array plan encoding (ops/warmstore's plan tier).  Its
+# plans carry key_cap and neither the JAX package's batch flag nor its
+# route fields, so a file of either package is never the other's: the
+# payload names its format, and a mismatch of format or version raises.
+PLAN_CODEC_FORMAT = "spgemm_tpu_torch"
+PLAN_CODEC_VERSION = 1
+
+_SCALAR_FIELDS = ("k", "key_cap", "split_fanout", "num_rounds")
+
+
+def plan_to_arrays(plan: SpgemmPlan) -> dict | None:
+    """An exact plan as a dict of numpy arrays (npz-ready): the join, every
+    round's index arrays, the assembly permutation and the operand coords,
+    so a reloaded plan replays the same folds.  None for a deferred plan."""
+    if plan.is_deferred:
+        return None
+    out = {
+        "codec_format": np.array(PLAN_CODEC_FORMAT),
+        "codec": np.int64(PLAN_CODEC_VERSION),
+        "backend": np.array(plan.backend),
+        "scalars": np.array([plan.k, plan.key_cap,
+                             -1 if plan.split_fanout is None else plan.split_fanout,
+                             len(plan.rounds)], np.int64),
+        "join_keys": plan.join.keys, "join_pair_ptr": plan.join.pair_ptr,
+        "join_pair_a": plan.join.pair_a, "join_pair_b": plan.join.pair_b,
+        "take": plan.take, "a_coords": plan.a_coords, "b_coords": plan.b_coords,
+        "round_max_fanout": np.array([r.max_fanout for r in plan.rounds], np.int64),
+    }
+    for i, r in enumerate(plan.rounds):
+        out[f"r{i}_key_index"], out[f"r{i}_pa"], out[f"r{i}_pb"] = r.key_index, r.pa, r.pb
+    return out
+
+
+def plan_from_arrays(d, fingerprint: str | None = None) -> SpgemmPlan:
+    """The plan plan_to_arrays encoded (from the dict or a loaded npz).
+    Raises ValueError on another format or version and KeyError or
+    ValueError on a missing or malformed field; the warm store counts
+    either as a cold miss."""
+    fmt = str(d["codec_format"]) if "codec_format" in d else None
+    version = int(d["codec"])
+    if fmt != PLAN_CODEC_FORMAT or version != PLAN_CODEC_VERSION:
+        raise ValueError(f"plan codec {fmt!r} v{version}, expected "
+                         f"{PLAN_CODEC_FORMAT!r} v{PLAN_CODEC_VERSION}")
+    s = dict(zip(_SCALAR_FIELDS, (int(v) for v in np.asarray(d["scalars"]))))
+    join = JoinResult(keys=np.asarray(d["join_keys"], np.int64),
+                      pair_ptr=np.asarray(d["join_pair_ptr"], np.int64),
+                      pair_a=np.asarray(d["join_pair_a"], np.int32),
+                      pair_b=np.asarray(d["join_pair_b"], np.int32))
+    max_fan = np.asarray(d["round_max_fanout"], np.int64)
+    if len(max_fan) != s["num_rounds"] or len(join.pair_ptr) != join.num_keys + 1:
+        raise ValueError("plan arrays do not match their header")
+    rounds = [Round(key_index=np.asarray(d[f"r{i}_key_index"], np.int64),
+                    pa=np.asarray(d[f"r{i}_pa"], np.int32),
+                    pb=np.asarray(d[f"r{i}_pb"], np.int32), max_fanout=int(max_fan[i]))
+              for i in range(s["num_rounds"])]
+    take = np.asarray(d["take"], np.int64)
+    if len(take) != join.num_keys + 1:
+        raise ValueError("assembly permutation does not match the join")
+    return SpgemmPlan(k=s["k"], join=join, rounds=rounds, take=take,
+                      a_coords=np.asarray(d["a_coords"], np.int64).reshape(-1, 2),
+                      b_coords=np.asarray(d["b_coords"], np.int64).reshape(-1, 2),
+                      backend=str(d["backend"]),
+                      split_fanout=None if s["split_fanout"] < 0 else s["split_fanout"],
+                      key_cap=s["key_cap"], fingerprint=fingerprint)

@@ -55,6 +55,49 @@ _KNOBS = (
          "Plan-cache LRU capacity in plans (a plan holds its padded pair index "
          "arrays, about 8 bytes per tile pair).  Read by ops/plancache.py.",
          default="32", minimum=1),
+    Knob("SPGEMM_TPU_DELTA", "bool01",
+         "Delta recompute: 1 = a multiply whose structure was multiplied before "
+         "diffs per-tile-row content digests (or the producer's dirty tag) "
+         "against the previous submit, re-folds only the output tile-rows the "
+         "changed input rows reach and splices them into the retained previous "
+         "result; 0 = always the full multiply (bit-identical either way).  The "
+         "run-once CLI pins it to 0 unless exported.  Read by ops/delta.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_DELTA_RETAIN", "int",
+         "Delta store capacity in entries (LRU, one per multiply structure); "
+         "each holds its previous result on the card.  Read by ops/delta.py.",
+         default="16", minimum=1),
+    Knob("SPGEMM_TPU_PLAN_ESTIMATE", "bool01",
+         "Sampled structure estimator on a plan-cache miss: 1 = a confident "
+         "estimate returns the plan at once with the exact join deferred to "
+         "SpgemmPlan.ensure_exact (the chain's plan-ahead worker, or execute); "
+         "0 = the exact join inline (bit-identical either way).  Default 0, "
+         "unlike the JAX package's 1: no consumer in the port overlaps the "
+         "deferred join with device work yet.  Read by ops/estimate.py.",
+         default="0"),
+    Knob("SPGEMM_TPU_EST_SAMPLE_ROWS", "int",
+         "Estimator row-sample budget: distinct A tile-rows sampled, evenly "
+         "spaced; structures with this many rows or fewer skip estimation.  "
+         "Read by ops/estimate.py.",
+         default="48", minimum=1),
+    Knob("SPGEMM_TPU_EST_CONFIDENCE", "float",
+         "Estimator confidence threshold: an estimate below it takes the exact "
+         "join inline (est_fallbacks); above 1 forces that everywhere.  Read by "
+         "ops/estimate.py.",
+         default="0.5", minimum=0),
+    Knob("SPGEMM_TPU_WARM", "bool01",
+         "Persistent warm store: 1 = exact plans and the delta store's retained "
+         "results are written to SPGEMM_TPU_WARM_DIR and read back lazily by a "
+         "later process; 0 = no persistence (bit-identical either way).  Read "
+         "by ops/warmstore.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_WARM_DIR", "path",
+         "Warm store directory (unset: no persistence).  One live process owns "
+         "it (a flock); another runs cold.  Read by ops/warmstore.py."),
+    Knob("SPGEMM_TPU_WARM_MAX_MB", "int",
+         "Warm store budget in MiB: after each flush the oldest entries are "
+         "pruned until the store fits.  Read by ops/warmstore.py.",
+         default="256", minimum=1),
     Knob("SPGEMM_TPU_PROBE_TIMEOUT", "float",
          "Seconds the CUDA liveness probe's subprocess may take (a card that "
          "hangs never raises).  Read by utils/backend_probe.py.",
@@ -108,3 +151,31 @@ def get(name: str):
         return bool(raw)
     raw = (raw or "").strip() or kb.default
     return None if raw is None else _parse(kb, raw)
+
+
+def source(name: str) -> str:
+    """'env' where the environment gives the knob a non-empty value, else
+    'default'."""
+    kb = REGISTRY[name]
+    raw = os.environ.get(name)
+    if kb.kind == "flag":
+        return "env" if raw else "default"
+    return "env" if raw is not None and raw.strip() else "default"
+
+
+def pin_unless_exported(name: str, value: str):
+    """Set knob `name` to `value` in the environment unless the caller
+    exported it (an explicit value always wins).  Returns a callable that
+    undoes the pin (a no-op when nothing was pinned), for try/finally."""
+    kb = REGISTRY[name]
+    if kb.kind == "flag":
+        raise ValueError(f"{name} is a flag and has no value to pin")
+    _parse(kb, value)  # a pin must be a value the knob takes
+    if source(name) == "env":
+        return lambda: None
+    os.environ[name] = value
+
+    def restore() -> None:
+        os.environ.pop(name, None)
+
+    return restore

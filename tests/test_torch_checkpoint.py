@@ -165,3 +165,69 @@ def test_resume_skips_passes_written_for_other_inputs(tmp_path, caplog, capsys):
     assert chain_product(other, checkpoint_dir=ckdir) == want
     assert capsys.readouterr().out.splitlines() == ["multiplying 0 1"]
     assert checkpoint.inputs_fingerprint(other) != checkpoint.inputs_fingerprint(mats)
+
+
+def _arith_chain():
+    """Values where the reference's fold and field mode differ."""
+    mats = random_chain(5, 4, 2, 0.6, np.random.default_rng(408), "adversarial")
+    want = {b: chain_product(mats, backend=b) for b in ("exact", "mxu")}
+    assert want["exact"] != want["mxu"]
+    return mats, want
+
+
+@pytest.mark.parametrize("first,second", [("mxu", "exact"), ("exact", "mxu"),
+                                          ("mxu", "hybrid")])
+def test_resume_keeps_the_arithmetic(first, second, tmp_path, caplog, capsys):
+    """A pass carries its arithmetic (field for mxu, exact otherwise): a run
+    in the other arithmetic on the same directory skips it and gives its own
+    bytes, even after the first run finished."""
+    mats, want = _arith_chain()
+    want["hybrid"] = want["exact"]
+    ckdir = str(tmp_path / "ck")
+    assert chain_product(mats, backend=first, checkpoint_dir=ckdir) == want[first]
+    with caplog.at_level("WARNING", logger="spgemm_tpu_torch.checkpoint"):
+        assert chain_product(mats, backend=second, checkpoint_dir=ckdir) == want[second]
+    assert "written for other arithmetic" in caplog.text
+    capsys.readouterr()
+    # the second run's passes now resume the second arithmetic
+    os.remove(os.path.join(ckdir, "pass_3.npz"))
+    assert chain_product(mats, backend=second, checkpoint_dir=ckdir) == want[second]
+    assert capsys.readouterr().out.splitlines() == ["multiplying 0 1"]
+
+
+def test_exact_passes_resume_under_hybrid(tmp_path, capsys):
+    """exact and hybrid give the same bytes, so they share the tag."""
+    mats, want = _arith_chain()
+    ckdir = str(tmp_path / "ck")
+    chain_product(mats, backend="exact", checkpoint_dir=ckdir)
+    os.remove(os.path.join(ckdir, "pass_3.npz"))
+    capsys.readouterr()
+    assert chain_product(mats, backend="hybrid", checkpoint_dir=ckdir) == want["exact"]
+    assert capsys.readouterr().out.splitlines() == ["multiplying 0 1"]
+    assert [checkpoint.arithmetic(b) for b in ("exact", "hybrid", "mxu")] == \
+        ["exact", "exact", "field"]
+
+
+def test_cli_resume_keeps_the_arithmetic(tmp_path, capsys):
+    """The CLI: an mxu run's checkpoint directory, reused by an exact run,
+    gives exact's ./matrix, and the other way round."""
+    from spgemm_tpu_torch import cli
+    from spgemm_tpu_torch.utils import io_text
+
+    mats, _ = _arith_chain()
+    folder = str(tmp_path / "in")
+    io_text.write_chain_dir(folder, mats, mats[0].k)
+    outs = {}
+    for backend in ("exact", "mxu"):
+        outs[backend] = str(tmp_path / f"plain_{backend}")
+        assert cli.run([folder, "--device", "cpu", "--backend", backend,
+                        "--output", outs[backend]]) == 0
+    for order in (("mxu", "exact"), ("exact", "mxu")):
+        ckdir = str(tmp_path / f"ck_{order[0]}")
+        for backend in order:
+            out = str(tmp_path / f"{order[0]}_then_{backend}")
+            assert cli.run([folder, "--device", "cpu", "--backend", backend,
+                            "--checkpoint-dir", ckdir, "--output", out]) == 0
+            with open(out, "rb") as f, open(outs[backend], "rb") as g:
+                assert f.read() == g.read(), (order, backend)
+    capsys.readouterr()

@@ -5,7 +5,9 @@ limb count, the deepest rounds at full range, ragged k and unaligned
 slabs), the hybrid chain against the exact one, out-of-core and --ranks on
 the card against the resident and CPU results, failover with a failing
 fold (falling back when the probe reports a lost card, raising when the
-real probe finds the card working), and the FFN forward against its plain version.  Tolerance: exact (torch.equal)
+real probe finds the card working), the FFN forward against its plain
+version, and the delta splice against splice_ref and a delta chain against
+the full one.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -23,7 +25,7 @@ import torch
 
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
-from spgemm_tpu_torch.ops import cuda_bsmm, cuda_mxu, cuda_spgemm, mxu_spgemm
+from spgemm_tpu_torch.ops import cuda_bsmm, cuda_mxu, cuda_splice, cuda_spgemm, delta, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.utils.gen import random_chain, random_values
@@ -34,6 +36,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_delta_store():
+    """The port's delta store is process-wide: a chain an earlier test ran
+    on the same inputs would be answered from it."""
+    delta.clear()
 
 
 def _case(rng, k, lead, P, n_tiles, device, dist="adversarial"):
@@ -505,3 +514,56 @@ def test_failover_on_a_working_card_raises(cuda, capsys):
     with pytest.raises(RuntimeError, match="fold failure injected"):
         chain_product(mats, device=cuda, failover=True, folds=_failing_kernel1(3))
     assert "chain failover:" not in capsys.readouterr().err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n,n_sub,k", [(0, 0, 32), (100, 7, 32), (1000, 1000, 32),
+                                       (57, 20, 3), (300, 45, 1), (64, 10, 64)])
+def test_splice_kernel_matches_plain_version(cuda, n, n_sub, k, aligned):
+    rng = np.random.default_rng(n + k)
+
+    def slab(rows):
+        """(rows + 1, k, k), the last row zero; unaligned: 8 bytes past a
+        16-byte boundary, so the kernel takes its 8-byte path."""
+        flat = rng.integers(-2**63, 2**63, (rows + 1) * k * k + 1, dtype=np.int64)
+        x = torch.from_numpy(flat).to(cuda)[(0 if aligned else 1):]
+        x = x[:(rows + 1) * k * k].view(rows + 1, k, k)
+        x[-1] = 0
+        return x
+
+    prev, sub = slab(n), slab(n_sub)
+    kept = np.sort(rng.choice(n, n_sub, replace=False)) if n_sub else np.zeros(0, np.int64)
+    src = torch.from_numpy(cuda_splice.source_map(kept, np.arange(n_sub), n + 1)).to(cuda)
+    before, kept_prev = cuda_splice.launches, prev.clone()
+    got = cuda_splice.splice(prev, sub, src)
+    want = cuda_splice.splice_ref(prev, sub, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(prev, kept_prev)
+    assert cuda_splice.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_delta_chain_on_card_matches_the_full_chain(cuda, monkeypatch):
+    from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+    from spgemm_tpu_torch.utils.gen import banded_block_sparse
+
+    rng = np.random.default_rng(93)
+    mats = []
+    for i in range(6):
+        m = banded_block_sparse(60, 8, 2, rng)
+        keep = m.coords[:, 1] + i < 60
+        mats.append(BlockSparseMatrix(rows=m.rows, cols=m.cols, k=8,
+                                      coords=m.coords[keep] + np.array([0, i]),
+                                      tiles=m.tiles[keep]))
+    edited = list(mats)
+    t = mats[3].tiles.copy()
+    t[mats[3].coords[:, 0] == 30] ^= np.uint64(5)
+    edited[3] = BlockSparseMatrix(rows=mats[3].rows, cols=mats[3].cols, k=8,
+                                  coords=mats[3].coords, tiles=t)
+    before = cuda_splice.launches
+    monkeypatch.setenv("SPGEMM_TPU_DELTA", "1")
+    got = [chain_product(ms, device=cuda) for ms in (mats, mats, edited)]
+    assert cuda_splice.launches > before
+    monkeypatch.setenv("SPGEMM_TPU_DELTA", "0")
+    assert got == [chain_product(ms, device=cuda) for ms in (mats, mats, edited)]

@@ -1,9 +1,12 @@
 """Failover in the port: chain_product(failover=True) restarting a failed
-pass on the host oracle when the subprocess CUDA probe
-(spgemm_tpu_torch/utils/backend_probe.py) finds no working card, and
-raising when it finds one; the CLI's --failover with the same probe.
-Failover happens only when asked for.  Results are held against the port's
-and the JAX package's python-int oracles.  Tolerance: exact."""
+pass on the host oracle (under mxu the field-mode oracle) when the
+subprocess CUDA probe (spgemm_tpu_torch/utils/backend_probe.py) finds no
+working card, and raising when it finds one or when the chain runs on the
+CPU; the CLI's --failover with the same probe.  Failover happens only when
+asked for.  These tests run on the CPU: where a test stands for a chain on a
+card that is then lost, it stubs chain._on_card (the chain's device) as it
+stubs the probe.  Results are held against the port's and the JAX package's
+python-int oracles.  Tolerance: exact."""
 
 import io
 import os
@@ -15,16 +18,26 @@ import torch
 
 from spgemm_tpu.utils.semantics import chain_oracle as jax_chain_oracle
 from spgemm_tpu_torch import chain, cli
+from spgemm_tpu_torch.ops import delta
 from spgemm_tpu_torch.chain import chain_product
+from spgemm_tpu_torch.ops.cuda_mxu import numeric_round_mxu
 from spgemm_tpu_torch.ops.cuda_spgemm import numeric_round
 from spgemm_tpu_torch.ops.spgemm import Folds, spgemm_device, spgemm_outofcore
 from spgemm_tpu_torch.utils import backend_probe
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.gen import random_chain
-from spgemm_tpu_torch.utils.semantics import chain_oracle
+from spgemm_tpu_torch.utils.semantics import chain_oracle, field_spgemm_oracle
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "golden_chain")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_delta_store():
+    """The port's delta store is process-wide: a chain another test ran on
+    the same inputs would be answered from it, and the failing folds below
+    would not run."""
+    delta.clear()
 
 
 class DeviceLost(RuntimeError):
@@ -33,6 +46,11 @@ class DeviceLost(RuntimeError):
 
 class Abort(BaseException):
     pass
+
+
+class _NotLost(ValueError):
+    def __init__(self, msg):
+        super().__init__(f"{msg}: not a lost card")
 
 
 def _failing_fold(n: int, exc=DeviceLost):
@@ -46,6 +64,26 @@ def _failing_fold(n: int, exc=DeviceLost):
         return numeric_round(*args, **kw)
 
     return Folds(exact=fold)
+
+
+def _failing_mxu_fold(n: int):
+    """The limb kernel's fold that raises on its n-th call and after."""
+    calls = []
+
+    def fold(*args, **kw):
+        calls.append(1)
+        if len(calls) >= n:
+            raise DeviceLost("the card was lost")
+        return numeric_round_mxu(*args, **kw)
+
+    return Folds(mxu=fold)
+
+
+def _on_a_card(monkeypatch) -> None:
+    """The chain runs on the CPU here; stand it in for a chain on a card,
+    which failover may find lost.  raising=False: the check is what the
+    field-mode and CPU fixes added."""
+    monkeypatch.setattr(chain, "_on_card", lambda device: True, raising=False)
 
 
 def _mats(n=5, seed=30):
@@ -81,6 +119,7 @@ def test_failing_fold_fails_over_to_the_oracle(nth, multiply, monkeypatch, capsy
     """A fold that raises on its nth call (one call a round), on a card the
     probe finds lost, gives the oracle's bytes, with one line on stderr."""
     probes = _probe(monkeypatch, "error")
+    _on_a_card(monkeypatch)
     mats = _mats()
     got = chain_product(mats, device="cpu", folds=_failing_fold(nth), failover=True,
                         multiply=multiply)
@@ -96,11 +135,45 @@ def test_a_fault_on_a_working_card_is_raised(multiply, monkeypatch, capsys):
     """failover=True is for a lost card: when the probe finds the card
     working, the failing fold's error is the program's and is raised."""
     probes = _probe(monkeypatch, "ok")
+    _on_a_card(monkeypatch)
     with pytest.raises(DeviceLost):
         chain_product(_mats(), device="cpu", folds=_failing_fold(2), failover=True,
                       multiply=multiply)
     assert probes == ["ok"]
     assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("multiply", [None, spgemm_outofcore], ids=["resident", "ooc"])
+def test_a_fault_on_the_cpu_is_raised(multiply, monkeypatch, capsys):
+    """A chain on the CPU has no card to lose: a failing multiply raises
+    and the probe never runs, whatever it would report."""
+    _probe(monkeypatch, None)
+    with pytest.raises(ValueError, match="not a lost card"):
+        chain_product(_mats(), device="cpu", folds=_failing_fold(2, _NotLost), failover=True,
+                      multiply=multiply)
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("nth", [1, 3])
+def test_mxu_failover_stays_in_field_mode(nth, monkeypatch, capsys):
+    """Under mxu a lost card fails over to the field-mode oracle: the chain
+    equals mxu without a failure and the field oracle's chain, not the
+    reference's fold (these values make the two differ)."""
+    probes = _probe(monkeypatch, "error")
+    _on_a_card(monkeypatch)
+    mats = _mats(seed=32)
+    k = mats[0].k
+    field = BlockSparseMatrix.from_dict(mats[0].rows, mats[-1].cols, k, chain_oracle(
+        [m.to_dict() for m in mats], k, multiply=field_spgemm_oracle))
+    assert field != _oracle(mats)
+    assert chain_product(mats, device="cpu", backend="mxu") == field
+    delta.clear()  # the failing fold must run, not the retained results
+    got = chain_product(mats, device="cpu", backend="mxu", folds=_failing_mxu_fold(nth),
+                        failover=True)
+    assert got == field
+    assert probes == ["error"]
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == 1 and "field-mode oracle" in err[0]
 
 
 def test_without_failover_it_raises(monkeypatch, capsys):
@@ -145,6 +218,7 @@ def _failing_multiply(n: int):
 
 def test_failover_with_checkpoint_restarts_from_the_newest_pass(tmp_path, monkeypatch, capsys):
     _probe(monkeypatch, "timeout")
+    _on_a_card(monkeypatch)
     mats = _mats()
     want = _oracle(mats)
     calls = _oracle_spy(monkeypatch)

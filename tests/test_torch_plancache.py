@@ -225,3 +225,20 @@ def test_banded_chain_hits_multiplies_less_distinct_structures(ahead, monkeypatc
     ENGINE.reset()
     assert chain_product(mats, device="cpu") == on  # warm: every multiply hits
     assert ENGINE.counters == {"plan_cache_hits": 9}
+
+
+def test_scoped_stats_and_evictions_in_engine(monkeypatch):
+    """stats(since=baseline()) counts one job's hits, misses and evictions,
+    not the process's; each eviction is also ENGINE's plan_cache_evictions."""
+    monkeypatch.setenv("SPGEMM_TPU_PLAN_CACHE_CAP", "1")
+    a, b = _pair(40)
+    plan(a, b)
+    base = plancache.baseline()
+    ENGINE.reset()
+    plan(b, a)  # evicts a x b
+    plan(b, a)
+    assert plancache.stats(since=base) == {"hits": 1, "misses": 1, "evictions": 1,
+                                           "entries": 1}
+    assert plancache.stats()["misses"] == 2
+    assert ENGINE.counters["plan_cache_evictions"] == 1
+    assert len(plancache.entries()) == 1
