@@ -91,15 +91,32 @@ the script exits non-zero without printing a result:
                `[warm]` (this script as two subprocesses, `--warm-child first`
                and `second`, on one SPGEMM_TPU_WARM_DIR: the second must find
                every plan and delta entry, recompute no row and give the first's
-               bytes) and `[estimate]` (the estimator on and off from an empty
-               plan cache, in turns; the bytes equal);
+               bytes), `[estimate]` (the estimator on and off from an empty
+               plan cache, in turns; the bytes equal) and `[dense]`, the dense
+               accumulator route (SPGEMM_TPU_ACCUM_ROUTE; every earlier phase
+               runs at its default, auto): (a) the segmented fold against its
+               plain version at k 1, 2, 8, 32, 64 on contiguous and cycling
+               seg with sentinel and pad slots, an all-pad stream and n_rows
+               0, and on the twin rounds of (c) and (d) against kernel 1;
+               (b) the Medium chain with the route forced to dense, equal to
+               the ladder chain, the fold timed beside kernel 1 and its plain
+               version, and Medium's auto plans equal to its ladder plans (no
+               twin); (c) the hub multiply of 6 (e) under exact and hybrid x
+               ladder, dense, auto with a fresh gate cache: the same bytes,
+               the gate's choice and its measurements, kernel 1 mod, no_mod
+               and the fold timed on the round; (d) the co-citation product
+               A x A^T of powerlaw_block_sparse(4096, 32, 8.0): its fanout
+               classes, its rounds with a twin (at least one), the gate's
+               choices, and the auto and ladder walls with warm plans and
+               gate, medians of 5 in turns, the bytes equal;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
                (c) under the measured gate with a fresh crossover cache, both
                byte-equal to (a); (d) mxu over the whole chain against the
                limb kernel's plain version; (e) a hub multiply whose proven
-               round is too deep for the limb kernel, on the no_mod fold.
+               round is too deep for the limb kernel, on the no_mod fold (the
+               ladder route: under auto its dense twin would take the round).
                Each run is a main path with the counts zeroed before and read
                after.  Kernel 2's bound counts byte-limb MACs (bytes_for_limbs7
                of each operand's limbs per u64 MAC); the 7-bit count is printed
@@ -129,7 +146,8 @@ the script exits non-zero without printing a result:
                timed, kernel 4 bit-equal to kernel 3 on matmul 1 and kernel
                3 on matmul 2 bit-equal across the row tiles 16 to 128.
 
-Then one JSON line describing every ported kernel (the splice last) and, last, the device line
+Then one JSON line describing every ported kernel (the splice and the dense fold last) and,
+last, the device line
 `{"ok": true, "device": {...}}`.  Imports torch, numpy and the port only.
 """
 
@@ -157,7 +175,8 @@ import torch
 
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
-from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_mxu, cuda_splice, cuda_spgemm
+from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_dense, cuda_mxu, cuda_splice
+from spgemm_tpu_torch.ops import cuda_spgemm
 from spgemm_tpu_torch.ops import delta, estimate, mxu_spgemm, plancache, symbolic, warmstore
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
@@ -165,7 +184,8 @@ from spgemm_tpu_torch.ops.spgemm import Folds, plan, spgemm, spgemm_device, spge
 from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned
 from spgemm_tpu_torch.utils import backend_probe, io_text, native
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
-from spgemm_tpu_torch.utils.gen import banded_block_sparse, random_block_sparse, random_chain
+from spgemm_tpu_torch.utils.gen import (banded_block_sparse, powerlaw_block_sparse,
+                                        random_block_sparse, random_chain, random_values)
 from spgemm_tpu_torch.utils.semantics import chain_oracle, field_spgemm_oracle, spgemm_oracle
 from spgemm_tpu_torch.utils.timers import ENGINE
 
@@ -731,15 +751,17 @@ def _same_plans(xs: list, ys: list) -> bool:
 
 
 def _ptxas_report() -> dict:
-    """Registers and spill bytes of kernel 1's two instances and of kernel
-    2's instances at 8x8 and 3x3 byte limbs (10 and 3 7-bit limbs), from
-    the ptxas reports _build keeps beside the libraries."""
+    """Registers and spill bytes of kernel 1's two instances, of kernel 2's
+    instances at 8x8 and 3x3 byte limbs (10 and 3 7-bit limbs) and of the
+    segmented fold, from the ptxas reports _build keeps beside the
+    libraries."""
     out = {}
     for lib, pattern, name in (
             ("numeric_round", r"numeric_round_kernelILb([01])E",
              lambda m: "no_mod" if m.group(1) == "1" else "mod"),
             ("numeric_round_mxu", r"numeric_round_mxu_kernelILi(\d)ELi(\d)E",
-             lambda m: f"mxu {m.group(1)}x{m.group(2)}")):
+             lambda m: f"mxu {m.group(1)}x{m.group(2)}"),
+            ("numeric_round_dense", r"numeric_round_kernelILb0ELb1E", lambda m: "dense")):
         log = _build.build(lib).with_suffix(".log").read_text()
         for chunk in log.split("Compiling entry function")[1:]:
             m = re.search(pattern, chunk)
@@ -749,7 +771,7 @@ def _ptxas_report() -> dict:
                 out[name(m)] = {"registers": int(regs.group(1)),
                                 "spill_stores": int(spill.group(1)),
                                 "spill_loads": int(spill.group(2))}
-    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3"}
+    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense"}
     if not want <= set(out):
         raise RuntimeError(f"no ptxas report for {sorted(want - set(out))}: {out}")
     return {name: out[name] for name in sorted(want)}
@@ -757,7 +779,7 @@ def _ptxas_report() -> dict:
 
 def _zero_counts() -> None:
     cuda_spgemm.launches = cuda_spgemm.launches_no_mod = cuda_mxu.launches = 0
-    cuda_splice.launches = 0
+    cuda_splice.launches = cuda_dense.launches = 0
     for name in engine.rounds_by_kernel:
         engine.rounds_by_kernel[name] = 0
 
@@ -765,7 +787,7 @@ def _zero_counts() -> None:
 def _read_counts() -> dict:
     return {"mod": cuda_spgemm.launches, "no_mod": cuda_spgemm.launches_no_mod,
             "mxu": cuda_mxu.launches, "splice": cuda_splice.launches,
-            "rounds": dict(engine.rounds_by_kernel)}
+            "dense": cuda_dense.launches, "rounds": dict(engine.rounds_by_kernel)}
 
 
 @contextlib.contextmanager
@@ -907,7 +929,7 @@ def phase_medium() -> tuple[dict, SimpleNamespace]:
            f"{kern.macs / 1e9:.3f} G MACs -> integer bound {ops_ms:.3f} ms, "
            f"{kern.bytes / 1e9:.3f} GB -> bytes bound {bytes_ms:.3f} ms; "
            f"kernel at {bound_ms / kern_ms * 100:.1f}% of bound")
-    ptxas = _ptxas_report()
+    ptxas = {name: v for name, v in _ptxas_report().items() if name in ("mod", "no_mod")}
     geometry = {name: cuda_spgemm.geometry(cfg["k"], no_mod=no_mod)
                 for name, no_mod in (("mod", False), ("no_mod", True))}
     print(f"[medium] kernel 1: {kern.pairs} real pairs in {kern.slots} pair slots "
@@ -1691,12 +1713,15 @@ def phase_medium_small() -> list[dict]:
 
     t0 = time.perf_counter()
     hub = _hub_operands(rng, cfg["k"])
-    res_hx, _, _, _ = _main_path(hub, "exact")
-    res_e, wall_e, counts_e, mult_e = _main_path(hub, "hybrid", SPGEMM_TPU_HYBRID_GATE="proof")
+    # the ladder route: under auto the round's dense twin would take it (its
+    # padded-MAC ratio, 1.37, passes the proof gate); [dense] (c) runs it so
+    res_hx, _, _, _ = _main_path(hub, "exact", SPGEMM_TPU_ACCUM_ROUTE="ladder")
+    res_e, wall_e, counts_e, mult_e = _main_path(hub, "hybrid", SPGEMM_TPU_HYBRID_GATE="proof",
+                                                 SPGEMM_TPU_ACCUM_ROUTE="ladder")
     if not _same(res_e, res_hx) or counts_e["no_mod"] <= 0:
         raise RuntimeError(f"hub multiply: hybrid != exact or no no_mod launch: {counts_e}")
     _phase("medium-small", t0, f"(e) hub multiply, fanout {HUB_FANOUT} at k={cfg['k']}, "
-           f"hybrid gate proof: wall {wall_e:.6f} s, byte-equal to exact; launches "
+           f"hybrid gate proof, route ladder: wall {wall_e:.6f} s, byte-equal to exact; launches "
            f"{counts_e}; (mxu rounds, rounds, no_mod rounds, keys) {mult_e}")
     del hub, res_hx, res_e
 
@@ -2349,6 +2374,309 @@ def phase_estimate(medium) -> dict:
     return {"off": med["off"], "on": med["on"], "runs": runs}
 
 
+# ------------------------------------------------------------------ [dense] --
+COCITE = {"block_dim": 4096, "k": 32, "avg_per_row": 8.0}  # A of the co-citation product
+DENSE_WALL_RUNS = 5  # co-citation walls per route, in turns
+DENSE_KS = (1, 2, 8, 32, 64)
+
+
+class TimedDense:
+    """numeric_round_dense (or its plain version) wrapped in CUDA events,
+    counting the work the run's data needs: real pairs (slots the rows span
+    whose indices are both real), their u64 MACs, and bytes (each
+    referenced tile, each index and each output element once)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.events = []
+        self.pairs = 0
+        self.macs = 0
+        self.bytes = 0
+
+    def __call__(self, a, b, pa, pb, seg, n_rows, row_ptr=None):
+        k = a.shape[-1]
+        tile = k * k * 8
+        span = int(row_ptr[-1]) if row_ptr is not None else int((seg < n_rows).sum())
+        ia, ib = pa[:span], pb[:span]
+        real = int(((ia != a.shape[0] - 1) & (ib != b.shape[0] - 1)).sum())
+        self.pairs += real
+        self.macs += real * k ** 3
+        self.bytes += (len(torch.unique(ia)) + len(torch.unique(ib))) * tile \
+            + pa.numel() * 12 + (n_rows + 1) * 8 + n_rows * tile
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(a, b, pa, pb, seg, n_rows, row_ptr)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def _dense_stream(rng, k: int, n_rows: int, L: int, real: int, layout: str, n_tiles: int = 30):
+    """Slabs of EDGE-heavy values (sentinel zero tile last) and an (L,)
+    stream on the card: `real` slots on rows (contiguous runs, or cycling
+    over the rows), a fifth a's sentinel and a fifth b's, the rest pad
+    slots on the scratch row n_rows."""
+    a, b, _, _ = _round_case(rng, k, n_tiles, 1, 1)
+    pa = np.full(L, n_tiles, np.int32)
+    pb = np.full(L, n_tiles, np.int32)
+    seg = np.full(L, n_rows, np.int32)
+    pa[:real] = rng.integers(0, n_tiles, size=real)
+    pb[:real] = rng.integers(0, n_tiles, size=real)
+    side = rng.integers(0, 5, size=real)
+    pa[:real][side == 0] = n_tiles
+    pb[:real][side == 1] = n_tiles
+    if n_rows:
+        seg[:real] = (np.sort(rng.integers(0, n_rows, size=real)) if layout == "contiguous"
+                      else np.arange(real) % n_rows)
+    return (a, b, *_on_card(pa, pb, seg))
+
+
+def _twin_rounds(p, a, b) -> int:
+    """Every auto round's dense twin against kernel 1 on its ladder layout,
+    bit for bit; returns the max abs error (0)."""
+    err = 0
+    for rnd in p.rounds:
+        d = rnd.dense_alt
+        if d is None:
+            continue
+        ladder = cuda_spgemm.numeric_round(a.slab, b.slab, *_on_card(rnd.pa, rnd.pb))
+        dense = cuda_dense.numeric_round_dense(a.slab, b.slab, *_on_card(d.pa, d.pb, d.seg),
+                                               d.n_rows, *_on_card(d.row_ptr))
+        err = max(err, _check_equal(f"dense twin vs kernel 1, round {rnd.pa.shape}",
+                                    dense, ladder))
+    return err
+
+
+def _cocite_operands() -> list:
+    """The co-citation product A x A^T of a power-law matrix, from its own
+    generator seeded with SEED: B has A's block structure transposed and
+    values drawn after A's."""
+    cfg = COCITE
+    rng = np.random.default_rng(SEED)
+    a = powerlaw_block_sparse(cfg["block_dim"], cfg["k"], cfg["avg_per_row"], rng)
+    bc = a.coords[:, ::-1]
+    order = np.lexsort((bc[:, 1], bc[:, 0]))
+    b = BlockSparseMatrix.from_blocks(a.cols, a.rows, a.k, bc[order],
+                                      random_values((a.nnzb, a.k, a.k), rng))
+    return [DeviceBlockMatrix.from_host(m, DEVICE) for m in (a, b)]
+
+
+def _hub_runs(hub, cache: str) -> dict:
+    """(c): the hub multiply under each backend and route, each a main path;
+    the bytes must be the same in all six."""
+    runs, want = {}, None
+    for backend in ("exact", "hybrid"):
+        for route in ("ladder", "dense", "auto"):
+            plancache.clear()
+            res, wall, counts, _ = _main_path(hub, backend, SPGEMM_TPU_ACCUM_ROUTE=route,
+                                              SPGEMM_TPU_CROSSOVER_CACHE=cache)
+            want = res if want is None else want
+            if not _same(res, want):
+                raise RuntimeError(f"[dense] hub multiply, {backend} {route} != exact ladder")
+            if route == "dense" and (counts["dense"] <= 0 or counts["mod"] or counts["no_mod"]):
+                raise RuntimeError(f"[dense] hub, forced dense launched {counts}")
+            if route == "ladder" and counts["dense"]:
+                raise RuntimeError(f"[dense] hub, ladder launched the dense fold: {counts}")
+            runs[f"{backend}/{route}"] = {"wall_s": wall, "counts": counts}
+    return runs
+
+
+def _hub_kernel_ms(hub) -> dict:
+    """Kernel 1 mod and no_mod on the hub's ladder round and the dense fold
+    on its twin, medians of KERNEL_REPEATS (the values are below 2^16, so
+    all three agree)."""
+    a, b = hub
+    with _env(SPGEMM_TPU_ACCUM_ROUTE="auto"):
+        p = plan(a, b)
+    [rnd] = p.rounds
+    d = rnd.dense_alt
+    ladder = _on_card(rnd.pa, rnd.pb)
+    stream = (*_on_card(d.pa, d.pb, d.seg), d.n_rows, *_on_card(d.row_ptr))
+    out, err = {}, 0
+    for name, fn in (("mod", lambda: cuda_spgemm.numeric_round(a.slab, b.slab, *ladder)),
+                     ("no_mod", lambda: cuda_spgemm.numeric_round(a.slab, b.slab, *ladder,
+                                                                  no_mod=True)),
+                     ("dense", lambda: cuda_dense.numeric_round_dense(a.slab, b.slab,
+                                                                      *stream))):
+        runs = []
+        for _ in range(KERNEL_REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn()
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        out[name] = sorted(runs)[len(runs) // 2]
+        out[f"{name}_runs"] = runs
+        if name == "mod":
+            first = res
+        err = max(err, _check_equal(f"hub round, {name} vs mod", res, first))
+    out["err"] = err
+    return out
+
+
+def phase_dense(medium, kernel1_ms: float) -> dict:
+    """[dense]: (a) the segmented fold against its plain version and, on
+    planner rounds, against kernel 1; (b) the Medium chain with the route
+    forced to dense; (c) the hub multiply under every route and backend;
+    (d) the co-citation product under auto and ladder."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    err = 0
+    for k in DENSE_KS:
+        for layout in ("contiguous", "cycling"):
+            n_rows = max(2, 256 // k)
+            for L, real in ((8 * n_rows * 6, 6 * n_rows * 6 + 3), (16, 0)):
+                args = _dense_stream(rng, k, n_rows, L, real, layout)
+                err = max(err, _check_equal(
+                    f"dense k={k} {layout} L={L} real={real}",
+                    cuda_dense.numeric_round_dense(*args[:5], n_rows),
+                    cuda_dense.numeric_round_dense_ref(*args[:5], n_rows)))
+    args = _dense_stream(rng, 8, 0, 16, 0, "contiguous")
+    got = cuda_dense.numeric_round_dense(*args[:5], 0)
+    if tuple(got.shape) != (0, 8, 8):
+        raise RuntimeError(f"dense fold with n_rows 0 gave {tuple(got.shape)}")
+    hub = _hub_operands(rng, MEDIUM["k"])
+    cocite = _cocite_operands()
+    with _env(SPGEMM_TPU_ACCUM_ROUTE="auto"):
+        hub_plan, cocite_plan = plan(*hub), plan(*cocite)
+    err = max(err, _twin_rounds(hub_plan, *hub), _twin_rounds(cocite_plan, *cocite))
+    _phase("dense", t0, f"(a) segmented fold == plain version at k {list(DENSE_KS)}, contiguous "
+           f"and cycling seg, sentinel and pad slots, an all-pad stream, n_rows 0; == kernel 1 on "
+           f"the hub's and the co-citation product's twin rounds")
+
+    # (b) Medium with the route forced to dense
+    t0 = time.perf_counter()
+    with _env(SPGEMM_TPU_ACCUM_ROUTE="ladder"):
+        ladder_plans = _plan_chain(medium.mats)[2]
+    auto_plans = _plan_chain(medium.mats)[2]
+    if any(r.dense_alt is not None for p in auto_plans for r in p.rounds) or \
+            not _same_plans(auto_plans, ladder_plans):
+        raise RuntimeError("[dense] Medium's auto plans carry a twin or differ from ladder's")
+    res_b, wall_b, counts_b, _ = _main_path(medium.dev_mats, "exact",
+                                            SPGEMM_TPU_ACCUM_ROUTE="dense")
+    if not _same(res_b, medium.res) or counts_b["mod"] or counts_b["dense"] <= 0:
+        raise RuntimeError(f"[dense] Medium forced dense != ladder bytes, or launches {counts_b}")
+    kerns = [TimedDense(cuda_dense.numeric_round_dense) for _ in range(KERNEL_REPEATS)]
+    plain = TimedDense(cuda_dense.numeric_round_dense_ref)
+    with contextlib.redirect_stdout(io.StringIO()), _env(SPGEMM_TPU_ACCUM_ROUTE="dense"):
+        for kern in kerns:
+            res_k = chain_product(medium.dev_mats, device=DEVICE, keep_device=True,
+                                  folds=Folds(dense=kern))
+        res_p = chain_product(medium.dev_mats, device=DEVICE, keep_device=True,
+                              folds=Folds(dense=plain))
+        plain_ms = plain.ms()
+    runs_ms = sorted(kern.ms() for kern in kerns)
+    kern_ms = runs_ms[len(runs_ms) // 2]
+    err_b = max(_u64_max_abs_err(res_k.slab, res_p.slab), _u64_max_abs_err(res_b.slab, res_p.slab))
+    if not (_same(res_k, medium.res) and _same(res_p, medium.res)):
+        raise RuntimeError(f"[dense] Medium dense kernel != plain version (max abs err {err_b})")
+    err = max(err, err_b)
+    ops_ms = kern.macs * INT_OPS_PER_MAC / INT32_OPS_PER_S * 1e3
+    bytes_ms = kern.bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = _bound(ops_ms, bytes_ms)
+    ptxas = _ptxas_report()["dense"]
+    _phase("dense", t0, f"(b) Medium, route dense: chain wall {wall_b:.6f} s, bytes equal to "
+           f"the ladder chain; launches {counts_b}; auto plans carry no twin and equal ladder's; "
+           f"dense kernel total {kern_ms:.3f} ms over {len(kern.events)} launches (median of "
+           f"{', '.join(f'{t:.3f}' for t in runs_ms)}) beside kernel 1's {kernel1_ms:.3f} ms "
+           f"in [medium]; plain version {plain_ms:.3f} ms; {kern.pairs} real pairs, "
+           f"{kern.macs / 1e9:.3f} G MACs -> integer bound {ops_ms:.3f} ms, "
+           f"{kern.bytes / 1e9:.3f} GB -> bytes bound {bytes_ms:.3f} ms; kernel at "
+           f"{bound_ms / kern_ms * 100:.1f}% of bound; ptxas (registers, spill bytes) {ptxas}")
+    del res_b, res_k, res_p
+
+    # (c) the hub multiply under every route, exact and hybrid
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_gate_") as cache:
+        hub_runs = _hub_runs(hub, cache)
+        with _env(SPGEMM_TPU_CROSSOVER_CACHE=cache):
+            hub_gate = crossover.entries()
+        hub_ms = _hub_kernel_ms(hub)
+        err = max(err, hub_ms["err"])
+        # the rounds each kernel folded (launches also count the gate's timings)
+        chosen = {run: ("dense" if r["counts"]["rounds"]["dense"] else "ladder")
+                  for run, r in hub_runs.items() if run.endswith("auto")}
+        why = {key: {**v, "winner": "dense" if v["dense_s"] < v["ladder_s"] else "ladder"}
+               for key, v in sorted(hub_gate.items())}
+        walls = {run: round(r["wall_s"], 6) for run, r in hub_runs.items()}
+        _phase("dense", t0, f"(c) hub multiply (fanout {HUB_FANOUT}, k={MEDIUM['k']}, one "
+               f"round of 2 keys): bytes equal under exact and hybrid x ladder, dense, auto; "
+               f"walls {walls}; the measured gate chose {chosen} from {why}; kernels on the "
+               f"round, medians of {KERNEL_REPEATS}: kernel 1 mod {hub_ms['mod']:.3f} ms, "
+               f"no_mod {hub_ms['no_mod']:.3f} ms, dense {hub_ms['dense']:.3f} ms "
+               f"(runs {hub_ms})")
+
+        # (d) the co-citation product
+        t0 = time.perf_counter()
+        a, b = cocite
+        fan = cocite_plan.join.fanouts
+        classes, counts = np.unique(symbolic._shape_class_vec(fan), return_counts=True)
+        twins = sum(r.dense_alt is not None for r in cocite_plan.rounds)
+        if twins < 1:
+            raise RuntimeError("[dense] the co-citation product planned no twin; raise alpha")
+        with _env(SPGEMM_TPU_CROSSOVER_CACHE=cache):
+            res_auto, _, counts_d, _ = _main_path([a, b], "exact", SPGEMM_TPU_ACCUM_ROUTE="auto")
+            co_gate = {key: v for key, v in crossover.entries().items() if key not in hub_gate}
+            with _env(SPGEMM_TPU_ACCUM_ROUTE="ladder"):
+                plan(a, b)  # both routes' plans cached: the walls below are warm
+            res_ladder = None
+            walls_d = {"ladder": [], "auto": []}
+            for _ in range(DENSE_WALL_RUNS):
+                for route in ("ladder", "auto"):
+                    with _env(SPGEMM_TPU_ACCUM_ROUTE=route):
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        got = spgemm_device(a, b, device=DEVICE)
+                        torch.cuda.synchronize()
+                        walls_d[route].append(time.perf_counter() - t1)
+                    if not _same(got, res_auto):
+                        raise RuntimeError(f"[dense] co-citation product, {route} != auto")
+                    res_ladder = got if route == "ladder" else res_ladder
+            del got
+    med = {route: sorted(w)[len(w) // 2] for route, w in walls_d.items()}
+    keys, pairs = cocite_plan.join.num_keys, int(cocite_plan.join.pair_ptr[-1])
+    d_ops = pairs * COCITE["k"] ** 3 * INT_OPS_PER_MAC / INT32_OPS_PER_S * 1e3
+    co_why = {key: {**v, "winner": "dense" if v["dense_s"] < v["ladder_s"] else "ladder"}
+              for key, v in sorted(co_gate.items())}
+    _phase("dense", t0, f"(d) co-citation A x A^T, A = powerlaw_block_sparse({COCITE['block_dim']}"
+           f", {COCITE['k']}, {COCITE['avg_per_row']}): {a.nnzb} tiles per operand "
+           f"({a.nnzb * COCITE['k'] ** 2 * 8 / 1e6:.0f} MB), {keys} keys, {pairs} pairs, "
+           f"max fanout {int(fan.max())} (integer bound {d_ops:.3f} ms); fanout classes "
+           f"{dict(zip(classes.tolist(), counts.tolist()))}; {len(cocite_plan.rounds)} rounds, "
+           f"{twins} with a twin; main path (auto, gate filled here) launches {counts_d}; "
+           f"gate {co_why}; warm plan cache and gate, medians of {DENSE_WALL_RUNS} in turns: "
+           f"ladder {med['ladder']:.6f} s (runs {', '.join(f'{w:.6f}' for w in walls_d['ladder'])}),"
+           f" auto {med['auto']:.6f} s (runs {', '.join(f'{w:.6f}' for w in walls_d['auto'])}); "
+           f"bytes identical")
+    del res_auto, res_ladder, cocite, hub
+    runs = {"b_medium": counts_b, "d_cocite_auto": counts_d,
+            **{f"c_{run}": r["counts"] for run, r in hub_runs.items()}}
+    launches = {run: c["dense"] for run, c in runs.items()}  # the gate's timings included
+    return {"name": "dense_fold", "route": "cuda",
+            "source": "spgemm_tpu_torch/csrc/numeric_round_dense.cu",
+            "replaces": "spgemm_tpu/ops/spgemm.py:150",
+            "launches": sum(launches.values()), "launches_by_run": launches,
+            "rounds_by_run": {run: c["rounds"]["dense"] for run, c in runs.items()},
+            "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "library_call": "none: no single PyTorch call computes a segmented "
+                            "mod-(2^64-1) fold",
+            "equal": True, "ms_runs": runs_ms, "timed_on": "Medium chain, route forced dense",
+            "kernel1_ms_same_chain": kernel1_ms, "macs": kern.macs, "pairs": kern.pairs,
+            "ptxas": ptxas, "medium_dense_wall_s": wall_b,
+            "hub": {"walls_s": walls, "chosen": chosen, "gate": why, "kernel_ms": hub_ms},
+            "cocite": {"tiles": a.nnzb, "keys": keys, "pairs": pairs,
+                       "max_fanout": int(fan.max()), "twins": twins, "gate": co_why,
+                       "walls_s": walls_d, "median_s": med, "launches": counts_d}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -2399,6 +2727,7 @@ def main() -> int:
     splice_row = phase_delta(medium)
     splice_row["warm"] = phase_warm()
     splice_row["estimate"] = phase_estimate(medium)
+    dense_row = phase_dense(medium, row["ms"])
     del medium
     torch.cuda.empty_cache()
     no_mod_row, mxu_row = phase_medium_small()
@@ -2411,8 +2740,8 @@ def main() -> int:
     ffn_rows = phase_ffn()
     for r in ffn_rows:
         r["max_abs_err"] = max(r["max_abs_err"], kernel_err[r["name"]])
-    print(json.dumps({"kernels": [row, no_mod_row, mxu_row, *ffn_rows, splice_row]}),
-          flush=True)
+    print(json.dumps({"kernels": [row, no_mod_row, mxu_row, *ffn_rows, splice_row,
+                                  dense_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -3,8 +3,8 @@ and load them with ctypes.
 
 Each `csrc/<name>.cu` becomes `build/torch_kernels/lib<name>-<hash>.so`
 (a shared library with a plain C interface), where the hash covers the
-source and the flags, so a changed source rebuilds and an unchanged one is
-reused.  A failed build raises with nvcc's stderr; nothing falls back.
+source, every header in csrc/ (`*.cuh`) and the flags, so a changed source
+or header rebuilds and an unchanged one is reused.  A failed build raises with nvcc's stderr; nothing falls back.
 """
 
 from __future__ import annotations
@@ -41,7 +41,9 @@ def build(name: str) -> Path:
     the library's path.  nvcc's ptxas report (registers, shared memory,
     spills) is kept beside it as <lib>.log."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

@@ -19,9 +19,9 @@ overlaps no device work and the sample's cost lands on the critical path
 overlap the join with device work (a long-lived server, not ported yet) is
 where it can pay.
 
-predicted_route is advisory.  The port has no dense accumulator route yet,
-so every real route is the ladder, and ops/spgemm only counts a predicted
-"dense" as ENGINE's `est_route_mismatch`.
+predicted_route is advisory: the rounds' route comes from the exact join's
+fanouts, and ops/spgemm counts a prediction that differs from it as
+ENGINE's `est_route_mismatch`.
 
 Host-only, safe on planner threads.  Knobs (utils/knobs.py):
   SPGEMM_TPU_PLAN_ESTIMATE    0|1 (default 0): estimator on or off.
@@ -39,12 +39,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spgemm_tpu_torch.ops.symbolic import _segment_expand, _shape_class_vec
+from spgemm_tpu_torch.ops.symbolic import DENSE_MIN_CLASS, _segment_expand, _shape_class_vec
 from spgemm_tpu_torch.utils import knobs
-
-# the JAX package's dense-route floor (spgemm_tpu/ops/symbolic.py:
-# DENSE_MIN_CLASS): a fanout class this deep would take the dense route there
-DENSE_MIN_CLASS = 256
 
 _LOCK = threading.Lock()
 _STATS = {"hits": 0, "fallbacks": 0}  # guarded by _LOCK

@@ -4,8 +4,9 @@ counterpart of the JAX package's `ops/spgemm.py`).
 Two phases:
 
   1. plan (host, ops/symbolic.py): sorted merge-join -> output structure,
-     fanout-class rounds of (K, P) pair indices, assembly permutation;
-     memoized by operand structure (ops/plancache.py).
+     fanout-class rounds of (K, P) pair indices (or, on the dense route,
+     pair streams), assembly permutation; memoized by operand structure
+     (ops/plancache.py).
   2. execute (device): one numeric launch per round, then one gather that
      puts the round outputs in key order with the sentinel zero tile last.
 
@@ -24,7 +25,19 @@ output rows the changed input rows reach (a sub-plan, subplan) and splices
 them into a new copy of the retained previous result (ops/cuda_splice.py +
 csrc/splice.cu).  The bytes are the full multiply's.
 
-Backends (BACKENDS), each a choice of numeric kernel per round:
+Accumulator route (SPGEMM_TPU_ACCUM_ROUTE, default auto; the JAX package's
+ops/spgemm.py:150-223, 705-817): 'ladder' rounds pad each key's pair list
+to its fanout class and run the backend's kernel; 'dense' rounds ship each
+class chunk as one pair stream and run the segmented fold
+(ops/cuda_dense.py + csrc/numeric_round_dense.cu), always mod; under
+'auto' a round of class >= DENSE_MIN_CLASS carries both layouts, and where
+it would not run the limb kernel the dense gate (ops/crossover.dense_wins:
+measured on the card, structural on the CPU) picks one.  The bytes are the
+same on every route.  The mxu backend and out-of-core always plan ladder.
+Unlike the JAX package, whose knob is jit-static, the route is part of the
+plan cache's key, since a process may change it between multiplies.
+
+Backends (BACKENDS), each a choice of numeric kernel per ladder round:
 
   * exact  -- the reference's wrap-then-mod fold, kernel 1
               (ops/cuda_spgemm.py + csrc/numeric_round.cu), on every round;
@@ -61,13 +74,15 @@ import numpy as np
 import torch
 
 from spgemm_tpu_torch.ops import crossover, delta, estimate, plancache, u64, warmstore
+from spgemm_tpu_torch.ops.cuda_dense import numeric_round_dense
 from spgemm_tpu_torch.ops.cuda_splice import source_map, splice
 from spgemm_tpu_torch.ops.cuda_mxu import limbs_for_bound, numeric_round_mxu
 from spgemm_tpu_torch.ops.cuda_spgemm import numeric_round
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix, ensure_device, resolve_device
 from spgemm_tpu_torch.ops.mxu_spgemm import MAX_PAIR_DEPTH, safe_exact_bound
-from spgemm_tpu_torch.ops.symbolic import (SpgemmPlan, _shape_class, assembly_permutation,
-                                           plan_rounds, slice_join, symbolic_join)
+from spgemm_tpu_torch.ops.symbolic import (ROUTES, SpgemmPlan, _shape_class,
+                                           assembly_permutation, plan_rounds, slice_join,
+                                           symbolic_join)
 from spgemm_tpu_torch.utils import knobs
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.timers import ENGINE
@@ -81,20 +96,22 @@ MAX_BOUND = (1 << 64) - 2  # any result is a canonical residue, at most 2^64 - 2
 
 # Rounds dispatched to each kernel, counted per round in execute, beside the
 # wrappers' launch counters: "mod" and "no_mod" are kernel 1's variants,
-# "mxu" the limb kernel.
-rounds_by_kernel = {"mod": 0, "no_mod": 0, "mxu": 0}
+# "mxu" the limb kernel, "dense" the segmented fold.
+rounds_by_kernel = {"mod": 0, "no_mod": 0, "mxu": 0, "dense": 0}
 
 
 @dataclass(frozen=True)
 class Folds:
     """The device functions execute and the delta path dispatch to: `exact`
     takes (a, b, pa, pb, no_mod=...), `mxu` takes (a, b, pa, pb,
-    a_limbs=..., b_limbs=...), `splice` takes (prev, sub, source map).
-    KERNELS are the CUDA kernels' wrappers; chip_smoke.py substitutes timed
-    wrappers and the plain PyTorch versions."""
+    a_limbs=..., b_limbs=...), `dense` takes (a, b, pa, pb, seg, n_rows,
+    row_ptr), `splice` takes (prev, sub, source map).  KERNELS are the CUDA
+    kernels' wrappers; chip_smoke.py substitutes timed wrappers and the
+    plain PyTorch versions."""
 
     exact: Callable = numeric_round
     mxu: Callable = numeric_round_mxu
+    dense: Callable = numeric_round_dense
     splice: Callable = splice
 
 
@@ -138,20 +155,25 @@ def _bound(m) -> int:
 def _build_exact(p: SpgemmPlan, route_pred: str | None = None) -> None:
     """Fill p's join, rounds and assembly permutation from the exact join,
     in place (inline, or later as a deferred plan's builder, timed then as
-    ENGINE's `plan_exact`).  Rounds are partitioned at the full proof split
-    on either route: the JAX package drops the split where the sample saw
-    no fanout above it, which here would save nothing (an empty part makes
-    no round) and could change the plan, so estimator on and off give the
-    same plans."""
+    ENGINE's `plan_exact`), on p's accumulator route.  Rounds are
+    partitioned at the full proof split on either planning route: the JAX
+    package drops the split where the sample saw no fanout above it, which
+    here would save nothing (an empty part makes no round) and could change
+    the plan, so estimator on and off give the same plans.
+
+    route_pred: the estimator's predicted accumulator route.  Where the real
+    one differs (dense iff some round is dense or carries a twin), ENGINE
+    counts `est_route_mismatch`, where the JAX package emits
+    obs_events.emit("accum_route_mismatch", ...)."""
     join = symbolic_join(p.a_coords, p.b_coords)
     rounds = plan_rounds(join, a_sentinel=len(p.a_coords), b_sentinel=len(p.b_coords),
-                         key_cap=p.key_cap, split_fanout=p.split_fanout)
+                         key_cap=p.key_cap, split_fanout=p.split_fanout, route=p.route)
     p.join, p.rounds, p.take = join, rounds, assembly_permutation(rounds, join.num_keys)
-    if route_pred == "dense":
-        # the port has only the ladder route (no dense route yet): count the
-        # prediction that misses it, where the JAX package emits
-        # obs_events.emit("accum_route_mismatch", ...)
-        ENGINE.incr("est_route_mismatch")
+    if route_pred is not None:
+        real = ("dense" if any(r.route == "dense" or r.dense_alt is not None for r in rounds)
+                else "ladder")
+        if real != route_pred:
+            ENGINE.incr("est_route_mismatch")
 
 
 def _deferred_build(p: SpgemmPlan, route_pred: str | None) -> None:
@@ -159,7 +181,7 @@ def _deferred_build(p: SpgemmPlan, route_pred: str | None) -> None:
         _build_exact(p, route_pred)
 
 
-def _new_plan(a, b, backend: str, key_cap: int, split: int | None,
+def _new_plan(a, b, backend: str, route: str, key_cap: int, split: int | None,
               key: str | None) -> SpgemmPlan:
     """A plan-cache miss (or the cache off, key None): the warm store's
     plan for key, else the planner's, routed by the sampled estimator
@@ -171,7 +193,8 @@ def _new_plan(a, b, backend: str, key_cap: int, split: int | None,
             return warm.freeze()
     p = SpgemmPlan(k=a.k, join=None, rounds=None, take=None,
                    a_coords=np.asarray(a.coords), b_coords=np.asarray(b.coords),
-                   backend=backend, split_fanout=split, key_cap=key_cap, fingerprint=key)
+                   backend=backend, route=route, split_fanout=split, key_cap=key_cap,
+                   fingerprint=key)
     if estimate.enabled():
         p.estimate = estimate.maybe_estimate(p.a_coords, p.b_coords)
     est = p.estimate
@@ -199,7 +222,8 @@ def _new_plan(a, b, backend: str, key_cap: int, split: int | None,
     return p
 
 
-def plan(a, b, *, backend: str = "exact", round_size: int | None = None) -> SpgemmPlan:
+def plan(a, b, *, backend: str = "exact", round_size: int | None = None,
+         route: str | None = None) -> SpgemmPlan:
     """Host planning half: join + rounds + assembly permutation, timed as
     ENGINE's `plan`, memoized by structure (ops/plancache; hits and misses
     are ENGINE's `plan_cache_hits` and `plan_cache_misses`), then read from
@@ -214,7 +238,11 @@ def plan(a, b, *, backend: str = "exact", round_size: int | None = None) -> Spge
     round_size: at most this many keys per launch (the reference's
     small_size), within launch_key_cap(k); None = the card's cap.  Each
     key's fold order lives in its own pair list, so the bytes never depend
-    on it."""
+    on it.
+
+    route: the accumulator route (symbolic.ROUTES); None reads
+    SPGEMM_TPU_ACCUM_ROUTE, except under mxu, which plans ladder only (its
+    field-mode fold has no dense kernel).  The bytes never depend on it."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if a.k != b.k:
@@ -223,16 +251,22 @@ def plan(a, b, *, backend: str = "exact", round_size: int | None = None) -> Spge
         raise ValueError(f"round_size must be >= 1, got {round_size}")
     k = a.k
     key_cap = launch_key_cap(k) if round_size is None else min(round_size, launch_key_cap(k))
+    if route is None:
+        route = "ladder" if backend == "mxu" else knobs.get("SPGEMM_TPU_ACCUM_ROUTE")
+    if route not in ROUTES or (backend == "mxu" and route != "ladder"):
+        raise ValueError(f"accumulator route {route!r} under backend {backend!r}: expected "
+                         f"one of {ROUTES}, and 'ladder' under mxu")
     with ENGINE.phase("plan"):
         split = _proof_fanout_cap(_bound(a), _bound(b), k) if backend == "hybrid" else None
         if not plancache.enabled():
-            return _new_plan(a, b, backend, key_cap, split, None)
+            return _new_plan(a, b, backend, route, key_cap, split, None)
         # everything the plan depends on, and the operand dims, which it
         # does not: a result must never come back under another shape
-        meta = (k, a.nnzb, b.nnzb, backend, key_cap, split, a.rows, a.cols, b.rows, b.cols)
+        meta = (k, a.nnzb, b.nnzb, backend, route, key_cap, split, a.rows, a.cols, b.rows,
+                b.cols)
         key = plancache.fingerprint(a.coords, b.coords, meta)
         p, hit = plancache.get_or_build(
-            key, lambda: _new_plan(a, b, backend, key_cap, split, key))
+            key, lambda: _new_plan(a, b, backend, route, key_cap, split, key))
         ENGINE.incr("plan_cache_hits" if hit else "plan_cache_misses")
         return p
 
@@ -307,6 +341,45 @@ def _router(backend: str, k: int, device, folds: Folds, bounds: Callable):
     return lambda rnd: ("mod", folds.exact, False)
 
 
+def _dense_gate(rnd, ladder: str, fold: Callable, k: int, device, folds: Folds) -> bool:
+    """Should this auto round run its dense twin instead of `fold` (kernel
+    1's `ladder` variant) on its ladder layout?  The JAX package's
+    _dense_gate: measured once per shape under the 'auto' policy, the
+    ladder layout's padded-MAC ratio under 'proof'.  The timed key class is
+    the round's, clamped as the hybrid gate's, with the real pairs scaled
+    to it."""
+    policy = crossover.gate_policy(device)
+    K_pad, P = rnd.pa.shape
+    K = min(_shape_class(K_pad), crossover.MEASURE_KEYS)
+    key = crossover.dense_cache_key(device, ladder, k, K, P) if policy == "auto" else ""
+    return crossover.dense_wins(fold, folds.dense, key=key, k=k, K=K, P=P,
+                                real_pairs=-(-rnd.real_pairs * K // K_pad), device=device,
+                                policy=policy, padded_ratio=rnd.padded_mac_ratio())
+
+
+def _route_rounds(p: SpgemmPlan, choose: Callable, device, folds: Folds,
+                  bounds: Callable) -> list[tuple]:
+    """(kernel name, fold, proven, the round in the layout it runs) for each
+    of p's rounds (the JAX package's execute, ops/spgemm.py:795-817).  A
+    dense round runs the segmented fold, and under hybrid still counts its
+    proof, which holds whatever kernel folds it.  An auto round with a twin
+    asks the dense gate, unless it would run the limb kernel."""
+    routed = []
+    for rnd in p.rounds:
+        if rnd.route == "dense":
+            proven = (p.backend == "hybrid"
+                      and safe_exact_bound(*bounds(), rnd.max_fanout, p.k) is not None)
+            routed.append(("dense", folds.dense, proven, rnd))
+            continue
+        name, fold, proven = choose(rnd)
+        if (rnd.dense_alt is not None and name != "mxu"
+                and _dense_gate(rnd, name, fold, p.k, device, folds)):
+            routed.append(("dense", folds.dense, proven, rnd.dense_alt))
+        else:
+            routed.append((name, fold, proven, rnd))
+    return routed
+
+
 def _count_rounds(backend: str, used: dict, n_rounds: int, keys: int) -> None:
     for name, n in used.items():
         rounds_by_kernel[name] += n
@@ -317,14 +390,16 @@ def _count_rounds(backend: str, used: dict, n_rounds: int, keys: int) -> None:
 
 def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
             folds: Folds = KERNELS) -> DeviceBlockMatrix:
-    """Device half: the rounds' indices and the assembly permutation queued
-    to the card from pinned memory (ENGINE's `upload`), one launch per round
-    on the kernel p.backend picks for it, then the assembly gather.  On the
-    exact backend nothing here waits for the stream, so the host goes on to
-    the next multiply while the card works; under hybrid and mxu an
-    operand's first bound() (one reduction) and the `auto` gate's one
-    measurement per shape do.  folds: the functions dispatched to (the CUDA
-    kernels' wrappers by default)."""
+    """Device half: each round's kernel and layout chosen (_route_rounds),
+    the chosen layouts' indices and the assembly permutation queued to the
+    card from pinned memory (ENGINE's `upload`), one launch per round (a
+    dense one timed as ENGINE's `dense_fold` and counted as `route_dense`),
+    then the assembly gather.  On the exact backend with no dense twin
+    nothing here waits for the stream, so the host goes on to the next
+    multiply while the card works; under hybrid and mxu an operand's first
+    bound() (one reduction) and an `auto` gate's one measurement per shape
+    do.  folds: the functions dispatched to (the CUDA kernels' wrappers by
+    default)."""
     p.check_operands(a, b)
     if a.device != b.device:
         raise ValueError(f"operands lie on {a.device} and {b.device}")
@@ -333,14 +408,25 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
     k = p.k
     if p.join.num_keys == 0:
         return DeviceBlockMatrix.empty(a.rows, b.cols, k, dev)
-    choose = _router(p.backend, k, dev, folds, lambda: (a.bound(), b.bound()))
+
+    def bounds():
+        return a.bound(), b.bound()
+
+    routed = _route_rounds(p, _router(p.backend, k, dev, folds, bounds), dev, folds, bounds)
     with ENGINE.phase("upload"):
-        indices = [(_upload(rnd.pa, dev), _upload(rnd.pb, dev)) for rnd in p.rounds]
+        indices = [[_upload(x, dev) for x in ((lay.pa, lay.pb, lay.seg, lay.row_ptr)
+                                               if name == "dense" else (lay.pa, lay.pb))]
+                   for name, _, _, lay in routed]
         take = _upload(p.take, dev)
     outs, proven_rounds, used = [], 0, dict.fromkeys(rounds_by_kernel, 0)
-    for rnd, (pa, pb) in zip(p.rounds, indices):
-        name, fold, proven = choose(rnd)
-        outs.append(fold(a.slab, b.slab, pa, pb))
+    for (name, fold, proven, lay), idx in zip(routed, indices):
+        if name == "dense":
+            pa, pb, seg, row_ptr = idx
+            with ENGINE.phase("dense_fold"):
+                outs.append(fold(a.slab, b.slab, pa, pb, seg, lay.n_rows, row_ptr))
+            ENGINE.incr("route_dense")
+        else:
+            outs.append(fold(a.slab, b.slab, *idx))
         proven_rounds += proven
         used[name] += 1
     _count_rounds(p.backend, used, len(p.rounds), p.join.num_keys)
@@ -358,19 +444,20 @@ def subplan(parent: SpgemmPlan, keep: np.ndarray) -> tuple[SpgemmPlan, np.ndarra
     """The parent plan cut to the output keys the boolean mask keep selects
     (the delta path's dirty keys): each kept key's pair list whole and in
     order (symbolic.slice_join), the rounds rebuilt under the parent's key
-    cap and proof split, so a kept key folds exactly as under the parent.
+    cap, proof split and accumulator route, so a kept key folds exactly as
+    under the parent.
     Never cached.  Returns (sub_plan, kept key indices), the indices being
     where the splice puts the sub-plan's rows."""
     parent.ensure_exact()
     sub_join, kept = slice_join(parent.join, keep)
     rounds = plan_rounds(sub_join, a_sentinel=len(parent.a_coords),
                          b_sentinel=len(parent.b_coords), key_cap=parent.key_cap,
-                         split_fanout=parent.split_fanout)
+                         split_fanout=parent.split_fanout, route=parent.route)
     return SpgemmPlan(k=parent.k, join=sub_join, rounds=rounds,
                       take=assembly_permutation(rounds, sub_join.num_keys),
                       a_coords=parent.a_coords, b_coords=parent.b_coords,
-                      backend=parent.backend, split_fanout=parent.split_fanout,
-                      key_cap=parent.key_cap), kept
+                      backend=parent.backend, route=parent.route,
+                      split_fanout=parent.split_fanout, key_cap=parent.key_cap), kept
 
 
 def _delta_key(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix) -> str:
@@ -527,15 +614,17 @@ def spgemm_outofcore(a, b, *, device="cuda", round_size: int | None = None,
     skip a slot whose index is the slab's last row, so padding the slab (as
     the JAX package does for its jit cache) would fold pad slots instead of
     skipping them.  The bytes are the resident path's at any depth and
-    round size.  a, b: host BlockSparseMatrix (a DeviceBlockMatrix is fetched
-    first); hybrid and mxu read the host tiles' exact maxima as bounds."""
+    round size.  The rounds are always planned ladder, as the JAX package's
+    out-of-core and sharded strategies are.  a, b: host BlockSparseMatrix (a
+    DeviceBlockMatrix is fetched first); hybrid and mxu read the host tiles'
+    exact maxima as bounds."""
     if isinstance(a, DeviceBlockMatrix):
         a = a.to_host()
     if isinstance(b, DeviceBlockMatrix):
         b = b.to_host()
     dev = resolve_device(device)
     depth = knobs.get("SPGEMM_TPU_OOC_DEPTH")
-    p = plan(a, b, backend=backend,
+    p = plan(a, b, backend=backend, route="ladder",
              round_size=OOC_ROUND_SIZE if round_size is None else round_size).ensure_exact()
     k = p.k
     if p.join.num_keys == 0:

@@ -1,5 +1,5 @@
 """Symbolic phase on the host: output-structure join + round bucketing (the
-port's copy of the JAX package's `ops/symbolic.py`, ladder layout only).
+port's copy of the JAX package's `ops/symbolic.py`).
 
 The join is a sorted merge-join over the (already sorted) block-coordinate
 arrays -- O(nnzb + pairs), no hashing; in C++ (native/symbolic.cpp), with a
@@ -22,7 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spgemm_tpu_torch.utils import native
+from spgemm_tpu_torch.utils import knobs, native
 
 
 @dataclass
@@ -162,19 +162,54 @@ def slice_join(join: JoinResult, keep: np.ndarray) -> tuple[JoinResult, np.ndarr
 
 @dataclass
 class Round:
-    """One numeric launch: up to key_cap keys of one fanout class, each
-    key's pair list sentinel-padded to the class width P."""
+    """One numeric launch: up to key_cap keys of one fanout class, in one of
+    two layouts (SPGEMM_TPU_ACCUM_ROUTE):
+
+      ladder (route 'ladder'): pa/pb are (K_pad, P), each key's pair list
+        sentinel-padded to the class width P (kernel 1);
+      dense (route 'dense'): pa/pb are (L,), the chunk's pair lists
+        concatenated in key order and sentinel-padded to the stream ladder
+        (_stream_pad); seg gives each slot its output row (pad slots the
+        scratch row n_rows) and row_ptr each row's slots, [row_ptr[r],
+        row_ptr[r + 1]) (the segmented-fold kernel).
+
+    Both fold each output row's pairs in the same j-ascending order, so
+    they give the same bits.  An 'auto' round keeps the ladder layout and
+    carries its dense twin in dense_alt; execute picks one per round."""
 
     key_index: np.ndarray  # (n,) int64 -- positions into JoinResult.keys
-    pa: np.ndarray         # (K_pad, P) int32, sentinel-padded
+    pa: np.ndarray         # ladder: (K_pad, P) int32; dense: (L,) int32
     pb: np.ndarray         # same shape as pa
     max_fanout: int = 0    # real (unpadded) max fanout among the round's keys
                            # -- what the hybrid proof reads (sentinel pairs add 0)
+    route: str = "ladder"  # 'ladder' | 'dense'
+    seg: np.ndarray | None = None      # dense: (L,) int32 output row per slot
+    row_ptr: np.ndarray | None = None  # dense: (n_rows + 1,) int64 row offsets
+    n_rows: int = 0        # dense: output rows, the ladder twin's K_pad
+    real_pairs: int = 0    # unpadded pair count
+    dense_alt: "Round | None" = None   # auto: the dense twin
 
     @property
     def out_rows(self) -> int:
-        """Output rows this round's launch produces (padded key count)."""
-        return self.pa.shape[0]
+        """Output rows this round's launch produces (padded key count), the
+        same for both layouts."""
+        return self.pa.shape[0] if self.pa.ndim == 2 else self.n_rows
+
+    @property
+    def shipped_macs(self) -> int:
+        """Pair slots shipped to the kernel, padding included."""
+        return int(self.pa.size)
+
+    def padded_mac_ratio(self) -> float:
+        """Shipped over real pair slots (>= 1): the ladder layout's ratio on
+        an auto round, the stream's on a dense one."""
+        return self.shipped_macs / self.real_pairs if self.real_pairs else 1.0
+
+    def arrays(self) -> list:
+        """Every index array of the round and of its twin."""
+        out = [x for x in (self.key_index, self.pa, self.pb, self.seg, self.row_ptr)
+               if x is not None]
+        return out + (self.dense_alt.arrays()[1:] if self.dense_alt is not None else [])
 
 
 def _floor_pow2(x: int) -> int:
@@ -201,6 +236,44 @@ def _shape_class(x: int) -> int:
     return int(_shape_class_vec(np.array([x]))[0])
 
 
+# The accumulator routes (SPGEMM_TPU_ACCUM_ROUTE), and the smallest fanout
+# class that the auto route gives a dense twin (the JAX package's): below it
+# the ladder's padding is at most a third of its slots.
+ROUTES = ("auto", "ladder", "dense")
+DENSE_MIN_CLASS = 256
+
+
+def _stream_pad(n: int) -> int:
+    """Smallest m * 2^e >= n with m in 8..15 and e >= 3: the dense stream's
+    length (the JAX package's ladder, waste under 1/8 past 64 pairs; every
+    rung a multiple of 8)."""
+    n = max(int(n), 1)
+    if n <= 8:
+        return 8
+    e = max((n - 1).bit_length() - 4, 3)
+    return -(-n // (1 << e)) << e
+
+
+def _dense_round(join: JoinResult, chunk: np.ndarray, lens: np.ndarray, rows: np.ndarray,
+                 src: np.ndarray, n_rows: int, a_sentinel: int, b_sentinel: int) -> Round:
+    """The dense layout of one class chunk: its pair lists in key order
+    (rows/src as the ladder scatter uses them), sentinel-padded to
+    _stream_pad, pad slots on the scratch row n_rows.  seg is
+    non-decreasing over the real slots, so each row's slots are one run
+    and row_ptr is a searchsorted over them."""
+    real = len(src)
+    L = _stream_pad(real)
+    spa = np.full(L, a_sentinel, np.int32)
+    spb = np.full(L, b_sentinel, np.int32)
+    seg = np.full(L, n_rows, np.int32)
+    spa[:real] = join.pair_a[src]
+    spb[:real] = join.pair_b[src]
+    seg[:real] = rows
+    row_ptr = np.searchsorted(seg[:real], np.arange(n_rows + 1)).astype(np.int64)
+    return Round(key_index=chunk, pa=spa, pb=spb, max_fanout=int(lens.max()), route="dense",
+                 seg=seg, row_ptr=row_ptr, n_rows=n_rows, real_pairs=real)
+
+
 def assembly_permutation(rounds: list[Round], num_keys: int) -> np.ndarray:
     """Inverse permutation for the assembly gather.
 
@@ -224,7 +297,7 @@ class SpgemmPlan:
     refuses any other pair before an out-of-bounds read can happen.
 
     key_cap: the most keys one round holds (ops/spgemm.plan's launch cap or
-    round_size); a sub-plan rebuilds its rounds under the same cap.
+    round_size); a sub-plan rebuilds its rounds under the same cap and route.
     fingerprint: the plan-cache key the plan was stored under, None when the
     cache was off (ops/spgemm's delta path needs one).
     estimate / plan_route: the sampled estimate that steered the plan
@@ -239,6 +312,7 @@ class SpgemmPlan:
     a_coords: np.ndarray
     b_coords: np.ndarray
     backend: str = "exact"            # exact | mxu | hybrid (ops/spgemm.BACKENDS)
+    route: str = "ladder"             # accumulator route the rounds were planned on
     split_fanout: int | None = None   # hybrid proof partition threshold
     key_cap: int = 8192
     fingerprint: str | None = None
@@ -255,7 +329,7 @@ class SpgemmPlan:
             arrays += [self.join.keys, self.join.pair_ptr, self.join.pair_a,
                        self.join.pair_b, self.join.fanouts, self.take]
             for r in self.rounds:
-                arrays += [r.key_index, r.pa, r.pb]
+                arrays += r.arrays()
         return arrays
 
     def freeze(self) -> "SpgemmPlan":
@@ -306,7 +380,8 @@ class SpgemmPlan:
 
 
 def plan_rounds(join: JoinResult, a_sentinel: int, b_sentinel: int,
-                key_cap: int = 8192, split_fanout: int | None = None) -> list[Round]:
+                key_cap: int = 8192, split_fanout: int | None = None,
+                route: str | None = None) -> list[Round]:
     """Bucket output keys by fanout class; one round per class, chopped at
     key_cap keys.
 
@@ -315,12 +390,21 @@ def plan_rounds(join: JoinResult, a_sentinel: int, b_sentinel: int,
     exactness proof is a fanout threshold, so routing stays per key while
     each (class, kernel) part is still one launch.
 
-    The pair axis pads to the class width P (3/4-pow-2 ladder); the key
-    axis of each chunk pads to the same ladder, capped at the chunk cap
-    (key_cap floored onto the ladder).  Keys are disjoint across rounds and
-    each key's fold order lives inside its own pair list, so any chunking is
-    bit-exact.  The default key_cap is the JAX package's round-batched
-    ceiling; ops/spgemm.py passes the card's own cap."""
+    route: the accumulator route (None reads SPGEMM_TPU_ACCUM_ROUTE).
+    'ladder' pads the pair axis to the class width P (3/4-pow-2 ladder) and
+    the key axis of each chunk to the same ladder, capped at the chunk cap
+    (key_cap floored onto the ladder); 'dense' ships each chunk as one pair
+    stream (_dense_round) with the ladder's row count; 'auto' plans ladder
+    and gives chunks of class >= DENSE_MIN_CLASS their dense twin.  The
+    choice reads the exact join's fanouts, never an estimate.  Keys are
+    disjoint across rounds and each key's fold order lives inside its own
+    pair list, so any chunking and any route is bit-exact.  The default
+    key_cap is the JAX package's round-batched ceiling; ops/spgemm.py passes
+    the card's own cap."""
+    if route is None:
+        route = knobs.get("SPGEMM_TPU_ACCUM_ROUTE")
+    if route not in ROUTES:
+        raise ValueError(f"unknown accumulator route {route!r}")
     if key_cap < 1:
         raise ValueError(f"key_cap must be >= 1, got {key_cap}")
     rounds: list[Round] = []
@@ -344,37 +428,50 @@ def plan_rounds(join: JoinResult, a_sentinel: int, b_sentinel: int,
                 lens = fan[chunk]
                 rows, cols = _segment_expand(lens)
                 src = np.repeat(join.pair_ptr[chunk], lens) + cols
+                if route == "dense":
+                    rounds.append(_dense_round(join, chunk, lens, rows, src, K_pad,
+                                               a_sentinel, b_sentinel))
+                    continue
                 pa = np.full((K_pad, P), a_sentinel, dtype=np.int32)
                 pb = np.full((K_pad, P), b_sentinel, dtype=np.int32)
                 # scatter each key's pair list into its row
                 pa[rows, cols] = join.pair_a[src]
                 pb[rows, cols] = join.pair_b[src]
-                rounds.append(Round(key_index=chunk, pa=pa, pb=pb,
-                                    max_fanout=int(lens.max())))
+                rnd = Round(key_index=chunk, pa=pa, pb=pb, max_fanout=int(lens.max()),
+                            real_pairs=len(src))
+                if route == "auto" and P >= DENSE_MIN_CLASS:
+                    rnd.dense_alt = _dense_round(join, chunk, lens, rows, src, K_pad,
+                                                 a_sentinel, b_sentinel)
+                rounds.append(rnd)
     return rounds
 
 
 # ------------------------------------------------------ plan <-> arrays codec --
 # The port's own flat-array plan encoding (ops/warmstore's plan tier).  Its
-# plans carry key_cap and neither the JAX package's batch flag nor its
-# route fields, so a file of either package is never the other's: the
-# payload names its format, and a mismatch of format or version raises.
+# plans carry key_cap and not the JAX package's batch flag, so a file of
+# either package is never the other's: the payload names its format, and a
+# mismatch of format or version raises.
+# v2: the accumulator route (the plan's route; each round's layout, row
+# count, real pair count, seg and row_ptr, and the auto route's dense twin),
+# after the JAX package's v2 layout.
 PLAN_CODEC_FORMAT = "spgemm_tpu_torch"
-PLAN_CODEC_VERSION = 1
+PLAN_CODEC_VERSION = 2
 
 _SCALAR_FIELDS = ("k", "key_cap", "split_fanout", "num_rounds")
 
 
 def plan_to_arrays(plan: SpgemmPlan) -> dict | None:
     """An exact plan as a dict of numpy arrays (npz-ready): the join, every
-    round's index arrays, the assembly permutation and the operand coords,
-    so a reloaded plan replays the same folds.  None for a deferred plan."""
+    round's index arrays (and its twin's), the assembly permutation and the
+    operand coords, so a reloaded plan replays the same folds.  None for a
+    deferred plan."""
     if plan.is_deferred:
         return None
     out = {
         "codec_format": np.array(PLAN_CODEC_FORMAT),
         "codec": np.int64(PLAN_CODEC_VERSION),
         "backend": np.array(plan.backend),
+        "route": np.array(plan.route),
         "scalars": np.array([plan.k, plan.key_cap,
                              -1 if plan.split_fanout is None else plan.split_fanout,
                              len(plan.rounds)], np.int64),
@@ -385,7 +482,29 @@ def plan_to_arrays(plan: SpgemmPlan) -> dict | None:
     }
     for i, r in enumerate(plan.rounds):
         out[f"r{i}_key_index"], out[f"r{i}_pa"], out[f"r{i}_pb"] = r.key_index, r.pa, r.pb
+        out[f"r{i}_route"] = np.array([int(r.route == "dense"), r.n_rows, r.real_pairs,
+                                       int(r.dense_alt is not None)], np.int64)
+        dense = r if r.route == "dense" else r.dense_alt
+        if dense is not None:
+            prefix = f"r{i}_" if dense is r else f"r{i}_alt_"
+            if dense is not r:
+                out[f"{prefix}pa"], out[f"{prefix}pb"] = dense.pa, dense.pb
+                out[f"{prefix}meta"] = np.array([dense.n_rows, dense.real_pairs], np.int64)
+            out[f"{prefix}seg"], out[f"{prefix}row_ptr"] = dense.seg, dense.row_ptr
     return out
+
+
+def _dense_from(d, prefix: str, key_index, max_fanout: int, n_rows: int,
+                real_pairs: int) -> Round:
+    rnd = Round(key_index=key_index, pa=np.asarray(d[f"{prefix}pa"], np.int32),
+                pb=np.asarray(d[f"{prefix}pb"], np.int32), max_fanout=max_fanout,
+                route="dense", seg=np.asarray(d[f"{prefix}seg"], np.int32),
+                row_ptr=np.asarray(d[f"{prefix}row_ptr"], np.int64), n_rows=n_rows,
+                real_pairs=real_pairs)
+    if (rnd.pa.ndim != 1 or rnd.pb.shape != rnd.pa.shape or rnd.seg.shape != rnd.pa.shape
+            or rnd.row_ptr.shape != (n_rows + 1,)):
+        raise ValueError("malformed dense-round stream arrays")
+    return rnd
 
 
 def plan_from_arrays(d, fingerprint: str | None = None) -> SpgemmPlan:
@@ -406,16 +525,27 @@ def plan_from_arrays(d, fingerprint: str | None = None) -> SpgemmPlan:
     max_fan = np.asarray(d["round_max_fanout"], np.int64)
     if len(max_fan) != s["num_rounds"] or len(join.pair_ptr) != join.num_keys + 1:
         raise ValueError("plan arrays do not match their header")
-    rounds = [Round(key_index=np.asarray(d[f"r{i}_key_index"], np.int64),
-                    pa=np.asarray(d[f"r{i}_pa"], np.int32),
-                    pb=np.asarray(d[f"r{i}_pb"], np.int32), max_fanout=int(max_fan[i]))
-              for i in range(s["num_rounds"])]
+    rounds = []
+    for i in range(s["num_rounds"]):
+        is_dense, n_rows, real_pairs, has_alt = (int(v) for v in np.asarray(d[f"r{i}_route"]))
+        key_index = np.asarray(d[f"r{i}_key_index"], np.int64)
+        if is_dense:
+            rnd = _dense_from(d, f"r{i}_", key_index, int(max_fan[i]), n_rows, real_pairs)
+        else:
+            rnd = Round(key_index=key_index, pa=np.asarray(d[f"r{i}_pa"], np.int32),
+                        pb=np.asarray(d[f"r{i}_pb"], np.int32), max_fanout=int(max_fan[i]),
+                        real_pairs=real_pairs)
+        if has_alt:
+            alt_rows, alt_real = (int(v) for v in np.asarray(d[f"r{i}_alt_meta"]))
+            rnd.dense_alt = _dense_from(d, f"r{i}_alt_", key_index, int(max_fan[i]),
+                                        alt_rows, alt_real)
+        rounds.append(rnd)
     take = np.asarray(d["take"], np.int64)
     if len(take) != join.num_keys + 1:
         raise ValueError("assembly permutation does not match the join")
     return SpgemmPlan(k=s["k"], join=join, rounds=rounds, take=take,
                       a_coords=np.asarray(d["a_coords"], np.int64).reshape(-1, 2),
                       b_coords=np.asarray(d["b_coords"], np.int64).reshape(-1, 2),
-                      backend=str(d["backend"]),
+                      backend=str(d["backend"]), route=str(d["route"]),
                       split_fanout=None if s["split_fanout"] < 0 else s["split_fanout"],
                       key_cap=s["key_cap"], fingerprint=fingerprint)

@@ -79,10 +79,12 @@ def budget_bytes() -> int:
 
 
 def _knob_sig() -> str:
-    """The knob signature stored in and checked on every entry.  No knob of
-    the port changes a plan or a result beyond what the fingerprint holds,
-    so it names the package: an entry of the JAX package (whose signature
-    is its jit-static knob vector) never matches."""
+    """The knob signature stored in and checked on every entry.  The one
+    knob of the port that changes a plan, SPGEMM_TPU_ACCUM_ROUTE, is in the
+    plan's fingerprint (ops/spgemm.plan puts the route into the plan-cache
+    key), and no knob changes a result, so the signature names the package:
+    an entry of the JAX package (whose signature is its jit-static knob
+    vector) never matches."""
     return repr(("spgemm_tpu_torch", SCHEMA_VERSION))
 
 

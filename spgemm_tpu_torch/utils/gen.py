@@ -64,3 +64,20 @@ def banded_block_sparse(block_dim: int, k: int, bandwidth: int,
     coords = np.array(coords, dtype=np.int64)
     tiles = random_values((len(coords), k, k), rng, dist)
     return BlockSparseMatrix.from_blocks(block_dim * k, block_dim * k, k, coords, tiles)
+
+
+def powerlaw_block_sparse(block_dim: int, k: int, avg_per_row: float,
+                          rng: np.random.Generator, dist: str = "full",
+                          alpha: float = 1.5) -> BlockSparseMatrix:
+    """Power-law row degrees (webbase-like: a few very heavy rows), with
+    the JAX package's draws in its order: the Zipf degrees, then each row's
+    columns, then the tiles."""
+    degrees = np.minimum(rng.zipf(alpha, size=block_dim), block_dim).astype(np.int64)
+    scale = avg_per_row / max(degrees.mean(), 1e-9)
+    degrees = np.maximum(1, (degrees * scale).astype(np.int64))
+    degrees = np.minimum(degrees, block_dim)
+    coords = np.array([(r, int(c)) for r in range(block_dim)
+                       for c in rng.choice(block_dim, size=degrees[r], replace=False)],
+                      dtype=np.int64)
+    tiles = random_values((len(coords), k, k), rng, dist)
+    return BlockSparseMatrix.from_blocks(block_dim * k, block_dim * k, k, coords, tiles)

@@ -110,6 +110,16 @@ _KNOBS = (
          "= route on the exactness proof alone (unset: auto on CUDA, proof on "
          "the CPU).  Read by ops/crossover.py.",
          choices=("auto", "proof")),
+    Knob("SPGEMM_TPU_ACCUM_ROUTE", "enum",
+         "Accumulator route of the exact fold: ladder = every key's pair list "
+         "padded to its fanout class, folded by kernel 1; dense = each class "
+         "chunk as one contiguous pair stream plus a row per slot, folded by "
+         "the segmented-fold kernel; auto = classes of fanout >= "
+         "DENSE_MIN_CLASS carry both layouts and the gate (ops/crossover."
+         "dense_wins) picks per round.  Bit-identical on every input.  The mxu "
+         "backend and out-of-core always plan ladder.  Read by ops/symbolic.py "
+         "and ops/spgemm.py.",
+         default="auto", choices=("auto", "ladder", "dense")),
     Knob("SPGEMM_TPU_CROSSOVER_CACHE", "path",
          "Crossover-measurement cache directory (unset: "
          "~/.cache/spgemm_tpu_torch).  Read by ops/crossover.py."),

@@ -6,8 +6,11 @@ slabs), the hybrid chain against the exact one, out-of-core and --ranks on
 the card against the resident and CPU results, failover with a failing
 fold (falling back when the probe reports a lost card, raising when the
 real probe finds the card working), the FFN forward against its plain
-version, and the delta splice against splice_ref and a delta chain against
-the full one.  Tolerance: exact (torch.equal)
+version, the delta splice against splice_ref and a delta chain against
+the full one, and the segmented fold of the dense route against its plain
+version (any seg, sentinel and pad slots, no rows), against kernel 1 on a
+planner's round, raising on what it does not take, and a hub multiply on
+every route.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -25,7 +28,8 @@ import torch
 
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
-from spgemm_tpu_torch.ops import cuda_bsmm, cuda_mxu, cuda_splice, cuda_spgemm, delta, mxu_spgemm
+from spgemm_tpu_torch.ops import cuda_bsmm, cuda_dense, cuda_mxu, cuda_splice, cuda_spgemm
+from spgemm_tpu_torch.ops import delta, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.utils.gen import random_chain, random_values
@@ -567,3 +571,121 @@ def test_delta_chain_on_card_matches_the_full_chain(cuda, monkeypatch):
     assert cuda_splice.launches > before
     monkeypatch.setenv("SPGEMM_TPU_DELTA", "0")
     assert got == [chain_product(ms, device=cuda) for ms in (mats, mats, edited)]
+
+
+def _dense_case(rng, k, n_rows, L, real, layout, device, n_tiles=20):
+    """Slabs of EDGE-heavy values with the zero sentinel last, and an (L,)
+    stream: `real` slots on rows (contiguous runs, or cycling), a fifth of
+    them sentinel pairs, the rest pad slots on the scratch row n_rows."""
+    tiles = [random_values((n_tiles + 1, k, k), rng, "adversarial") for _ in range(2)]
+    for t in tiles:
+        t[-1] = 0
+    pa = np.full(L, n_tiles, np.int32)
+    pb = np.full(L, n_tiles, np.int32)
+    seg = np.full(L, n_rows, np.int32)
+    pa[:real] = rng.integers(0, n_tiles, size=real)
+    pb[:real] = rng.integers(0, n_tiles, size=real)
+    side = rng.integers(0, 5, size=real)
+    pa[:real][side == 0] = n_tiles
+    pb[:real][side == 1] = n_tiles
+    if n_rows:
+        seg[:real] = (np.sort(rng.integers(0, n_rows, size=real)) if layout == "contiguous"
+                      else np.arange(real) % n_rows)
+    return [torch.from_numpy(x.view(np.int64) if x.dtype == np.uint64 else x).to(device)
+            for x in (*tiles, pa, pb, seg)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "cycling"])
+@pytest.mark.parametrize("k,n_rows,L,real", [(1, 300, 2048, 2000), (2, 50, 512, 500),
+                                             (8, 20, 256, 250), (32, 30, 640, 600),
+                                             (64, 4, 64, 60), (32, 2, 3000, 3000),
+                                             (33, 5, 40, 33), (16, 7, 16, 0), (16, 0, 8, 0)])
+def test_dense_kernel_matches_plain_version(cuda, layout, k, n_rows, L, real):
+    rng = np.random.default_rng(k * 1000 + n_rows + real)
+    a, b, pa, pb, seg = _dense_case(rng, k, n_rows, L, real, layout, cuda)
+    before = cuda_dense.launches
+    got = cuda_dense.numeric_round_dense(a, b, pa, pb, seg, n_rows)
+    want = cuda_dense.numeric_round_dense_ref(a, b, pa, pb, seg, n_rows)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (n_rows, k, k) and torch.equal(got, want)
+    assert cuda_dense.launches == before + (1 if n_rows else 0)
+    if layout == "contiguous":  # the planner's layout, its row offsets given
+        row_ptr = torch.searchsorted(seg[:real], torch.arange(n_rows + 1, device=cuda,
+                                                              dtype=torch.int32))
+        got = cuda_dense.numeric_round_dense(a, b, pa, pb, seg, n_rows, row_ptr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 32])
+def test_dense_kernel_equals_kernel_1_on_planner_rounds(cuda, k, monkeypatch):
+    """Every auto round's dense twin against kernel 1 on its ladder layout:
+    the same rows, the same bits."""
+    from spgemm_tpu_torch.ops.spgemm import pack_tiles, plan
+    from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+
+    rng = np.random.default_rng(k)
+    fanout, keys = 300, 5
+    a_c = np.array([(i, i * fanout + j) for i in range(keys) for j in range(fanout)], np.int64)
+    b_c = np.array([(m, c) for m in range(keys * fanout) for c in (0, 1)], np.int64)
+    a = BlockSparseMatrix(rows=keys * k, cols=keys * fanout * k, k=k, coords=a_c,
+                          tiles=random_values((len(a_c), k, k), rng, "adversarial"))
+    b = BlockSparseMatrix(rows=keys * fanout * k, cols=2 * k, k=k, coords=b_c,
+                          tiles=random_values((len(b_c), k, k), rng, "adversarial"))
+    monkeypatch.setenv("SPGEMM_TPU_ACCUM_ROUTE", "auto")
+    p = plan(a, b)
+    twins = [r for r in p.rounds if r.dense_alt is not None]
+    assert twins
+    sa, sb = pack_tiles(a, cuda), pack_tiles(b, cuda)
+    for r in twins:
+        d = r.dense_alt
+        ladder = cuda_spgemm.numeric_round(sa, sb, *(torch.from_numpy(x).to(cuda)
+                                                     for x in (r.pa, r.pb)))
+        dense = cuda_dense.numeric_round_dense(
+            sa, sb, *(torch.from_numpy(x).to(cuda) for x in (d.pa, d.pb, d.seg)), d.n_rows,
+            torch.from_numpy(d.row_ptr).to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(ladder, dense)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_refuses_what_it_does_not_take(cuda):
+    ix = torch.zeros(8, dtype=torch.int32, device=cuda)
+    big = torch.zeros((2, 2049, 2049), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="k <= 2048"):
+        cuda_dense.numeric_round_dense(big, big, ix, ix, ix, 1)
+    del big
+    a = torch.zeros((3, 4, 4), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        cuda_dense.numeric_round_dense(a, a, ix.cpu(), ix.cpu(), ix.cpu(), 2)
+    with pytest.raises(ValueError, match="several devices"):
+        cuda_dense.numeric_round_dense(a, a.cpu(), ix, ix, ix, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["exact", "hybrid"])
+def test_hub_multiply_on_card_is_the_same_on_every_route(cuda, backend, monkeypatch, tmp_path):
+    from spgemm_tpu_torch.ops import plancache
+    from spgemm_tpu_torch.ops.spgemm import spgemm
+    from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+
+    rng = np.random.default_rng(17)
+    k, fanout = 8, 600
+    a_c = np.stack([np.zeros(fanout, np.int64), np.arange(fanout)], 1)
+    b_c = np.stack([np.repeat(np.arange(fanout), 2), np.tile([0, 1], fanout)], 1)
+    dist = "small" if backend == "hybrid" else "adversarial"
+    a = BlockSparseMatrix(rows=k, cols=fanout * k, k=k, coords=a_c,
+                          tiles=random_values((len(a_c), k, k), rng, dist))
+    b = BlockSparseMatrix(rows=fanout * k, cols=2 * k, k=k, coords=b_c,
+                          tiles=random_values((len(b_c), k, k), rng, dist))
+    monkeypatch.setenv("SPGEMM_TPU_CROSSOVER_CACHE", str(tmp_path))
+    out = {}
+    for route in ("ladder", "dense", "auto"):
+        monkeypatch.setenv("SPGEMM_TPU_ACCUM_ROUTE", route)
+        plancache.clear()
+        before = cuda_dense.launches
+        out[route] = spgemm(a, b, device=cuda, backend=backend)
+        assert (cuda_dense.launches > before) == (route == "dense") or route == "auto"
+    assert out["ladder"] == out["dense"] == out["auto"] == spgemm(a, b, device="cpu")

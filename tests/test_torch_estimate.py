@@ -149,9 +149,11 @@ def test_ensure_exact_builds_once_across_threads_and_freezes(monkeypatch):
     assert a.coords.flags.writeable  # the caller's own coords are not
 
 
-def test_a_dense_class_prediction_is_counted_as_a_route_mismatch():
-    """The port has only the ladder route: a sample whose fanout class
-    reaches the JAX package's dense floor counts est_route_mismatch."""
+def test_a_dense_class_prediction_is_counted_as_a_route_mismatch(monkeypatch):
+    """Under the ladder route a sample whose fanout class reaches the dense
+    floor counts est_route_mismatch (the JAX rule; the other cases are in
+    tests/test_torch_dense.py)."""
+    monkeypatch.setenv("SPGEMM_TPU_ACCUM_ROUTE", "ladder")
     rows = np.repeat(np.arange(60), 300)
     a = _coords_only(60, 300, 1, np.stack([rows, np.tile(np.arange(300), 60)], 1))
     b = _coords_only(300, 1, 1, np.stack([np.arange(300), np.zeros(300, np.int64)], 1))

@@ -20,7 +20,7 @@ for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
              "models.ffn", "ops.cuda_bsmm", "utils.native", "utils.knobs", "utils.mtx",
              "ops.plancache", "utils.checkpoint", "utils.backend_probe", "parallel",
              "parallel.chainpart", "ops.delta", "ops.estimate", "ops.warmstore",
-             "ops.cuda_splice"):
+             "ops.cuda_splice", "ops.cuda_dense"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
