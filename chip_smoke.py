@@ -108,7 +108,29 @@ the script exits non-zero without printing a result:
                A x A^T of powerlaw_block_sparse(4096, 32, 8.0): its fanout
                classes, its rounds with a twin (at least one), the gate's
                choices, and the auto and ladder walls with warm plans and
-               gate, medians of 5 in turns, the bytes equal;
+               gate, medians of 5 in turns, the bytes equal; then `[serve]`,
+               the port's daemon (`python -m spgemm_tpu_torch.cli serve`, no
+               --device: the card; delta on, its warm directory next to its
+               socket) driven with serve/client over text directories of the
+               Medium chain and of the chain of distinct structures: (a)
+               Medium cold, (b) Medium again (every plan a hit), (c0) the
+               chain of distinct structures, (c) the same with 11 tile rows of
+               M5 given new values (delta rows below the total, the splice
+               launched), (d) a restarted daemon on the same warm directory,
+               Medium again (warm hits), run after (e) on that second
+               daemon, which has serve.heartbeat armed to hang once and a 2 s
+               job deadline, 1 s wedge grace and 1 s re-probe: (e) a small
+               chain's job reaped, the slice degraded (one stderr line), the
+               probe after it `ok`, the slice reinstated at once and the
+               canary job on the card with the oracle's bytes, no job on the
+               host oracle; (a), (c0) and (c) read back with the native
+               parser and equal to the in-memory engine's, (b) and (d) equal
+               to (a)'s bytes, each job
+               of (a)-(d) with kernel 1 launched on the card (its own
+               counters, from its PhaseScope in the daemon) and not
+               degraded; the submit walls, each job's phases_s and counters,
+               and the warm flush after each job, beside the CLI's time
+               taken from [medium-cli];
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -2677,6 +2699,303 @@ def phase_dense(medium, kernel1_ms: float) -> dict:
                        "walls_s": walls_d, "median_s": med, "launches": counts_d}}
 
 
+SERVE_EDIT_LEAF = DELTA_EDIT_LEAF  # leg (c) edits M5 of the chain of distinct structures
+SERVE_EDIT_ROWS = DELTA_EDIT_ROWS  # in 11 contiguous tile rows from the middle
+SERVE_SMALL = {"n": 6, "block_dim": 32, "k": 8, "density": 0.3}  # leg (e)'s chain
+SERVE_TIMEOUT_S = 2.0  # leg (e): the job deadline, the wedge grace and the
+SERVE_GRACE_S = 1.0    # re-probe cadence of a dead card on the second daemon
+SERVE_RECOVER_S = 1.0
+
+
+def _serve_env(**extra) -> dict:
+    """A daemon's environment: this script's, without its own pins (delta
+    off) or any serve, warm or failpoint setting, so the daemon runs at its
+    defaults (delta on, the warm store next to its socket); the warm budget
+    is raised so Medium's entries stay."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SPGEMM_TPU_DELTA", "SPGEMM_TPU_WARM", "SPGEMM_TPU_SERVE",
+                                "SPGEMM_TPU_FAILPOINTS"))}
+    env.update(PYTHONPATH=REPO, SPGEMM_TPU_WARM_MAX_MB=str(WARM_MAX_MB), **extra)
+    return env
+
+
+def _serve_start(sock: str, env: dict, log_path: str):
+    """`python -m spgemm_tpu_torch.cli serve --socket sock -v` (no --device:
+    the card; `--device cpu` when DEVICE is), its output to log_path;
+    returns (process, {"start_s": seconds until the socket is bound,
+    "probe_warm_s": the daemon's own probe and warm-up, from its log})."""
+    t0 = time.perf_counter()
+    log_f = open(log_path, "a")
+    cpu = ["--device", "cpu"] if DEVICE == "cpu" else []
+    proc = subprocess.Popen([sys.executable, "-m", "spgemm_tpu_torch.cli", "serve", "--socket",
+                             sock, "-v", *cpu], env=env, cwd=REPO, stdout=log_f,
+                            stderr=subprocess.STDOUT)
+    log_f.close()
+    deadline = time.time() + 300
+    while not os.path.exists(sock):
+        if proc.poll() is not None or time.time() > deadline:
+            proc.kill()
+            raise RuntimeError(f"[serve] the daemon did not bind {sock}:\n"
+                               + open(log_path).read()[-4000:])
+        time.sleep(0.05)
+    start_s = time.perf_counter() - t0
+    warm = re.findall(r"probed and warmed up in ([0-9.]+) s", open(log_path).read())
+    return proc, {"start_s": start_s, "probe_warm_s": float(warm[-1]) if warm else None}
+
+
+def _serve_stop(proc, sock: str, client, log_path: str) -> None:
+    client.shutdown(sock)
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise RuntimeError("[serve] the daemon did not exit after shutdown") from None
+    if rc != 0 or os.path.exists(sock):
+        raise RuntimeError(f"[serve] the daemon exited {rc} (socket left: "
+                           f"{os.path.exists(sock)}):\n" + open(log_path).read()[-4000:])
+
+
+def _serve_job(client, sock: str, folder: str, out: str, **options) -> tuple[dict, float]:
+    """One submit, waited for: (the job's snapshot, client-observed wall s)."""
+    t0 = time.perf_counter()
+    job = client.wait(client.submit(folder, sock, {"output": out, **options})["id"], sock,
+                      timeout=900)["job"]
+    wall = time.perf_counter() - t0
+    if job["state"] != "done":
+        raise RuntimeError(f"[serve] job {job['id']} ended {job['state']}: {job['error']}")
+    return job, wall
+
+
+def _serve_idle(client, sock: str) -> float:
+    """Seconds until the daemon's executor is idle again: after a job's
+    terminal answer it flushes the warm store before it takes the next
+    (the smoke reads the job's output back meanwhile)."""
+    t0 = time.perf_counter()
+    while client.stats(sock)["slices"][0]["busy"]:
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _same_bytes(path_a: str, path_b: str, chunk: int = 64 << 20) -> bool:
+    if os.path.getsize(path_a) != os.path.getsize(path_b):
+        return False
+    with open(path_a, "rb") as fa, open(path_b, "rb") as fb:
+        while True:
+            a, b = fa.read(chunk), fb.read(chunk)
+            if a != b:
+                return False
+            if not a:
+                return True
+
+
+def _serve_check(leg: str, job: dict, out: str, want: BlockSparseMatrix | str,
+                 keep: str | None = None) -> None:
+    """Kernel 1 launched on the card, not degraded, and ./out equal to want:
+    read back with the native parser against the in-memory engine's result,
+    or, when want is a path, byte for byte against that earlier leg's file.
+    The file is then removed, or renamed to keep."""
+    det = job["detail"]
+    on_card = DEVICE == "cuda"
+    if det.get("degraded") is not False or det.get("device") != ("cuda:0" if on_card else "cpu") \
+            or (on_card and det.get("launches_numeric_round", 0) < 1):
+        raise RuntimeError(f"[serve] ({leg}) did not run kernel 1 on the card: {det}")
+    if isinstance(want, str):
+        if not _same_bytes(out, want):
+            raise RuntimeError(f"[serve] ({leg}) ./{os.path.basename(out)} differs from the "
+                               f"bytes of ./{os.path.basename(want)}")
+    elif not _host_equal(io_text.read_matrix(out, want.k), want):
+        raise RuntimeError(f"[serve] ({leg}) ./{os.path.basename(out)} differs from the "
+                           "in-memory engine's result")
+    if keep is not None:
+        os.replace(out, keep)
+    else:
+        os.remove(out)
+
+
+def _serve_report(leg: str, job: dict, wall: float, smi: str) -> dict:
+    det = job["detail"]
+    counters = {k: v for k, v in det.items()
+                if k not in ("phases_s", "plan_cache", "degraded", "slice", "device", "tenant")}
+    print(f"[serve] ({leg}) {job['id']} on {smi}: submit wall {wall:.6f} s (client-observed); "
+          f"phases_s {det['phases_s']}; ENGINE counters {counters}", flush=True)
+    return {"wall_s": wall, "phases_s": det["phases_s"], "counters": counters}
+
+
+def _serve_watchdog(client, sock: str, tmp: str) -> dict:
+    """(e), on a daemon started with serve.heartbeat armed to hang once and
+    a short job deadline, wedge grace and re-probe cadence: a small chain's
+    job is reaped (job-timeout), the slice degrades and the probe that
+    follows finds the card; the slice is reinstated at once and the canary
+    job runs on the card with the oracle's bytes.  No job runs on the host
+    oracle."""
+    cfg = SERVE_SMALL
+    mats = random_chain(cfg["n"], cfg["block_dim"], cfg["k"], cfg["density"],
+                        np.random.default_rng(SEED + 14), "adversarial")
+    folder = os.path.join(tmp, "small")
+    io_text.write_chain_dir(folder, mats, cfg["k"])
+    want = BlockSparseMatrix.from_dict(mats[0].rows, mats[-1].cols, cfg["k"], chain_oracle(
+        [m.to_dict() for m in mats], cfg["k"])).prune_zeros()
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "e.out")
+    job = client.wait(client.submit(folder, sock, {"output": out})["id"], sock,
+                      timeout=300)["job"]
+    reaped_s = time.perf_counter() - t0
+    if job["state"] != "failed" or job["error"]["code"] != "job-timeout":
+        raise RuntimeError(f"[serve] (e) the hung job was not reaped: {job}")
+    seen = {}
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        st = client.stats(sock)
+        sl = st["slices"][0]
+        if sl["degraded"] and "degraded_s" not in seen:
+            seen["degraded_s"] = time.perf_counter() - t0
+            seen["reason"] = sl["degrade_reason"]
+        if st["serve"]["serve_recoveries"] >= 1 and not sl["degraded"]:
+            seen["reinstated_s"] = time.perf_counter() - t0
+            break
+        time.sleep(0.05)
+    if "reinstated_s" not in seen or st["backend_probe"] != ("ok" if DEVICE == "cuda"
+                                                             else "cpu") \
+            or st["serve"]["serve_degrades"] != 1 or "wedged" not in (seen["reason"] or ""):
+        raise RuntimeError(f"[serve] (e) no degrade and reinstatement after a live probe: "
+                           f"{seen} {st}")
+    canary, wall = _serve_job(client, sock, folder, out, timeout_s=20)
+    _serve_check("e", canary, out, want)
+    if canary["timeout_s"] != 10:
+        raise RuntimeError(f"[serve] (e) the first job after the reinstatement was not "
+                           f"the canary (deadline {canary['timeout_s']})")
+    _serve_idle(client, sock)
+    st = client.stats(sock)
+    if st["slices"][0]["canary"] or st["degraded"] or st["slices"][0]["oracle_jobs"]:
+        raise RuntimeError(f"[serve] (e) the canary did not settle, or a job ran on the "
+                           f"oracle: {st['slices']}")
+    return {"reaped_s": reaped_s, **seen, "canary_wall_s": wall,
+            "canary_launches": canary["detail"].get("launches_numeric_round", 0),
+            "serve": st["serve"], "probe": st["backend_probe"]}
+
+
+def phase_serve(medium, cli: dict) -> dict:
+    """[serve]: the port's daemon (`python -m spgemm_tpu_torch.cli serve`, on
+    the card) driven with its client over text directories of the Medium
+    chain and of the Medium chain of distinct structures, under a temporary
+    directory it deletes: (a) Medium cold, (b) Medium again (every plan a
+    hit), (c0) the chain of distinct structures, (c) the same with 11 tile
+    rows of M5 given new values (delta recompute and the splice); then a
+    second daemon on the same socket and warm directory, started with the
+    watchdog leg armed: (e) (_serve_watchdog) and (d), Medium again (warm
+    hits).  Each result is read back and held against the in-memory
+    engine's.  Every job of (a)-(d) must run kernel 1 on the card, and no
+    degrade but (e)'s may happen.  Each job's own counters come from its
+    PhaseScope in the daemon: zero at pickup, read at its end."""
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    want_a = medium.res_host.prune_zeros()
+    dmats = _distinct_mats(medium.mats)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want_c0 = chain_product(dmats, device=DEVICE).prune_zeros()
+        edited = list(dmats)
+        leaf = dmats[SERVE_EDIT_LEAF]
+        mid = leaf.rows // leaf.k // 2  # 11 contiguous tile rows from the middle
+        edited[SERVE_EDIT_LEAF] = _edit_rows(leaf, np.arange(SERVE_EDIT_ROWS) + mid,
+                                             np.random.default_rng(SEED + 5))
+        want_c = chain_product(edited, device=DEVICE).prune_zeros()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        t1 = time.perf_counter()
+        medium_dir, distinct_dir = os.path.join(tmp, "medium"), os.path.join(tmp, "distinct")
+        _write_text_dir(medium_dir, medium.mats)
+        _write_text_dir(distinct_dir, dmats)
+        out["write_dirs_s"] = time.perf_counter() - t1
+        sock, log_path = os.path.join(tmp, "d.sock"), os.path.join(tmp, "d.log")
+        proc, out["start"] = _serve_start(sock, _serve_env(), log_path)
+        try:
+            res, res_a = os.path.join(tmp, "result"), os.path.join(tmp, "result_a")
+            jobs = {}
+            # (a) is read back against the engine; (b) and (d) must give its bytes
+            for leg, folder, want in (("a", medium_dir, want_a), ("b", medium_dir, res_a),
+                                      ("c0", distinct_dir, want_c0)):
+                jobs[leg], wall = _serve_job(client, sock, folder, res)
+                _serve_check(leg, jobs[leg], res, want, keep=res_a if leg == "a" else None)
+                out[f"flush_{leg}_s"] = _serve_idle(client, sock)
+                out[leg] = _serve_report(leg, jobs[leg], wall, smi)
+            a, b = jobs["a"]["detail"], jobs["b"]["detail"]
+            if b["plan_cache_misses"] or \
+                    b["plan_cache_hits"] != a["plan_cache_hits"] + a["plan_cache_misses"]:
+                raise RuntimeError(f"[serve] (b) is not every plan a hit: (a) hits "
+                                   f"{a['plan_cache_hits']} misses {a['plan_cache_misses']}, "
+                                   f"(b) hits {b['plan_cache_hits']} misses "
+                                   f"{b['plan_cache_misses']}")
+            io_text.write_matrix(os.path.join(distinct_dir, f"matrix{SERVE_EDIT_LEAF + 1}"),
+                                 edited[SERVE_EDIT_LEAF])
+            jobs["c"], wall = _serve_job(client, sock, distinct_dir, res)
+            _serve_check("c", jobs["c"], res, want_c)
+            out["flush_c_s"] = _serve_idle(client, sock)
+            out["c"] = _serve_report("c", jobs["c"], wall, smi)
+            c = jobs["c"]["detail"]
+            if not 0 < c["delta_rows"] < c["total_rows"] or \
+                    (DEVICE == "cuda" and c.get("launches_splice", 0) < 1):
+                raise RuntimeError(f"[serve] (c) did not take the delta path: {c}")
+            st = client.stats(sock)
+            card = {"type": "cuda", "name": torch.cuda.get_device_name(0)} if DEVICE == "cuda" \
+                else {"type": "cpu", "name": "cpu"}
+            if st["device"] != card \
+                    or st["degraded"] or st["serve"]["serve_degrades"]:
+                raise RuntimeError(f"[serve] stats: {st['device']}, degraded {st['degraded']}, "
+                                   f"{st['serve']}")
+            out["warm_disk"] = {k: st["warm"][k] for k in ("plans", "deltas", "bytes")}
+            _serve_stop(proc, sock, client, log_path)
+            # the second daemon: the watchdog leg armed (its knobs), then (d)
+            env_e = _serve_env(SPGEMM_TPU_FAILPOINTS="serve.heartbeat:1:1",
+                               SPGEMM_TPU_SERVE_JOB_TIMEOUT=str(SERVE_TIMEOUT_S),
+                               SPGEMM_TPU_SERVE_WEDGE_GRACE_S=str(SERVE_GRACE_S),
+                               SPGEMM_TPU_SERVE_RECOVER_S=str(SERVE_RECOVER_S))
+            proc, out["restart"] = _serve_start(sock, env_e, log_path)
+            out["e"] = _serve_watchdog(client, sock, tmp)
+            jobs["d"], wall = _serve_job(client, sock, medium_dir, res, timeout_s=0)
+            _serve_check("d", jobs["d"], res, res_a)
+            out["d"] = _serve_report("d", jobs["d"], wall, smi)
+            if jobs["d"]["detail"].get("warm_hits", 0) < 1:
+                raise RuntimeError(f"[serve] (d) no warm hit: {jobs['d']['detail']}")
+            st = client.stats(sock)
+            if st["degraded"] or st["serve"]["serve_degrades"] != 1:
+                raise RuntimeError(f"[serve] (d) a degrade besides (e)'s: {st['serve']}")
+            _serve_stop(proc, sock, client, log_path)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        stderr_degrade = [ln for ln in open(log_path)
+                          if ln.startswith("spgemmd: slice") and " degraded: " in ln]
+        oracle = [ln for ln in open(log_path) if "serves on the host oracle" in ln]
+        if len(stderr_degrade) != 1 or oracle:
+            raise RuntimeError(f"[serve] want one stderr degrade line, (e)'s, and none "
+                               f"handing a slice to the oracle, got {stderr_degrade + oracle}")
+    e = out["e"]
+    _phase("serve", t0, f"on {smi}: daemon up in {out['start']['start_s']:.3f} s, of which "
+           f"its probe and warm-up {out['start']['probe_warm_s']} s (restart "
+           f"{out['restart']['start_s']:.3f} s, {out['restart']['probe_warm_s']} s); two text "
+           f"directories written in {out['write_dirs_s']:.3f} s; submit walls (a) Medium cold "
+           f"{out['a']['wall_s']:.6f} s, (b) again {out['b']['wall_s']:.6f} s, (c0) distinct "
+           f"structures {out['c0']['wall_s']:.6f} s, (c) 11 rows of M5 edited "
+           f"{out['c']['wall_s']:.6f} s (delta rows {c['delta_rows']} of {c['total_rows']}, "
+           f"splice launches {c.get('launches_splice', 0)}), (d) after a restart "
+           f"{out['d']['wall_s']:.6f} s (warm hits {jobs['d']['detail']['warm_hits']}); the warm "
+           f"flush after (a), (b), (c0), (c): {out['flush_a_s']:.3f}, {out['flush_b_s']:.3f}, "
+           f"{out['flush_c0_s']:.3f}, {out['flush_c_s']:.3f} s past the read-back (store "
+           f"{out['warm_disk']}); the "
+           f"run-once CLI's time taken on the same Medium directory "
+           f"{cli['default']['time_taken_s']:.6f} s; (a), (c0), (c) equal to the in-memory "
+           f"engine's result, (b) and (d) to (a)'s bytes, kernel 1 on the card in every job, no degrade but (e)'s; (e) reaped at "
+           f"{e['reaped_s']:.3f} s, degraded at {e['degraded_s']:.3f} s (one stderr line), probe "
+           f"{e['probe']}, reinstated at {e['reinstated_s']:.3f} s, canary "
+           f"{e['canary_wall_s']:.6f} s with {e['canary_launches']} kernel 1 launches, oracle "
+           f"bytes, no job on the oracle, {e['serve']}; the phase beyond writing the "
+           f"directories {time.perf_counter() - t0 - out['write_dirs_s']:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -2728,6 +3047,7 @@ def main() -> int:
     splice_row["warm"] = phase_warm()
     splice_row["estimate"] = phase_estimate(medium)
     dense_row = phase_dense(medium, row["ms"])
+    row["serve"] = phase_serve(medium, row["cli"])
     del medium
     torch.cuda.empty_cache()
     no_mod_row, mxu_row = phase_medium_small()

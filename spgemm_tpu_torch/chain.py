@@ -68,20 +68,24 @@ class _PlanAheadWorker:
         self._outq: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._sem = threading.Semaphore(ahead)
+        # taken on the calling thread: the worker's plan phases and plan-cache
+        # counters belong to the calling thread's open scopes (a daemon job's)
+        self._attr = ENGINE.attribution()
         self._thread = threading.Thread(target=self._work, args=(list(pairs), planner),
                                         name="chain-planner", daemon=True)
         self._thread.start()
 
     def _work(self, pairs, planner):
         try:
-            for i, (a, b) in enumerate(pairs):
-                while not self._sem.acquire(timeout=0.2):
+            with ENGINE.attributed(self._attr):
+                for i, (a, b) in enumerate(pairs):
+                    while not self._sem.acquire(timeout=0.2):
+                        if self._stop.is_set():
+                            return
                     if self._stop.is_set():
                         return
-                if self._stop.is_set():
-                    return
-                self._outq.put((i, planner(a, b), None))
-                pairs[i] = None  # drop operand references once planned
+                    self._outq.put((i, planner(a, b), None))
+                    pairs[i] = None  # drop operand references once planned
         except BaseException as e:  # re-raised on the consumer
             self._outq.put((None, None, e))
             if not isinstance(e, Exception):
@@ -174,9 +178,10 @@ def _on_card(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
 
-def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int) -> list:
+def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int, heartbeat=None) -> list:
     """One helper2 pass over arr: the products of adjacent pairs, the odd
-    element carried.  Consumed entries of arr are set to None."""
+    element carried, heartbeat() called after each multiply.  Consumed
+    entries of arr are set to None."""
     odd_carry = arr[-1] if len(arr) % 2 == 1 else None
     pairs = [(arr[i], arr[i + 1]) for i in range(0, len(arr) - 1, 2)]
     worker = None
@@ -198,6 +203,8 @@ def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int) -> list:
                 if got != p:
                     raise RuntimeError(f"planner returned pair {got} for pair {p}")
             nxt.append(multiply(a, b, **kwargs, **extra))
+            if heartbeat is not None:
+                heartbeat()
             arr[i] = arr[i + 1] = pairs[p] = None  # free consumed partials early
     finally:
         if worker is not None:
@@ -210,7 +217,7 @@ def _reduce_pass(arr: list, multiply, kwargs: dict, ahead: int) -> list:
 def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
                   backend: str = "exact", folds: Folds = KERNELS, multiply=None,
                   round_size: int | None = None, checkpoint_dir: str | None = None,
-                  resume: bool = True, failover: bool = False):
+                  resume: bool = True, failover: bool = False, heartbeat=None):
     """Reduce [M1, ..., MN] to M1 x M2 x ... x MN with helper2's pairing.
 
     matrices: host BlockSparseMatrix or DeviceBlockMatrix.  multiply: the
@@ -231,7 +238,13 @@ def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
     restarts from host copies of its input on the backend's host multiply
     (_host_multiply), after one line on stderr, and the rest of the chain
     runs there too; with a working card, or on the CPU, the error is
-    raised."""
+    raised.
+
+    heartbeat: a zero-argument callable run after every multiply, the
+    daemon's liveness signal (serve/daemon.py: its watchdog tells a slow
+    job from an executor stuck in a call that never returns).  A
+    BaseException it raises (the daemon's JobAbandoned) ends the chain and
+    passes through failover."""
     if not matrices:
         raise ValueError("empty chain")
     if multiply is None:
@@ -256,7 +269,7 @@ def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
     kwargs = {"device": device, "backend": backend, "folds": folds, "round_size": round_size}
     while len(arr) > 1:
         try:
-            nxt = _reduce_pass(arr, multiply, kwargs, ahead)
+            nxt = _reduce_pass(arr, multiply, kwargs, ahead, heartbeat)
             nxt_host = [_to_host(m) for m in nxt] if need_host else None
         except Exception as e:  # noqa: BLE001 -- device loss is the use case
             if not failover or multiply in _HOST_MULTIPLIES or not _on_card(device):

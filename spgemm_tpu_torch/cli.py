@@ -53,6 +53,17 @@ run-once process would hash its inputs and retain results it throws away.
 inspects (the default), empties or seeds from another directory the
 persistent warm store (ops/warmstore): plans and delta entries a later
 process reads back.  The directory is --dir, else SPGEMM_TPU_WARM_DIR.
+
+    python -m spgemm_tpu_torch.cli serve [--socket PATH] [--addr tcp:H:P]
+        [--device cuda|cpu] [--slices SPEC] [--queue-cap N] [--no-journal] [-v]
+    python -m spgemm_tpu_torch.cli submit <folder> [--wait] [--backend ...]
+    python -m spgemm_tpu_torch.cli status [job_id] [--wait | --shutdown]
+
+run spgemmd, the resident daemon that owns the card and keeps the engine
+warm across jobs (serve/daemon.py; delta recompute stays on there), and
+talk to it (serve/client.py).  Without --device cpu, serve needs a card.
+A directory named warm, serve, submit or status that holds a `size` file
+is still a chain folder.
 """
 
 from __future__ import annotations
@@ -142,8 +153,8 @@ def _chain(args, matrices: list, k: int, device):
 
 def run_warm(argv: list[str]) -> int:
     """`warm [--stat|--clear|--clone SRC] [--dir PATH] [--json]` (the JAX
-    package's cli.run_warm; the port has no daemon socket, so the
-    directory is --dir or SPGEMM_TPU_WARM_DIR)."""
+    package's cli.run_warm; the directory is --dir or SPGEMM_TPU_WARM_DIR,
+    not read from a daemon's socket as there)."""
     p = argparse.ArgumentParser(prog="spgemm_tpu_torch warm",
                                 description="inspect (--stat, the default), empty "
                                             "(--clear) or seed from another directory "
@@ -193,11 +204,33 @@ def run_warm(argv: list[str]) -> int:
     return 0
 
 
+def _serve(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import daemon  # noqa: PLC0415
+
+    return daemon.main(argv)
+
+
+def _submit(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    return client.main_submit(argv)
+
+
+def _status(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    return client.main_status(argv)
+
+
+_SUBCOMMANDS = {"warm": run_warm, "serve": _serve, "submit": _submit, "status": _status}
+
+
 def run(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    # a `warm` directory holding a chain keeps its meaning as the folder
-    if argv and argv[0] == "warm" and not os.path.exists(os.path.join(argv[0], "size")):
-        return run_warm(argv[1:])
+    # a directory named like a subcommand that holds a chain keeps its
+    # meaning as the folder
+    if argv and argv[0] in _SUBCOMMANDS and not os.path.exists(os.path.join(argv[0], "size")):
+        return _SUBCOMMANDS[argv[0]](argv[1:])
     args = build_parser().parse_args(argv)
     restore = knobs.pin_unless_exported("SPGEMM_TPU_DELTA", "0")
     try:

@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from spgemm_tpu_torch.ops import _build, u64
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 # Launches of the CUDA kernel, counted where it launches and nowhere else.
 launches = 0
@@ -143,4 +144,5 @@ def numeric_round_dense(a_slab: torch.Tensor, b_slab: torch.Tensor, pa: torch.Te
         raise RuntimeError(f"numeric_round_dense kernel launch failed: CUDA error {err} "
                            f"(n_rows={n_rows}, L={pa.shape[0]}, k={k})")
     launches += 1
+    ENGINE.incr("launches_dense_fold")
     return out

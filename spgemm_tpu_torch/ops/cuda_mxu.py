@@ -30,6 +30,7 @@ import torch
 from spgemm_tpu_torch.ops import _build
 from spgemm_tpu_torch.ops.mxu_spgemm import (N_LIMBS, bytes_for_limbs7, check_mxu,
                                              numeric_round_mxu_ref)
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 # Launches of the CUDA kernel, counted where it launches and nowhere else.
 launches = 0
@@ -84,6 +85,7 @@ def numeric_round_mxu(a_slab: torch.Tensor, b_slab: torch.Tensor,
         raise RuntimeError(f"numeric_round_mxu kernel launch failed: CUDA error {err} "
                            f"(K={K}, P={P}, k={k}, limbs {a_limbs}x{b_limbs})")
     launches += 1
+    ENGINE.incr("launches_numeric_round_mxu")
     return out
 
 

@@ -39,9 +39,10 @@ import math
 import torch
 
 from spgemm_tpu_torch.ops import _build, u64
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 # Launches of the CUDA kernel's two variants, counted where each launches
-# and nowhere else.
+# and nowhere else (and, for per-job reports, as ENGINE counters there).
 launches = 0
 launches_no_mod = 0
 
@@ -141,8 +142,10 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
                            f"(K={K}, P={P}, k={k}, no_mod={no_mod})")
     if no_mod:
         launches_no_mod += 1
+        ENGINE.incr("launches_numeric_round_no_mod")
     else:
         launches += 1
+        ENGINE.incr("launches_numeric_round")
     return out
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from spgemm_tpu_torch.ops import _build
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 # Launches of the CUDA kernel, counted where it launches and nowhere else.
 launches = 0
@@ -87,4 +88,5 @@ def splice(prev: torch.Tensor, sub: torch.Tensor, src: torch.Tensor) -> torch.Te
         raise RuntimeError(f"splice kernel launch failed: CUDA error {err} "
                            f"(rows={n_rows}, row_elems={row_elems})")
     launches += 1
+    ENGINE.incr("launches_splice")
     return out

@@ -61,7 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from spgemm_tpu_torch.ops import plancache
-from spgemm_tpu_torch.utils import knobs
+from spgemm_tpu_torch.utils import failpoints, knobs
 
 _LOCK = threading.Lock()
 _STORE: "OrderedDict[str, DeltaEntry]" = OrderedDict()  # guarded by _LOCK
@@ -370,6 +370,8 @@ def diff(entry: DeltaEntry, a, b, join, a_coords: np.ndarray,
     """Both operands against the entry's provenance, carried through the
     join; None on any lineage doubt (a full fallback).  stash: the
     operands' digests computed ahead for this multiply (stash_digests)."""
+    if failpoints.check("delta.diff"):
+        return None  # injected lineage doubt: the counted full fallback
     got_a = _operand_dirty(entry.a_src, a, stash[0])
     if got_a is None:
         return None

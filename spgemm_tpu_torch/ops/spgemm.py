@@ -83,7 +83,7 @@ from spgemm_tpu_torch.ops.mxu_spgemm import MAX_PAIR_DEPTH, safe_exact_bound
 from spgemm_tpu_torch.ops.symbolic import (ROUTES, SpgemmPlan, _shape_class,
                                            assembly_permutation, plan_rounds, slice_join,
                                            symbolic_join)
-from spgemm_tpu_torch.utils import knobs
+from spgemm_tpu_torch.utils import failpoints, knobs
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.timers import ENGINE
 
@@ -257,6 +257,7 @@ def plan(a, b, *, backend: str = "exact", round_size: int | None = None,
         raise ValueError(f"accumulator route {route!r} under backend {backend!r}: expected "
                          f"one of {ROUTES}, and 'ladder' under mxu")
     with ENGINE.phase("plan"):
+        failpoints.check("plan.build")
         split = _proof_fanout_cap(_bound(a), _bound(b), k) if backend == "hybrid" else None
         if not plancache.enabled():
             return _new_plan(a, b, backend, route, key_cap, split, None)
@@ -412,6 +413,7 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
     def bounds():
         return a.bound(), b.bound()
 
+    failpoints.check("kernel.dispatch")
     routed = _route_rounds(p, _router(p.backend, k, dev, folds, bounds), dev, folds, bounds)
     with ENGINE.phase("upload"):
         indices = [[_upload(x, dev) for x in ((lay.pa, lay.pb, lay.seg, lay.row_ptr)
@@ -533,6 +535,7 @@ def _delta_execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
         sub_plan, kept = subplan(p, d.key_mask)
         sub = execute(sub_plan, a, b, folds=folds)
         with ENGINE.phase("delta_splice"):
+            failpoints.check("delta.splice")
             prev = entry.result
             src = source_map(kept, np.arange(len(kept)), join.num_keys + 1)
             slab = folds.splice(prev.slab, sub.slab, _upload(src, prev.device))

@@ -22,7 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spgemm_tpu_torch.utils import knobs, native
+from spgemm_tpu_torch.utils import failpoints, knobs, native
 
 
 @dataclass
@@ -359,6 +359,7 @@ class SpgemmPlan:
         them."""
         with self._lock:
             if self._exact_builder is not None:
+                failpoints.check("plan.ensure_exact")
                 self._exact_builder(self)
                 self._exact_builder = None
                 if self._frozen:

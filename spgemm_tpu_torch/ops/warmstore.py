@@ -48,7 +48,7 @@ import zipfile
 
 import numpy as np
 
-from spgemm_tpu_torch.utils import knobs
+from spgemm_tpu_torch.utils import failpoints, knobs
 from spgemm_tpu_torch.utils.timers import ENGINE
 
 log = logging.getLogger("spgemm_tpu_torch.warmstore")
@@ -166,6 +166,13 @@ def _release_locked() -> None:
     _SAVED_DELTA.clear()
 
 
+def release() -> None:
+    """Drop the flock and unbind (the files and counts stay): a stopping
+    daemon frees the directory for its successor."""
+    with _LOCK:
+        _release_locked()
+
+
 def reset() -> None:
     """Drop the flock, unbind (the files stay) and zero the counts."""
     with _LOCK:
@@ -258,6 +265,9 @@ def _note_corrupt(path: str, reason: str) -> None:
 
 def _check_envelope(z, path: str, kind: str, ident: str) -> bool:
     """Schema, kind, identity and knob signature; False = counted corrupt."""
+    if failpoints.check("warm.load"):
+        _note_corrupt(path, "failpoint warm.load")
+        return False
     schema = int(z["schema"]) if "schema" in z.files else -1
     if schema != SCHEMA_VERSION:
         _note_corrupt(path, f"schema version {schema} != {SCHEMA_VERSION}")
@@ -455,6 +465,7 @@ def flush() -> dict:
         from spgemm_tpu_torch.ops import delta, plancache  # noqa: PLC0415 -- import cycle
 
         with ENGINE.phase("warm_flush"):
+            failpoints.check("warm.flush")
             for _, plan in plancache.entries():
                 counts["plans"] += save_plan(plan)
             for key, entry in delta.entries():

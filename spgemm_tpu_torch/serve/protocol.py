@@ -1,0 +1,283 @@
+"""spgemmd wire protocol: versioned newline-delimited JSON over a unix domain
+socket and, knob-gated, the same bytes over TCP (the port's copy of the JAX
+package's `serve/protocol.py`, so a client of either package talks to a
+daemon of either).
+
+One request per line, one response line per request; a connection may
+carry any number of requests.  Requests are `{"v": <version>, "op": <op>,
+...}`, responses `{"v": 4, "ok": true, ...}` or `{"v": 4, "ok": false,
+"error": {"code": <code>, "message": <text>}}`.  A malformed line gets a
+structured bad-request answer and never reaches past the connection
+handler.
+
+Ops:
+  submit   {folder, options?, tenant?, trace?} -> {id, state, queued, trace}
+  status   {id}                -> {job: <snapshot>}
+  wait     {id, timeout?}      -> {job: <snapshot>}, when the job is terminal
+                                  or the wait (at most the daemon's
+                                  MAX_WAIT_SLICE_S) ran out
+  stats    {}                  -> daemon-wide state (degrade, queue, slice,
+                                  journal, plan cache, delta, warm store)
+  metrics, trace, profile, events, slo
+                               -> in the wire contract; the port's daemon
+                                  answers them with bad-request until the
+                                  obs layer is ported
+  shutdown {}                  -> {stopping: true}
+
+The version rules are the JAX package's: a client stamps version_for(msg),
+the lowest version carrying its optional fields (tenant: v2, trace: v3),
+and after a version-mismatch answer retries once at the best version both
+speak, with the newer fields stripped (strip_for_version).
+
+CHAIN_BACKENDS are the port's backends.  The daemon also takes the JAX
+package's names `xla` and `pallas` and runs both as `exact`
+(BACKEND_ALIASES): both are the exact fold there, so a JAX client's submit
+stays valid.  Imports the standard library and the knob registry only.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import tempfile
+
+from spgemm_tpu_torch.utils import knobs
+
+PROTOCOL_VERSION = 4
+
+# versions the daemon speaks: v2 added the submit `tenant`, v3 the submit
+# `trace`, v4 response fields of the JAX package's fleet router only
+ACCEPTED_VERSIONS = (1, 2, 3, 4)
+
+# op -> field -> the lowest protocol version whose daemons understand it
+REQUEST_FIELDS: dict[str, dict[str, int]] = {
+    "submit": {"folder": 1, "options": 1, "tenant": 2, "trace": 3},
+    "status": {"id": 1},
+    "wait": {"id": 1, "timeout": 1},
+    "stats": {},
+    "metrics": {},
+    "trace": {},
+    "profile": {},
+    "events": {"n": 1},
+    "slo": {},
+    "shutdown": {},
+}
+
+# each post-v1 optional request field -> the version that carries it
+FIELD_MIN_VERSION: dict[str, int] = {
+    f: v for fields in REQUEST_FIELDS.values() for f, v in fields.items() if v > 1
+}
+
+
+def version_for(msg: dict) -> int:
+    """The lowest protocol version carrying every optional field in msg."""
+    return max([1, *(v for field, v in FIELD_MIN_VERSION.items()
+                     if msg.get(field) is not None)])
+
+
+def strip_for_version(msg: dict, version: int) -> dict:
+    """msg without the fields a daemon of `version` would not understand."""
+    return {k: v for k, v in msg.items() if FIELD_MIN_VERSION.get(k, 1) <= version}
+
+
+def accepted_from_error(message: str) -> tuple[int, ...]:
+    """The versions a daemon's version-mismatch answer names; empty for any
+    other message.  Anchored at the message's start: other answers echo
+    client values, which must not be read as a downgrade."""
+    if not message.startswith("protocol version mismatch"):
+        return ()
+    m = re.search(r"accepts ((?:v\d+/?)+)", message)
+    if not m:
+        return ()
+    return tuple(int(part[1:]) for part in m.group(1).split("/") if part)
+
+
+# the tenant of every submit that names none
+DEFAULT_TENANT = "default"
+TENANT_MAX_LEN = 64
+
+OPS = tuple(REQUEST_FIELDS)
+
+# ops in the wire contract that this daemon does not serve yet (the JAX
+# package's obs layer: metrics, span trace, profile, event log, SLO report)
+UNSERVED_OPS = ("metrics", "trace", "profile", "events", "slo")
+
+# server-side bound on one request line: a peer streaming bytes without a
+# newline exhausts this, not the daemon's memory
+MAX_LINE_BYTES = 1 << 20
+
+# the port's multiply backends a submit may name
+CHAIN_BACKENDS = ("exact", "hybrid", "mxu")
+# the JAX package's backend names the daemon also takes, and what it runs
+BACKEND_ALIASES = {"xla": "exact", "pallas": "exact"}
+
+# the structured error codes: code -> doc (the JAX package's registry)
+ERROR_CODES: dict[str, str] = {
+    "bad-request": "unparsable line, unknown op, bad version, or a "
+                   "field that failed admission validation",
+    "queue-full": "admission control rejection "
+                  "(SPGEMM_TPU_SERVE_QUEUE_CAP jobs already queued)",
+    "tenant-cap": "per-tenant in-flight cap rejection "
+                  "(SPGEMM_TPU_SERVE_TENANT_INFLIGHT)",
+    "too-many-connections": "concurrent-connection bound hit",
+    "unknown-job": "status/wait for a job id the daemon does not know",
+    "shutting-down": "submit refused while the daemon drains",
+    "internal-error": "handler crash (the daemon survives it)",
+    "daemon-unavailable": "client-side: no daemon reachable after the "
+                          "bounded connect-retry window "
+                          "(ECONNREFUSED/ENOENT through a restart "
+                          "rollout, retried with capped backoff, then "
+                          "THIS, structured, instead of a raw OSError)",
+    "job-timeout": "job reaped past SPGEMM_TPU_SERVE_JOB_TIMEOUT "
+                   "(in a failed job's error dict)",
+    "executor-died": "executor thread died or wedged mid-job "
+                     "(in a failed job's error dict)",
+    "job-error": "the chain runner raised "
+                 "(in a failed job's error dict)",
+    "backend-lost": "fleet router: the backend holding the job died and "
+                    "the one idempotent re-submit to a healthy peer was "
+                    "not possible (already retried, or no healthy peer)",
+    "no-backend": "fleet router: no healthy backend available for "
+                  "placement (all dead, degraded, or still unprobed)",
+}
+
+E_BAD_REQUEST = "bad-request"
+E_QUEUE_FULL = "queue-full"
+E_TENANT_CAP = "tenant-cap"
+E_BUSY = "too-many-connections"
+E_UNKNOWN_JOB = "unknown-job"
+E_SHUTTING_DOWN = "shutting-down"
+E_INTERNAL = "internal-error"
+E_UNAVAILABLE = "daemon-unavailable"  # minted by the client, never the daemon
+E_JOB_TIMEOUT = "job-timeout"
+E_EXECUTOR_DIED = "executor-died"
+E_JOB_ERROR = "job-error"
+
+# tenant names are label values: a bounded charset, no quotes or whitespace
+_TENANT_RE = re.compile(r"^[A-Za-z0-9._:-]+$")
+
+
+def valid_tenant(tenant) -> bool:
+    """True iff tenant is an acceptable wire tenant name."""
+    return (isinstance(tenant, str) and 0 < len(tenant) <= TENANT_MAX_LEN
+            and _TENANT_RE.match(tenant) is not None)
+
+
+# 128-bit trace context in lowercase hex (the v3 submit field)
+TRACE_HEX_LEN = 32
+_TRACE_RE = re.compile(r"^[0-9a-f]{32}$")
+
+
+def valid_trace(trace) -> bool:
+    """True iff trace is a well-formed wire trace context."""
+    return isinstance(trace, str) and _TRACE_RE.match(trace) is not None
+
+
+def mint_trace() -> str:
+    """A fresh 128-bit trace context."""
+    return os.urandom(TRACE_HEX_LEN // 2).hex()
+
+
+class ProtocolError(Exception):
+    """A request that cannot be dispatched; carries the structured code."""
+
+    def __init__(self, code: str, message: str):
+        super().__init__(message)
+        self.code = code
+        self.message = message
+
+
+def default_socket_path() -> str:
+    """SPGEMM_TPU_SERVE_SOCKET, or <tmpdir>/spgemmd-<uid>.sock."""
+    configured = knobs.get("SPGEMM_TPU_SERVE_SOCKET")
+    if configured:
+        return configured
+    return os.path.join(tempfile.gettempdir(), f"spgemmd-{os.getuid()}.sock")
+
+
+def parse_addr(spec: str):
+    """One wire address into ("tcp", host, port) or ("unix", path):
+    `tcp:HOST:PORT` (IPv6 hosts split at their last colon; port 0 binds an
+    ephemeral port), `unix:PATH` or a bare path.  ValueError, naming the
+    spec, on anything else: a typo must never fall back to a default."""
+    if not isinstance(spec, str) or not spec:
+        raise ValueError(f"empty wire address spec {spec!r}")
+    if spec.startswith("tcp:"):
+        host, sep, port = spec[4:].rpartition(":")
+        if not sep or not host:
+            raise ValueError(f"bad tcp address {spec!r} (want tcp:HOST:PORT)")
+        try:
+            port_no = int(port)
+        except ValueError:
+            raise ValueError(f"bad tcp port in {spec!r} (want tcp:HOST:PORT)") from None
+        if not 0 <= port_no <= 65535:
+            raise ValueError(f"tcp port out of range in {spec!r}")
+        return ("tcp", host.strip("[]"), port_no)
+    if spec.startswith("unix:"):
+        path = spec[5:]
+        if not path:
+            raise ValueError(f"empty unix path in {spec!r}")
+        return ("unix", path)
+    return ("unix", spec)
+
+
+def default_addr() -> str:
+    """The client's default target: SPGEMM_TPU_SERVE_ADDR when exported,
+    else the unix socket path."""
+    return knobs.get("SPGEMM_TPU_SERVE_ADDR") or default_socket_path()
+
+
+def encode(msg: dict) -> bytes:
+    """One wire line for msg (compact JSON and a newline)."""
+    return json.dumps(msg, separators=(",", ":")).encode() + b"\n"
+
+
+def ok(**fields) -> dict:
+    return {"v": PROTOCOL_VERSION, "ok": True, **fields}
+
+
+def error(code: str, message: str, **fields) -> dict:
+    return {"v": PROTOCOL_VERSION, "ok": False,
+            "error": {"code": code, "message": message}, **fields}
+
+
+def parse_request(line: str) -> dict:
+    """Decode and validate one request line; ProtocolError on anything the
+    dispatcher cannot act on."""
+    try:
+        msg = json.loads(line)
+    except ValueError as e:
+        raise ProtocolError(E_BAD_REQUEST, f"request is not valid JSON: {e}") from None
+    if not isinstance(msg, dict):
+        raise ProtocolError(E_BAD_REQUEST, "request must be a JSON object")
+    v = msg.get("v")
+    if v not in ACCEPTED_VERSIONS:
+        raise ProtocolError(
+            E_BAD_REQUEST,
+            f"protocol version mismatch: daemon speaks v{PROTOCOL_VERSION} "
+            f"(accepts {'/'.join(f'v{a}' for a in ACCEPTED_VERSIONS)}), "
+            f"request carries v={v!r}")
+    op = msg.get("op")
+    if op not in OPS:
+        raise ProtocolError(E_BAD_REQUEST,
+                            f"unknown op {op!r} (expected one of {'|'.join(OPS)})")
+    return msg
+
+
+def read_lines(sock, bufsize: int = 65536, max_line: int | None = None):
+    """Yield decoded lines from a socket until EOF; bytes after the last
+    newline at close are not a request.  max_line bounds the pending
+    buffer: past it, ProtocolError(bad-request)."""
+    buf = b""
+    while True:
+        chunk = sock.recv(bufsize)
+        if not chunk:
+            return
+        buf += chunk
+        while b"\n" in buf:
+            line, buf = buf.split(b"\n", 1)
+            yield line.decode("utf-8", errors="replace")
+        if max_line is not None and len(buf) > max_line:
+            raise ProtocolError(E_BAD_REQUEST,
+                                f"request line exceeds {max_line} bytes without a newline")

@@ -18,8 +18,9 @@ from dataclasses import dataclass
 class Knob:
     """One registered knob.
 
-    kind: 'enum' | 'int' | 'float' | 'bool01' | 'flag' | 'path'; a flag is
-      true when set to a non-empty string, a bool01 is 0 or 1.
+    kind: 'enum' | 'int' | 'float' | 'bool01' | 'flag' | 'path' | 'str'; a
+      flag is true when set to a non-empty string, a bool01 is 0 or 1, a path
+      or a str is the value as given (its consumer parses a str).
     default: the default in string form, or None: get() then returns None
       (False for a flag) and the consuming module owns the fallback.
     minimum: inclusive lower bound of an int or a float.
@@ -123,6 +124,58 @@ _KNOBS = (
     Knob("SPGEMM_TPU_CROSSOVER_CACHE", "path",
          "Crossover-measurement cache directory (unset: "
          "~/.cache/spgemm_tpu_torch).  Read by ops/crossover.py."),
+    Knob("SPGEMM_TPU_SERVE_SOCKET", "path",
+         "spgemmd unix-domain socket path (unset: <tmpdir>/spgemmd-<uid>.sock); "
+         "the job journal lives next to it at <socket>.journal.  Read by "
+         "serve/protocol.py."),
+    Knob("SPGEMM_TPU_SERVE_ADDR", "str",
+         "spgemmd TCP front-end address, tcp:HOST:PORT (port 0 binds an "
+         "ephemeral port): the daemon listens there beside the unix socket with "
+         "the same protocol, and clients that inherit the export dial it by "
+         "default.  Unset = unix socket only.  A malformed spec fails startup.  "
+         "Read by serve/protocol.py and serve/daemon.py."),
+    Knob("SPGEMM_TPU_SERVE_SLICES", "str",
+         "spgemmd device-pool slice spec (parallel/mesh.slice_pool): terms "
+         "[COUNTx]WIDTH[*] joined by '+', or 'auto'.  The port serves one "
+         "single-device slice: '1', or 'auto' with one visible card.  A wide "
+         "slice, more slices, or more devices than are visible fail daemon "
+         "startup.  Read by serve/daemon.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_SERVE_TENANT_INFLIGHT", "int",
+         "spgemmd per-tenant in-flight cap (queued + running jobs per tenant): a "
+         "submit past it is rejected with a structured tenant-cap error.  Unset = "
+         "no per-tenant cap; SPGEMM_TPU_SERVE_QUEUE_CAP applies on top.  Read by "
+         "serve/queue.py.",
+         minimum=1),
+    Knob("SPGEMM_TPU_SERVE_QUEUE_CAP", "int",
+         "spgemmd admission cap: a submit arriving with this many jobs already "
+         "queued is rejected with a structured queue-full error.  Read by "
+         "serve/daemon.py.",
+         default="64", minimum=1),
+    Knob("SPGEMM_TPU_SERVE_JOB_TIMEOUT", "float",
+         "spgemmd per-job deadline, seconds: a job running past it is reaped with "
+         "a structured job-timeout error, and an executor still stuck on it after "
+         "SPGEMM_TPU_SERVE_WEDGE_GRACE_S counts as wedged (the slice degrades); "
+         "0 = no deadline.  Read by serve/daemon.py.",
+         default="0", minimum=0),
+    Knob("SPGEMM_TPU_SERVE_RECOVER_S", "float",
+         "spgemmd re-probe cadence, seconds: a degraded slice is probed again "
+         "(utils/backend_probe, off-thread) this long after degrading, with "
+         "exponential backoff after failed attempts; a live probe reinstates the "
+         "slice behind a canary job with a tightened deadline.  0 = never "
+         "re-probe.  Read by serve/daemon.py.",
+         default="0", minimum=0),
+    Knob("SPGEMM_TPU_SERVE_WEDGE_GRACE_S", "float",
+         "spgemmd slow-vs-wedged window, seconds: after a reap the watchdog waits "
+         "this long for the job's next heartbeat (one per finished multiply) "
+         "before it declares the executor wedged and degrades the slice.  Must "
+         "exceed the longest single multiply.  Read by serve/daemon.py.",
+         default="60", minimum=0),
+    Knob("SPGEMM_TPU_FAILPOINTS", "str",
+         "Failpoint arming spec (utils/failpoints.py): comma-joined "
+         "name[:prob][:count] terms naming registered injection sites; prob "
+         "defaults to 1, count to unlimited.  Unset = every failpoint inert.  An "
+         "unknown name or a malformed term raises.  Read by utils/failpoints.py."),
 )
 
 REGISTRY: dict[str, Knob] = {kb.name: kb for kb in _KNOBS}
@@ -147,7 +200,7 @@ def _parse(kb: Knob, raw: str):
             bound = f" >= {kb.minimum:g}" if kb.minimum is not None else ""
             raise ValueError(f"{kb.name} must be {what}{bound}, got {raw!r}")
         return val
-    if kb.kind == "path":
+    if kb.kind in ("path", "str"):
         return raw
     raise AssertionError(f"unknown knob kind {kb.kind!r}")  # registry bug
 

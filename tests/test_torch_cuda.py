@@ -7,7 +7,8 @@ the card against the resident and CPU results, failover with a failing
 fold (falling back when the probe reports a lost card, raising when the
 real probe finds the card working), the FFN forward against its plain
 version, the delta splice against splice_ref and a delta chain against
-the full one, and the segmented fold of the dense route against its plain
+the full one, the port's daemon (`cli serve` without --device) serving a
+chain on the card, and the segmented fold of the dense route against its plain
 version (any seg, sentinel and pad slots, no rows), against kernel 1 on a
 planner's round, raising on what it does not take, and a hub multiply on
 every route.  Tolerance: exact (torch.equal)
@@ -689,3 +690,54 @@ def test_hub_multiply_on_card_is_the_same_on_every_route(cuda, backend, monkeypa
         out[route] = spgemm(a, b, device=cuda, backend=backend)
         assert (cuda_dense.launches > before) == (route == "dense") or route == "auto"
     assert out["ladder"] == out["dense"] == out["auto"] == spgemm(a, b, device="cpu")
+
+
+@pytest.mark.cuda
+def test_the_daemon_serves_a_chain_on_the_card(cuda, tmp_path):
+    """`cli serve` with no --device runs on the card: one small chain through
+    the daemon's client, kernel 1 launched, not degraded, the oracle's
+    bytes, and `stats` naming the card."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from spgemm_tpu_torch.serve import client
+    from spgemm_tpu_torch.utils import io_text
+    from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+    from spgemm_tpu_torch.utils.semantics import chain_oracle
+
+    mats = random_chain(4, 6, 8, 0.5, np.random.default_rng(31), "adversarial")
+    folder = str(tmp_path / "chain")
+    io_text.write_chain_dir(folder, mats, 8)
+    want = io_text.format_matrix(BlockSparseMatrix.from_dict(
+        mats[0].rows, mats[-1].cols, 8, chain_oracle([m.to_dict() for m in mats], 8)
+    ).prune_zeros())
+    sock = str(tmp_path / "d.sock")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SPGEMM_TPU_")}
+    env["PYTHONPATH"] = repo
+    proc = subprocess.Popen([sys.executable, "-m", "spgemm_tpu_torch.cli", "serve", "--socket",
+                             sock], env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.time() + 300
+        while not os.path.exists(sock):
+            assert proc.poll() is None and time.time() < deadline, "the daemon never bound"
+            time.sleep(0.1)
+        out = str(tmp_path / "out")
+        job = client.wait(client.submit(folder, sock, {"output": out})["id"], sock,
+                          timeout=300)["job"]
+        assert job["state"] == "done", job["error"]
+        assert job["detail"]["degraded"] is False and job["detail"]["device"] == "cuda:0"
+        assert job["detail"]["launches_numeric_round"] > 0
+        assert open(out, "rb").read() == want
+        st = client.stats(sock)
+        assert st["device"] == {"type": "cuda", "name": torch.cuda.get_device_name(0)}
+        assert st["degraded"] is False and st["serve"]["serve_degrades"] == 0
+        assert client.shutdown(sock)["stopping"] is True
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
