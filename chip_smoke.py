@@ -22,7 +22,11 @@ the script exits non-zero without printing a result:
                of each range), at P*k = 2^17 with nearly all bytes 255 (the
                fragments' flush), at ragged k (3, 31, 33, 64, 128) and on
                slabs 8 bytes off a 16-byte boundary, plus a P*k > 2^17 round
-               that must raise;
+               that must raise; kernel 1 (both variants) and the limb kernel
+               on three jobs' round stacked as execute_batched stacks it
+               (symbolic.stack_round_indices, sentinels in every job's copy,
+               one shared zero tile), each job's rows equal to its solo
+               round;
                the two bsmm kernels against bsmm_ref in float32 and bfloat16
                (k in 16, 32, 128, a ragged W2 fan-in with pad tiles, gelu
                fused and not), equal to each other and across block_m and
@@ -130,7 +134,22 @@ the script exits non-zero without printing a result:
                counters, from its PhaseScope in the daemon) and not
                degraded; the submit walls, each job's phases_s and counters,
                and the warm flush after each job, beside the CLI's time
-               taken from [medium-cli];
+               taken from [medium-cli]; then cross-job batching, each leg a
+               main path with the counts zeroed before and read after, delta
+               off, warm plans, in turns solo, batched, batched, solo: (f)
+               the Medium chain with four value sets (seeds 20260..20263)
+               as one lockstep batched chain (chain_products_batched)
+               against four solo chains, (g) the same for eight chains of
+               one small banded structure (block_dim 32), each with kernel-1
+               launches, kernel-1 ms by CUDA events, walls and the share of
+               the card's resident kernel-1 blocks a launch fills, 0
+               differing bits per job; (h) a daemon in this process on the
+               card over four text directories of (g)'s structure: each
+               submitted once (solo, its structure recorded), then all four
+               back to back with a 0.5 s window, K 8 and delta off: one
+               shared batch id, serve_batches up by 1, every member's
+               phases_s and kernel-1 launches, each output byte-equal to its
+               first contact's;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -195,7 +214,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from spgemm_tpu_torch.chain import chain_product
+from spgemm_tpu_torch.chain import chain_product, chain_products_batched
 from spgemm_tpu_torch.models import ffn
 from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_dense, cuda_mxu, cuda_splice
 from spgemm_tpu_torch.ops import cuda_spgemm
@@ -335,6 +354,52 @@ def _sentinel_round(rng, k: int, K: int, P: int, pattern: str, n_tiles: int = 30
     return a, b, pa, pb
 
 
+def _jobs_stacked_case(rng, k: int = 32, n_tiles: int = 40, K: int = 37, P: int = 6,
+                       jobs: int = 3) -> dict:
+    """A round stacked for `jobs` jobs as ops/spgemm.execute_batched stacks
+    it: the jobs' slabs concatenated tiles only with one shared zero tile
+    last, the indices by symbolic.stack_round_indices, sentinel slots
+    (padded keys and one-sided ones) in every job's copy.  Kernel 1 (both
+    variants) against numeric_round_ref and kernel 2 (10x10 limbs) against
+    numeric_round_mxu_ref, bit for bit on the card, and each job's rows
+    against its own solo round; returns the max abs error by kernel."""
+    dev = torch.device(DEVICE)
+    slabs = []
+    for _ in range(2):
+        side = []
+        for _ in range(jobs):
+            tiles = _edge_values(rng, (n_tiles + 1, k, k))
+            tiles[-1] = 0
+            side.append(torch.from_numpy(tiles.view(np.int64)).to(dev))
+        slabs.append(side)
+    idx = []
+    for _ in range(2):
+        x = rng.integers(0, n_tiles, size=(K, P)).astype(np.int32)
+        x[np.arange(P) >= rng.integers(0, P + 1, size=K)[:, None]] = n_tiles
+        x[rng.random((K, P)) < 0.2] = n_tiles
+        idx.append(x)
+    a, b = (torch.cat([t[:n_tiles] for t in side] + [side[0][n_tiles:]]) for side in slabs)
+    spa, spb = (torch.from_numpy(symbolic.stack_round_indices(x, n_tiles, jobs)).to(dev)
+                for x in idx)
+    pa, pb = (torch.from_numpy(x).to(dev) for x in idx)
+    worst = {}
+    for name, no_mod in (("mod", False), ("no_mod", True)):
+        got = cuda_spgemm.numeric_round(a, b, spa, spb, no_mod=no_mod)
+        worst[name] = _check_equal(f"numeric_round {name} on {jobs} jobs' stacked indices", got,
+                                   cuda_spgemm.numeric_round_ref(a, b, spa, spb, no_mod=no_mod))
+        for j in range(jobs):
+            _check_equal(f"numeric_round {name}, job {j}'s rows of the stacked launch", got[j],
+                         cuda_spgemm.numeric_round_ref(slabs[0][j], slabs[1][j], pa, pb,
+                                                       no_mod=no_mod))
+    got = cuda_mxu.numeric_round_mxu(a, b, spa, spb)
+    worst["mxu"] = _check_equal(f"numeric_round_mxu on {jobs} jobs' stacked indices", got,
+                                mxu_spgemm.numeric_round_mxu_ref(a, b, spa, spb))
+    for j in range(jobs):
+        _check_equal(f"numeric_round_mxu, job {j}'s rows of the stacked launch", got[j],
+                     mxu_spgemm.numeric_round_mxu_ref(slabs[0][j], slabs[1][j], pa, pb))
+    return worst
+
+
 def _check_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> int:
     """torch.equal or raise; returns the max abs error (0)."""
     torch.cuda.synchronize()
@@ -388,6 +453,8 @@ def phase_kernel(rng) -> dict:
             worst[name] = max(worst[name], _check_equal(
                 f"numeric_round {name} k={k} K={K} P={P} {pattern}", got, want))
     worst["mxu"] = max(worst["mxu"], _mxu_cases(rng, sentinel))
+    for name, err in _jobs_stacked_case(rng).items():
+        worst[name] = max(worst[name], err)
     args = _round_case(rng, 32, 20, 3, 4097, 0, small=True)  # P*k > 2^17
     for fn in (cuda_mxu.numeric_round_mxu, mxu_spgemm.numeric_round_mxu_ref):
         try:
@@ -400,7 +467,9 @@ def phase_kernel(rng) -> dict:
            f"{len(small)} rounds (k in 1..64, stacked, empty, hub P*k<=2^17); "
            f"numeric_round (mod, no_mod) == plain version on {len(sentinel)} rounds heavy "
            f"with sentinel slots (k in 1..128, P up to 384; all-pad keys, one-sided, between "
-           f"real slots, a last tile not zero, K = 0, P = 0); P*k > 2^17 raises; "
+           f"real slots, a last tile not zero, K = 0, P = 0); all three == plain versions on 3 "
+           f"jobs' round stacked by stack_round_indices (sentinels in every job's copy), each "
+           f"job's rows == its solo round; P*k > 2^17 raises; "
            f"max_abs_err {worst}")
     worst.update(_bsmm_cases(rng))
     return worst
@@ -799,17 +868,23 @@ def _ptxas_report() -> dict:
     return {name: out[name] for name in sorted(want)}
 
 
+# each kernel's ENGINE launch counter (bumped by its wrapper where it launches)
+LAUNCH_COUNTERS = {"mod": "launches_numeric_round", "no_mod": "launches_numeric_round_no_mod",
+                   "mxu": "launches_numeric_round_mxu", "splice": "launches_splice",
+                   "dense": "launches_dense_fold", "bsmm": "launches_bsmm",
+                   "bsmm_resident": "launches_bsmm_resident"}
+
+
 def _zero_counts() -> None:
-    cuda_spgemm.launches = cuda_spgemm.launches_no_mod = cuda_mxu.launches = 0
-    cuda_splice.launches = cuda_dense.launches = 0
+    ENGINE.zero("launches_")
     for name in engine.rounds_by_kernel:
         engine.rounds_by_kernel[name] = 0
 
 
 def _read_counts() -> dict:
-    return {"mod": cuda_spgemm.launches, "no_mod": cuda_spgemm.launches_no_mod,
-            "mxu": cuda_mxu.launches, "splice": cuda_splice.launches,
-            "dense": cuda_dense.launches, "rounds": dict(engine.rounds_by_kernel)}
+    counters = ENGINE.counter_snapshot()
+    return {**{short: counters.get(name, 0) for short, name in LAUNCH_COUNTERS.items()},
+            "rounds": dict(engine.rounds_by_kernel)}
 
 
 @contextlib.contextmanager
@@ -860,9 +935,10 @@ def _main_path(dev_mats, backend: str, **env):
     return res, wall, counts, handler.multiplies
 
 
-def _medium_mats() -> list:
-    """The Medium chain's host matrices, from SEED."""
-    rng = np.random.default_rng(SEED)
+def _medium_mats(seed: int = SEED) -> list:
+    """The Medium chain's host matrices, from `seed` (its structure, a band,
+    is the same for every seed)."""
+    rng = np.random.default_rng(seed)
     cfg = MEDIUM
     return [banded_block_sparse(cfg["block_dim"], cfg["k"], cfg["bandwidth"], rng)
             for _ in range(cfg["n"])]
@@ -1897,10 +1973,11 @@ def phase_ffn() -> list[dict]:
     outs, counts, errs = {}, {}, {}
     for run, (xin, kw) in runs.items():
         torch.cuda.synchronize()
-        cuda_bsmm.launches = cuda_bsmm.launches_resident = 0
+        _zero_counts()
         y = ffn.ffn_forward_kernels(pparams, xin, cfg, **kw)
         torch.cuda.synchronize()
-        counts[run] = (cuda_bsmm.launches, cuda_bsmm.launches_resident)
+        c = _read_counts()
+        counts[run] = (c["bsmm"], c["bsmm_resident"])
         _expect_launches(run, counts[run], want_launches[run])
         w = wants[run]
         err = _check_close(f"ffn run {run} {kw}", y.float(), w, rtol, atol)
@@ -2161,9 +2238,8 @@ def _splice_check(calls: list) -> dict:
             runs.append(start.elapsed_time(end))
         return sorted(runs)[len(runs) // 2]
 
-    before = cuda_splice.launches
+    # (the main path's counts were read before these comparison launches)
     ms = timed(lambda i, prev, sub, src: cuda_splice.splice(prev, sub, src))
-    cuda_splice.launches = before  # comparison launches are not the main path's
     plain_ms = timed(lambda i, prev, sub, src: cuda_splice.splice_ref(prev, sub, src))
     lib_ms = timed(lambda i, prev, sub, src:
                    prev.clone().index_copy_(0, rows[i], sub[:len(rows[i])]))
@@ -2231,11 +2307,10 @@ def phase_delta(medium) -> dict:
     delta.clear()
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
-    _zero_counts()
     out = {}
     for name, inputs in submits.items():
         t1 = time.perf_counter()
-        ENGINE.reset()
+        ENGINE.reset()  # the launch counters too: each submit is a main path
         timed.events = []
         timed.record = name in ("c", "d")
         before = _read_counts()
@@ -2266,7 +2341,7 @@ def phase_delta(medium) -> dict:
                f"{rec['retained_bytes'] / 2**30:.3f} GiB on the card (allocated "
                f"{rec['allocated_above_start'] / 2**30:.3f} GiB above the start); result equal "
                f"to the delta-off chain")
-    counts = _read_counts()
+    counts = {"splice": sum(rec["splices"] for rec in out.values())}
     if out["a"]["fallbacks"] != sum(DELTA_LEVELS) or any(r for r, _ in out["b"]["levels"]) \
             or out["b"]["mod_launches"] or not (out["c"]["splices"] and out["d"]["splices"]):
         raise RuntimeError(f"[delta] counts off what the design gives: {out}")
@@ -2874,6 +2949,235 @@ def _serve_watchdog(client, sock: str, tmp: str) -> dict:
             "serve": st["serve"], "probe": st["backend_probe"]}
 
 
+SERVE_BATCH_SEEDS = (SEED, SEED + 1, SEED + 2, SEED + 3)  # (f): Medium's four value sets
+# (g): one small banded structure whose largest round holds 584 real keys (768
+# key slots, the pad keys' blocks exit at once), under the 660 blocks of
+# kernel 1 at k = 32 (5 per SM on 132 SMs, one key a block): a job that
+# cannot fill the card on any launch, which batching exists for
+SERVE_BATCH_SMALL = {"n": 10, "block_dim": 32, "bandwidth": 4, "k": 32, "jobs": 8}
+SERVE_BATCH_WINDOW_S = 0.5  # (h): the batching window, K 8
+SERVE_BATCH_FOLDERS = 4     # (h): text directories of (g)'s structure
+
+
+class _LaunchKeys:
+    """Kernel 1's wrapper, recording each launch's keys (the stacked lead
+    axes) and real keys (a key with a real slot): what a launch can fill."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.launches = []
+
+    def __call__(self, a, b, pa, pb, **kw):
+        real = ((pa != a.shape[0] - 1) & (pb != b.shape[0] - 1)).any(-1)
+        self.launches.append((real.numel(), int(real.sum())))
+        return self.fn(a, b, pa, pb, **kw)
+
+
+def _batch_chains(mats_by_job) -> dict:
+    """One lockstep batched chain (chain.chain_products_batched) against the
+    jobs' solo chains (chain_product), delta off, plans warm (one batched
+    and one solo run first).  Walls in turns solo, batched, batched, solo,
+    each a main path (counts zeroed before, read after), closed by
+    torch.cuda.synchronize(); then one run of each with kernel 1 timed by
+    CUDA events (TimedFold, which waits for each launch, so its walls are
+    not kept) and each launch's keys recorded.  Every job's batched result
+    must equal its solo one bit for bit."""
+    dev_chains = [[DeviceBlockMatrix.from_host(m, DEVICE) for m in mats] for mats in mats_by_job]
+    torch.cuda.synchronize()
+
+    def solo(fold):
+        return [chain_product(c, device=DEVICE, keep_device=True, folds=Folds(exact=fold))
+                for c in dev_chains]
+
+    def batched(fold):
+        return chain_products_batched(dev_chains, folds=Folds(exact=fold))
+
+    def check(mode, got):
+        for g, w in zip(got, want):
+            if not _same(g, w):
+                raise RuntimeError(f"a {mode} chain differs from the first solo chains (max "
+                                   f"abs err {_u64_max_abs_err(g.slab, w.slab)})")
+
+    runs = {"solo": {"walls_s": [], "launches": []}, "batched": {"walls_s": [], "launches": []}}
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = solo(cuda_spgemm.numeric_round)
+        check("batched", batched(cuda_spgemm.numeric_round))
+        for mode in ("solo", "batched", "batched", "solo"):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            got = (solo if mode == "solo" else batched)(cuda_spgemm.numeric_round)
+            torch.cuda.synchronize()
+            runs[mode]["walls_s"].append(time.perf_counter() - t0)
+            runs[mode]["launches"].append(_read_counts()["mod"])
+            check(mode, got)
+            del got
+        for mode in ("solo", "batched"):
+            timed = TimedFold(cuda_spgemm.numeric_round)
+            keys = _LaunchKeys(timed)  # outside the timed window
+            check(mode, (solo if mode == "solo" else batched)(keys))
+            runs[mode].update(kernel_ms=timed.ms(), launch_keys=keys.launches)
+    del want, dev_chains
+    return runs
+
+
+def _fill(launch_keys: list, resident: int) -> dict:
+    """What share of the card's resident kernel-1 blocks the launches' real
+    keys can fill (one key a block at k = 32): the largest, and the mean
+    over launches."""
+    shares = [min(1.0, real / resident) for _, real in launch_keys]
+    return {"max": max(shares), "mean": sum(shares) / len(shares),
+            "keys_max": max(k for k, _ in launch_keys),
+            "real_keys_max": max(r for _, r in launch_keys)}
+
+
+def _batch_report(leg: str, what: str, runs: dict, resident: int, smi: str) -> dict:
+    out = {mode: {"walls_s": r["walls_s"], "launches": r["launches"],
+                  "kernel_ms": r["kernel_ms"], "fill": _fill(r["launch_keys"], resident)}
+           for mode, r in runs.items()}
+    s, b = out["solo"], out["batched"]
+    print(f"[serve] ({leg}) {what} on {smi}: kernel-1 launches batched {b['launches']} "
+          f"against solo {s['launches']}; walls (synchronized; in turns solo, batched, batched, "
+          f"solo) batched {', '.join(f'{t:.6f}' for t in b['walls_s'])} s against solo "
+          f"{', '.join(f'{t:.6f}' for t in s['walls_s'])} s; kernel-1 ms by CUDA events "
+          f"batched {b['kernel_ms']:.3f} against solo {s['kernel_ms']:.3f}; the share of the "
+          f"card's {resident} resident kernel-1 blocks a launch's real keys fill: solo max "
+          f"{s['fill']['max']:.3f}, mean {s['fill']['mean']:.3f} (largest launch "
+          f"{s['fill']['keys_max']} keys, {s['fill']['real_keys_max']} real), batched max "
+          f"{b['fill']['max']:.3f}, mean {b['fill']['mean']:.3f}; 0 differing bits per job",
+          flush=True)
+    return out
+
+
+def _small_batch_mats() -> list:
+    """(g)'s chains: SERVE_BATCH_SMALL's banded structure, one value set per
+    job from seeds SEED + 30 ..."""
+    cfg = SERVE_BATCH_SMALL
+    out = []
+    for j in range(cfg["jobs"]):
+        rng = np.random.default_rng(SEED + 30 + j)
+        out.append([banded_block_sparse(cfg["block_dim"], cfg["k"], cfg["bandwidth"], rng)
+                    for _ in range(cfg["n"])])
+    return out
+
+
+def _serve_batch_daemon(tmp: str, small_mats: list, want: list, smi: str) -> dict:
+    """(h): the daemon in this process on the card, as the tests build it
+    (no third start of a process): SERVE_BATCH_FOLDERS text directories of
+    (g)'s structure with distinct values, each submitted once (first
+    contact: solo, its structure recorded), then all resubmitted back to
+    back with the window SERVE_BATCH_WINDOW_S, K 8 and delta off: one
+    shared batch id, serve_batches up by 1, each output byte-equal to its
+    first contact's, which equals the in-memory engine's result."""
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+    from spgemm_tpu_torch.serve.daemon import Daemon  # noqa: PLC0415
+
+    k = SERVE_BATCH_SMALL["k"]
+    folders = []
+    for j in range(SERVE_BATCH_FOLDERS):
+        folder = os.path.join(tmp, f"batch{j}")
+        io_text.write_chain_dir(folder, small_mats[j], k)
+        folders.append(folder)
+    plancache.clear()  # the structure book and plans start empty, as in a new daemon
+    sock = os.path.join(tmp, "batch.sock")
+    on_card = DEVICE == "cuda"
+    with _env(SPGEMM_TPU_SERVE_BATCH_WINDOW_S=str(SERVE_BATCH_WINDOW_S),
+              SPGEMM_TPU_SERVE_BATCH_K="8", SPGEMM_TPU_DELTA="0"), \
+            contextlib.redirect_stdout(io.StringIO()):
+        d = Daemon(sock, journal=False, device=DEVICE,
+                   n_devices=torch.cuda.device_count() if on_card else None,
+                   device_name=torch.cuda.get_device_name(0) if on_card else None)
+        d.start()
+        try:
+            first = []
+            for j, folder in enumerate(folders):
+                job, _ = _serve_job(client, sock, folder, os.path.join(tmp, f"first{j}"))
+                if job["batch"] is not None:
+                    raise RuntimeError(f"[serve] (h) first contact {job['id']} ran in a batch")
+                if not _host_equal(io_text.read_matrix(os.path.join(tmp, f"first{j}"), k),
+                                   want[j]):
+                    raise RuntimeError(f"[serve] (h) first contact {j} differs from the "
+                                       "in-memory engine's result")
+                first.append(job)
+            before = client.stats(sock)["serve"]
+            t0 = time.perf_counter()
+            ids = [client.submit(folder, sock, {"output": os.path.join(tmp, f"again{j}")})["id"]
+                   for j, folder in enumerate(folders)]
+            jobs = [client.wait(i, sock, timeout=300)["job"] for i in ids]
+            wall = time.perf_counter() - t0
+            after = client.stats(sock)["serve"]
+        finally:
+            d.stop()
+    for j, job in enumerate(jobs):
+        det = job["detail"]
+        if job["state"] != "done" or det.get("degraded") is not False or \
+                (on_card and det.get("launches_numeric_round", 0) < 1):
+            raise RuntimeError(f"[serve] (h) job {job['id']} did not run on the card: {job}")
+        if not _same_bytes(os.path.join(tmp, f"again{j}"), os.path.join(tmp, f"first{j}")):
+            raise RuntimeError(f"[serve] (h) batched job {j}'s output differs from its first "
+                               "contact's")
+    batch_ids = {job["batch"] for job in jobs}
+    launches = [job["detail"].get("launches_numeric_round", 0) for job in jobs]
+    if None in batch_ids or len(batch_ids) != 1 or \
+            after["serve_batches"] - before["serve_batches"] != 1 or len(set(launches)) != 1:
+        raise RuntimeError(f"[serve] (h) the resubmits did not run as one batch: ids "
+                           f"{batch_ids}, serve_batches {before} -> {after}, launches "
+                           f"{launches}")
+    head = jobs[0]["detail"]["phases_s"]
+    mate_waits = [job["detail"]["phases_s"].get("serve_queue_wait") for job in jobs[1:]]
+    for job in first + jobs:
+        print(f"[serve] (h) {job['id']} ({'batch ' + job['batch'] if job['batch'] else 'solo'}) "
+              f"on {smi}: phases_s {job['detail']['phases_s']}; kernel-1 launches "
+              f"{job['detail'].get('launches_numeric_round', 0)}", flush=True)
+    return {"wall_s": wall, "batch": batch_ids.pop(), "launches_per_member": launches,
+            "first_launches": [job["detail"].get("launches_numeric_round", 0) for job in first],
+            "phases_s": [job["detail"]["phases_s"] for job in jobs],
+            "first_phases_s": [job["detail"]["phases_s"] for job in first],
+            "head_execute_s": head.get("serve_execute"), "mate_queue_wait_s": mate_waits,
+            "serve_batches": after["serve_batches"] - before["serve_batches"]}
+
+
+def _serve_batch_legs(medium, tmp: str, smi: str) -> dict:
+    """[serve]'s batching legs (f), (g), (h), each timed."""
+    out = {}
+    geo = cuda_spgemm.geometry(32) if DEVICE == "cuda" else {"blocks_per_sm": 5,
+                                                             "keys_per_block": 1}
+    sms = cuda_bsmm.sm_count(torch.cuda.current_device()) if DEVICE == "cuda" else 132
+    resident = geo["blocks_per_sm"] * sms * geo["keys_per_block"]
+    t0 = time.perf_counter()
+    mats_f = [medium.mats] + [_medium_mats(seed) for seed in SERVE_BATCH_SEEDS[1:]]
+    out["f_generate_s"] = time.perf_counter() - t0
+    out["f"] = _batch_report("f", f"Medium, {len(mats_f)} jobs (seeds {SERVE_BATCH_SEEDS[0]}.."
+                             f"{SERVE_BATCH_SEEDS[-1]}, {len(mats_f)} x 817 MB)",
+                             _batch_chains(mats_f), resident, smi)
+    del mats_f
+    torch.cuda.empty_cache()
+    out["f_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cfg = SERVE_BATCH_SMALL
+    small = _small_batch_mats()
+    out["g"] = _batch_report("g", f"{cfg['jobs']} jobs of banded_block_sparse(block_dim "
+                             f"{cfg['block_dim']}, bandwidth {cfg['bandwidth']}, k {cfg['k']}), "
+                             f"N = {cfg['n']}", _batch_chains(small), resident, smi)
+    out["g_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = [chain_product(m, device=DEVICE).prune_zeros() for m in small]
+    out["h"] = _serve_batch_daemon(tmp, small, want, smi)
+    out["h_s"] = time.perf_counter() - t2
+    out["resident_blocks"] = resident
+    h = out["h"]
+    print(f"[serve] (h) on {smi}: {SERVE_BATCH_FOLDERS} resubmits in batch {h['batch']}, "
+          f"serve_batches +{h['serve_batches']}, kernel-1 launches per member "
+          f"{h['launches_per_member']} (first contacts {h['first_launches']}); mates' "
+          f"serve_queue_wait {h['mate_queue_wait_s']} s against the {SERVE_BATCH_WINDOW_S} s "
+          f"window, the head's serve_execute {h['head_execute_s']} s; wall {h['wall_s']:.6f} s; "
+          f"each output byte-equal to its first contact's; legs (f) {out['f_s']:.3f} s (of "
+          f"which generating three value sets {out['f_generate_s']:.3f} s), (g) "
+          f"{out['g_s']:.3f} s, (h) {out['h_s']:.3f} s", flush=True)
+    return out
+
+
 def phase_serve(medium, cli: dict) -> dict:
     """[serve]: the port's daemon (`python -m spgemm_tpu_torch.cli serve`, on
     the card) driven with its client over text directories of the Medium
@@ -2963,6 +3267,9 @@ def phase_serve(medium, cli: dict) -> dict:
             if st["degraded"] or st["serve"]["serve_degrades"] != 1:
                 raise RuntimeError(f"[serve] (d) a degrade besides (e)'s: {st['serve']}")
             _serve_stop(proc, sock, client, log_path)
+            t_batch = time.perf_counter()
+            out["batch"] = _serve_batch_legs(medium, tmp, smi)
+            out["batch_s"] = time.perf_counter() - t_batch
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -2991,8 +3298,9 @@ def phase_serve(medium, cli: dict) -> dict:
            f"{e['reaped_s']:.3f} s, degraded at {e['degraded_s']:.3f} s (one stderr line), probe "
            f"{e['probe']}, reinstated at {e['reinstated_s']:.3f} s, canary "
            f"{e['canary_wall_s']:.6f} s with {e['canary_launches']} kernel 1 launches, oracle "
-           f"bytes, no job on the oracle, {e['serve']}; the phase beyond writing the "
-           f"directories {time.perf_counter() - t0 - out['write_dirs_s']:.3f} s")
+           f"bytes, no job on the oracle, {e['serve']}; the batching legs (f), (g), (h) "
+           f"{out['batch_s']:.3f} s; the phase beyond writing the directories "
+           f"{time.perf_counter() - t0 - out['write_dirs_s']:.3f} s")
     return out
 
 

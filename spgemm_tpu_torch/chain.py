@@ -33,6 +33,10 @@ on a chain that runs on the CPU (no card to lose), the error is the
 program's and is raised as it is.  Failover happens only when asked for,
 and only an Exception triggers it: a BaseException (an abort) passes
 through.
+
+chain_products_batched reduces several chains of one block structure in
+lockstep (spgemmd's cross-job batching): the same pairing, each multiply
+planned once and run for every chain by ops/spgemm.execute_batched.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 
 from spgemm_tpu_torch.ops import delta, plancache
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix, ensure_device, resolve_device
-from spgemm_tpu_torch.ops.spgemm import KERNELS, Folds, plan, spgemm_device
+from spgemm_tpu_torch.ops.spgemm import KERNELS, Folds, execute_batched, plan, spgemm_device
 from spgemm_tpu_torch.utils import backend_probe, checkpoint, knobs
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.semantics import field_spgemm_oracle, spgemm_oracle
@@ -292,3 +296,36 @@ def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
     if not keep_device:
         return arr_host[0] if arr_host is not None else _to_host(arr[0])
     return ensure_device(arr[0], device) if multiply is spgemm_device else arr[0]
+
+
+def chain_products_batched(chains: list[list], *, backend: str = "exact",
+                           round_size: int | None = None, folds: Folds = KERNELS,
+                           heartbeat=None) -> list[DeviceBlockMatrix]:
+    """The products of J chains of one block structure, reduced in lockstep
+    with chain_product's pairing (adjacent pairs each pass, the odd one
+    carried): each multiply is planned once (ops/spgemm.plan, through the
+    plan cache) and run for all J by ops/spgemm.execute_batched, so each
+    round is one launch over the J jobs' stacked indices.  One `multiplying
+    i j` line per step; heartbeat() after each multiply.  The chains hold
+    DeviceBlockMatrix on one device; returns the J products there, each
+    with its solo chain's bits (no delta path: batching runs with
+    SPGEMM_TPU_DELTA=0)."""
+    arrs = [list(c) for c in chains]
+    while len(arrs[0]) > 1:
+        nxt: list[list] = [[] for _ in arrs]
+        width = len(arrs[0])
+        for i in range(0, width - 1, 2):
+            print(f"multiplying {i} {i + 1}", flush=True)  # once per batched step
+            p = plan(arrs[0][i], arrs[0][i + 1], backend=backend, round_size=round_size)
+            outs = execute_batched(p, [(arr[i], arr[i + 1]) for arr in arrs], folds=folds)
+            for out, row in zip(outs, nxt):
+                row.append(out)
+            if heartbeat is not None:
+                heartbeat()
+            for arr in arrs:
+                arr[i] = arr[i + 1] = None  # free consumed partials
+        if width % 2 == 1:
+            for arr, row in zip(arrs, nxt):
+                row.append(arr[-1])  # the odd element carried
+        arrs = nxt
+    return [arr[0] for arr in arrs]

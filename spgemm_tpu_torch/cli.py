@@ -62,6 +62,9 @@ process reads back.  The directory is --dir, else SPGEMM_TPU_WARM_DIR.
 run spgemmd, the resident daemon that owns the card and keeps the engine
 warm across jobs (serve/daemon.py; delta recompute stays on there), and
 talk to it (serve/client.py).  Without --device cpu, serve needs a card.
+SPGEMM_TPU_SERVE_BATCH_WINDOW_S > 0 with SPGEMM_TPU_DELTA=0 arms cross-job
+batching: up to SPGEMM_TPU_SERVE_BATCH_K queued jobs of one chain structure
+run as one batch (`serve --help` says more).
 A directory named warm, serve, submit or status that holds a `size` file
 is still a chain folder.
 """

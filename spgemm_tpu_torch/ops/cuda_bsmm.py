@@ -41,10 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from spgemm_tpu_torch.ops import _build
-
-# Launches of each kernel, counted where it launches and nowhere else.
-launches = 0
-launches_resident = 0
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 _KERNEL = "bsmm"
 KERNEL_KS = (16, 32, 64, 128)      # tile edges the kernel takes
@@ -169,7 +166,6 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
     """Launch kernel 3 or 4 on launch_geometry's grid; br, for kernel 3
     only, replaces row_tile's rows per block (the checks that no bit
     depends on the row tile give it)."""
-    global launches, launches_resident
     M, d_in, nbc, rpc, k = check_operands(x, rows, tiles, block_m)
     if x.device.type == "cpu":
         return bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu)
@@ -210,10 +206,8 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
         raise RuntimeError(f"bsmm kernel launch failed: CUDA error {err} (M={M}, "
                            f"d_in={d_in}, nbc={nbc}, rpc={rpc}, k={k}, block_m={block_m}, "
                            f"{x.dtype}, resident={resident}, {geo})")
-    if resident:
-        launches_resident += 1
-    else:
-        launches += 1
+    # the launch counters, bumped here and nowhere else
+    ENGINE.incr("launches_bsmm_resident" if resident else "launches_bsmm")
     return out
 
 

@@ -32,9 +32,6 @@ from spgemm_tpu_torch.ops.mxu_spgemm import (N_LIMBS, bytes_for_limbs7, check_mx
                                              numeric_round_mxu_ref)
 from spgemm_tpu_torch.utils.timers import ENGINE
 
-# Launches of the CUDA kernel, counted where it launches and nowhere else.
-launches = 0
-
 _KERNEL = "numeric_round_mxu"
 
 
@@ -57,7 +54,6 @@ def numeric_round_mxu(a_slab: torch.Tensor, b_slab: torch.Tensor,
     launches the kernel on the current stream or raises; on CPU tensors it
     runs numeric_round_mxu_ref.  Indices are not checked on the card (see
     cuda_spgemm.numeric_round)."""
-    global launches
     k = check_mxu(a_slab, b_slab, pa, pb, a_limbs, b_limbs)
     if a_slab.device.type == "cpu":
         return numeric_round_mxu_ref(a_slab, b_slab, pa, pb, a_limbs, b_limbs)
@@ -84,8 +80,7 @@ def numeric_round_mxu(a_slab: torch.Tensor, b_slab: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"numeric_round_mxu kernel launch failed: CUDA error {err} "
                            f"(K={K}, P={P}, k={k}, limbs {a_limbs}x{b_limbs})")
-    launches += 1
-    ENGINE.incr("launches_numeric_round_mxu")
+    ENGINE.incr("launches_numeric_round_mxu")  # the launch counter, bumped here only
     return out
 
 

@@ -41,11 +41,6 @@ import torch
 from spgemm_tpu_torch.ops import _build, u64
 from spgemm_tpu_torch.utils.timers import ENGINE
 
-# Launches of the CUDA kernel's two variants, counted where each launches
-# and nowhere else (and, for per-job reports, as ENGINE counters there).
-launches = 0
-launches_no_mod = 0
-
 _KERNEL = "numeric_round"
 
 
@@ -113,7 +108,6 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
     and SpgemmPlan.check_operands ties a plan to its operands); the kernel
     does not check them, since a device-side check would synchronise each
     launch."""
-    global launches, launches_no_mod
     k = check_operands(a_slab, b_slab, pa, pb)
     if a_slab.device.type == "cpu":
         return numeric_round_ref(a_slab, b_slab, pa, pb, no_mod=no_mod)
@@ -140,12 +134,8 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"numeric_round kernel launch failed: CUDA error {err} "
                            f"(K={K}, P={P}, k={k}, no_mod={no_mod})")
-    if no_mod:
-        launches_no_mod += 1
-        ENGINE.incr("launches_numeric_round_no_mod")
-    else:
-        launches += 1
-        ENGINE.incr("launches_numeric_round")
+    # the launch counter, bumped here and nowhere else
+    ENGINE.incr("launches_numeric_round_no_mod" if no_mod else "launches_numeric_round")
     return out
 
 

@@ -24,9 +24,6 @@ import torch
 from spgemm_tpu_torch.ops import _build
 from spgemm_tpu_torch.utils.timers import ENGINE
 
-# Launches of the CUDA kernel, counted where it launches and nowhere else.
-launches = 0
-
 _KERNEL = "splice"
 
 
@@ -66,7 +63,6 @@ def splice(prev: torch.Tensor, sub: torch.Tensor, src: torch.Tensor) -> torch.Te
     On CUDA tensors it launches the kernel on the current stream or raises;
     on CPU tensors it runs splice_ref.  src's entries must lie in sub (the
     kernel does not check them: a device-side check would synchronise)."""
-    global launches
     _check(prev, sub, src)
     if prev.device.type == "cpu":
         return splice_ref(prev, sub, src)
@@ -87,6 +83,5 @@ def splice(prev: torch.Tensor, sub: torch.Tensor, src: torch.Tensor) -> torch.Te
     if err != 0:
         raise RuntimeError(f"splice kernel launch failed: CUDA error {err} "
                            f"(rows={n_rows}, row_elems={row_elems})")
-    launches += 1
-    ENGINE.incr("launches_splice")
+    ENGINE.incr("launches_splice")  # the launch counter, bumped here only
     return out

@@ -1,5 +1,6 @@
-"""Structure-keyed LRU cache of SpgemmPlan (the port's copy of the run-once
-part of the JAX package's `ops/plancache.py`).
+"""Structure-keyed LRU cache of SpgemmPlan, and spgemmd's structure book
+(the port's copy of the JAX package's `ops/plancache.py`, without the
+tuner's class keys).
 
 A plan (ops/spgemm.plan) depends only on the operands' block structures and
 the plan parameters, never on tile values, so a multiply whose structures
@@ -12,6 +13,14 @@ Knobs (utils/knobs.py):
   SPGEMM_TPU_PLAN_CACHE      0|1 (default 1): memoization on or off.
   SPGEMM_TPU_PLAN_CACHE_CAP  int >= 1 (default 32): LRU capacity, read at
                              each store.
+
+The structure book maps a chain folder's stat signature
+(serve/placement.signature) to the fingerprint of its chain's block
+structures (chain_fingerprint): the daemon's executor records it once it has
+read a chain, and admission looks it up (a stat call and a dict lookup,
+never a parse) to give the job its batching group key.  Values never enter
+the fingerprint.  An LRU of STRUCT_CAP entries; an evicted or unknown folder
+gets no group key and runs solo.
 
 Cached plans are shared by every multiply that hits them, so ops/spgemm
 makes their arrays read-only before storing them.  One lock guards the
@@ -36,6 +45,8 @@ LOCK = threading.RLock()
 _CACHE: "OrderedDict[str, object]" = OrderedDict()  # guarded by LOCK
 _STATS = {"hits": 0, "misses": 0, "evictions": 0}  # guarded by LOCK
 _BUILDING: "dict[str, threading.Event]" = {}  # keys in flight, guarded by LOCK
+STRUCT_CAP = 4096  # structure-book entries (LRU past it)
+_STRUCTS: "OrderedDict[str, str]" = OrderedDict()  # guarded by LOCK
 
 
 def enabled() -> bool:
@@ -62,6 +73,43 @@ def fingerprint(a_coords: np.ndarray, b_coords: np.ndarray, meta: tuple) -> str:
         hash_update(h, arr)
     h.update(repr(meta).encode())
     return h.hexdigest()
+
+
+def chain_fingerprint(coords_list) -> str:
+    """Fingerprint of a chain's block structures: every matrix's coords, in
+    chain order, through hash_update.  Two chains that share it walk the
+    same plan sequence (planning depends on structure only), so their jobs
+    may share plans and launches."""
+    h = hashlib.blake2b(digest_size=32)
+    h.update(b"chain|")
+    for coords in coords_list:
+        hash_update(h, np.asarray(coords))
+    return h.hexdigest()
+
+
+def note_chain_structure(sig: str | None, fp: str) -> None:
+    """Record folder signature -> chain structure fingerprint (None: the
+    folder could not be read, nothing is recorded)."""
+    if sig is None:
+        return
+    with LOCK:
+        _STRUCTS[sig] = fp
+        _STRUCTS.move_to_end(sig)
+        while len(_STRUCTS) > STRUCT_CAP:
+            _STRUCTS.popitem(last=False)
+
+
+def chain_structure(sig: str | None) -> str | None:
+    """The recorded structure fingerprint of a folder signature, or None on
+    first contact, after the content changed or after eviction (the job
+    then runs solo: grouping never decides a result)."""
+    if sig is None:
+        return None
+    with LOCK:
+        fp = _STRUCTS.get(sig)
+        if fp is not None:
+            _STRUCTS.move_to_end(sig)
+        return fp
 
 
 def lookup(key: str):
@@ -145,8 +193,9 @@ def stats(since: dict | None = None) -> dict:
 
 
 def clear() -> None:
-    """Drop every plan and zero the statistics."""
+    """Drop every plan and structure-book entry and zero the statistics."""
     with LOCK:
         _CACHE.clear()
+        _STRUCTS.clear()
         for name in _STATS:
             _STATS[name] = 0

@@ -59,6 +59,11 @@ arrays, XLA gather materialization) binds here.  The only cap is on the
 output slab of one launch: at most 2^25 int64 elements (256 MiB), so one
 launch's output -- and the plain versions' temporaries -- stay a small,
 fixed share of device memory whatever the size of the multiply.
+
+Cross-job batching (execute_batched, spgemmd's batch pickup): J multiplies
+of one structure run each round as one launch over the J jobs' stacked
+indices, as many jobs a launch as that cap allows; each job gets the bits
+of its solo execute.
 """
 
 from __future__ import annotations
@@ -90,13 +95,15 @@ from spgemm_tpu_torch.utils.timers import ENGINE
 log = logging.getLogger("spgemm_tpu_torch.spgemm")
 
 LAUNCH_OUT_ELEMENTS = 1 << 25
+INDEX_LIMIT = 1 << 31  # slab indices are int32: a stacked slab's rows stay below it
 OOC_ROUND_SIZE = 512  # keys per out-of-core round by default (the JAX package's)
 BACKENDS = ("exact", "mxu", "hybrid")
 MAX_BOUND = (1 << 64) - 2  # any result is a canonical residue, at most 2^64 - 2
 
-# Rounds dispatched to each kernel, counted per round in execute, beside the
-# wrappers' launch counters: "mod" and "no_mod" are kernel 1's variants,
-# "mxu" the limb kernel, "dense" the segmented fold.
+# Rounds dispatched to each kernel, counted per round in execute (per launch
+# in execute_batched, whose launch serves several jobs' copies of a round),
+# beside the wrappers' launch counters: "mod" and "no_mod" are kernel 1's
+# variants, "mxu" the limb kernel, "dense" the segmented fold.
 rounds_by_kernel = {"mod": 0, "no_mod": 0, "mxu": 0, "dense": 0}
 
 
@@ -440,6 +447,105 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
             out_bound = min(proven, MAX_BOUND)
     return DeviceBlockMatrix(rows=a.rows, cols=b.cols, k=k, coords=p.join.keys,
                              slab=slab, val_bound=out_bound)
+
+
+def _stack_width(K: int, k: int, jobs: int) -> int:
+    """How many jobs' copies of a round of K padded keys one launch takes:
+    all of them while the launch stays within launch_key_cap(k), the
+    card's one per-launch budget, else fewer (at worst one a launch).  The
+    JAX package derives the width from the TPU's SMEM index budget and
+    XLA's gather budget, neither of which exists here.  The width decides
+    only how many launches there are, never the bits."""
+    return min(jobs, max(1, launch_key_cap(k) // max(K, 1)))
+
+
+def stack_on_card(idx: torch.Tensor, sentinel: int, jobs: int) -> torch.Tensor:
+    """symbolic.stack_round_indices of a (K, P) round's indices, computed
+    where they lie: (jobs, K, P), job j's real indices shifted by
+    j * sentinel and every sentinel on the shared zero tile at
+    jobs * sentinel (the same values; tests hold the two equal).  The round
+    is uploaded once, at one job's size, and the host does no per-job
+    numpy work: stacking on the host, then a J-fold upload, made a batch of
+    Medium chains slower on the card than its solo chains."""
+    offsets = (torch.arange(jobs, device=idx.device, dtype=idx.dtype) * sentinel).view(-1, 1, 1)
+    return torch.where(idx == sentinel, jobs * sentinel, idx + offsets)
+
+
+def execute_batched(p: SpgemmPlan, pairs: list, folds: Folds = KERNELS) -> list:
+    """execute() for J operand pairs of one structure (cross-job batching,
+    the JAX package's execute_batched): the J jobs' slabs are concatenated
+    tiles only, with one shared zero tile last, and each round launches
+    once per width-chunk (_stack_width) with the jobs' indices stacked
+    along the leading axis (stack_on_card).  Each job's rounds are sliced
+    back out of the (chunk, K, k, k) output and gathered through the
+    plan's own assembly permutation: row arithmetic, never a second fold.  Every key keeps its pair list and fold order, so each
+    job gets the bits of its solo execute(p, a, b).  Returns the J results
+    in the order of pairs.
+
+    Routing: exact and hybrid run kernel 1's mod fold on every round (the
+    hybrid router and its speed gate are skipped: its routes give the same
+    bits), and under hybrid each job still gets its proven val_bound; mxu
+    runs kernel 2 at the widest limbs of all jobs.  An auto round runs its
+    ladder layout.  Falls back to J solo executes, with the same bits, when
+    the stacked indices would not fit int32 or a round is dense (a 1-D
+    stream does not stack).  ENGINE phases `upload`, `numeric_dispatch`
+    and `assembly`; a launch counts once, however many jobs it serves."""
+    if len(pairs) == 1:
+        return [execute(p, *pairs[0], folds=folds)]
+    for a, b in pairs:
+        p.check_operands(a, b)
+    devices = {m.device for pair in pairs for m in pair}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
+    p.ensure_exact()
+    dev, k, J = devices.pop(), p.k, len(pairs)
+    if p.join.num_keys == 0:
+        return [DeviceBlockMatrix.empty(a.rows, b.cols, k, dev) for a, b in pairs]
+    nnzb_a, nnzb_b = len(p.a_coords), len(p.b_coords)
+    if max(nnzb_a, nnzb_b) * J + 1 >= INDEX_LIMIT or any(r.pa.ndim != 2 for r in p.rounds):
+        return [execute(p, a, b, folds=folds) for a, b in pairs]
+    if p.backend == "mxu":
+        name = "mxu"
+        fold = partial(folds.mxu, a_limbs=max(limbs_for_bound(a.bound()) for a, _ in pairs),
+                       b_limbs=max(limbs_for_bound(b.bound()) for _, b in pairs))
+    else:
+        name, fold = "mod", folds.exact
+    with ENGINE.phase("upload"):
+        indices = [(_upload(rnd.pa, dev), _upload(rnd.pb, dev)) for rnd in p.rounds]
+        take = _upload(p.take, dev)
+    outs: list[list] = [[] for _ in range(J)]
+    launches = fused = 0
+    with ENGINE.phase("numeric_dispatch"):
+        failpoints.check("kernel.dispatch")
+        # tiles only, then job 0's sentinel zero tile once: the shared one
+        a_slab = torch.cat([a.slab[:nnzb_a] for a, _ in pairs] + [pairs[0][0].slab[nnzb_a:]])
+        b_slab = torch.cat([b.slab[:nnzb_b] for _, b in pairs] + [pairs[0][1].slab[nnzb_b:]])
+        for rnd, (pa, pb) in zip(p.rounds, indices):
+            spa, spb = stack_on_card(pa, nnzb_a, J), stack_on_card(pb, nnzb_b, J)
+            width = _stack_width(rnd.pa.shape[0], k, J)
+            for lo in range(0, J, width):
+                out = fold(a_slab, b_slab, spa[lo:lo + width], spb[lo:lo + width])
+                launches += 1
+                fused += out.shape[0] > 1
+                for j in range(out.shape[0]):
+                    outs[lo + j].append(out[j])
+    del a_slab, b_slab  # J jobs' copies of the inputs: freed before J outputs are assembled
+    rounds_by_kernel[name] += launches
+    with ENGINE.phase("assembly"):
+        results = []
+        for (a, b), job_outs in zip(pairs, outs):
+            out_bound = MAX_BOUND
+            if p.backend == "hybrid":
+                proven = safe_exact_bound(a.bound(), b.bound(), int(p.join.fanouts.max()), k)
+                if proven is not None:
+                    out_bound = min(proven, MAX_BOUND)
+            results.append(DeviceBlockMatrix(rows=a.rows, cols=b.cols, k=k,
+                                             coords=p.join.keys, slab=_assemble(job_outs, take),
+                                             val_bound=out_bound))
+    log.info("spgemm[%s,x%d-job-batch]: nnzb %d x %d -> keys=%d pairs=%d rounds=%d "
+             "launches=%d fused=%d", p.backend, J, nnzb_a, nnzb_b, p.join.num_keys,
+             int(p.join.pair_ptr[-1]), len(p.rounds), launches, fused)
+    return results
 
 
 def subplan(parent: SpgemmPlan, keep: np.ndarray) -> tuple[SpgemmPlan, np.ndarray]:

@@ -289,6 +289,29 @@ def assembly_permutation(rounds: list[Round], num_keys: int) -> np.ndarray:
     return inv
 
 
+def stack_round_indices(idx: np.ndarray, sentinel: int, jobs: int) -> np.ndarray:
+    """One round's index array stacked for a `jobs`-wide cross-job launch
+    (the JAX package's function of the same name; ops/spgemm.stack_on_card
+    computes the same on the device for execute_batched).  The jobs' operand slabs are concatenated tiles only -- job j's
+    tile t lands at j * sentinel + t -- with ONE shared zero tile appended
+    at jobs * sentinel.  So job j's copy shifts every real index by
+    j * sentinel and maps the per-job sentinel onto the shared one: a
+    uniform offset would alias job j's sentinel onto job j + 1's tile 0
+    (wrong bits).  The shared zero tile is the stacked slab's last row, the
+    slot kernel 1 and kernel 2 skip.
+
+    (K, P) stacks to (jobs, K, P), an already stacked (R, K, P) to
+    (jobs * R, K, P).  The kernels and their plain versions flatten every
+    leading axis into the key axis (cuda_spgemm.numeric_round), so the JAX
+    package's accept_round_stack has no counterpart here: each key keeps
+    its own pair list and fold order, and the stacked launch gives each
+    job its solo bits."""
+    base = idx[None] if idx.ndim == 2 else idx
+    copies = [np.where(base == sentinel, jobs * sentinel, base + j * sentinel)
+              for j in range(jobs)]
+    return np.concatenate(copies, axis=0).astype(idx.dtype)
+
+
 @dataclass
 class SpgemmPlan:
     """Everything the host decides about one C = A x B before device work:

@@ -40,13 +40,28 @@ the chain's planner thread, which adopts it), so its detail holds its own
 phases and counters: queue wait, load, chain, write, plan-cache hits and
 misses, delta rows, and the launches of each CUDA kernel.
 
-Not ported here (each marked where it would go): cross-job batching
-(`run_chain_jobs`, `_drain_batch_mates`, `_run_batch_members`), the tuner
-(`_maybe_tune`), the obs layer (`_flight_dump` and every obs_* call; the
-`metrics`, `trace`, `profile`, `events` and `slo` ops answer bad-request),
-and pools of more than one slice.  This module imports no torch and no
-numpy at import time: the engine is imported inside the runner, the
-executor and main().
+Cross-job batching (SPGEMM_TPU_SERVE_BATCH_WINDOW_S > 0, up to
+SPGEMM_TPU_SERVE_BATCH_K jobs, and SPGEMM_TPU_DELTA=0): admission gives a
+job the recorded structure of its folder's chain as its group key
+(ops/plancache's structure book, which the runners fill once they have read
+a chain).  A pickup on the card drains the queued jobs of the same key,
+deadline, backend and round_size (_drain_batch_mates, through the queue's
+fair pass), and the group runs as one lockstep reduction (run_chain_jobs):
+each multiply planned once and run for every job by
+ops/spgemm.execute_batched, each round one launch over the jobs' stacked
+indices, each job's bytes its solo run's.  Every member keeps its own
+PhaseScope (so each sees the shared launches), journal records and
+`batch` id; the head is the watchdog's job, and when it is reaped the mates
+fail with a structured error.  A batch whose kernel fails fails its members
+with the error; only a slice the probe found dead serves on the host, and
+such a pickup never batches.
+
+Not ported here (each marked where it would go): the tuner (`_maybe_tune`),
+the obs layer (`_flight_dump` and every obs_* call; the `metrics`, `trace`,
+`profile`, `events` and `slo` ops answer bad-request, and the batch-size
+histogram is kept for the `metrics` op), and pools of more than one slice.
+This module imports no torch and no numpy at import time: the engine is
+imported inside the runners, the executor and main().
 """
 
 from __future__ import annotations
@@ -76,7 +91,12 @@ log = logging.getLogger("spgemm_tpu_torch.serve")
 SUBMIT_OPTIONS = ("backend", "round_size", "checkpoint_dir", "output", "timeout_s", "failover")
 
 # ENGINE counters the daemon bumps, reported by `stats`
-SERVE_COUNTERS = ("serve_reaps", "serve_degrades", "serve_recoveries")
+SERVE_COUNTERS = ("serve_reaps", "serve_degrades", "serve_recoveries", "serve_batches",
+                  "serve_batched_jobs")
+
+# upper bounds of the batch-size histogram's buckets (jobs per armed pickup;
+# the JAX package's obs/metrics.BATCH_SIZE_BUCKETS)
+BATCH_SIZE_BUCKETS = (1, 2, 4, 8, 16)
 
 
 # -------------------------------------------------------- journal framing --
@@ -126,6 +146,30 @@ def engine_backend(name: str | None) -> str:
     return protocol.BACKEND_ALIASES.get(name, name)
 
 
+def _book_chain(job: Job, mats: list) -> None:
+    """Record, for the folder's current content, what admission reads and
+    its books do not know yet: the placement price (placement.note_mass;
+    a resubmit of unchanged content was priced at admission) and the chain
+    structure (plancache.note_chain_structure; a job admitted with a group
+    key was recorded before).  ENGINE phase serve_price.  Routing only: a
+    failure is logged, never the job's."""
+    from spgemm_tpu_torch.ops import estimate, plancache  # noqa: PLC0415
+
+    price = (job.placement or {}).get("source") != "estimate"
+    if not price and job.group_key is not None:
+        return
+    try:
+        with ENGINE.phase("serve_price"):
+            coords = [m.coords for m in mats]
+            if price:
+                placement.note_mass(job.folder, estimate.chain_mass(coords))
+            if job.group_key is None:
+                plancache.note_chain_structure(placement.signature(job.folder),
+                                               plancache.chain_fingerprint(coords))
+    except Exception as e:  # noqa: BLE001 -- pricing never decides a result
+        log.warning("placement pricing failed for %s: %r", job.folder, e)
+
+
 def run_chain_job(job: Job, degraded: bool = False) -> None:
     """The default runner: read the job's folder, reduce the chain on the
     job's device (set at pickup; `cuda` when unset), write the output in
@@ -136,22 +180,12 @@ def run_chain_job(job: Job, degraded: bool = False) -> None:
     arithmetic: the field-mode oracle under mxu, the reference's fold
     otherwise.  round_size and failover then do not apply."""
     from spgemm_tpu_torch import chain  # noqa: PLC0415 -- the engine loads lazily
-    from spgemm_tpu_torch.ops import estimate  # noqa: PLC0415
     from spgemm_tpu_torch.utils import io_text  # noqa: PLC0415
 
     with ENGINE.phase("serve_load"):
         n, k = io_text.read_size(job.folder)
         mats = io_text.read_chain(job.folder, 0, n - 1, k)
-    # price a folder the book does not know yet while the coords are at
-    # hand (routing only: it must never fail a job); a resubmit of unchanged
-    # content was priced at admission and skips this
-    if (job.placement or {}).get("source") != "estimate":
-        try:
-            with ENGINE.phase("serve_price"):
-                placement.note_mass(job.folder,
-                                    estimate.chain_mass([m.coords for m in mats]))
-        except Exception as e:  # noqa: BLE001 -- pricing never decides a result
-            log.warning("placement pricing failed for %s: %r", job.folder, e)
+    _book_chain(job, mats)
     backend = engine_backend(job.options.get("backend"))
 
     def beat() -> None:
@@ -179,6 +213,67 @@ def run_chain_job(job: Job, degraded: bool = False) -> None:
         return
     with ENGINE.phase("serve_write"):
         io_text.write_matrix(job.output, result.prune_zeros())
+
+
+def run_chain_jobs(jobs: list[Job], degraded: bool = False) -> None:
+    """The batch runner: the chains of jobs of one recorded structure,
+    reduced in lockstep on the jobs' device (the slice's) by
+    chain.chain_products_batched: each multiply planned once and each round
+    one launch for all of them.  Every member's heartbeat after each
+    multiply; a reaped head (the watchdog's job) raises JobAbandoned.
+
+    The structure book may be stale, so the chains read are compared
+    again: if any differs from the head's, every job runs solo
+    (run_chain_job), never a wrong answer.  A single job or a degraded call
+    runs solo too.  ENGINE phases serve_load, serve_price, serve_chain and
+    serve_write."""
+    if degraded or len(jobs) == 1:
+        for job in jobs:
+            run_chain_job(job, degraded=degraded)
+        return
+    import numpy as np  # noqa: PLC0415 -- the engine loads lazily
+
+    from spgemm_tpu_torch import chain  # noqa: PLC0415
+    from spgemm_tpu_torch.ops.device import DeviceBlockMatrix  # noqa: PLC0415
+    from spgemm_tpu_torch.utils import io_text  # noqa: PLC0415
+
+    chains = []
+    with ENGINE.phase("serve_load"):
+        for job in jobs:
+            n, k = io_text.read_size(job.folder)
+            chains.append(io_text.read_chain(job.folder, 0, n - 1, k))
+    for job, mats in zip(jobs, chains):
+        _book_chain(job, mats)
+    head = chains[0]
+    if not all(len(mats) == len(head)
+               and all(m.k == h.k and m.rows == h.rows and m.cols == h.cols
+                       and np.array_equal(m.coords, h.coords) for m, h in zip(mats, head))
+               for mats in chains[1:]):
+        log.warning("a batch of %d jobs is not of one structure after all (a stale "
+                    "structure book); running each solo", len(jobs))
+        for job in jobs:
+            run_chain_job(job)
+        return
+
+    def beat() -> None:
+        failpoints.check("serve.heartbeat")
+        for job in jobs:
+            job.touch()
+        if jobs[0].state in TERMINAL:
+            raise JobAbandoned(jobs[0].id)
+
+    rs = jobs[0].options.get("round_size")
+    with ENGINE.phase("serve_chain"):
+        device = jobs[0].device or "cuda"
+        results = chain.chain_products_batched(
+            [[DeviceBlockMatrix.from_host(m, device=device) for m in mats] for mats in chains],
+            backend=engine_backend(jobs[0].options.get("backend")),
+            round_size=int(rs) if rs is not None else None, heartbeat=beat)
+    for job, result in zip(jobs, results):
+        if job.state in TERMINAL:
+            continue  # reaped: a resubmit may own job.output now
+        with ENGINE.phase("serve_write"):
+            io_text.write_matrix(job.output, result.to_host().prune_zeros())
 
 
 class _Slice:
@@ -221,7 +316,9 @@ class Daemon:
     with a time limit); both are injectable for tests.  slices: the slice
     spec (default SPGEMM_TPU_SERVE_SLICES), checked against n_devices, the
     visible cards, when given; it must come to one single-device slice.
-    device_name is reported by `stats`."""
+    device_name is reported by `stats`.  batch_runner(jobs, degraded=)
+    runs a batch of two or more jobs (default run_chain_jobs), injectable
+    so tests watch batches form without running chains."""
 
     # one journal compaction per this many terminal events
     JOURNAL_COMPACT_EVERY = 256
@@ -236,7 +333,8 @@ class Daemon:
     # a dead card is probed again no more often than this
     RECOVER_BACKOFF_MAX_S = 900.0
 
-    def __init__(self, socket_path: str | None = None, *, runner=None, probe=None,
+    def __init__(self, socket_path: str | None = None, *, runner=None, batch_runner=None,
+                 probe=None,
                  queue_cap: int | None = None, job_timeout_s: float | None = None,
                  wedge_grace_s: float | None = None, journal: bool = True,
                  slices: str | None = None, n_devices: int | None = None,
@@ -262,6 +360,7 @@ class Daemon:
         self.journal_path = self.socket_path + ".journal"
         self.warm_dir = self.socket_path + ".warm"
         self._runner = runner or run_chain_job
+        self._batch_runner = batch_runner or run_chain_jobs
         self._probe = probe
         self._cap = queue_cap if queue_cap is not None \
             else knobs.get("SPGEMM_TPU_SERVE_QUEUE_CAP")
@@ -279,6 +378,11 @@ class Daemon:
         self._journal_torn = 0             # guarded by _lock
         self._terminal_totals = {"done": 0, "error": 0, "timeout": 0, "abandoned": 0,
                                  "drained": 0}  # guarded by _lock
+        # jobs per armed pickup that may batch (1: no mate came within the
+        # window), sampled only while the window is open; rendered by the
+        # `metrics` op once the obs layer is ported
+        self._batch_size = {"buckets": dict.fromkeys(BATCH_SIZE_BUCKETS, 0), "sum": 0.0,
+                            "count": 0}  # guarded by _lock
         self.queue = JobQueue(self._cap, tenant_inflight=tenant_inflight)
         self._slice_spec = slices if slices is not None \
             else knobs.get("SPGEMM_TPU_SERVE_SLICES")
@@ -370,7 +474,7 @@ class Daemon:
             except (KeyError, TypeError) as e:
                 log.warning("journal: skipping malformed record %r (%r)", ev, e)
                 continue
-            job.placement = placement.route(job.folder)  # the folder may have changed
+            self._route(job)  # the folder may have changed
             try:
                 self.queue.submit(job)
                 log.info("journal: re-queued unfinished job %s (%s)", job.id, job.folder)
@@ -502,6 +606,17 @@ class Daemon:
             self.degraded = True
             self.degrade_reason = reason
 
+    @staticmethod
+    def _route(job: Job) -> None:
+        """Admission's reads of the folder, stat calls and book lookups,
+        never a parse: the placement record and the batching group key (the
+        chain structure the structure book recorded for this content; None
+        on first contact)."""
+        from spgemm_tpu_torch.ops import plancache  # noqa: PLC0415
+
+        job.placement = placement.route(job.folder)
+        job.group_key = plancache.chain_structure(placement.signature(job.folder))
+
     def _accepts(self, sl: _Slice, job: Job) -> bool:
         """The executor's dispatch predicate (under the queue lock): refuse
         while another executor generation holds a live job on the slice (a
@@ -528,8 +643,6 @@ class Daemon:
         sl.thread.start()
 
     def _executor_loop(self, sl: _Slice, gen: int, degraded: bool) -> None:
-        from spgemm_tpu_torch.ops import plancache, warmstore  # noqa: PLC0415
-
         while not self._stop.is_set() and gen == sl.gen:
             # gen is checked inside accept too: a reinstatement bumps it while
             # the retiring executor waits in next()
@@ -559,53 +672,134 @@ class Daemon:
                 tight = job.timeout_s / 2 if job.timeout_s > 0 else self._wedge_grace_s
                 if tight > 0:
                     job.timeout_s = tight
-            # (the JAX package drains same-structure batch mates here)
+            # a pickup on the card drains its batch mates; pickups of an oracle
+            # executor and canaries never batch (an audition risks one job)
+            mates = [] if degraded or canary else self._drain_batch_mates(sl, job)
+            self._run_pickup(sl, job, mates, on_oracle)
+
+    def _run_pickup(self, sl: _Slice, head: Job, mates: list[Job], on_oracle: bool) -> None:
+        """Run a pickup: the head alone (the runner, on the host oracle when
+        on_oracle), or the head and its batch mates (the batch runner, on the
+        card).  Every member keeps its own PhaseScope, all opened on this
+        thread, so each sees the phases and the launches they shared; its own
+        queue wait (recorded into its scope alone), journal record and
+        terminal answer.  Only the head is sl.current, the watchdog's job:
+        when it is reaped its chain ends at the next heartbeat and the mates
+        fail with a structured error.  A pickup that raises fails every
+        member with the error; nothing reruns it on the host.  Only the
+        canary's own end settles an audition (a retired executor's late
+        return proves nothing), and a job error on the card settles it too:
+        it proves the executor responsive."""
+        from spgemm_tpu_torch.ops import plancache, warmstore  # noqa: PLC0415
+
+        # a mate reaped while queued was already finished by the watchdog
+        jobs = [head] + [m for m in mates if m.state == "queued"]
+        batched = len(jobs) > 1
+        for m in jobs[1:]:
+            m.slice, m.device = sl.name, sl.device
+        if batched:
+            with self._lock:
+                sl.jobs_total += len(jobs) - 1  # the head was counted at pickup
+            ENGINE.incr("serve_batches")
+            ENGINE.incr("serve_batched_jobs", len(jobs))
+            for j in jobs:
+                j.batch_id = head.id
+        for job in jobs:
             job.start()
-            # a hang here is where a dead card hangs a job: after pickup
-            failpoints.check("serve.executor")
-            scope = ENGINE.scope()
-            # set before the job is sl.current's work: the watchdog reads them
-            job.scope, job.scope_degraded = scope, on_oracle
-            job.cache_base = plancache.baseline()
-            sl.current = job
-            try:
-                # the JAX package tags spans with the job and opens its memory
-                # window here (obs_trace, obs_events, obs_profile)
-                ENGINE.record("serve_queue_wait",
-                              max(0.0, (job.started_at or job.submitted_at) - job.submitted_at))
-                with ENGINE.phase("serve_execute"):
-                    self._runner(job, degraded=on_oracle)
-            except JobAbandoned:
-                # the watchdog finished the job; its chain ended at a heartbeat
-                log.info("job %s abandoned mid-chain", job.id)
-            except Exception as e:  # noqa: BLE001 -- a job must not kill the loop
-                log.warning("job %s failed: %r", job.id, e)
-                if job.finish("failed", error={"code": protocol.E_JOB_ERROR,
-                                               "message": repr(e)},
-                              detail=self._job_detail(scope, on_oracle, job),
-                              on_commit=lambda: self._journal_append(
-                                  {"event": "failed", "id": job.id})):
-                    self._observe_terminal(job, "error")
-                # a job error still proves the executor responsive on the card
-                # (only the canary's own end settles it: a retired executor's
-                # late return proves nothing)
-                if not on_oracle and sl.canary_job is job:
-                    self._canary_settle(sl)
-                warmstore.flush()
-            else:
-                if job.finish("done", detail=self._job_detail(scope, on_oracle, job),
-                              on_commit=lambda: self._journal_append(
-                                  {"event": "done", "id": job.id})):
-                    self._observe_terminal(job, "done")
-                if not on_oracle and sl.canary_job is job:
-                    self._canary_settle(sl)
-                warmstore.flush()
-            finally:
-                # an abandoned executor that comes back late closes its own
-                # job's scope, and clears the slot only if it is still its own
+        # a hang here is where a dead card hangs a job: after pickup
+        failpoints.check("serve.executor")
+        scopes = [ENGINE.scope() for _ in jobs]
+        cache_base = plancache.baseline()
+        # set before the head is sl.current's work: the watchdog reads them
+        for job, scope in zip(jobs, scopes):
+            job.scope, job.scope_degraded, job.cache_base = scope, on_oracle, cache_base
+        sl.current = head
+        try:
+            # the JAX package tags spans with the head's job (and the batch
+            # id) and the slice, emits job_start for each member and opens
+            # its memory window here (obs_trace, obs_events, obs_profile)
+            for job, scope in zip(jobs, scopes):
+                scope.record("serve_queue_wait",
+                             max(0.0, (job.started_at or job.submitted_at) - job.submitted_at))
+            with ENGINE.phase("serve_execute"):
+                if batched:
+                    self._batch_runner(jobs, degraded=False)
+                else:
+                    self._runner(head, degraded=on_oracle)
+        except JobAbandoned:
+            # the watchdog finished the head; its chain ended at a heartbeat
+            log.info("job %s abandoned mid-chain (%d in its pickup)", head.id, len(jobs))
+            for job, scope in zip(jobs[1:], scopes[1:]):
+                self._finish(job, scope, on_oracle, "failed", {
+                    "code": protocol.E_JOB_ERROR,
+                    "message": f"co-batched with job {head.id}, which was reaped "
+                               "mid-chain; resubmit"})
+            if batched:
+                warmstore.flush()  # terminal events: persist what the batch warmed
+        except Exception as e:  # noqa: BLE001 -- a job must not kill the loop
+            log.warning("job %s failed (%d in its pickup): %r", head.id, len(jobs), e)
+            for job, scope in zip(jobs, scopes):
+                self._finish(job, scope, on_oracle, "failed",
+                             {"code": protocol.E_JOB_ERROR, "message": repr(e)})
+            if not on_oracle and sl.canary_job is head:
+                self._canary_settle(sl)
+            warmstore.flush()
+        else:
+            for job, scope in zip(jobs, scopes):
+                self._finish(job, scope, on_oracle, "done")
+            if not on_oracle and sl.canary_job is head:
+                self._canary_settle(sl)
+            warmstore.flush()
+        finally:
+            # an abandoned executor that comes back late closes its own jobs'
+            # scopes, and clears the slot only if it is still its own
+            for scope in scopes:
                 scope.close()
-                if sl.current is job:
-                    sl.current = None
+            if sl.current is head:
+                sl.current = None
+
+    def _finish(self, job: Job, scope, on_oracle: bool, state: str,
+                error: dict | None = None) -> None:
+        """The executor's terminal transition of a job, with its detail and
+        its journal record; bookkeeping only if this transition won."""
+        if job.finish(state, error=error, detail=self._job_detail(scope, on_oracle, job),
+                      on_commit=lambda: self._journal_append({"event": state, "id": job.id})):
+            self._observe_terminal(job, "done" if state == "done" else "error")
+
+    # ----------------------------------------------------------- batching --
+    def _drain_batch_mates(self, sl: _Slice, head: Job) -> list[Job]:
+        """With the window armed (SPGEMM_TPU_SERVE_BATCH_WINDOW_S > 0), up
+        to SPGEMM_TPU_SERVE_BATCH_K - 1 queued jobs of the head's group key,
+        deadline, backend and round_size, through the queue's fair pass.
+        No batch for a head without a group key (first contact), under
+        SPGEMM_TPU_DELTA (retained results would splice across jobs), or
+        with checkpoint_dir or failover (state of the job's own chain).  A
+        window of 0 returns at once: the executor of one job at a time."""
+        window_s = knobs.get("SPGEMM_TPU_SERVE_BATCH_WINDOW_S")
+        if window_s <= 0:
+            return []
+        batch_k = knobs.get("SPGEMM_TPU_SERVE_BATCH_K")
+        if batch_k <= 1 or head.group_key is None or knobs.get("SPGEMM_TPU_DELTA") \
+                or head.options.get("checkpoint_dir") or head.options.get("failover"):
+            return []
+
+        def match(j: Job) -> bool:
+            # under the queue lock: attribute reads only
+            return (j.group_key == head.group_key and j.timeout_s == head.timeout_s
+                    and not j.options.get("checkpoint_dir") and not j.options.get("failover")
+                    and j.options.get("backend") == head.options.get("backend")
+                    and j.options.get("round_size") == head.options.get("round_size"))
+
+        mates = self.queue.drain_batch(batch_k - 1, window_s, match)
+        with self._lock:
+            hist = self._batch_size
+            size = 1 + len(mates)
+            hist["sum"] += size
+            hist["count"] += 1
+            for le in hist["buckets"]:
+                if size <= le:
+                    hist["buckets"][le] += 1
+        return mates
 
     @staticmethod
     def _job_detail(scope, degraded: bool, job: Job | None = None) -> dict:
@@ -942,7 +1136,7 @@ class Daemon:
             self._next_id += 1
         job = Job(job_id, folder, output, options, timeout_s=timeout_s, tenant=tenant,
                   trace_id=trace_ctx)
-        job.placement = placement.route(folder)
+        self._route(job)
         # journaled before it is queued: its terminal record can never come
         # first, so a replay never runs a finished job again
         self._journal_append({"event": "submit", "id": job.id, "folder": folder,
@@ -1082,7 +1276,18 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         prog="spgemm_tpu_torch serve",
         description="spgemmd: the resident chain-serving daemon (one process owns the "
-                    "card; jobs reuse its warm plan cache, delta store and built kernels)")
+                    "card; jobs reuse its warm plan cache, delta store and built kernels)",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="cross-job batching (off by default):\n"
+               "  SPGEMM_TPU_SERVE_BATCH_WINDOW_S=S  > 0 arms it: a picked-up job waits up to S\n"
+               "      seconds for queued jobs of the same chain structure, deadline,\n"
+               "      backend and round_size, and they run as one batch (each round one\n"
+               "      launch for all of them, each job's bytes its solo run's)\n"
+               "  SPGEMM_TPU_SERVE_BATCH_K=K  jobs in a batch at most (default 8)\n"
+               "  SPGEMM_TPU_DELTA=0  also needed: with delta recompute on (the default)\n"
+               "      no batch forms\n"
+               "A folder's first submit runs solo and records its structure; later\n"
+               "submits of the same content may batch.")
     p.add_argument("--socket", default=None, metavar="PATH",
                    help="unix socket path (default: SPGEMM_TPU_SERVE_SOCKET or "
                         "<tmpdir>/spgemmd-<uid>.sock)")

@@ -1,6 +1,5 @@
 """spgemmd job queue: a bounded per-tenant fair queue with admission control
-(the port's copy of the JAX package's `serve/queue.py`, without the batch
-drain).
+(the port's copy of the JAX package's `serve/queue.py`).
 
 A submit that arrives with the queue cap's jobs already queued is answered
 with a structured queue-full error instead of waiting.  Every job carries a
@@ -12,7 +11,9 @@ a tenant's overflow with a structured tenant-cap error.  Per-job deadlines
 are stored at submit so the watchdog can reap.
 
 `next(accept=...)` runs the executor's predicate under the queue lock, so
-the executor that got True is the one that owns the job.
+the executor that got True is the one that owns the job.  `drain_batch`
+pops the batch mates of a job already picked up (cross-job batching) through
+the same round-robin pass, scanning past jobs that do not match.
 
 Imports the standard library and the knob registry only.
 """
@@ -90,6 +91,13 @@ class Job:
         self.slice: str | None = None
         self.device: str | None = None
         self.stolen = False
+        # the batching group key (ops/plancache.chain_structure, set at
+        # admission): jobs that share it walk one plan sequence and may run
+        # as one batch; None (first contact, an unreadable folder) runs solo
+        self.group_key: str | None = None
+        # set by the executor when the job ran in a batch: the batch's id,
+        # the head job's id
+        self.batch_id: str | None = None
         # set by the executor at pickup: the job's PhaseScope (opaque here),
         # whether it runs degraded, and the plan cache's counters then, so
         # a reaped job's status still carries its own phases and counters
@@ -165,6 +173,7 @@ class Job:
                 "heartbeat_at": self.heartbeat_at,
                 "slice": self.slice,
                 "stolen": self.stolen,
+                "batch": self.batch_id,
                 "placement": dict(self.placement) if self.placement else None,
             }
 
@@ -230,25 +239,30 @@ class JobQueue:
             self._avail.notify_all()
             return self._queued
 
-    def _pop_locked(self, accept) -> Job | None:
+    def _pop_locked(self, accept, scan: bool = False) -> Job | None:
         """One round-robin pass (caller holds _lock): serve the first tenant
-        whose head job accept takes, then move the served tenant, and every
-        tenant it skipped, to the back."""
+        with a job accept takes (None takes anything), then move the served
+        tenant, and every tenant it skipped, to the back.  A tenant offers
+        its head job only; with scan (the batch-mate pass) any queued job,
+        and the ones passed over keep their places (a job of another
+        structure at a tenant's head does not block the mates behind it, and
+        stays first for the next solo pop)."""
         order = self._rr
         for idx, tenant in enumerate(order):
             q = self._queues.get(tenant)
             if not q:
                 continue
-            job = q[0]
-            if accept is not None and not accept(job):
-                continue
-            q.popleft()
-            self._queued -= 1
-            if not q:
-                del self._queues[tenant]
-            self._served[tenant] = self._served.get(tenant, 0) + 1
-            self._rr = order[idx + 1:] + order[:idx + 1]
-            return job
+            for pos, job in enumerate(q):
+                if accept is None or accept(job):
+                    del q[pos]
+                    self._queued -= 1
+                    if not q:
+                        del self._queues[tenant]
+                    self._served[tenant] = self._served.get(tenant, 0) + 1
+                    self._rr = order[idx + 1:] + order[:idx + 1]
+                    return job
+                if not scan:
+                    break
         return None
 
     def next(self, timeout: float | None = None, accept=None) -> Job | None:
@@ -261,6 +275,26 @@ class JobQueue:
                 self._avail.wait(timeout)
                 job = self._pop_locked(accept)
             return job
+
+    def drain_batch(self, limit: int, window_s: float, accept) -> list[Job]:
+        """Pop up to `limit` more jobs that accept takes (the executor's
+        mate filter), waiting up to window_s for them to arrive.  The pops
+        go through the round-robin pass, so tenant fairness and the tenant
+        caps decide a batch's members before it forms.  The window bounds
+        waiting only: jobs already queued drain at once."""
+        mates: list[Job] = []
+        deadline = time.time() + window_s
+        with self._avail:
+            while len(mates) < limit:
+                job = self._pop_locked(accept, scan=True)
+                if job is not None:
+                    mates.append(job)
+                    continue
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    break
+                self._avail.wait(remaining)
+        return mates
 
     def release(self, job: Job) -> None:
         """Retire a terminal job from the in-flight accounting.  Idempotent,

@@ -1,5 +1,5 @@
 """End-to-end proof of the port's spgemmd (the port's copy of the JAX
-package's `serve/smoke.py`, without its two-slice and batching legs):
+package's `serve/smoke.py`, without its two-slice leg):
 
     python -m spgemm_tpu_torch.serve.smoke [--device cuda|cpu]
 
@@ -14,7 +14,14 @@ starts `python -m spgemm_tpu_torch.cli serve` on a temporary socket
     shutdown (exit 0, socket removed);
   * a restart on the same socket and warm directory: the edited chain again,
     warm_hits >= 1, no delta full fallback, delta_rows == 0 < total_rows (the
-    rehydrated retained result answers), the oracle's bytes, clean shutdown.
+    rehydrated retained result answers), the oracle's bytes, clean shutdown;
+  * the batching leg: a third daemon on its own socket with
+    SPGEMM_TPU_SERVE_BATCH_WINDOW_S=0.5, SPGEMM_TPU_SERVE_BATCH_K=8 and
+    SPGEMM_TPU_DELTA=0; one warm-up submit (it runs solo and records the
+    chain's structure), then three back-to-back submits: one shared `batch`
+    id, `stats` with serve_batches >= 1, every output the oracle's bytes,
+    and on the card kernel-1 launches in each member's detail; clean
+    shutdown.
 
 Every job must report degraded false and, on the card, the first and the
 edited job kernel-1 launches (`launches_numeric_round`) > 0; the unchanged
@@ -186,14 +193,49 @@ def main(argv: list[str] | None = None) -> int:
         err = _stop(proc, sock, client)
         if err:
             return _fail(proc, err)
+
+        # the batching leg
+        sock_b = os.path.join(tmp, "batch.sock")
+        env_b = {**env, "SPGEMM_TPU_SERVE_BATCH_WINDOW_S": "0.5",
+                 "SPGEMM_TPU_SERVE_BATCH_K": "8", "SPGEMM_TPU_DELTA": "0"}
+        proc, err = _start(sock_b, args.device, env_b)
+        if err:
+            return _fail(proc, err)
+        _, err = _run(client, folder, sock_b, os.path.join(tmp, "matrix.warmup"), want3,
+                      args.device)
+        if err:
+            return _fail(proc, err)
+        outs = [os.path.join(tmp, f"matrix.b{i}") for i in range(3)]
+        ids = [client.submit(folder, sock_b, {"output": o})["id"] for o in outs]
+        bjobs = [client.wait(j, sock_b, timeout=600)["job"] for j in ids]
+        for job, out in zip(bjobs, outs):
+            if job["state"] != "done":
+                return _fail(proc, f"batch job {job['id']} ended {job['state']}: "
+                                   f"{job['error']}")
+            if open(out, "rb").read() != want3:
+                return _fail(proc, f"batch job {job['id']}'s output differs from the "
+                                   "oracle's bytes")
+            if args.device == "cuda" and job["detail"].get("launches_numeric_round", 0) < 1:
+                return _fail(proc, f"batch job {job['id']} saw no kernel-1 launch")
+        batch_ids = {job["batch"] for job in bjobs}
+        if None in batch_ids or len(batch_ids) != 1:
+            return _fail(proc, f"the three submits did not share one batch (ids {batch_ids})")
+        batches = client.stats(sock_b)["serve"]["serve_batches"]
+        if batches < 1:
+            return _fail(proc, f"stats reports serve_batches={batches} (want >= 1)")
+        err = _stop(proc, sock_b, client)
+        if err:
+            return _fail(proc, err)
     finally:
         if proc is not None and proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"serve-smoke: OK on {args.device} (4 jobs equal to the oracle; plan_cache_hits="
+    print(f"serve-smoke: OK on {args.device} (8 jobs equal to the oracle; plan_cache_hits="
           f"{hits}; delta rows {delta_rows}/{total_rows}; restart: warm_hits="
-          f"{det['warm_hits']}, delta rows 0/{det['total_rows']}; two clean shutdowns)")
+          f"{det['warm_hits']}, delta rows 0/{det['total_rows']}; batching leg: 3 jobs in "
+          f"batch {batch_ids.pop()}, serve_batches={batches}, the oracle's bytes; three "
+          "clean shutdowns)")
     return 0
 
 

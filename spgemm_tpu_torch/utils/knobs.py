@@ -152,6 +152,23 @@ _KNOBS = (
          "queued is rejected with a structured queue-full error.  Read by "
          "serve/daemon.py.",
          default="64", minimum=1),
+    Knob("SPGEMM_TPU_SERVE_BATCH_K", "int",
+         "spgemmd cross-job batch width: with the batching window armed "
+         "(SPGEMM_TPU_SERVE_BATCH_WINDOW_S > 0) an executor that picks up a job "
+         "drains up to this many jobs in all that share its recorded chain "
+         "structure, deadline, backend and round_size, and runs them as one batch: "
+         "each multiply planned once and each round one launch over the jobs' "
+         "stacked indices (ops/spgemm.execute_batched), every job's bytes its "
+         "solo run's.  1 = no batching.  Read by serve/daemon.py.",
+         default="8", minimum=1),
+    Knob("SPGEMM_TPU_SERVE_BATCH_WINDOW_S", "float",
+         "spgemmd cross-job batching window, seconds: after picking up a job "
+         "that may batch, the executor waits up to this long for batch mates "
+         "(tenant fairness and the tenant caps decide the members first; jobs "
+         "already queued join at once).  Batching also needs SPGEMM_TPU_DELTA=0, "
+         "since delta's retained results would splice across jobs.  0 = no "
+         "batching, the executor of one job at a time.  Read by serve/daemon.py.",
+         default="0", minimum=0),
     Knob("SPGEMM_TPU_SERVE_JOB_TIMEOUT", "float",
          "spgemmd per-job deadline, seconds: a job running past it is reaped with "
          "a structured job-timeout error, and an executor still stuck on it after "

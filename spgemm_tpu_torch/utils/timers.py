@@ -17,14 +17,12 @@ ENGINE is the process-wide registry of the chain engine's host phases:
 and counters: plan_cache_hits and plan_cache_misses (ops/spgemm.plan),
 ooc_rounds and ooc_upload_bytes (spgemm_outofcore), and the launches of
 each CUDA kernel (launches_<kernel>, bumped by its wrapper where it
-launches).  The CLI resets it before a run and reports it with `-v`; the
-daemon (serve/daemon.py) reads each job's share through a PhaseScope.
-
-The launch counters duplicate each wrapper's module count (`launches`),
-deliberately: both are bumped on the same line after a launch.  The
-module count is what chip_smoke.py and the kernel tests zero and read
-(process-wide, set by assignment); the ENGINE one is attributable per
-job.  A new kernel wrapper bumps both.
+launches and nowhere else: the only launch count there is).  The CLI
+resets it before a run and reports it with `-v`; the daemon
+(serve/daemon.py) reads each job's share through a PhaseScope, and a
+launch that serves several jobs at once (a cross-job batch) counts once
+here and once in each of their scopes; chip_smoke.py zeroes the launch
+counters (zero("launches_")) before a main path and reads them after.
 
 maybe_profile wraps a region in torch.profiler for the CLI's --profile."""
 
@@ -85,6 +83,13 @@ class PhaseTimers:
             self.counters[name] = self.counters.get(name, 0) + n
             for sink in self._sinks.get(threading.get_ident(), ()):
                 sink.counters[name] = sink.counters.get(name, 0) + n
+
+    def zero(self, prefix: str) -> None:
+        """Drop the counters whose names start with prefix (they read 0);
+        open scopes keep what they hold."""
+        with self._lock:
+            for name in [n for n in self.counters if n.startswith(prefix)]:
+                del self.counters[name]
 
     def reset(self):
         """Zero every phase and counter; open scopes keep what they hold."""
@@ -159,6 +164,12 @@ class PhaseScope:
     def _add_phase_locked(self, name: str, dt: float) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + dt
         self.counts[name] = self.counts.get(name, 0) + 1
+
+    def record(self, name: str, seconds: float) -> None:
+        """Accumulate a duration measured elsewhere into this scope alone
+        (PhaseTimers.record feeds every scope the calling thread carries)."""
+        with self._lock:
+            self._add_phase_locked(name, seconds)
 
     def close(self) -> None:
         """Detach from every thread; what was collected stays readable.

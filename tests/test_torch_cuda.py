@@ -34,6 +34,7 @@ from spgemm_tpu_torch.ops import delta, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.utils.gen import random_chain, random_values
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 
 @pytest.fixture
@@ -41,6 +42,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+def _launches(kernel: str) -> int:
+    """The kernel's ENGINE launch counter, bumped by its wrapper where it
+    launches and nowhere else."""
+    return ENGINE.counter_snapshot().get(f"launches_{kernel}", 0)
 
 
 @pytest.fixture(autouse=True)
@@ -68,12 +75,12 @@ def _case(rng, k, lead, P, n_tiles, device, dist="adversarial"):
                                       (64, (5,), 4), (32, (4,), 300), (16, (0,), 4)])
 def test_kernel_matches_plain_version(cuda, k, lead, P):
     args = _case(np.random.default_rng(k + P), k, lead, P, 30, cuda)
-    before = cuda_spgemm.launches
+    before = _launches("numeric_round")
     got = cuda_spgemm.numeric_round(*args)
     want = cuda_spgemm.numeric_round_ref(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert cuda_spgemm.launches == before + (1 if np.prod(lead) else 0)
+    assert _launches("numeric_round") == before + (1 if np.prod(lead) else 0)
 
 
 @pytest.mark.cuda
@@ -89,12 +96,12 @@ def test_chain_on_card_matches_cpu(cuda):
                                       (64, (5,), 4), (32, (4,), 300), (16, (0,), 4)])
 def test_no_mod_kernel_matches_plain_version(cuda, k, lead, P):
     args = _case(np.random.default_rng(k + P + 1), k, lead, P, 30, cuda)
-    before = cuda_spgemm.launches_no_mod
+    before = _launches("numeric_round_no_mod")
     got = cuda_spgemm.numeric_round(*args, no_mod=True)
     want = cuda_spgemm.numeric_round_ref(*args, no_mod=True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert cuda_spgemm.launches_no_mod == before + (1 if np.prod(lead) else 0)
+    assert _launches("numeric_round_no_mod") == before + (1 if np.prod(lead) else 0)
 
 
 def _sentinel_case(rng, k, K, P, n_tiles, pattern, device, dist):
@@ -174,12 +181,12 @@ def test_kernel_geometry_at_k32(cuda, no_mod):
     (16, (3,), 0, 5, "small")])
 def test_mxu_kernel_matches_plain_version(cuda, k, lead, P, limbs, dist):
     args = _case(np.random.default_rng(k + P + 2), k, lead, P, 30, cuda, dist)
-    before = cuda_mxu.launches
+    before = _launches("numeric_round_mxu")
     got = cuda_mxu.numeric_round_mxu(*args, a_limbs=limbs, b_limbs=limbs)
     want = mxu_spgemm.numeric_round_mxu_ref(*args, a_limbs=limbs, b_limbs=limbs)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert cuda_mxu.launches == before + (1 if np.prod(lead) else 0)
+    assert _launches("numeric_round_mxu") == before + (1 if np.prod(lead) else 0)
 
 
 @pytest.mark.cuda
@@ -361,12 +368,12 @@ def _bsmm_case(seed, M, nb_in, nbc, rpc, k, dtype, device):
 def test_bsmm_kernels_match_plain_version(cuda, dtype, fuse_gelu, k, M, nb_in, nbc, rpc,
                                           block_m):
     x, rows, tiles = _bsmm_case(k + M, M, nb_in, nbc, rpc, k, dtype, cuda)
-    before = (cuda_bsmm.launches, cuda_bsmm.launches_resident)
+    before = (_launches("bsmm"), _launches("bsmm_resident"))
     got = cuda_bsmm.bsmm(x, rows, tiles, block_m=block_m, fuse_gelu=fuse_gelu)
     got_res = cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=block_m, fuse_gelu=fuse_gelu)
     want = cuda_bsmm.bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu)
     torch.cuda.synchronize()
-    assert (cuda_bsmm.launches, cuda_bsmm.launches_resident) == (before[0] + 1, before[1] + 1)
+    assert (_launches("bsmm"), _launches("bsmm_resident")) == (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype and got.shape == (M, nbc * k)
     rtol, atol = BSMM_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
@@ -397,10 +404,10 @@ def test_ffn_forward_kernels_on_card(cuda, resident):
                                    dtype="float32")
     params = ffn.init_params(cfg, torch.Generator().manual_seed(4), device=cuda)
     x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(5)).to(cuda)
-    before = cuda_bsmm.launches + cuda_bsmm.launches_resident
+    before = _launches("bsmm") + _launches("bsmm_resident")
     got = ffn.BlockSparseFFN(params, cfg, device=cuda, block_m=16, resident=resident)(x)
     torch.cuda.synchronize()
-    assert cuda_bsmm.launches + cuda_bsmm.launches_resident == before + 2
+    assert _launches("bsmm") + _launches("bsmm_resident") == before + 2
     torch.testing.assert_close(got, ffn.ffn_forward(params, x, cfg), rtol=1e-4, atol=1e-4)
 
 
@@ -413,10 +420,10 @@ def test_bsmm_resident_panel_counts(cuda, dtype, k, M):
     the panels are few, uneven chunks of columns at M = 2048 (on 132 SMs),
     the whole sweep a block at M = 8192."""
     x, rows, tiles = _bsmm_case(M + k, M, 4, 6, 3, k, dtype, cuda)
-    before = cuda_bsmm.launches_resident
+    before = _launches("bsmm_resident")
     got = cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=16)
     torch.cuda.synchronize()
-    assert cuda_bsmm.launches_resident == before + 1
+    assert _launches("bsmm_resident") == before + 1
     rtol, atol = BSMM_TOL[dtype]
     torch.testing.assert_close(got.float(), cuda_bsmm.bsmm_ref(x, rows, tiles).float(),
                                rtol=rtol, atol=atol)
@@ -540,12 +547,12 @@ def test_splice_kernel_matches_plain_version(cuda, n, n_sub, k, aligned):
     prev, sub = slab(n), slab(n_sub)
     kept = np.sort(rng.choice(n, n_sub, replace=False)) if n_sub else np.zeros(0, np.int64)
     src = torch.from_numpy(cuda_splice.source_map(kept, np.arange(n_sub), n + 1)).to(cuda)
-    before, kept_prev = cuda_splice.launches, prev.clone()
+    before, kept_prev = _launches("splice"), prev.clone()
     got = cuda_splice.splice(prev, sub, src)
     want = cuda_splice.splice_ref(prev, sub, src)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(prev, kept_prev)
-    assert cuda_splice.launches == before + 1
+    assert _launches("splice") == before + 1
 
 
 @pytest.mark.cuda
@@ -566,10 +573,10 @@ def test_delta_chain_on_card_matches_the_full_chain(cuda, monkeypatch):
     t[mats[3].coords[:, 0] == 30] ^= np.uint64(5)
     edited[3] = BlockSparseMatrix(rows=mats[3].rows, cols=mats[3].cols, k=8,
                                   coords=mats[3].coords, tiles=t)
-    before = cuda_splice.launches
+    before = _launches("splice")
     monkeypatch.setenv("SPGEMM_TPU_DELTA", "1")
     got = [chain_product(ms, device=cuda) for ms in (mats, mats, edited)]
-    assert cuda_splice.launches > before
+    assert _launches("splice") > before
     monkeypatch.setenv("SPGEMM_TPU_DELTA", "0")
     assert got == [chain_product(ms, device=cuda) for ms in (mats, mats, edited)]
 
@@ -605,12 +612,12 @@ def _dense_case(rng, k, n_rows, L, real, layout, device, n_tiles=20):
 def test_dense_kernel_matches_plain_version(cuda, layout, k, n_rows, L, real):
     rng = np.random.default_rng(k * 1000 + n_rows + real)
     a, b, pa, pb, seg = _dense_case(rng, k, n_rows, L, real, layout, cuda)
-    before = cuda_dense.launches
+    before = _launches("dense_fold")
     got = cuda_dense.numeric_round_dense(a, b, pa, pb, seg, n_rows)
     want = cuda_dense.numeric_round_dense_ref(a, b, pa, pb, seg, n_rows)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (n_rows, k, k) and torch.equal(got, want)
-    assert cuda_dense.launches == before + (1 if n_rows else 0)
+    assert _launches("dense_fold") == before + (1 if n_rows else 0)
     if layout == "contiguous":  # the planner's layout, its row offsets given
         row_ptr = torch.searchsorted(seg[:real], torch.arange(n_rows + 1, device=cuda,
                                                               dtype=torch.int32))
@@ -686,9 +693,9 @@ def test_hub_multiply_on_card_is_the_same_on_every_route(cuda, backend, monkeypa
     for route in ("ladder", "dense", "auto"):
         monkeypatch.setenv("SPGEMM_TPU_ACCUM_ROUTE", route)
         plancache.clear()
-        before = cuda_dense.launches
+        before = _launches("dense_fold")
         out[route] = spgemm(a, b, device=cuda, backend=backend)
-        assert (cuda_dense.launches > before) == (route == "dense") or route == "auto"
+        assert (_launches("dense_fold") > before) == (route == "dense") or route == "auto"
     assert out["ladder"] == out["dense"] == out["auto"] == spgemm(a, b, device="cpu")
 
 
@@ -741,3 +748,33 @@ def test_the_daemon_serves_a_chain_on_the_card(cuda, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["exact", "hybrid", "mxu"])
+def test_execute_batched_on_card_equals_solo_executes(cuda, backend, monkeypatch):
+    """Four jobs of one structure, different values: execute_batched on the
+    card gives each job its solo execute's bits and val_bound, with one
+    kernel launch per round (every round's four copies fit one launch)."""
+    from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
+
+    monkeypatch.setenv("SPGEMM_TPU_DELTA", "0")
+    monkeypatch.setenv("SPGEMM_TPU_HYBRID_GATE", "proof")  # no measurement here
+    base = random_chain(2, 12, 8, 0.4, np.random.default_rng(41), "full")
+    pairs = []
+    for j in range(4):
+        rng = np.random.default_rng(50 + j)
+        pairs.append(tuple(DeviceBlockMatrix.from_host(BlockSparseMatrix(
+            rows=m.rows, cols=m.cols, k=m.k, coords=m.coords,
+            tiles=random_values(m.tiles.shape, rng, "small" if backend == "hybrid" else "full")),
+            cuda) for m in base))
+    p = engine.plan(*pairs[0], backend=backend)
+    solo = [engine.execute(p, a, b) for a, b in pairs]
+    kernel = "numeric_round_mxu" if backend == "mxu" else "numeric_round"
+    before = _launches(kernel)
+    got = engine.execute_batched(p, pairs)
+    torch.cuda.synchronize()
+    assert _launches(kernel) - before == len(p.rounds)
+    for g, s in zip(got, solo):
+        assert torch.equal(g.slab, s.slab) and np.array_equal(g.coords, s.coords)
+        assert g.val_bound == s.val_bound

@@ -246,9 +246,10 @@ def test_splice_ref_equals_the_jax_splice(n_keys, n_sub, k):
     got = cuda_splice.splice_ref(prev_t, torch.from_numpy(sub.view(np.int64)), src)
     assert np.array_equal(got.numpy().view(np.uint64), want)
     assert np.array_equal(prev_t.numpy().view(np.uint64), prev)  # prev untouched
-    before = cuda_splice.launches
+    before = ENGINE.counter_snapshot().get("launches_splice", 0)
     assert torch.equal(cuda_splice.splice(prev_t, torch.from_numpy(sub.view(np.int64)), src), got)
-    assert cuda_splice.launches == before  # a CPU tensor takes the plain version
+    # a CPU tensor takes the plain version
+    assert ENGINE.counter_snapshot().get("launches_splice", 0) == before
 
 
 def test_splice_checks_its_operands():

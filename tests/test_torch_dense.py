@@ -189,9 +189,10 @@ def test_plain_fold_matches_jax_dense_impl(k, layout, n_rows, L, real):
     got = cuda_dense.numeric_round_dense_ref(*args)
     assert got.shape == (n_rows, k, k)
     assert np.array_equal(u64.t_to_u64(got), want)
-    launches = cuda_dense.launches
+    launches = ENGINE.counter_snapshot().get("launches_dense_fold", 0)
     assert np.array_equal(u64.t_to_u64(cuda_dense.numeric_round_dense(*args)), want)
-    assert cuda_dense.launches == launches  # CPU tensors: the plain version, no launch
+    # CPU tensors: the plain version, no launch
+    assert ENGINE.counter_snapshot().get("launches_dense_fold", 0) == launches
     if layout == "contiguous":  # the planner's layout with its row offsets
         row_ptr = torch.from_numpy(np.searchsorted(seg[:real], np.arange(n_rows + 1)))
         assert np.array_equal(u64.t_to_u64(cuda_dense.numeric_round_dense_ref(

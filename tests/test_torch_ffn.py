@@ -25,6 +25,7 @@ from spgemm_tpu.models import ffn as jffn
 from spgemm_tpu.ops import pallas_bsmm
 from spgemm_tpu_torch.models import ffn
 from spgemm_tpu_torch.ops import cuda_bsmm
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 # the configs of tests/test_ffn.py: the main one and the ragged-fan-in one
 CFG = dict(d_model=64, d_ff=128, k=8, block_density=0.5, dtype="float32")
@@ -82,9 +83,11 @@ def test_bsmm_ref_matches_pallas_interpret(resident, fuse_gelu, k, M, block_m):
     args = tuple(map(torch.from_numpy, (x, rows, tiles)))
     _close(cuda_bsmm.bsmm_ref(*args, fuse_gelu=fuse_gelu), want, 1e-5)
     wrapper = cuda_bsmm.bsmm_resident if resident else cuda_bsmm.bsmm
-    before = (cuda_bsmm.launches, cuda_bsmm.launches_resident)
+    before = ENGINE.counter_snapshot()
     _close(wrapper(*args, block_m=block_m, fuse_gelu=fuse_gelu), want, 1e-5)
-    assert (cuda_bsmm.launches, cuda_bsmm.launches_resident) == before  # no kernel on the CPU
+    after = ENGINE.counter_snapshot()
+    for name in ("launches_bsmm", "launches_bsmm_resident"):  # no kernel on the CPU
+        assert after.get(name, 0) == before.get(name, 0)
 
 
 @pytest.mark.parametrize("cfg,seed", [(CFG, 5), (RAGGED, 6)], ids=["main", "ragged"])

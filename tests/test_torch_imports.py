@@ -82,3 +82,45 @@ def test_the_package_data_ships_every_port_source():
                for name in os.listdir(os.path.join(port, d))]
     assert sources and all(any(fnmatch.fnmatch(s, pat) for pat in shipped) for s in sources), \
         (sources, shipped)
+
+
+_BATCH_CHILD = """
+import os, sys, tempfile
+import numpy as np
+from spgemm_tpu_torch.ops import plancache
+from spgemm_tpu_torch.ops import spgemm as engine
+from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
+from spgemm_tpu_torch.serve import placement
+from spgemm_tpu_torch.serve.daemon import run_chain_jobs
+from spgemm_tpu_torch.serve.queue import Job
+from spgemm_tpu_torch.utils import io_text
+from spgemm_tpu_torch.utils.gen import random_chain
+
+mats = random_chain(3, 4, 2, 0.5, np.random.default_rng(1), "full")
+dev = [DeviceBlockMatrix.from_host(m, "cpu") for m in mats[:2]]
+p = engine.plan(*dev)
+engine.execute_batched(p, [tuple(dev), tuple(dev)])
+folder = tempfile.mkdtemp()
+io_text.write_chain_dir(folder, mats, 2)
+jobs = []
+for i in range(2):
+    job = Job(f"job-{i}", folder, os.path.join(folder, f"out{i}"), {})
+    job.device = "cpu"
+    job.group_key = "fp"
+    jobs.append(job)
+run_chain_jobs(jobs)
+assert open(jobs[0].output, "rb").read() == open(jobs[1].output, "rb").read()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
+assert not bad, bad
+print("batched")
+"""
+
+
+def test_the_batched_path_imports_neither_jax_nor_spgemm_tpu():
+    """The code cross-job batching runs (execute_batched, run_chain_jobs and
+    what they load lazily) imports no jax and nothing of the JAX package."""
+    env = {**os.environ, "PYTHONPATH": REPO, "SPGEMM_TPU_DELTA": "0"}
+    proc = subprocess.run([sys.executable, "-c", _BATCH_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "batched", proc.stderr

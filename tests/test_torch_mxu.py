@@ -28,6 +28,7 @@ from spgemm_tpu.ops.spgemm import _proof_fanout_cap as jax_proof_fanout_cap
 from spgemm_tpu.utils.gen import ADVERSARIAL_VALUES
 from spgemm_tpu_torch.ops import cuda_mxu, cuda_spgemm, mxu_spgemm, u64
 from spgemm_tpu_torch.ops.spgemm import _proof_fanout_cap
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 MAX = (1 << 64) - 1
 EDGE = np.array([0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
@@ -227,12 +228,17 @@ def test_proof_helpers_match_jax():
 
 def test_wrapper_on_cpu_runs_plain_version_without_launching():
     port, _ = _case(6, 4, (5,), 3, True)
-    before = cuda_mxu.launches, cuda_spgemm.launches_no_mod
+    def launches():
+        counters = ENGINE.counter_snapshot()
+        return (counters.get("launches_numeric_round_mxu", 0),
+                counters.get("launches_numeric_round_no_mod", 0))
+
+    before = launches()
     assert torch.equal(cuda_mxu.numeric_round_mxu(*port, a_limbs=3, b_limbs=3),
                        mxu_spgemm.numeric_round_mxu_ref(*port, a_limbs=3, b_limbs=3))
     assert torch.equal(cuda_spgemm.numeric_round(*port, no_mod=True),
                        cuda_spgemm.numeric_round_ref(*port, no_mod=True))
-    assert (cuda_mxu.launches, cuda_spgemm.launches_no_mod) == before
+    assert launches() == before
 
 
 def test_empty_round():

@@ -17,6 +17,7 @@ from spgemm_tpu.ops.spgemm import numeric_round_impl
 from spgemm_tpu_torch.ops import _build, cuda_spgemm
 from spgemm_tpu_torch.ops import u64
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
+from spgemm_tpu_torch.utils.timers import ENGINE
 
 MAX = (1 << 64) - 1
 EDGE = np.array([0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
@@ -81,10 +82,10 @@ def test_hub_fanout_matches_xla():
 
 def test_wrapper_on_cpu_runs_plain_version_without_launching():
     port, _ = _case(3, 4, (6,), P=3)
-    before = cuda_spgemm.launches
+    before = ENGINE.counter_snapshot().get("launches_numeric_round", 0)
     got = cuda_spgemm.numeric_round(*port)
     assert torch.equal(got, cuda_spgemm.numeric_round_ref(*port))
-    assert cuda_spgemm.launches == before
+    assert ENGINE.counter_snapshot().get("launches_numeric_round", 0) == before
 
 
 def test_empty_round():

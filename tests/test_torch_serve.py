@@ -225,6 +225,8 @@ def test_read_lines_as_the_jax_module():
     ("SPGEMM_TPU_SERVE_JOB_TIMEOUT", ["", "0", "2.5", "-1", "x"]),
     ("SPGEMM_TPU_SERVE_RECOVER_S", ["", "0", "1.5", "-0.5"]),
     ("SPGEMM_TPU_SERVE_WEDGE_GRACE_S", ["", "7.5", "-1"]),
+    ("SPGEMM_TPU_SERVE_BATCH_K", ["", "1", "8", "0", "x"]),
+    ("SPGEMM_TPU_SERVE_BATCH_WINDOW_S", ["", "0", "0.5", "-0.1", "x"]),
     ("SPGEMM_TPU_FAILPOINTS", ["", "plan.build:1:1"]),
 ])
 def test_serve_knobs_parse_like_jax(name, values, monkeypatch):
