@@ -149,7 +149,24 @@ the script exits non-zero without printing a result:
                back to back with a 0.5 s window, K 8 and delta off: one
                shared batch id, serve_batches up by 1, every member's
                phases_s and kernel-1 launches, each output byte-equal to its
-               first contact's;
+               first contact's; and `[obs]` on the same daemons (obs/): after
+               (a) and (b) the `metrics` scrape (every family parses,
+               spgemmd_jobs_terminal_total{outcome="done"} 2, the
+               launches_numeric_round counter grown by the two jobs' kernel-1
+               launches), the `trace` op ((a)'s job id on spans that nest
+               upload and numeric_dispatch under its serve_execute, its plan
+               spans inside it) and the `events` op (job_submit, job_start,
+               job_done for each job), then `cli trace-dump` twice (the
+               daemon's ring, then --merge of it with this process's own
+               dump, filtered by (a)'s trace id); after (e) the events
+               watchdog_reap, watchdog_wedge, daemon_degrade and
+               slice_recovered and the flight dumps in <socket>.flight/ (the
+               reaped job's holds its spans); after (h) the
+               spgemm_serve_batch_size histogram with the batch of 4, and one
+               `metrics` and one `trace` op timed against this process's
+               ring; last the warm Medium chain in this process with
+               SPGEMM_TPU_OBS_TRACE 1 and 0 in turns (on, off, off, on, four
+               times), its spans per chain counted;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -2944,7 +2961,7 @@ def _serve_watchdog(client, sock: str, tmp: str) -> dict:
     if st["slices"][0]["canary"] or st["degraded"] or st["slices"][0]["oracle_jobs"]:
         raise RuntimeError(f"[serve] (e) the canary did not settle, or a job ran on the "
                            f"oracle: {st['slices']}")
-    return {"reaped_s": reaped_s, **seen, "canary_wall_s": wall,
+    return {"job_id": job["id"], "reaped_s": reaped_s, **seen, "canary_wall_s": wall,
             "canary_launches": canary["detail"].get("launches_numeric_round", 0),
             "serve": st["serve"], "probe": st["backend_probe"]}
 
@@ -3106,6 +3123,7 @@ def _serve_batch_daemon(tmp: str, small_mats: list, want: list, smi: str) -> dic
             jobs = [client.wait(i, sock, timeout=300)["job"] for i in ids]
             wall = time.perf_counter() - t0
             after = client.stats(sock)["serve"]
+            obs = _obs_after_h(client, sock, smi)
         finally:
             d.stop()
     for j, job in enumerate(jobs):
@@ -3125,6 +3143,7 @@ def _serve_batch_daemon(tmp: str, small_mats: list, want: list, smi: str) -> dic
                            f"{launches}")
     head = jobs[0]["detail"]["phases_s"]
     mate_waits = [job["detail"]["phases_s"].get("serve_queue_wait") for job in jobs[1:]]
+    _obs_report_h(obs, smi)
     for job in first + jobs:
         print(f"[serve] (h) {job['id']} ({'batch ' + job['batch'] if job['batch'] else 'solo'}) "
               f"on {smi}: phases_s {job['detail']['phases_s']}; kernel-1 launches "
@@ -3134,7 +3153,7 @@ def _serve_batch_daemon(tmp: str, small_mats: list, want: list, smi: str) -> dic
             "phases_s": [job["detail"]["phases_s"] for job in jobs],
             "first_phases_s": [job["detail"]["phases_s"] for job in first],
             "head_execute_s": head.get("serve_execute"), "mate_queue_wait_s": mate_waits,
-            "serve_batches": after["serve_batches"] - before["serve_batches"]}
+            "serve_batches": after["serve_batches"] - before["serve_batches"], "obs": obs}
 
 
 def _serve_batch_legs(medium, tmp: str, smi: str) -> dict:
@@ -3178,6 +3197,211 @@ def _serve_batch_legs(medium, tmp: str, smi: str) -> dict:
     return out
 
 
+OBS_PAIRS = 4  # [obs]: the warm Medium chain with the recorder on and off, 4 x (on, off, off, on)
+
+
+def _obs_series(text: str) -> dict:
+    """A `metrics` scrape parsed: {series: value}.  Fails unless every
+    sample line is `series value` with a float value and its family has
+    one HELP and one TYPE line before it."""
+    typed, out = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            parts = line.split(" ", 3)
+            typed.setdefault(parts[2], set()).add(parts[1])
+            continue
+        series, value = line.rsplit(" ", 1)
+        name = series.split("{", 1)[0]
+        family = name if name in typed else re.sub(r"_(bucket|sum|count)$", "", name)
+        if typed.get(family) != {"HELP", "TYPE"}:
+            raise RuntimeError(f"[obs] the scrape's line {line!r} has no HELP and TYPE")
+        out[series] = float(value)
+    return out
+
+
+def _obs_spans_under(spans: list, execute: dict) -> set:
+    """The names of the spans whose parent chain reaches `execute`."""
+    by_id = {e["args"]["span_id"]: e for e in spans}
+    names = set()
+    for e in spans:
+        p = e
+        while p is not None and p is not execute:
+            p = by_id.get(p["args"].get("parent"))
+        if p is execute and e is not execute:
+            names.add(e["name"])
+    return names
+
+
+def _obs_after_ab(client, sock: str, jobs: dict, base: dict, tmp: str, smi: str) -> dict:
+    """[obs] after (a) and (b), on the first daemon: the scrape, (a)'s spans,
+    both jobs' events, and `cli trace-dump` merging this process's dump
+    with the daemon's on (a)'s trace id."""
+    t0 = time.perf_counter()
+    series = _obs_series(client.metrics(sock))
+    launches = sum(jobs[leg]["detail"].get("launches_numeric_round", 0) for leg in ("a", "b"))
+    key = 'spgemm_engine_events_total{event="launches_numeric_round"}'
+    grown = series.get(key, 0) - base.get(key, 0)
+    done = series.get('spgemmd_jobs_terminal_total{outcome="done"}')
+    if done != 2 or grown != launches or (DEVICE == "cuda" and launches < 2):
+        raise RuntimeError(f"[obs] after (a), (b): done {done}, kernel-1 launches counter grown "
+                           f"by {grown} against the jobs' {launches}")
+    a = jobs["a"]
+    spans = [e for e in client.trace(sock) if e["ph"] == "X"]
+    mine = [e for e in spans if e["args"].get("job_id") == a["id"]]
+    execs = [e for e in mine if e["name"] == "serve_execute"]
+    if len(execs) != 1 or any(e["args"].get("trace_id") != a["trace"] for e in mine):
+        raise RuntimeError(f"[obs] (a)'s spans: {len(execs)} serve_execute, trace ids "
+                           f"{sorted({str(e['args'].get('trace_id')) for e in mine})}")
+    ex = execs[0]
+    nested = _obs_spans_under(mine, ex)
+    plans = [e for e in mine if e["name"] == "plan"]
+    inside = all(ex["ts"] <= e["ts"] and e["ts"] + e["dur"] <= ex["ts"] + ex["dur"] + 1.0
+                 for e in plans)
+    if not {"upload", "numeric_dispatch", "plan_wait"} <= nested or not plans or not inside:
+        raise RuntimeError(f"[obs] (a)'s spans under its serve_execute: {sorted(nested)}; "
+                           f"{len(plans)} plan spans, inside it: {inside}")
+    evs = client.events(200, sock)
+    for leg in ("a", "b"):
+        kinds = [e["kind"] for e in evs if e.get("job_id") == jobs[leg]["id"]
+                 and e["kind"].startswith("job_")]
+        if kinds != ["job_submit", "job_start", "job_done"]:
+            raise RuntimeError(f"[obs] ({leg})'s lifecycle events: {kinds}")
+    dumps = os.path.join(tmp, "obs_dumps")
+    from spgemm_tpu_torch.obs import trace as obs_trace  # noqa: PLC0415
+
+    obs_trace.dump_json(os.path.join(dumps, "client.trace.json"), process_name="chip_smoke")
+    t1 = time.perf_counter()
+    cli = [sys.executable, "-m", "spgemm_tpu_torch.cli", "trace-dump", "--socket", sock]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    for extra in (["-o", os.path.join(dumps, "daemon.trace.json")],
+                  ["--merge", dumps, "--trace", a["trace"], "-o",
+                   os.path.join(tmp, "merged.json")]):
+        r = subprocess.run(cli + extra, env=env, cwd=REPO, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"[obs] cli trace-dump {extra[0]} exited {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+    dump_s = time.perf_counter() - t1
+    merged = json.load(open(os.path.join(tmp, "merged.json")))
+    xs = [e for e in merged if e["ph"] == "X"]
+    names = {e["name"] for e in xs}
+    if {e["args"].get("trace_id") for e in xs} != {a["trace"]} \
+            or not {"client_submit", "serve_execute", "numeric_dispatch"} <= names \
+            or len({e["pid"] for e in xs}) != 2:
+        raise RuntimeError(f"[obs] the merged trace of (a): {sorted(names)} on "
+                           f"{len({e['pid'] for e in xs})} process tracks")
+    out = {"done": done, "launches_grown": grown, "jobs_launches": launches,
+           "a_spans": len(mine), "a_nested": sorted(nested), "a_plan_spans": len(plans),
+           "merged_events": len(merged), "merged_spans": len(xs), "trace_dump_s": dump_s,
+           "families": len({k.split("{")[0] for k in series}),
+           "leg_s": time.perf_counter() - t0}
+    print(f"[obs] after (a), (b) on {smi}: the scrape parses ({out['families']} series names), "
+          f"jobs done {done}, launches_numeric_round grew by {grown} = the jobs' {launches}; "
+          f"(a) {a['id']} tags {len(mine)} spans, {sorted(nested)} under its serve_execute, "
+          f"{len(plans)} plan spans inside it; job_submit, job_start, job_done for both; cli "
+          f"trace-dump (daemon ring, then --merge with this process's dump on (a)'s trace) "
+          f"{dump_s:.3f} s: {len(xs)} spans on 2 process tracks; leg {out['leg_s']:.3f} s",
+          flush=True)
+    return out
+
+
+def _obs_after_e(client, sock: str, reaped_id: str, smi: str) -> dict:
+    """[obs] after (e), on the second daemon: the watchdog's events and the
+    flight dumps (the reaped job's holds its spans and the reap marker)."""
+    t0 = time.perf_counter()
+    evs = client.events(500, sock)
+    kinds = [e["kind"] for e in evs]
+    want = ("watchdog_reap", "watchdog_wedge", "daemon_degrade", "slice_recovered")
+    reap = [e for e in evs if e["kind"] == "watchdog_reap"]
+    if any(k not in kinds for k in want) or [e.get("job_id") for e in reap] != [reaped_id]:
+        raise RuntimeError(f"[obs] (e)'s events: {kinds}")
+    flight = sock + ".flight"
+    files = sorted(os.listdir(flight))
+    need = {f"{reaped_id}.trace.json", f"{reaped_id}.wedged.trace.json", "degrade.trace.json"}
+    if not need <= set(files):
+        raise RuntimeError(f"[obs] (e)'s flight dumps: {files}")
+    dump = json.load(open(os.path.join(flight, f"{reaped_id}.trace.json")))
+    if not isinstance(dump, list) or not all({"name", "ph", "pid", "tid"} <= set(e)
+                                             for e in dump):
+        raise RuntimeError("[obs] the reaped job's flight dump is not trace-event JSON")
+    job_spans = {e["name"] for e in dump if (e.get("args") or {}).get("job_id") == reaped_id}
+    if "serve_execute" in job_spans or not {"serve_load", "serve_reap"} <= job_spans:
+        raise RuntimeError(f"[obs] the reaped job's flight dump: its spans {sorted(job_spans)}")
+    out = {"kinds": kinds, "flight": files, "reaped_spans": sorted(job_spans),
+           "dump_events": len(dump), "leg_s": time.perf_counter() - t0}
+    print(f"[obs] after (e) on {smi}: events {', '.join(want)} present; flight dumps {files}; "
+          f"{reaped_id}'s ({len(dump)} trace events) holds its spans {sorted(job_spans)}; leg "
+          f"{out['leg_s']:.3f} s", flush=True)
+    return out
+
+
+def _obs_after_h(client, sock: str, smi: str) -> dict:
+    """[obs] after (h), on the daemon in this process: the batch-size
+    histogram holds the batch of 4, and one `metrics` and one `trace` op
+    timed against this process's ring."""
+    from spgemm_tpu_torch.obs import trace as obs_trace  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    text = client.metrics(sock)
+    metrics_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    evs = client.trace(sock)
+    trace_s = time.perf_counter() - t1
+    ring = obs_trace.RECORDER.stats()
+    series = _obs_series(text)
+    hist = {k: v for k, v in series.items() if k.startswith("spgemm_serve_batch_size")}
+    if hist.get("spgemm_serve_batch_size_count") != 1 \
+            or hist.get("spgemm_serve_batch_size_sum") != SERVE_BATCH_FOLDERS \
+            or hist.get('spgemm_serve_batch_size_bucket{le="4"}') != 1 \
+            or hist.get('spgemm_serve_batch_size_bucket{le="2"}') != 0:
+        raise RuntimeError(f"[obs] (h)'s batch-size histogram: {hist}")
+    return {"metrics_op_s": metrics_s, "trace_op_s": trace_s, "ring": ring,
+            "trace_events": len(evs), "metrics_bytes": len(text), "batch_size": hist}
+
+
+def _obs_report_h(obs: dict, smi: str) -> None:
+    ring = obs["ring"]
+    print(f"[obs] after (h) on {smi}: spgemm_serve_batch_size {obs['batch_size']}; against a "
+          f"ring of {ring['spans']} spans (capacity {ring['capacity']}, {ring['dropped']} "
+          f"evicted so far): one metrics op {obs['metrics_op_s'] * 1e3:.3f} ms "
+          f"({obs['metrics_bytes']} bytes), one trace op {obs['trace_op_s'] * 1e3:.3f} ms "
+          f"({obs['trace_events']} trace events)", flush=True)
+
+
+def _obs_overhead(medium, smi: str) -> dict:
+    """The warm Medium chain in this process (delta off, plans warm), walls
+    closed by torch.cuda.synchronize(), with SPGEMM_TPU_OBS_TRACE 1 and 0
+    in turns (on, off, off, on) OBS_PAIRS times; the spans one chain emits
+    (a chain of more than the ring's capacity would drop its own oldest)."""
+    from spgemm_tpu_torch.obs import trace as obs_trace  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    _timed_chain(medium.dev_mats, medium.res)  # plans warm
+    walls = {"1": [], "0": []}
+    spans = []
+    for _ in range(OBS_PAIRS):
+        for on in ("1", "0", "0", "1"):
+            before = obs_trace.RECORDER.stats()
+            walls[on].append(_timed_chain(medium.dev_mats, medium.res,
+                                          SPGEMM_TPU_OBS_TRACE=on)["wall_s"])
+            after = obs_trace.RECORDER.stats()
+            if on == "1":
+                spans.append(after["emitted"] - before["emitted"])
+            elif after["emitted"] != before["emitted"]:
+                raise RuntimeError("[obs] SPGEMM_TPU_OBS_TRACE=0 emitted spans")
+    med = {on: sorted(w)[len(w) // 2] for on, w in walls.items()}
+    cap = obs_trace.RECORDER.stats()["capacity"]
+    out = {"walls_s": walls, "median_s": med, "spans_per_chain": spans, "ring_capacity": cap,
+           "leg_s": time.perf_counter() - t0}
+    print(f"[obs] recorder on against off, the warm Medium chain on {smi} (in turns on, off, "
+          f"off, on, x{OBS_PAIRS}): on {', '.join(f'{w:.6f}' for w in walls['1'])} s, off "
+          f"{', '.join(f'{w:.6f}' for w in walls['0'])} s; medians on {med['1']:.6f} s, off "
+          f"{med['0']:.6f} s ({(med['1'] / med['0'] - 1) * 100:+.2f}%); spans emitted per chain "
+          f"{sorted(set(spans))} against a ring of {cap} (a chain drops "
+          f"{max(0, max(spans) - cap)} of its own); leg {out['leg_s']:.3f} s", flush=True)
+    return out
+
+
 def phase_serve(medium, cli: dict) -> dict:
     """[serve]: the port's daemon (`python -m spgemm_tpu_torch.cli serve`, on
     the card) driven with its client over text directories of the Medium
@@ -3190,7 +3414,11 @@ def phase_serve(medium, cli: dict) -> dict:
     hits).  Each result is read back and held against the in-memory
     engine's.  Every job of (a)-(d) must run kernel 1 on the card, and no
     degrade but (e)'s may happen.  Each job's own counters come from its
-    PhaseScope in the daemon: zero at pickup, read at its end."""
+    PhaseScope in the daemon: zero at pickup, read at its end.  The [obs]
+    leg reads the same daemons' `metrics`, `trace` and `events` ops and
+    flight dumps (_obs_after_ab, _obs_after_e, _obs_after_h) and, last,
+    times the warm Medium chain with the recorder on and off
+    (_obs_overhead)."""
     from spgemm_tpu_torch.serve import client  # noqa: PLC0415
 
     t0 = time.perf_counter()
@@ -3218,6 +3446,7 @@ def phase_serve(medium, cli: dict) -> dict:
         try:
             res, res_a = os.path.join(tmp, "result"), os.path.join(tmp, "result_a")
             jobs = {}
+            obs_base = _obs_series(client.metrics(sock))
             # (a) is read back against the engine; (b) and (d) must give its bytes
             for leg, folder, want in (("a", medium_dir, want_a), ("b", medium_dir, res_a),
                                       ("c0", distinct_dir, want_c0)):
@@ -3225,6 +3454,8 @@ def phase_serve(medium, cli: dict) -> dict:
                 _serve_check(leg, jobs[leg], res, want, keep=res_a if leg == "a" else None)
                 out[f"flush_{leg}_s"] = _serve_idle(client, sock)
                 out[leg] = _serve_report(leg, jobs[leg], wall, smi)
+                if leg == "b":
+                    out["obs_ab"] = _obs_after_ab(client, sock, jobs, obs_base, tmp, smi)
             a, b = jobs["a"]["detail"], jobs["b"]["detail"]
             if b["plan_cache_misses"] or \
                     b["plan_cache_hits"] != a["plan_cache_hits"] + a["plan_cache_misses"]:
@@ -3258,6 +3489,7 @@ def phase_serve(medium, cli: dict) -> dict:
                                SPGEMM_TPU_SERVE_RECOVER_S=str(SERVE_RECOVER_S))
             proc, out["restart"] = _serve_start(sock, env_e, log_path)
             out["e"] = _serve_watchdog(client, sock, tmp)
+            out["obs_e"] = _obs_after_e(client, sock, out["e"]["job_id"], smi)
             jobs["d"], wall = _serve_job(client, sock, medium_dir, res, timeout_s=0)
             _serve_check("d", jobs["d"], res, res_a)
             out["d"] = _serve_report("d", jobs["d"], wall, smi)
@@ -3270,6 +3502,7 @@ def phase_serve(medium, cli: dict) -> dict:
             t_batch = time.perf_counter()
             out["batch"] = _serve_batch_legs(medium, tmp, smi)
             out["batch_s"] = time.perf_counter() - t_batch
+            out["obs_overhead"] = _obs_overhead(medium, smi)
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -3280,6 +3513,7 @@ def phase_serve(medium, cli: dict) -> dict:
             raise RuntimeError(f"[serve] want one stderr degrade line, (e)'s, and none "
                                f"handing a slice to the oracle, got {stderr_degrade + oracle}")
     e = out["e"]
+    obs_s = out["obs_ab"]["leg_s"] + out["obs_e"]["leg_s"] + out["obs_overhead"]["leg_s"]
     _phase("serve", t0, f"on {smi}: daemon up in {out['start']['start_s']:.3f} s, of which "
            f"its probe and warm-up {out['start']['probe_warm_s']} s (restart "
            f"{out['restart']['start_s']:.3f} s, {out['restart']['probe_warm_s']} s); two text "
@@ -3299,7 +3533,9 @@ def phase_serve(medium, cli: dict) -> dict:
            f"{e['probe']}, reinstated at {e['reinstated_s']:.3f} s, canary "
            f"{e['canary_wall_s']:.6f} s with {e['canary_launches']} kernel 1 launches, oracle "
            f"bytes, no job on the oracle, {e['serve']}; the batching legs (f), (g), (h) "
-           f"{out['batch_s']:.3f} s; the phase beyond writing the directories "
+           f"{out['batch_s']:.3f} s; the [obs] leg {obs_s:.3f} s (after (a), (b) "
+           f"{out['obs_ab']['leg_s']:.3f}, after (e) {out['obs_e']['leg_s']:.3f}, recorder "
+           f"on/off {out['obs_overhead']['leg_s']:.3f}); the phase beyond writing the directories "
            f"{time.perf_counter() - t0 - out['write_dirs_s']:.3f} s")
     return out
 

@@ -48,6 +48,7 @@ import threading
 
 import torch
 
+from spgemm_tpu_torch.obs import events
 from spgemm_tpu_torch.ops import delta, plancache
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix, ensure_device, resolve_device
 from spgemm_tpu_torch.ops.spgemm import KERNELS, Folds, execute_batched, plan, spgemm_device
@@ -73,7 +74,8 @@ class _PlanAheadWorker:
         self._stop = threading.Event()
         self._sem = threading.Semaphore(ahead)
         # taken on the calling thread: the worker's plan phases and plan-cache
-        # counters belong to the calling thread's open scopes (a daemon job's)
+        # counters belong to the calling thread's open scopes (a daemon job's),
+        # and its plan spans carry that thread's job and trace tags
         self._attr = ENGINE.attribution()
         self._thread = threading.Thread(target=self._work, args=(list(pairs), planner),
                                         name="chain-planner", daemon=True)
@@ -286,6 +288,7 @@ def chain_product(matrices: list, *, device="cuda", keep_device: bool = False,
                   f"CUDA probe: {probe}; restarting the pass on the host "
                   f"{'field-mode oracle' if multiply is field_oracle_multiply else 'oracle'}",
                   file=sys.stderr, flush=True)
+            events.emit("chain_failover", error=repr(e), pass_idx=pass_idx, probe=probe)
             # a copy: the retry sets consumed entries of its list to None
             arr = list(arr_host)
             continue

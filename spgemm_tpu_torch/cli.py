@@ -58,15 +58,21 @@ process reads back.  The directory is --dir, else SPGEMM_TPU_WARM_DIR.
         [--device cuda|cpu] [--slices SPEC] [--queue-cap N] [--no-journal] [-v]
     python -m spgemm_tpu_torch.cli submit <folder> [--wait] [--backend ...]
     python -m spgemm_tpu_torch.cli status [job_id] [--wait | --shutdown]
+    python -m spgemm_tpu_torch.cli metrics
+    python -m spgemm_tpu_torch.cli events [--tail N] [--follow]
+    python -m spgemm_tpu_torch.cli trace-dump [--merge DIR] [--trace ID] [-o FILE]
 
 run spgemmd, the resident daemon that owns the card and keeps the engine
 warm across jobs (serve/daemon.py; delta recompute stays on there), and
 talk to it (serve/client.py).  Without --device cpu, serve needs a card.
 SPGEMM_TPU_SERVE_BATCH_WINDOW_S > 0 with SPGEMM_TPU_DELTA=0 arms cross-job
 batching: up to SPGEMM_TPU_SERVE_BATCH_K queued jobs of one chain structure
-run as one batch (`serve --help` says more).
-A directory named warm, serve, submit or status that holds a `size` file
-is still a chain folder.
+run as one batch (`serve --help` says more).  `metrics` scrapes the
+daemon's Prometheus text, `events` prints its event log (--follow tails
+<socket>.events.jsonl), `trace-dump` writes its span flight recorder as
+trace_event JSON or merges a directory of dumps (obs/).
+A directory named like a subcommand that holds a `size` file is still a
+chain folder.
 """
 
 from __future__ import annotations
@@ -78,18 +84,16 @@ import os
 import sys
 import time
 
-from spgemm_tpu_torch.chain import chain_product
-from spgemm_tpu_torch.ops import warmstore
-from spgemm_tpu_torch.ops.device import resolve_device
-from spgemm_tpu_torch.ops.spgemm import BACKENDS, spgemm, spgemm_outofcore
-from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned
-from spgemm_tpu_torch.utils import backend_probe, io_text, knobs
-from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
-from spgemm_tpu_torch.utils.semantics import chain_oracle
-from spgemm_tpu_torch.utils.timers import ENGINE, PhaseTimers, maybe_profile
+from spgemm_tpu_torch.utils import knobs
+
+# The engine (torch, numpy, the kernels) is imported by the functions that
+# run a chain, so the client subcommands (submit, status, metrics, events,
+# trace-dump) start without it: a scrape is not a cold torch import.
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from spgemm_tpu_torch.ops.spgemm import BACKENDS  # noqa: PLC0415
+
     p = argparse.ArgumentParser(
         prog="spgemm_tpu_torch",
         description="Block-sparse uint64 matrix chain product on an NVIDIA "
@@ -138,6 +142,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _chain(args, matrices: list, k: int, device):
     """The chain product as the flags ask for it."""
+    from spgemm_tpu_torch.chain import chain_product  # noqa: PLC0415
+    from spgemm_tpu_torch.ops.spgemm import spgemm, spgemm_outofcore  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned  # noqa: PLC0415
+    from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix  # noqa: PLC0415
+    from spgemm_tpu_torch.utils.semantics import chain_oracle  # noqa: PLC0415
+
     if args.backend == "oracle":
         blocks = chain_oracle([m.to_dict() for m in matrices], k)
         return BlockSparseMatrix.from_dict(matrices[0].rows, matrices[-1].cols, k, blocks)
@@ -174,6 +184,8 @@ def run_warm(argv: list[str]) -> int:
                    help="warm dir (default: SPGEMM_TPU_WARM_DIR)")
     p.add_argument("--json", action="store_true", dest="as_json")
     args = p.parse_args(argv)
+    from spgemm_tpu_torch.ops import warmstore  # noqa: PLC0415
+
     target = args.dir or knobs.get("SPGEMM_TPU_WARM_DIR")
     if not target:
         print("warm: no directory: pass --dir or set SPGEMM_TPU_WARM_DIR", file=sys.stderr)
@@ -225,7 +237,26 @@ def _status(argv: list[str]) -> int:
     return client.main_status(argv)
 
 
-_SUBCOMMANDS = {"warm": run_warm, "serve": _serve, "submit": _submit, "status": _status}
+def _metrics(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    return client.main_metrics(argv)
+
+
+def _trace_dump(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    return client.main_trace_dump(argv)
+
+
+def _events(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    return client.main_events(argv)
+
+
+_SUBCOMMANDS = {"warm": run_warm, "serve": _serve, "submit": _submit, "status": _status,
+                "metrics": _metrics, "trace-dump": _trace_dump, "events": _events}
 
 
 def run(argv: list[str] | None = None) -> int:
@@ -244,6 +275,10 @@ def run(argv: list[str] | None = None) -> int:
 
 def _run_chain(args) -> int:
     """The chain run of run(), inside its delta pin."""
+    from spgemm_tpu_torch.ops.device import resolve_device  # noqa: PLC0415
+    from spgemm_tpu_torch.utils import backend_probe, io_text  # noqa: PLC0415
+    from spgemm_tpu_torch.utils.timers import ENGINE, PhaseTimers, maybe_profile  # noqa: PLC0415
+
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(name)s %(message)s")
     device = None

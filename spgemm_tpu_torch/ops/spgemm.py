@@ -78,6 +78,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from spgemm_tpu_torch.obs import events
 from spgemm_tpu_torch.ops import crossover, delta, estimate, plancache, u64, warmstore
 from spgemm_tpu_torch.ops.cuda_dense import numeric_round_dense
 from spgemm_tpu_torch.ops.cuda_splice import source_map, splice
@@ -170,8 +171,8 @@ def _build_exact(p: SpgemmPlan, route_pred: str | None = None) -> None:
 
     route_pred: the estimator's predicted accumulator route.  Where the real
     one differs (dense iff some round is dense or carries a twin), ENGINE
-    counts `est_route_mismatch`, where the JAX package emits
-    obs_events.emit("accum_route_mismatch", ...)."""
+    counts `est_route_mismatch` and the event log gets
+    `accum_route_mismatch`."""
     join = symbolic_join(p.a_coords, p.b_coords)
     rounds = plan_rounds(join, a_sentinel=len(p.a_coords), b_sentinel=len(p.b_coords),
                          key_cap=p.key_cap, split_fanout=p.split_fanout, route=p.route)
@@ -181,6 +182,7 @@ def _build_exact(p: SpgemmPlan, route_pred: str | None = None) -> None:
                 else "ladder")
         if real != route_pred:
             ENGINE.incr("est_route_mismatch")
+            events.emit("accum_route_mismatch", predicted=route_pred, real=real)
 
 
 def _deferred_build(p: SpgemmPlan, route_pred: str | None) -> None:
@@ -214,10 +216,12 @@ def _new_plan(a, b, backend: str, route: str, key_cap: int, split: int | None,
         p.plan_route = "estimated"
         p._exact_builder = partial(_deferred_build, route_pred=route_pred)
     elif est is not None:
-        # a sample not to be trusted: the exact join inline (the JAX package
-        # also calls obs_events.emit("est_fallback", ...))
+        # a sample not to be trusted: the exact join inline
         estimate.note_fallback()
         ENGINE.incr("est_fallbacks")
+        events.emit("est_fallback", reason="low_confidence",
+                    confidence=round(est.confidence, 4), sampled_rows=est.sampled_rows,
+                    total_rows=est.total_rows)
         with ENGINE.phase("join_fallback"):
             _build_exact(p, route_pred)
     else:
@@ -400,9 +404,9 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
             folds: Folds = KERNELS) -> DeviceBlockMatrix:
     """Device half: each round's kernel and layout chosen (_route_rounds),
     the chosen layouts' indices and the assembly permutation queued to the
-    card from pinned memory (ENGINE's `upload`), one launch per round (a
-    dense one timed as ENGINE's `dense_fold` and counted as `route_dense`),
-    then the assembly gather.  On the exact backend with no dense twin
+    card from pinned memory (ENGINE's `upload`), one launch per round
+    (ENGINE's `numeric_dispatch`; a dense one also timed as `dense_fold` and
+    counted as `route_dense`), then the assembly gather.  On the exact backend with no dense twin
     nothing here waits for the stream, so the host goes on to the next
     multiply while the card works; under hybrid and mxu an operand's first
     bound() (one reduction) and an `auto` gate's one measurement per shape
@@ -428,16 +432,17 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
                    for name, _, _, lay in routed]
         take = _upload(p.take, dev)
     outs, proven_rounds, used = [], 0, dict.fromkeys(rounds_by_kernel, 0)
-    for (name, fold, proven, lay), idx in zip(routed, indices):
-        if name == "dense":
-            pa, pb, seg, row_ptr = idx
-            with ENGINE.phase("dense_fold"):
-                outs.append(fold(a.slab, b.slab, pa, pb, seg, lay.n_rows, row_ptr))
-            ENGINE.incr("route_dense")
-        else:
-            outs.append(fold(a.slab, b.slab, *idx))
-        proven_rounds += proven
-        used[name] += 1
+    with ENGINE.phase("numeric_dispatch"):
+        for (name, fold, proven, lay), idx in zip(routed, indices):
+            if name == "dense":
+                pa, pb, seg, row_ptr = idx
+                with ENGINE.phase("dense_fold"):
+                    outs.append(fold(a.slab, b.slab, pa, pb, seg, lay.n_rows, row_ptr))
+                ENGINE.incr("route_dense")
+            else:
+                outs.append(fold(a.slab, b.slab, *idx))
+            proven_rounds += proven
+            used[name] += 1
     _count_rounds(p.backend, used, len(p.rounds), p.join.num_keys)
     slab = _assemble(outs, take)
     out_bound = MAX_BOUND
@@ -598,9 +603,10 @@ def _delta_execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
     result; an all-dirty one, the full multiply.  First contact, a lineage
     it cannot prove or an evicted entry is a counted full fallback that
     seeds the entry.  digests: the operands' row digests computed ahead
-    for this multiply (delta.stash_digests), else hashed here.  The JAX
-    package's obs_profile.observe_delta, obs_events.emit("delta_fallback")
-    and _observe_memory calls wait for the port's obs/."""
+    for this multiply (delta.stash_digests), else hashed here.  A full
+    fallback emits `delta_fallback` with its reason.  (The JAX package's
+    obs_profile.observe_delta and _observe_memory calls wait for the port
+    of obs/profile.py.)"""
     p.check_operands(a, b)
     p.ensure_exact()
     join = p.join
@@ -625,6 +631,7 @@ def _delta_execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
         ENGINE.incr("delta_rows_recomputed", total_rows)
         ENGINE.incr("delta_rows_total", total_rows)
         delta.note_fallback_reason(reason)
+        events.emit("delta_fallback", reason=reason, total_rows=total_rows)
         result = execute(p, a, b, folds=folds)
         with ENGINE.phase("delta_diff"):
             delta.store_full(key, a, b, result, total_rows, out_row_ids, digests)

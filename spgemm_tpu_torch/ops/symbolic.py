@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from spgemm_tpu_torch.obs import events
 from spgemm_tpu_torch.utils import failpoints, knobs, native
 
 
@@ -379,15 +380,19 @@ class SpgemmPlan:
         return self; a no-op on a plan built inline.  Under the plan's lock,
         so two threads that force one cached plan build it once, and a
         frozen plan's new arrays are frozen before any other thread sees
-        them."""
+        them.  A build emits `plan_exact_landed` (the thread that paid for
+        it rides along)."""
         with self._lock:
-            if self._exact_builder is not None:
-                failpoints.check("plan.ensure_exact")
-                self._exact_builder(self)
-                self._exact_builder = None
-                if self._frozen:
-                    for x in self._arrays():
-                        x.flags.writeable = False
+            if self._exact_builder is None:
+                return self
+            failpoints.check("plan.ensure_exact")
+            self._exact_builder(self)
+            self._exact_builder = None
+            if self._frozen:
+                for x in self._arrays():
+                    x.flags.writeable = False
+        events.emit("plan_exact_landed", thread=threading.current_thread().name,
+                    fingerprint=(self.fingerprint or "")[:16] or None)
         return self
 
     def check_operands(self, a, b) -> None:

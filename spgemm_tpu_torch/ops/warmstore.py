@@ -32,7 +32,8 @@ waits for the port's tune/.
 Knobs (utils/knobs.py): SPGEMM_TPU_WARM 0|1 (default 1),
 SPGEMM_TPU_WARM_DIR (unset: no persistence), SPGEMM_TPU_WARM_MAX_MB (256).
 ENGINE counters: warm_hits, warm_misses, warm_corrupt; phases warm_load and
-warm_flush.
+warm_flush.  Events: warm_disabled, warm_load (a bound directory's counts),
+warm_corrupt_skipped, warm_flush.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import zipfile
 
 import numpy as np
 
+from spgemm_tpu_torch.obs import events
 from spgemm_tpu_torch.utils import failpoints, knobs
 from spgemm_tpu_torch.utils.timers import ENGINE
 
@@ -117,6 +119,7 @@ def configure(path: str | None = None) -> bool:
         except OSError as e:
             _DISABLED = f"warm dir unusable: {e!r}"
             log.warning("warm store disabled: %s", _DISABLED)
+            events.emit("warm_disabled", dir=directory, reason="unusable_dir", error=repr(e))
             return False
         locked = False
         for attempt in range(6):  # a `warm --stat` probe holds it for microseconds
@@ -128,12 +131,14 @@ def configure(path: str | None = None) -> bool:
             fh.close()
             _DISABLED = f"warm dir {directory} is locked by another live process; running cold"
             log.warning("warm store disabled: %s", _DISABLED)
+            events.emit("warm_disabled", dir=directory, reason="lock_contention")
             return False
         _DIR, _DISABLED, _LOCK_FILE = directory, None, fh
         plans, deltas, size = _scan_dir(directory)
     _fence_delta_versions(directory)
     log.info("warm store at %s: %d plans, %d delta entries, %d bytes",
              directory, plans, deltas, size)
+    events.emit("warm_load", dir=directory, plans=plans, deltas=deltas, bytes=size)
     return True
 
 
@@ -256,6 +261,7 @@ def _note_corrupt(path: str, reason: str) -> None:
     with _LOCK:
         _STATS["corrupt"] += 1
     ENGINE.incr("warm_corrupt")
+    events.emit("warm_corrupt_skipped", path=os.path.basename(path), reason=reason)
     try:
         os.unlink(path)
     except OSError:
@@ -474,6 +480,8 @@ def flush() -> dict:
                 if not unchanged:
                     counts["deltas"] += save_delta(key, entry)
             counts["pruned"] = _prune_budget()
+        if counts["plans"] or counts["deltas"] or counts["pruned"]:
+            events.emit("warm_flush", **counts)
     except Exception as e:  # noqa: BLE001 -- persistence never takes the engine down
         log.warning("warm flush failed midway (%r); every entry validates itself", e)
     return counts

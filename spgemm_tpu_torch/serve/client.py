@@ -1,10 +1,14 @@
-"""spgemmd client: library calls and the CLI's `submit` and `status` (the
-port's copy of the JAX package's `serve/client.py`, without the obs ops).
+"""spgemmd client: library calls and the CLI's `submit`, `status`,
+`metrics`, `events` and `trace-dump` (the port's copy of the JAX package's
+`serve/client.py`, without the `profile` and `slo` ops).
 
 Imports neither torch nor numpy: a submitting process must not pay the cold
 torch import the daemon exists to amortize, and never touches the card (the
 daemon owns it; a client owns only the socket).  Relative paths are made
 absolute here, since the daemon's working directory is not the caller's.
+A submit records a `client_submit` span in this process's flight recorder
+under the job's trace id, so `trace-dump --merge` can stitch the client's
+dump with the daemon's.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import socket
 import sys
 import time
 
+from spgemm_tpu_torch.obs import events as obs_events
+from spgemm_tpu_torch.obs import trace as obs_trace
 from spgemm_tpu_torch.serve import protocol
 
 # one server-side wait is bounded (Daemon.MAX_WAIT_SLICE_S), so wait() polls
@@ -115,16 +121,24 @@ def submit(folder: str, socket_path: str | None = None, options: dict | None = N
            timeout: float | None = None, tenant: str | None = None,
            trace: str | None = None) -> dict:
     """Enqueue a chain job.  folder, output and checkpoint_dir are made
-    absolute here; the trace context is the caller's or a fresh one."""
+    absolute here; the trace context is the caller's or a fresh one, and
+    the request's round trip is this process's `client_submit` span under
+    it."""
     options = dict(options or {})
     for key in ("output", "checkpoint_dir"):
         if options.get(key):
             options[key] = os.path.abspath(options[key])
+    trace = trace or protocol.mint_trace()
     msg = {"op": "submit", "folder": os.path.abspath(folder), "options": options,
-           "trace": trace or protocol.mint_trace()}
+           "trace": trace}
     if tenant is not None:
         msg["tenant"] = tenant
-    return request(msg, socket_path, timeout=timeout)
+    t0 = time.perf_counter()
+    with obs_trace.RECORDER.tagged(trace_id=trace):
+        try:
+            return request(msg, socket_path, timeout=timeout)
+        finally:
+            obs_trace.RECORDER.point("client_submit", time.perf_counter() - t0)
 
 
 def status(job_id: str, socket_path: str | None = None) -> dict:
@@ -156,6 +170,27 @@ def wait(job_id: str, socket_path: str | None = None, timeout: float | None = No
 
 def stats(socket_path: str | None = None) -> dict:
     return request({"op": "stats"}, socket_path)
+
+
+def metrics(socket_path: str | None = None) -> str:
+    """The daemon's Prometheus text-format 0.0.4 scrape."""
+    return request({"op": "metrics"}, socket_path)["text"]
+
+
+def trace(socket_path: str | None = None) -> list[dict]:
+    """The daemon's flight recorder as trace_event JSON events."""
+    return request({"op": "trace"}, socket_path)["trace_events"]
+
+
+def events(n: int = 50, socket_path: str | None = None) -> list[dict]:
+    """The newest n records of the daemon's event log."""
+    return request({"op": "events", "n": n}, socket_path)["events"]
+
+
+def events_info(n: int = 50, socket_path: str | None = None) -> dict:
+    """The `events` op's whole answer: {events: [...], log: the log's
+    stats}, whose `path` is the JSONL file --follow tails."""
+    return request({"op": "events", "n": n}, socket_path)
 
 
 def shutdown(socket_path: str | None = None) -> dict:
@@ -240,4 +275,113 @@ def main_status(argv: list[str] | None = None) -> int:
         print(f"status failed: {e}", file=sys.stderr)
         return 1
     print(json.dumps(resp, indent=2))
+    return 0
+
+
+def main_metrics(argv: list[str] | None = None) -> int:
+    """`metrics`: the running daemon's Prometheus scrape on stdout."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch metrics",
+                                description="scrape the running spgemmd's metrics (Prometheus "
+                                            "text-format 0.0.4: engine phases and counters, "
+                                            "kernel launches, plan cache, queue, degrade "
+                                            "state, job outcomes and walls)")
+    _add_addr_args(p)
+    args = p.parse_args(argv)
+    try:
+        sys.stdout.write(metrics(args.addr or args.socket))
+    except (ServeError, OSError) as e:
+        print(f"metrics failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def main_events(argv: list[str] | None = None) -> int:
+    """`events [--tail N] [--follow]`: the daemon's newest event records,
+    one JSON object a line; --follow then streams new records from the
+    rotating <socket>.events.jsonl (a rotation neither drops nor repeats a
+    line; Ctrl-C exits 0)."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch events",
+                                description="print the running spgemmd's newest event-log "
+                                            "records (job lifecycle, watchdog reap, wedge and "
+                                            "degrade, the card probe, fallbacks) as JSONL")
+    _add_addr_args(p)
+    p.add_argument("--tail", type=int, default=50, metavar="N",
+                   help="newest N records (default 50; the daemon's ring holds "
+                        f"{obs_events.EventLog.RING_RETAIN}, <socket>.events.jsonl the "
+                        "longer history)")
+    p.add_argument("--follow", "-f", action="store_true",
+                   help="after the tail, stream records as the daemon appends them")
+    args = p.parse_args(argv)
+    try:
+        resp = events_info(args.tail, args.addr or args.socket)
+    except (ServeError, OSError) as e:
+        print(f"events failed: {e}", file=sys.stderr)
+        return 1
+    last_seq, last_ts = 0, 0.0
+    for rec in resp["events"]:
+        last_seq = max(last_seq, rec.get("seq", 0))
+        last_ts = max(last_ts, rec.get("ts", 0.0))
+        print(json.dumps(rec, separators=(",", ":")))
+    if not args.follow:
+        return 0
+    path = (resp.get("log") or {}).get("path")
+    if not path:
+        print("events --follow: the daemon has no event file to tail "
+              "(SPGEMM_TPU_OBS_EVENTS=0?)", file=sys.stderr)
+        return 1
+    try:
+        for rec in obs_events.follow_file(path, last_seq=last_seq, last_ts=last_ts):
+            print(json.dumps(rec, separators=(",", ":")), flush=True)
+    except KeyboardInterrupt:
+        return 0
+    return 0
+
+
+def main_trace_dump(argv: list[str] | None = None) -> int:
+    """`trace-dump [--merge DIR] [--trace ID] [-o FILE]`: the daemon's
+    flight recorder as trace_event JSON (ui.perfetto.dev or
+    chrome://tracing open it), or, with --merge, every *.json dump under
+    DIR (a client's own, the daemon's, <socket>.flight/ postmortems, the
+    JAX package's) stitched into one trace with a track per process on a
+    shared wall clock; --trace keeps one trace context's events."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch trace-dump",
+                                description="dump the running spgemmd's flight recorder as "
+                                            "trace_event JSON, or (--merge) stitch dumps of "
+                                            "several processes into one trace")
+    _add_addr_args(p)
+    p.add_argument("--merge", default=None, metavar="DIR",
+                   help="instead of asking a daemon, merge every *.json dump under DIR")
+    p.add_argument("--trace", default=None, metavar="ID",
+                   help="keep only the events of this 128-bit trace context (and the "
+                        "metadata tracks that back them)")
+    p.add_argument("--output", "-o", default=None, metavar="FILE",
+                   help="write the trace_event array here (default: stdout)")
+    args = p.parse_args(argv)
+    if args.merge:
+        import glob  # noqa: PLC0415
+
+        paths = sorted(glob.glob(os.path.join(args.merge, "*.json")))
+        if not paths:
+            print(f"trace-dump --merge: no *.json dumps under {args.merge}", file=sys.stderr)
+            return 1
+        try:
+            events = obs_trace.merge_trace_files(paths, trace_id=args.trace)
+        except (OSError, ValueError) as e:
+            print(f"trace-dump --merge failed: {e}", file=sys.stderr)
+            return 1
+    else:
+        try:
+            events = trace(args.addr or args.socket)
+        except (ServeError, OSError) as e:
+            print(f"trace-dump failed: {e}", file=sys.stderr)
+            return 1
+        if args.trace:
+            events = obs_trace.filter_trace(events, args.trace)
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            json.dump(events, f, separators=(",", ":"))
+        print(f"wrote {len(events)} trace events to {args.output}", file=sys.stderr)
+    else:
+        json.dump(events, sys.stdout, separators=(",", ":"))
+        sys.stdout.write("\n")
     return 0

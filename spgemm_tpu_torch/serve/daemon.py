@@ -56,12 +56,25 @@ fail with a structured error.  A batch whose kernel fails fails its members
 with the error; only a slice the probe found dead serves on the host, and
 such a pickup never batches.
 
+Observability (obs/): every job's execute runs under the flight
+recorder's tags (job id, trace id, slice; a batch adds its batch id and is
+tagged with its head), so its spans, and its planner thread's, carry them.
+The event log writes <socket>.events.jsonl (job_submit, job_start, job_done
+and job_failed, watchdog_reap, watchdog_wedge, daemon_degrade, the probe's
+slice_recover_probe and slice_recovered, the canary's slice_canary and
+slice_canary_passed, journal_torn, daemon_start, daemon_drain_reap).  A
+reap, a wedge and a degrade each dump the recorder to
+<socket>.flight/<name>.trace.json, the newest FLIGHT_RETAIN kept.  The
+`metrics` op renders the Prometheus scrape
+(obs/metrics.py), `trace` the recorder as trace_event JSON, `events` the
+event ring's tail.  Nothing in obs catches a kernel failure or moves a job
+to the host: it catches only its own I/O errors.
+
 Not ported here (each marked where it would go): the tuner (`_maybe_tune`),
-the obs layer (`_flight_dump` and every obs_* call; the `metrics`, `trace`,
-`profile`, `events` and `slo` ops answer bad-request, and the batch-size
-histogram is kept for the `metrics` op), and pools of more than one slice.
-This module imports no torch and no numpy at import time: the engine is
-imported inside the runners, the executor and main().
+obs/profile.py and obs/slo.py (the `profile` and `slo` ops answer
+bad-request), and pools of more than one slice.  This module imports no
+torch and no numpy at import time: the engine is imported inside the
+runners, the executor and main().
 """
 
 from __future__ import annotations
@@ -78,6 +91,9 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
+from spgemm_tpu_torch.obs import events as obs_events
+from spgemm_tpu_torch.obs import metrics as obs_metrics
+from spgemm_tpu_torch.obs import trace as obs_trace
 from spgemm_tpu_torch.parallel import mesh as mesh_mod
 from spgemm_tpu_torch.serve import placement, protocol
 from spgemm_tpu_torch.serve.queue import (TERMINAL, Job, JobAbandoned, JobQueue, QueueFull,
@@ -94,9 +110,9 @@ SUBMIT_OPTIONS = ("backend", "round_size", "checkpoint_dir", "output", "timeout_
 SERVE_COUNTERS = ("serve_reaps", "serve_degrades", "serve_recoveries", "serve_batches",
                   "serve_batched_jobs")
 
-# upper bounds of the batch-size histogram's buckets (jobs per armed pickup;
-# the JAX package's obs/metrics.BATCH_SIZE_BUCKETS)
-BATCH_SIZE_BUCKETS = (1, 2, 4, 8, 16)
+# the scrape's per-tenant series keep this many tenants (newest first) under
+# their own label; the rest add up in one `other` row
+TENANT_RETAIN = 32
 
 
 # -------------------------------------------------------- journal framing --
@@ -332,6 +348,8 @@ class Daemon:
     DRAIN_GRACE_S = 10.0
     # a dead card is probed again no more often than this
     RECOVER_BACKOFF_MAX_S = 900.0
+    # flight dumps kept in <socket>.flight/ (the oldest pruned past it)
+    FLIGHT_RETAIN = 64
 
     def __init__(self, socket_path: str | None = None, *, runner=None, batch_runner=None,
                  probe=None,
@@ -358,6 +376,8 @@ class Daemon:
             self._tcp_bind = (parsed[1], parsed[2])
         self.tcp_port: int | None = None  # the bound port, set in start()
         self.journal_path = self.socket_path + ".journal"
+        self.flight_dir = self.socket_path + ".flight"
+        self.events_path = self.socket_path + ".events.jsonl"
         self.warm_dir = self.socket_path + ".warm"
         self._runner = runner or run_chain_job
         self._batch_runner = batch_runner or run_chain_jobs
@@ -378,11 +398,16 @@ class Daemon:
         self._journal_torn = 0             # guarded by _lock
         self._terminal_totals = {"done": 0, "error": 0, "timeout": 0, "abandoned": 0,
                                  "drained": 0}  # guarded by _lock
+        # each terminal job's wall, pickup (or submit) to its end
+        self._job_wall = {"buckets": dict.fromkeys(obs_metrics.JOB_WALL_BUCKETS, 0),
+                          "sum": 0.0, "count": 0}  # guarded by _lock
         # jobs per armed pickup that may batch (1: no mate came within the
-        # window), sampled only while the window is open; rendered by the
-        # `metrics` op once the obs layer is ported
-        self._batch_size = {"buckets": dict.fromkeys(BATCH_SIZE_BUCKETS, 0), "sum": 0.0,
-                            "count": 0}  # guarded by _lock
+        # window), sampled only while the window is open
+        self._batch_size = {"buckets": dict.fromkeys(obs_metrics.BATCH_SIZE_BUCKETS, 0),
+                            "sum": 0.0, "count": 0}  # guarded by _lock
+        # flight dumps in this daemon's write order (retention prunes the
+        # oldest first even where mtimes tie)
+        self._flight_order: list[str] = []  # guarded by _lock
         self.queue = JobQueue(self._cap, tenant_inflight=tenant_inflight)
         self._slice_spec = slices if slices is not None \
             else knobs.get("SPGEMM_TPU_SERVE_SLICES")
@@ -453,7 +478,7 @@ class Daemon:
         self._journal_compactions += 1
         if torn:
             self._journal_torn += torn
-            # the JAX package also emits obs_events "journal_torn" here
+            obs_events.emit("journal_torn", records=torn, path=self.journal_path)
             log.warning("journal: dropped %d torn record(s) at the tail of %s",
                         torn, self.journal_path)
 
@@ -508,7 +533,9 @@ class Daemon:
             else:
                 peer.close()
                 raise RuntimeError(f"a daemon is already serving on {self.socket_path}")
-        # the JAX package also configures its obs event log here
+        obs_events.LOG.configure(self.events_path)
+        obs_events.emit("daemon_start", socket=self.socket_path,
+                        slices=[s.name for s in self.slices], pid=os.getpid())
         # loading stays lazy: the first fingerprint match reads its entry
         warmstore.configure(self.warm_dir)
         self._journal_replay()
@@ -569,7 +596,10 @@ class Daemon:
         deadline = time.time() + self.DRAIN_GRACE_S
         while time.time() < deadline and self.queue.running():
             time.sleep(0.05)
-        for job in self.queue.running():
+        leftovers = self.queue.running()
+        if leftovers:
+            obs_events.emit("daemon_drain_reap", jobs=[j.id for j in leftovers])
+        for job in leftovers:
             if job.finish("failed", error={
                     "code": protocol.E_SHUTTING_DOWN,
                     "message": f"daemon shut down before the job finished (drained "
@@ -585,6 +615,8 @@ class Daemon:
                 sl.thread.join(timeout=5.0)  # a wedged executor is a daemon thread
         warmstore.flush()
         warmstore.release()
+        # the event log's writer drains, so a clean shutdown leaves the file whole
+        obs_events.LOG.flush(timeout=2.0)
         try:
             os.unlink(self.socket_path)
         except OSError:
@@ -605,6 +637,8 @@ class Daemon:
                     self._spawn_executor(sl)  # already serving: the oracle's turn
             self.degraded = True
             self.degrade_reason = reason
+        obs_events.emit("daemon_degrade", reason=reason, slice=self.slices[0].name,
+                        probe=probe_outcome)
 
     @staticmethod
     def _route(job: Job) -> None:
@@ -672,6 +706,8 @@ class Daemon:
                 tight = job.timeout_s / 2 if job.timeout_s > 0 else self._wedge_grace_s
                 if tight > 0:
                     job.timeout_s = tight
+                obs_events.emit("slice_canary", slice=sl.name, job_id=job.id,
+                                timeout_s=job.timeout_s)
             # a pickup on the card drains its batch mates; pickups of an oracle
             # executor and canaries never batch (an audition risks one job)
             mates = [] if degraded or canary else self._drain_batch_mates(sl, job)
@@ -714,18 +750,26 @@ class Daemon:
         for job, scope in zip(jobs, scopes):
             job.scope, job.scope_degraded, job.cache_base = scope, on_oracle, cache_base
         sl.current = head
+        # every span of the pickup (this thread's and its planner thread's)
+        # carries the head's job id, its end-to-end trace context and the
+        # slice; a batch's also its batch id
+        tags = {"job_id": head.id, "trace_id": head.trace_id, "slice": sl.name,
+                "batch_id": head.id if batched else None}
         try:
-            # the JAX package tags spans with the head's job (and the batch
-            # id) and the slice, emits job_start for each member and opens
-            # its memory window here (obs_trace, obs_events, obs_profile)
-            for job, scope in zip(jobs, scopes):
-                scope.record("serve_queue_wait",
-                             max(0.0, (job.started_at or job.submitted_at) - job.submitted_at))
-            with ENGINE.phase("serve_execute"):
-                if batched:
-                    self._batch_runner(jobs, degraded=False)
-                else:
-                    self._runner(head, degraded=on_oracle)
+            with obs_trace.RECORDER.tagged(**tags):
+                for job, scope in zip(jobs, scopes):
+                    obs_events.emit("job_start", job_id=job.id, trace_id=job.trace_id,
+                                    batch_id=job.batch_id, degraded=on_oracle,
+                                    folder=job.folder, slice=sl.name, tenant=job.tenant)
+                    # into the member's own scope: ENGINE.record would reach
+                    # every scope this thread carries
+                    scope.record("serve_queue_wait",
+                                 max(0.0, (job.started_at or job.submitted_at) - job.submitted_at))
+                with ENGINE.phase("serve_execute"):
+                    if batched:
+                        self._batch_runner(jobs, degraded=False)
+                    else:
+                        self._runner(head, degraded=on_oracle)
         except JobAbandoned:
             # the watchdog finished the head; its chain ended at a heartbeat
             log.info("job %s abandoned mid-chain (%d in its pickup)", head.id, len(jobs))
@@ -760,11 +804,18 @@ class Daemon:
 
     def _finish(self, job: Job, scope, on_oracle: bool, state: str,
                 error: dict | None = None) -> None:
-        """The executor's terminal transition of a job, with its detail and
-        its journal record; bookkeeping only if this transition won."""
+        """The executor's terminal transition of a job, with its detail, its
+        journal record and its event; bookkeeping only if this transition
+        won."""
         if job.finish(state, error=error, detail=self._job_detail(scope, on_oracle, job),
                       on_commit=lambda: self._journal_append({"event": state, "id": job.id})):
             self._observe_terminal(job, "done" if state == "done" else "error")
+            if state == "done":
+                obs_events.emit("job_done", job_id=job.id, trace_id=job.trace_id,
+                                batch_id=job.batch_id)
+            else:
+                obs_events.emit("job_failed", job_id=job.id, trace_id=job.trace_id,
+                                batch_id=job.batch_id, error=(error or {}).get("message"))
 
     # ----------------------------------------------------------- batching --
     def _drain_batch_mates(self, sl: _Slice, head: Job) -> list[Job]:
@@ -792,13 +843,7 @@ class Daemon:
 
         mates = self.queue.drain_batch(batch_k - 1, window_s, match)
         with self._lock:
-            hist = self._batch_size
-            size = 1 + len(mates)
-            hist["sum"] += size
-            hist["count"] += 1
-            for le in hist["buckets"]:
-                if size <= le:
-                    hist["buckets"][le] += 1
+            _observe_locked(self._batch_size, 1 + len(mates))
         return mates
 
     @staticmethod
@@ -826,11 +871,48 @@ class Daemon:
 
     def _observe_terminal(self, job: Job, outcome: str) -> None:
         """Bookkeeping of a terminal transition this daemon committed: the
-        tenant's in-flight slot and the outcome totals.  (The JAX package
-        also feeds its job-wall histogram, SLO engine and tuner here.)"""
+        tenant's in-flight slot, the outcome totals and the job-wall
+        histogram (pickup, or submit for a job never picked up, to the end).
+        (The JAX package also feeds its SLO engine and tuner here.)"""
         self.queue.release(job)
+        snap = job.snapshot()
+        started = snap["started_at"] or snap["submitted_at"]
+        wall = max(0.0, (snap["finished_at"] or time.time()) - started)
         with self._lock:
             self._terminal_totals[outcome] = self._terminal_totals.get(outcome, 0) + 1
+            _observe_locked(self._job_wall, wall)
+
+    def _flight_dump(self, name: str) -> str | None:
+        """Dump the flight recorder to <socket>.flight/<name>.trace.json
+        (trace_event JSON): the evidence of a reap, a wedge or a degrade.
+        Keeps the newest FLIGHT_RETAIN dumps: this daemon's in write order,
+        an earlier daemon's by mtime before them.  Only OSError is caught:
+        a failed dump is a warning, never the watchdog's end."""
+        path = os.path.join(self.flight_dir, f"{name}.trace.json")
+        try:
+            obs_trace.dump_json(path)
+        except OSError as e:
+            log.warning("flight dump %s failed: %r", path, e)
+            return None
+        try:
+            with self._lock:
+                if path in self._flight_order:
+                    self._flight_order.remove(path)  # a re-dump is the newest
+                self._flight_order.append(path)
+                ours = list(self._flight_order)
+            on_disk = {os.path.join(self.flight_dir, f) for f in os.listdir(self.flight_dir)
+                       if f.endswith(".trace.json")}
+            ordered = sorted(on_disk - set(ours), key=os.path.getmtime) \
+                + [q for q in ours if q in on_disk]
+            for stale in ordered[:max(0, len(ordered) - self.FLIGHT_RETAIN)]:
+                os.unlink(stale)
+                with self._lock:
+                    if stale in self._flight_order:
+                        self._flight_order.remove(stale)
+        except OSError as e:
+            log.warning("flight-dump pruning failed (dump %s is on disk): %r", path, e)
+        log.info("flight recorder dumped to %s", path)
+        return path
 
     # ----------------------------------------------------------- watchdog --
     def _watchdog_loop(self) -> None:
@@ -858,6 +940,9 @@ class Daemon:
                                      {"event": "failed", "id": o.id})):
                     reason += f" during job {orphan.id}"
                     self._observe_terminal(orphan, "abandoned")
+                    obs_events.emit("job_failed", job_id=orphan.id, trace_id=orphan.trace_id,
+                                    error="executor thread died mid-job")
+                    self._flight_dump(orphan.id)
             self._degrade_slice(sl, reason)
             return
         if job is not None and sl.reaped is not job and job.overdue():
@@ -869,9 +954,12 @@ class Daemon:
                               {"event": "failed", "id": job.id})):
                 sl.reaped, sl.reaped_at = job, time.time()
                 ENGINE.incr("serve_reaps")
-                # the JAX package also marks the reap in its span trace and
-                # event log and dumps its flight recorder here
+                obs_trace.RECORDER.instant("serve_reap", job_id=job.id, trace_id=job.trace_id,
+                                           slice=sl.name)
+                obs_events.emit("watchdog_reap", job_id=job.id, trace_id=job.trace_id,
+                                timeout_s=job.timeout_s, slice=sl.name)
                 self._observe_terminal(job, "timeout")
+                self._flight_dump(job.id)
         reaped = sl.reaped
         if reaped is not None and sl.current is reaped:
             hb = reaped.heartbeat_at or 0.0
@@ -880,6 +968,9 @@ class Daemon:
                 sl.reaped_at = hb
             elif time.time() - sl.reaped_at > self._wedge_grace_s:
                 sl.reaped = None
+                self._flight_dump(f"{reaped.id}.wedged")
+                obs_events.emit("watchdog_wedge", job_id=reaped.id, trace_id=reaped.trace_id,
+                                grace_s=self._wedge_grace_s, slice=sl.name)
                 self._degrade_slice(sl, f"executor wedged on reaped job {reaped.id}")
         elif reaped is not None and sl.current is not reaped:
             sl.reaped = None  # the executor moved on: slow, not wedged
@@ -913,8 +1004,9 @@ class Daemon:
         print(f"spgemmd: slice {sl.name} ({sl.device}) degraded: {reason}; probing the card "
               "(jobs wait for its outcome)", file=sys.stderr, flush=True)
         ENGINE.incr("serve_degrades")
-        # the JAX package also marks the degrade in its span trace and event
-        # log and dumps its flight recorder here
+        obs_trace.RECORDER.instant("serve_degrade", job_id=None, slice=sl.name)
+        obs_events.emit("daemon_degrade", reason=reason, slice=sl.name)
+        self._flight_dump("degrade")
         threading.Thread(target=self._recover_probe, args=(sl,),
                          name=f"spgemmd-probe-{sl.name}", daemon=True).start()
 
@@ -988,9 +1080,14 @@ class Daemon:
                 self._bump_backoff_locked(sl)
         if live:
             ENGINE.incr("serve_recoveries")
+            obs_trace.RECORDER.instant("serve_recover", job_id=None, slice=sl.name)
+            obs_events.emit("slice_recovered", slice=sl.name, outcome=outcome)
             log.warning("slice %s reinstated after a live probe (%s); its next job is the "
                         "canary", sl.name, outcome)
-        elif to_oracle:
+            return
+        obs_events.emit("slice_recover_probe", slice=sl.name, outcome=outcome, live=False,
+                        to_oracle=to_oracle)
+        if to_oracle:
             print(f"spgemmd: slice {sl.name} ({sl.device}) serves on the host oracle: the "
                   f"card probe found it dead ({outcome})", file=sys.stderr, flush=True)
         else:
@@ -1006,6 +1103,7 @@ class Daemon:
             sl.canary = False
             sl.canary_job = None
             sl.recover_backoff = 0.0
+        obs_events.emit("slice_canary_passed", slice=sl.name)
 
     # ----------------------------------------------------------- protocol --
     def _accept_loop(self, listener: socket.socket) -> None:
@@ -1073,10 +1171,16 @@ class Daemon:
                                     timeout=msg.get("timeout"))
         if op == "stats":
             return self._op_stats()
+        if op == "metrics":
+            return self._op_metrics()
+        if op == "trace":
+            return self._op_trace()
+        if op == "events":
+            return self._op_events(msg)
         if op in protocol.UNSERVED_OPS:
             return protocol.error(protocol.E_BAD_REQUEST,
                                   f"op {op!r} is not served yet by the port's daemon (it "
-                                  "comes with the port of the obs layer)")
+                                  f"comes with the port of obs/{op}.py)")
         self._stop.set()  # shutdown: serve_forever (or the owner's stop()) tears down
         return protocol.ok(stopping=True)
 
@@ -1155,6 +1259,8 @@ class Daemon:
                                   f"tenant {e.tenant!r} already has {e.cap} jobs in flight; "
                                   "wait for one to finish or raise "
                                   "SPGEMM_TPU_SERVE_TENANT_INFLIGHT", id=None)
+        obs_events.emit("job_submit", job_id=job.id, folder=folder, queued=depth, tenant=tenant,
+                        trace_id=job.trace_id, placement=job.placement)
         return protocol.ok(id=job.id, state=job.state, queued=depth, trace=job.trace_id)
 
     def _job_answer(self, job_id, wait: bool = False, timeout=None) -> dict:
@@ -1188,6 +1294,16 @@ class Daemon:
                              "recover_backoff_s": sl.recover_backoff})
         return rows
 
+    def _journal_stats(self) -> dict:
+        try:
+            journal_bytes = os.path.getsize(self.journal_path)
+        except OSError:
+            journal_bytes = 0
+        with self._lock:
+            return {"path": self.journal_path, "enabled": self._journal_enabled,
+                    "bytes": journal_bytes, "compactions": self._journal_compactions,
+                    "torn": self._journal_torn}
+
     def _op_stats(self) -> dict:
         from spgemm_tpu_torch.ops import delta, plancache, warmstore  # noqa: PLC0415
 
@@ -1195,19 +1311,13 @@ class Daemon:
             armed = failpoints.armed()
         except ValueError as e:
             armed = {"error": str(e)}
-        try:
-            journal_bytes = os.path.getsize(self.journal_path)
-        except OSError:
-            journal_bytes = 0
+        journal = self._journal_stats()
         slices = self._slice_rows()
         counters = ENGINE.counter_snapshot()
         with self._lock:
             degraded, degrade_reason = self.degraded, self.degrade_reason
             probe_outcome = self._probe_outcome
             terminal = dict(self._terminal_totals)
-            journal = {"path": self.journal_path, "enabled": self._journal_enabled,
-                       "bytes": journal_bytes, "compactions": self._journal_compactions,
-                       "torn": self._journal_torn}
         return protocol.ok(
             daemon="spgemmd",
             uptime_s=round(time.time() - self._started_at, 3),
@@ -1227,11 +1337,96 @@ class Daemon:
             placement=placement.stats(),
             journal=journal,
             failpoints={"armed": armed, "triggered": failpoints.triggered()},
+            trace=obs_trace.RECORDER.stats(),
+            events=obs_events.LOG.stats(),
+            flight_dir=self.flight_dir,
             plan_cache=plancache.stats(),
             delta=delta.stats(),
             warm=warmstore.stats(),
             socket=self.socket_path,
         )
+
+    def _op_metrics(self) -> dict:
+        """The Prometheus text-format 0.0.4 scrape (obs/metrics.py): the
+        engine's series (collect_engine), then the daemon's -- uptime,
+        degrade, queue, connections, journal, the job-wall histogram, the
+        batch-size histogram once an armed window has sampled, jobs by
+        state and outcome, the slice's series, per-tenant queue depth."""
+        samples = obs_metrics.collect_engine()
+        with self._lock:
+            degraded = self.degraded
+            terminal = dict(self._terminal_totals)
+            conns = self._conn_count
+            wall = _hist_copy(self._job_wall)
+            batch_hist = _hist_copy(self._batch_size)
+        journal = self._journal_stats()
+        counts = self.queue.counts()
+        depth = counts.pop("depth")
+        samples += [
+            ("spgemmd_uptime_seconds", {}, round(time.time() - self._started_at, 3)),
+            ("spgemmd_degraded", {}, int(degraded)),
+            ("spgemmd_queue_depth", {}, depth),
+            ("spgemmd_connections", {}, conns),
+            ("spgemmd_journal_bytes", {}, journal["bytes"]),
+            ("spgemmd_journal_compactions_total", {}, journal["compactions"]),
+            ("spgemmd_journal_torn_total", {}, journal["torn"]),
+            ("spgemmd_job_wall_seconds", {}, wall),
+        ]
+        # rendered only once an armed window sampled: a window-0 daemon's
+        # scrape has no batch-size family at all
+        if batch_hist["count"] > 0:
+            samples.append(("spgemm_serve_batch_size", {}, batch_hist))
+        samples += [("spgemmd_jobs", {"state": state}, n) for state, n in sorted(counts.items())]
+        samples += [("spgemmd_jobs_terminal_total", {"outcome": outcome}, n)
+                    for outcome, n in sorted(terminal.items())]
+        for row in self._slice_rows():
+            labels = {"slice": row["name"]}
+            samples += [
+                ("spgemm_slice_busy", labels, int(row["busy"])),
+                ("spgemm_slice_degraded", labels, int(row["degraded"])),
+                ("spgemm_slice_jobs_total", labels, row["jobs_total"]),
+                ("spgemm_slice_steals_total", labels, 0),  # one slice: nothing to steal
+                ("spgemm_slice_recoveries_total", labels, row["recoveries"]),
+            ]
+        tenant_rows = sorted(self.queue.tenants().items(),
+                             key=lambda kv: kv[1].get("last_seen", 0.0), reverse=True)
+        depths: dict[str, int] = {}
+        for i, (tenant, row) in enumerate(tenant_rows):
+            label = tenant if i < TENANT_RETAIN else "other"
+            depths[label] = depths.get(label, 0) + row["queued"]
+        samples += [("spgemmd_tenant_queue_depth", {"tenant": tenant}, n)
+                    for tenant, n in sorted(depths.items())]
+        return protocol.ok(content_type="text/plain; version=0.0.4; charset=utf-8",
+                           text=obs_metrics.render(samples))
+
+    def _op_trace(self) -> dict:
+        """The flight recorder as trace_event JSON (what a flight dump holds)."""
+        events = obs_trace.to_trace_events()
+        return protocol.ok(spans=len(events), trace_events=events)
+
+    def _op_events(self, msg: dict) -> dict:
+        """The newest n records of the event ring (the JSONL file next to
+        the journal holds the longer history) and the log's stats."""
+        n = msg.get("n", 50)
+        try:
+            n = int(n)
+        except (TypeError, ValueError):
+            return protocol.error(protocol.E_BAD_REQUEST, f"n must be an integer, got {n!r}")
+        return protocol.ok(events=obs_events.LOG.tail(n), log=obs_events.LOG.stats())
+
+
+def _observe_locked(hist: dict, value: float) -> None:
+    """One sample into a {"buckets", "sum", "count"} histogram (cumulative
+    buckets; the caller holds the lock that guards it)."""
+    hist["sum"] += value
+    hist["count"] += 1
+    for le in hist["buckets"]:
+        if value <= le:
+            hist["buckets"][le] += 1
+
+
+def _hist_copy(hist: dict) -> dict:
+    return {"buckets": dict(hist["buckets"]), "sum": hist["sum"], "count": hist["count"]}
 
 
 def _startup_probe() -> str:

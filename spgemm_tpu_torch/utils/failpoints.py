@@ -21,7 +21,8 @@ Kinds, what a trigger does at the site:
 
 No trigger changes a result: a triggered site fails loudly or slowly, never
 wrongly.  The JAX package's `tune.trial` site waits for the port's tuner.
-Imports the standard library and the knob registry only.
+Imports the standard library, the knob registry and the event log only (a
+trigger emits `failpoint_trigger`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import time
 import zlib
 from dataclasses import dataclass
 
+from spgemm_tpu_torch.obs import events
 from spgemm_tpu_torch.utils import knobs
 
 log = logging.getLogger("spgemm_tpu_torch.failpoints")
@@ -186,7 +188,7 @@ def check(name: str) -> bool:
         if arm.remaining is not None:
             arm.remaining -= 1
         _TRIGGERED[name] = _TRIGGERED.get(name, 0) + 1
-    # the JAX package also emits obs_events "failpoint_trigger" here (obs/ is not ported)
+    events.emit("failpoint_trigger", point=name, action=fp.kind)
     log.warning("failpoint %s triggered (%s)", name, fp.kind)
     if fp.kind == "raise":
         raise FailpointTriggered(name)

@@ -188,6 +188,28 @@ _KNOBS = (
          "before it declares the executor wedged and degrades the slice.  Must "
          "exceed the longest single multiply.  Read by serve/daemon.py.",
          default="60", minimum=0),
+    Knob("SPGEMM_TPU_OBS_TRACE", "bool01",
+         "Span flight recorder: 1 = every ENGINE phase enter and exit emits a span "
+         "into the bounded in-process ring, 0 = no spans (the timers still "
+         "accumulate; the whole-engine A/B pair for the recorder's cost).  Read by "
+         "obs/trace.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_OBS_RING_CAP", "int",
+         "Flight-recorder capacity in spans: the ring keeps the newest N and "
+         "evicts (and counts) the oldest.  Read by obs/trace.py.",
+         default="4096", minimum=1),
+    Knob("SPGEMM_TPU_OBS_EVENTS", "bool01",
+         "Structured event log: 1 = engine and daemon events (job lifecycle, "
+         "watchdog reap, wedge and degrade, estimator and delta fallbacks with "
+         "their reasons) go into a bounded in-process ring and, under spgemmd, "
+         "into <socket>.events.jsonl; 0 = no events anywhere.  Read by "
+         "obs/events.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_OBS_EVENTS_MAX_KB", "int",
+         "Event-log rotation threshold in KiB: past it the JSONL file rotates to "
+         "<path>.1 (one generation: at most about twice this on disk).  Read by "
+         "obs/events.py.",
+         default="256", minimum=1),
     Knob("SPGEMM_TPU_FAILPOINTS", "str",
          "Failpoint arming spec (utils/failpoints.py): comma-joined "
          "name[:prob][:count] terms naming registered injection sites; prob "

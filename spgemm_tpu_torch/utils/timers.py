@@ -23,6 +23,12 @@ resets it before a run and reports it with `-v`; the daemon
 launch that serves several jobs at once (a cross-job batch) counts once
 here and once in each of their scopes; chip_smoke.py zeroes the launch
 counters (zero("launches_")) before a main path and reads them after.
+Every name passed to phase/record/incr is declared in obs/metrics.py.
+
+Each phase enter and exit, and each record(), also emits a span into the
+flight recorder (obs/trace.RECORDER; SPGEMM_TPU_OBS_TRACE=0 turns that
+off).  Spans are host time: a phase around an upload or a launch ends when
+the work is queued on the card, and nothing here synchronizes it.
 
 maybe_profile wraps a region in torch.profiler for the CLI's --profile."""
 
@@ -33,6 +39,8 @@ import logging
 import os
 import threading
 import time
+
+from spgemm_tpu_torch.obs import trace
 
 log = logging.getLogger("spgemm_tpu_torch.timers")
 
@@ -46,7 +54,8 @@ class PhaseTimers:
     scope only from a thread that carries it, so two open scopes (a wedged
     executor's job and the next job on its replacement) never count each
     other's work.  A worker thread doing a job's work (chain.py's planner)
-    adopts the job's scopes with attributed(attribution())."""
+    adopts the job's scopes, and the flight recorder's job and trace tags,
+    with attributed(attribution())."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
@@ -64,16 +73,20 @@ class PhaseTimers:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        token = trace.RECORDER.begin(name)
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            trace.RECORDER.end(token)
             with self._lock:
                 self._add_phase_locked(name, dt)
 
     def record(self, name: str, seconds: float):
-        """Accumulate a duration measured elsewhere under a phase name."""
+        """Accumulate a duration measured elsewhere under a phase name (and
+        a span ending now that lasted `seconds`)."""
+        trace.RECORDER.point(name, seconds)
         with self._lock:
             self._add_phase_locked(name, seconds)
 
@@ -103,6 +116,11 @@ class PhaseTimers:
         with self._lock:
             return dict(self.totals)
 
+    def count_snapshot(self) -> dict[str, int]:
+        """Entries per phase (the metrics scrape's spgemm_phase_entries_total)."""
+        with self._lock:
+            return dict(self.counts)
+
     def counter_snapshot(self) -> dict[str, int]:
         """The event counters."""
         with self._lock:
@@ -123,25 +141,30 @@ class PhaseTimers:
         return PhaseScope(self)
 
     def attribution(self) -> tuple:
-        """Opaque token: the calling thread's open scopes, for a worker
-        thread doing this thread's work to adopt with attributed()."""
+        """Opaque token: the calling thread's open scopes and its flight
+        recorder tags (job and trace ids, slice), for a worker thread doing
+        this thread's work to adopt with attributed()."""
         with self._lock:
-            return tuple(self._sinks.get(threading.get_ident(), ()))
+            sinks = tuple(self._sinks.get(threading.get_ident(), ()))
+        return sinks, trace.RECORDER.current_tags()
 
     @contextlib.contextmanager
     def attributed(self, token: tuple):
         """Adopt an attribution() token on the current thread for the
-        block."""
+        block: its scopes see this thread's accumulation and its spans
+        carry the token's tags."""
+        sinks, tags = token
         ident = threading.get_ident()
         with self._lock:
-            self._sinks.setdefault(ident, []).extend(token)
+            self._sinks.setdefault(ident, []).extend(sinks)
         try:
-            yield
+            with trace.RECORDER.tagged(**tags):
+                yield
         finally:
             with self._lock:
                 lst = self._sinks.get(ident)
                 if lst is not None:
-                    for sink in token:
+                    for sink in sinks:
                         if sink in lst:
                             lst.remove(sink)
                     if not lst:

@@ -175,7 +175,8 @@ def test_engine_phases(monkeypatch, capsys):
         assert ENGINE.counts["plan"] == 4  # one plan per multiply
         assert ENGINE.counts["plan_wait"] == 4  # taken from the worker or planned inline
         assert ENGINE.counts["upload"] == 4
-        assert set(ENGINE.snapshot()) == {"plan", "plan_wait", "upload"}
+        assert ENGINE.counts["numeric_dispatch"] == 4  # each multiply's launches
+        assert set(ENGINE.snapshot()) == {"plan", "plan_wait", "upload", "numeric_dispatch"}
     ENGINE.reset()
     assert ENGINE.snapshot() == {}
 

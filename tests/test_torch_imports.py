@@ -1,8 +1,9 @@
 """The PyTorch/CUDA port (spgemm_tpu_torch) and chip_smoke.py import neither
 jax nor anything of the JAX package spgemm_tpu, checked in a fresh
-interpreter that imports every port module; and the daemon's client side
-(serve/client, protocol, queue, placement, and serve/daemon before it runs)
-imports neither torch nor numpy."""
+interpreter that imports every port module; and the CLI module, the
+daemon's client side (serve/client, protocol, queue, placement, and
+serve/daemon before it runs) and the obs layer (obs/trace, events, metrics,
+also in use) import neither torch nor numpy."""
 
 import os
 import subprocess
@@ -26,7 +27,7 @@ for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
              "parallel.chainpart", "ops.delta", "ops.estimate", "ops.warmstore",
              "ops.cuda_splice", "ops.cuda_dense", "utils.failpoints", "parallel.mesh",
              "serve", "serve.protocol", "serve.queue", "serve.placement", "serve.client",
-             "serve.daemon", "serve.smoke"):
+             "serve.daemon", "serve.smoke", "obs", "obs.trace", "obs.events", "obs.metrics"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
@@ -40,7 +41,7 @@ def test_port_imports_neither_jax_nor_spgemm_tpu():
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 27  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 31  # every module was walked
 
 
 _LIGHT_CHILD = """
@@ -53,11 +54,16 @@ print("light")
 """
 
 
-@pytest.mark.parametrize("module", ["spgemm_tpu_torch.serve.client",
+@pytest.mark.parametrize("module", ["spgemm_tpu_torch.cli",
+                                    "spgemm_tpu_torch.serve.client",
                                     "spgemm_tpu_torch.serve.protocol",
                                     "spgemm_tpu_torch.serve.queue",
                                     "spgemm_tpu_torch.serve.placement",
-                                    "spgemm_tpu_torch.serve.daemon"])
+                                    "spgemm_tpu_torch.serve.daemon",
+                                    "spgemm_tpu_torch.obs",
+                                    "spgemm_tpu_torch.obs.trace",
+                                    "spgemm_tpu_torch.obs.events",
+                                    "spgemm_tpu_torch.obs.metrics"])
 def test_the_serve_front_loads_neither_torch_nor_numpy(module):
     """A submitting process must not pay the cold torch import the daemon
     exists to amortize; the daemon module loads the engine lazily."""
@@ -65,6 +71,39 @@ def test_the_serve_front_loads_neither_torch_nor_numpy(module):
     proc = subprocess.run([sys.executable, "-c", _LIGHT_CHILD, module], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.split() == ["light"], proc.stderr
+
+
+_OBS_CHILD = """
+import json, os, sys, tempfile
+from spgemm_tpu_torch.obs import events, metrics, trace
+from spgemm_tpu_torch.utils.timers import ENGINE
+d = tempfile.mkdtemp()
+with trace.RECORDER.tagged(job_id="job-1"):
+    with ENGINE.phase("serve_execute"):
+        ENGINE.incr("launches_numeric_round")
+events.LOG.configure(os.path.join(d, "e.jsonl"))
+events.emit("job_done", job_id="job-1")
+assert events.LOG.flush(10.0)
+text = metrics.render([("spgemm_engine_events_total", {"event": n}, v)
+                       for n, v in ENGINE.counter_snapshot().items()])
+path = trace.dump_json(os.path.join(d, "t.trace.json"))
+merged = trace.merge_trace_files([path])
+rec = next(events.follow_file(os.path.join(d, "e.jsonl"), poll_s=0.01))
+assert rec["kind"] == "job_done" and "launches_numeric_round" in text and merged
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "numpy", "jax", "jaxlib", "spgemm_tpu"))
+assert not bad, bad
+print("obs")
+"""
+
+
+def test_the_obs_layer_in_use_loads_neither_torch_nor_numpy():
+    """Spans, events, a render, a dump, a merge and a follow: what a client
+    process and the daemon's watchdog run."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", _OBS_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "obs", proc.stderr
 
 
 def test_the_package_data_ships_every_port_source():

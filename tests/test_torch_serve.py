@@ -557,7 +557,7 @@ def test_queue_full_is_a_structured_answer(tmp_path, make_daemon):
         release.set()
 
 
-@pytest.mark.parametrize("op", ["metrics", "trace", "profile", "events", "slo"])
+@pytest.mark.parametrize("op", ["profile", "slo"])
 def test_the_unported_ops_answer_bad_request(op, make_daemon):
     d = make_daemon(runner=lambda job, degraded=False: None)
     resp = _raw_roundtrip(d.socket_path, protocol.encode({"v": 4, "op": op}))

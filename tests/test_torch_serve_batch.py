@@ -605,10 +605,11 @@ def test_window_bounds_added_latency(tmp_path, batch_env, make_daemon):
 
 
 def test_per_job_records_stay_individual(tmp_path, batch_env, make_daemon):
-    """Each member keeps its own trace id, journal lifecycle and phases.
-    Left out until the obs layer is ported: the span trace's batch tags
-    and the SLO engine's per-tenant count (tests/test_serve_batch.py:
-    222-240)."""
+    """Each member keeps its own trace id, journal lifecycle, phases and
+    events (job_start and job_done with its own job and trace ids and the
+    batch id), while the batch's spans carry the head's job id and the
+    batch id.  Left out until obs/slo.py is ported: the SLO engine's
+    per-tenant count (tests/test_serve_batch.py:238-240)."""
     folder, _ = _chain_folder(tmp_path)
     _prime(folder)
     d = make_daemon(runner=lambda job, degraded=False: None,
@@ -628,6 +629,21 @@ def test_per_job_records_stay_individual(tmp_path, batch_env, make_daemon):
         by_job.setdefault(rec["id"], set()).add(rec["event"])
     for j in jobs:
         assert by_job[j["id"]] == {"submit", "done"}
+    evs = client.events(200, d.socket_path)
+    for j in jobs:
+        mine = [(e["kind"], e.get("batch_id")) for e in evs
+                if e.get("job_id") == j["id"] and e.get("trace_id") == j["trace"]
+                and e["kind"].startswith("job_")]
+        assert mine == [("job_submit", None), ("job_start", j["batch"]),
+                        ("job_done", j["batch"])]
+    head = min(batched, key=lambda j: int(j["id"].rsplit("-", 1)[1]))
+    spans = [e for e in client.trace(d.socket_path)
+             if e["ph"] == "X" and e["args"].get("trace_id") == head["trace"]
+             and e["name"] != "client_submit"]  # the client's span, in this process
+    assert [e["name"] for e in spans] == ["serve_execute"]
+    assert spans[0]["args"]["batch_id"] == head["batch"]
+    assert spans[0]["args"]["job_id"] == head["id"] == head["batch"]
+    assert spans[0]["args"]["trace_id"] == head["trace"]
 
 
 def test_drr_fairness_decides_membership_before_formation(tmp_path, batch_env, make_daemon):
