@@ -158,15 +158,28 @@ the script exits non-zero without printing a result:
                spans inside it) and the `events` op (job_submit, job_start,
                job_done for each job), then `cli trace-dump` twice (the
                daemon's ring, then --merge of it with this process's own
-               dump, filtered by (a)'s trace id); after (e) the events
+               dump, filtered by (a)'s trace id), `cli profile --json` (a
+               build record for numeric_round and native, with built and a
+               wall), spgemm_phase_seconds_count{phase="plan"} grown by (a)'s
+               and (b)'s plan spans, spgemm_hbm_peak_bytes and (a)'s detail
+               hbm_peak_bytes between the resident Medium inputs (817 MB) and
+               the card's memory, and `cli slo --json` (the tenant's 2 jobs,
+               error ratio 0, p50, p95, p99); after (c) and after (d) the
+               delta accountability (spgemm_delta_dirty_fraction_count grown
+               by the daemon's delta multiplies, 0 mispredictions); after (e),
+               on the second daemon started with SLO objectives, the events
                watchdog_reap, watchdog_wedge, daemon_degrade and
-               slice_recovered and the flight dumps in <socket>.flight/ (the
-               reaped job's holds its spans); after (h) the
-               spgemm_serve_batch_size histogram with the batch of 4, and one
-               `metrics` and one `trace` op timed against this process's
-               ring; last the warm Medium chain in this process with
-               SPGEMM_TPU_OBS_TRACE 1 and 0 in turns (on, off, off, on, four
-               times), its spans per chain counted;
+               slice_recovered, the flight dumps in <socket>.flight/ (the
+               reaped job's holds its spans), spgemm_slo_burn_active{tenant,
+               slice} at 1 and one slo_burn event carrying the trace id the
+               client minted for the reaped job; after (h) the
+               spgemm_serve_batch_size histogram with the batch of 4, the
+               tenant's SLO jobs grown by the 4 members, and one `metrics` and
+               one `trace` op timed against this process's ring; last the
+               warm Medium chain in this process with SPGEMM_TPU_OBS_TRACE 1
+               and 0 in turns (on, off, off, on, four times), its spans per
+               chain counted; `[estimate]` also holds obs/profile's estimator
+               count to the estimated plans that landed;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -233,6 +246,7 @@ import torch
 
 from spgemm_tpu_torch.chain import chain_product, chain_products_batched
 from spgemm_tpu_torch.models import ffn
+from spgemm_tpu_torch.obs import profile as obs_profile
 from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_dense, cuda_mxu, cuda_splice
 from spgemm_tpu_torch.ops import cuda_spgemm
 from spgemm_tpu_torch.ops import delta, estimate, mxu_spgemm, plancache, symbolic, warmstore
@@ -871,14 +885,10 @@ def _ptxas_report() -> dict:
              lambda m: f"mxu {m.group(1)}x{m.group(2)}"),
             ("numeric_round_dense", r"numeric_round_kernelILb0ELb1E", lambda m: "dense")):
         log = _build.build(lib).with_suffix(".log").read_text()
-        for chunk in log.split("Compiling entry function")[1:]:
-            m = re.search(pattern, chunk)
-            regs = re.search(r"Used (\d+) registers", chunk)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
-            if m and regs and spill:
-                out[name(m)] = {"registers": int(regs.group(1)),
-                                "spill_stores": int(spill.group(1)),
-                                "spill_loads": int(spill.group(2))}
+        for entry, stats in obs_profile.parse_ptxas(log).items():
+            m = re.search(pattern, entry)
+            if m:
+                out[name(m)] = {k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
     want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense"}
     if not want <= set(out):
         raise RuntimeError(f"no ptxas report for {sorted(want - set(out))}: {out}")
@@ -2468,6 +2478,7 @@ def phase_estimate(medium) -> dict:
                                                          SPGEMM_TPU_DELTA="0"):
         want = chain_product(dev_mats, device=DEVICE, keep_device=True)
     runs = {"off": [], "on": []}
+    scored0 = obs_profile.est_stats()["count"]
     for _ in range(KERNEL_REPEATS):
         for mode in ("off", "on"):
             plancache.clear()
@@ -2476,6 +2487,14 @@ def phase_estimate(medium) -> dict:
     med = {mode: _median_run(rs) for mode, rs in runs.items()}
     if not med["on"]["est_hits"] or med["off"]["est_hits"] or med["off"]["est_fallbacks"]:
         raise RuntimeError(f"[estimate] estimator counts: {med}")
+    # obs/profile scored each estimated plan once, when its exact join landed
+    est = obs_profile.est_stats()
+    scored = est["count"] - scored0
+    landed = sum(r["est_hits"] for r in runs["on"])
+    if scored != landed:
+        raise RuntimeError(f"[estimate] obs/profile scored {scored} estimates against the "
+                           f"{landed} estimated plans that landed")
+    errs = {q: round(h["sum"] / h["count"], 4) for q, h in est["rel_error"].items() if h["count"]}
     walls = {mode: ", ".join(f"{r['wall_s']:.6f}" for r in rs) for mode, rs in runs.items()}
     plancache.clear()
     _phase("estimate", t0, "Medium chain of distinct structures, empty plan cache, medians of "
@@ -2484,8 +2503,10 @@ def phase_estimate(medium) -> dict:
            f"{walls['off']}); on wall {med['on']['wall_s']:.6f} s (plan {med['on']['plan']:.6f}, "
            f"plan_exact {med['on']['plan_exact']:.6f}, plan_wait {med['on']['plan_wait']:.6f} s; "
            f"est_hits {med['on']['est_hits']}, est_fallbacks {med['on']['est_fallbacks']}; runs "
-           f"{walls['on']}); results equal")
-    return {"off": med["off"], "on": med["on"], "runs": runs}
+           f"{walls['on']}); results equal; obs/profile scored {scored} estimates = the {landed} "
+           f"estimated plans that landed (mean relative errors {errs})")
+    return {"off": med["off"], "on": med["on"], "runs": runs, "scored": scored,
+            "mean_rel_error": errs}
 
 
 # ------------------------------------------------------------------ [dense] --
@@ -2797,6 +2818,8 @@ SERVE_SMALL = {"n": 6, "block_dim": 32, "k": 8, "density": 0.3}  # leg (e)'s cha
 SERVE_TIMEOUT_S = 2.0  # leg (e): the job deadline, the wedge grace and the
 SERVE_GRACE_S = 1.0    # re-probe cadence of a dead card on the second daemon
 SERVE_RECOVER_S = 1.0
+SERVE_SLO_TARGET_S = 60.0  # the second daemon's objectives: a job over 60 s, or failed, is bad,
+SERVE_SLO_ERROR_PCT = 1.0  # and 1% of the window's jobs may be
 
 
 def _serve_env(**extra) -> dict:
@@ -2929,8 +2952,8 @@ def _serve_watchdog(client, sock: str, tmp: str) -> dict:
         [m.to_dict() for m in mats], cfg["k"])).prune_zeros()
     t0 = time.perf_counter()
     out = os.path.join(tmp, "e.out")
-    job = client.wait(client.submit(folder, sock, {"output": out})["id"], sock,
-                      timeout=300)["job"]
+    resp = client.submit(folder, sock, {"output": out})
+    job = client.wait(resp["id"], sock, timeout=300)["job"]
     reaped_s = time.perf_counter() - t0
     if job["state"] != "failed" or job["error"]["code"] != "job-timeout":
         raise RuntimeError(f"[serve] (e) the hung job was not reaped: {job}")
@@ -2961,7 +2984,8 @@ def _serve_watchdog(client, sock: str, tmp: str) -> dict:
     if st["slices"][0]["canary"] or st["degraded"] or st["slices"][0]["oracle_jobs"]:
         raise RuntimeError(f"[serve] (e) the canary did not settle, or a job ran on the "
                            f"oracle: {st['slices']}")
-    return {"job_id": job["id"], "reaped_s": reaped_s, **seen, "canary_wall_s": wall,
+    return {"job_id": job["id"], "trace": resp["trace"], "reaped_s": reaped_s, **seen,
+            "canary_wall_s": wall,
             "canary_launches": canary["detail"].get("launches_numeric_round", 0),
             "serve": st["serve"], "probe": st["backend_probe"]}
 
@@ -3117,13 +3141,14 @@ def _serve_batch_daemon(tmp: str, small_mats: list, want: list, smi: str) -> dic
                                        "in-memory engine's result")
                 first.append(job)
             before = client.stats(sock)["serve"]
+            slo_before = client.slo(sock)["tenants"]["default"]["jobs"]
             t0 = time.perf_counter()
             ids = [client.submit(folder, sock, {"output": os.path.join(tmp, f"again{j}")})["id"]
                    for j, folder in enumerate(folders)]
             jobs = [client.wait(i, sock, timeout=300)["job"] for i in ids]
             wall = time.perf_counter() - t0
             after = client.stats(sock)["serve"]
-            obs = _obs_after_h(client, sock, smi)
+            obs = _obs_after_h(client, sock, smi, slo_before)
         finally:
             d.stop()
     for j, job in enumerate(jobs):
@@ -3198,6 +3223,7 @@ def _serve_batch_legs(medium, tmp: str, smi: str) -> dict:
 
 
 OBS_PAIRS = 4  # [obs]: the warm Medium chain with the recorder on and off, 4 x (on, off, off, on)
+OBS_COST_REPEATS = 2000  # [obs]: calls timed for each host cost of the recorder's knob
 
 
 def _obs_series(text: str) -> dict:
@@ -3232,10 +3258,39 @@ def _obs_spans_under(spans: list, execute: dict) -> set:
     return names
 
 
-def _obs_after_ab(client, sock: str, jobs: dict, base: dict, tmp: str, smi: str) -> dict:
+def _obs_cli_json(sock: str, sub: str) -> tuple[dict, float]:
+    """`python -m spgemm_tpu_torch.cli <sub> --socket sock --json` in its own
+    process: (its answer, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", sub, "--socket", sock,
+                        "--json"], env={**os.environ, "PYTHONPATH": REPO}, cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"[obs] cli {sub} --json exited {r.returncode}: {r.stderr[-2000:]}")
+    return json.loads(r.stdout), time.perf_counter() - t0
+
+
+def _obs_hbm_range(what: str, value, inputs_bytes: int) -> None:
+    """On the card: value lies between the resident Medium inputs and the
+    card's memory; on the CPU it is absent (the device reports nothing)."""
+    if DEVICE == "cpu":
+        if value is not None:
+            raise RuntimeError(f"[obs] {what} on the CPU: {value} (want it omitted)")
+        return
+    total = torch.cuda.get_device_properties(0).total_memory
+    if value is None or not inputs_bytes <= value <= total:
+        raise RuntimeError(f"[obs] {what} {value} is not between the resident inputs' "
+                           f"{inputs_bytes} bytes and the card's {total}")
+
+
+def _obs_after_ab(client, sock: str, jobs: dict, base: dict, tmp: str, smi: str,
+                  inputs_bytes: int) -> dict:
     """[obs] after (a) and (b), on the first daemon: the scrape, (a)'s spans,
-    both jobs' events, and `cli trace-dump` merging this process's dump
-    with the daemon's on (a)'s trace id."""
+    both jobs' events, `cli trace-dump` merging this process's dump with the
+    daemon's on (a)'s trace id; then obs/profile and obs/slo: `cli profile
+    --json`'s build records, the plan phase histogram against the jobs'
+    plan spans, the device memory peak (the gauge and (a)'s detail), `cli
+    slo --json`'s tenant row."""
     t0 = time.perf_counter()
     series = _obs_series(client.metrics(sock))
     launches = sum(jobs[leg]["detail"].get("launches_numeric_round", 0) for leg in ("a", "b"))
@@ -3290,10 +3345,44 @@ def _obs_after_ab(client, sock: str, jobs: dict, base: dict, tmp: str, smi: str)
             or len({e["pid"] for e in xs}) != 2:
         raise RuntimeError(f"[obs] the merged trace of (a): {sorted(names)} on "
                            f"{len({e['pid'] for e in xs})} process tracks")
+    # obs/profile and obs/slo
+    prof, prof_s = _obs_cli_json(sock, "profile")
+    builds = {}
+    for rec in prof["compiles"]:
+        builds.setdefault(rec["site"], rec)
+    sites = ("numeric_round", "native") if DEVICE == "cuda" else ("native",)
+    for site in sites:
+        rec = builds.get(site)
+        if rec is None or not isinstance(rec.get("built"), bool) or not rec["wall_s"] > 0:
+            raise RuntimeError(f"[obs] cli profile --json: no build record for {site} with "
+                               f"built and a wall: {sorted(builds)}")
+    key = 'spgemm_phase_seconds_count{phase="plan"}'
+    plan_grown = series.get(key, 0) - base.get(key, 0)
+    ab_ids = {jobs["a"]["id"], jobs["b"]["id"]}
+    plan_spans = sum(1 for e in spans if e["name"] == "plan" and e["args"].get("job_id") in ab_ids)
+    if plan_grown != plan_spans or plan_spans < len(plans):
+        raise RuntimeError(f"[obs] {key} grew by {plan_grown}, the jobs' plan spans are "
+                           f"{plan_spans}")
+    hbm = series.get("spgemm_hbm_peak_bytes")
+    _obs_hbm_range("spgemm_hbm_peak_bytes", None if hbm is None else int(hbm), inputs_bytes)
+    a_peak = a["detail"].get("hbm_peak_bytes")
+    _obs_hbm_range("(a)'s detail hbm_peak_bytes", a_peak, inputs_bytes)
+    slo_rep, slo_s = _obs_cli_json(sock, "slo")
+    row = slo_rep["tenants"].get("default", {})
+    if row.get("jobs") != 2 or row.get("error_ratio") != 0 \
+            or set(row.get("latency_s", {})) != {"p50", "p95", "p99"}:
+        raise RuntimeError(f"[obs] cli slo --json: the default tenant's row {row}")
+    walls = [round(max(0.0, j["finished_at"] - (j["started_at"] or j["submitted_at"])), 6)
+             for j in (jobs["a"], jobs["b"])]
     out = {"done": done, "launches_grown": grown, "jobs_launches": launches,
            "a_spans": len(mine), "a_nested": sorted(nested), "a_plan_spans": len(plans),
            "merged_events": len(merged), "merged_spans": len(xs), "trace_dump_s": dump_s,
            "families": len({k.split("{")[0] for k in series}),
+           "builds": {site: {k: rec[k] for k in ("built", "wall_s")}
+                      for site, rec in sorted(builds.items())},
+           "profile_cli_s": prof_s, "slo_cli_s": slo_s, "plan_count_grown": plan_grown,
+           "plan_spans_ab": plan_spans, "hbm_peak_bytes": hbm, "a_hbm_peak_bytes": a_peak,
+           "inputs_bytes": inputs_bytes, "slo": row, "daemon_walls_s": walls,
            "leg_s": time.perf_counter() - t0}
     print(f"[obs] after (a), (b) on {smi}: the scrape parses ({out['families']} series names), "
           f"jobs done {done}, launches_numeric_round grew by {grown} = the jobs' {launches}; "
@@ -3302,12 +3391,44 @@ def _obs_after_ab(client, sock: str, jobs: dict, base: dict, tmp: str, smi: str)
           f"trace-dump (daemon ring, then --merge with this process's dump on (a)'s trace) "
           f"{dump_s:.3f} s: {len(xs)} spans on 2 process tracks; leg {out['leg_s']:.3f} s",
           flush=True)
+    print(f"[obs] profile after (a), (b) on {smi}: cli profile --json {prof_s:.3f} s, build "
+          f"records (built, wall s) {out['builds']}; "
+          f"spgemm_phase_seconds_count{{phase=\"plan\"}} grew by {plan_grown:g} = (a)'s and "
+          f"(b)'s {plan_spans} plan spans; spgemm_hbm_peak_bytes {hbm} (the allocator's peak), "
+          f"(a)'s detail hbm_peak_bytes {a_peak}, against the resident inputs' {inputs_bytes} "
+          f"bytes", flush=True)
+    print(f"[obs] slo after (a), (b) on {smi}: cli slo --json {slo_s:.3f} s: tenant default "
+          f"jobs {row['jobs']}, error_ratio {row['error_ratio']}, latency_s {row['latency_s']}, "
+          f"queue_wait_share {row['queue_wait_share']} (the jobs' daemon walls {walls} s)",
+          flush=True)
     return out
 
 
-def _obs_after_e(client, sock: str, reaped_id: str, smi: str) -> dict:
-    """[obs] after (e), on the second daemon: the watchdog's events and the
-    flight dumps (the reaped job's holds its spans and the reap marker)."""
+def _obs_delta(client, sock: str, base: dict, want: int, leg: str, smi: str) -> dict:
+    """[obs] the delta accountability on a daemon: the dirty-fraction
+    histogram grown by exactly `want` delta multiplies since the scrape
+    `base`, 0 mispredictions."""
+    series = _obs_series(client.metrics(sock))
+    key = "spgemm_delta_dirty_fraction"
+    grown = series.get(f"{key}_count", 0) - base.get(f"{key}_count", 0)
+    mis = series.get("spgemm_delta_mispredictions_total")
+    if grown != want or mis != 0:
+        raise RuntimeError(f"[obs] after ({leg}): {key}_count grew by {grown} against the "
+                           f"{want} delta multiplies, mispredictions {mis}")
+    buckets = {le: series.get(f'{key}_bucket{{le="{le}"}}', 0)
+               - base.get(f'{key}_bucket{{le="{le}"}}', 0) for le in ("0", "0.01", "0.9")}
+    print(f"[obs] delta after ({leg}) on {smi}: {key}_count grew by {grown:g} = the daemon's "
+          f"{want} delta multiplies (of them at dirty fraction 0: {buckets['0']:g}, <= 0.01: "
+          f"{buckets['0.01']:g}, <= 0.9: {buckets['0.9']:g}); "
+          f"spgemm_delta_mispredictions_total {mis:g}", flush=True)
+    return {"grown": grown, "mispredictions": mis, "buckets": buckets, "series": series}
+
+
+def _obs_after_e(client, sock: str, reaped_id: str, reaped_trace: str, smi: str) -> dict:
+    """[obs] after (e), on the second daemon: the watchdog's events, the
+    flight dumps (the reaped job's holds its spans and the reap marker), and
+    the SLO burn the reap set off: the gauge at 1 and one slo_burn event
+    carrying the trace id the client minted for the reaped job."""
     t0 = time.perf_counter()
     evs = client.events(500, sock)
     kinds = [e["kind"] for e in evs]
@@ -3327,18 +3448,31 @@ def _obs_after_e(client, sock: str, reaped_id: str, smi: str) -> dict:
     job_spans = {e["name"] for e in dump if (e.get("args") or {}).get("job_id") == reaped_id}
     if "serve_execute" in job_spans or not {"serve_load", "serve_reap"} <= job_spans:
         raise RuntimeError(f"[obs] the reaped job's flight dump: its spans {sorted(job_spans)}")
+    series = _obs_series(client.metrics(sock))
+    gauge = {k: v for k, v in series.items() if k.startswith("spgemm_slo_burn_active{")}
+    burns = [e for e in evs if e["kind"] == "slo_burn"]
+    if list(gauge.values()) != [1.0] or 'tenant="default"' not in next(iter(gauge)) \
+            or len(burns) != 1 or burns[0].get("trace_id") != reaped_trace:
+        raise RuntimeError(f"[obs] (e)'s SLO burn: gauge {gauge}, slo_burn events {burns}, "
+                           f"the client's trace {reaped_trace}")
     out = {"kinds": kinds, "flight": files, "reaped_spans": sorted(job_spans),
-           "dump_events": len(dump), "leg_s": time.perf_counter() - t0}
+           "dump_events": len(dump), "burn_gauge": gauge, "slo_burn": burns[0],
+           "series": series, "leg_s": time.perf_counter() - t0}
+    b = burns[0]
     print(f"[obs] after (e) on {smi}: events {', '.join(want)} present; flight dumps {files}; "
-          f"{reaped_id}'s ({len(dump)} trace events) holds its spans {sorted(job_spans)}; leg "
-          f"{out['leg_s']:.3f} s", flush=True)
+          f"{reaped_id}'s ({len(dump)} trace events) holds its spans {sorted(job_spans)}; "
+          f"{next(iter(gauge))} {gauge[next(iter(gauge))]:g}; one slo_burn event (fast_burn "
+          f"{b['fast_burn']}, slow_burn {b['slow_burn']}, bad {b['bad']} of {b['jobs']}, target "
+          f"{b['target_s']} s, budget {b['error_pct']}%) with trace_id {b['trace_id']} = the "
+          f"client's {reaped_trace}; leg {out['leg_s']:.3f} s", flush=True)
     return out
 
 
-def _obs_after_h(client, sock: str, smi: str) -> dict:
+def _obs_after_h(client, sock: str, smi: str, slo_before: int) -> dict:
     """[obs] after (h), on the daemon in this process: the batch-size
-    histogram holds the batch of 4, and one `metrics` and one `trace` op
-    timed against this process's ring."""
+    histogram holds the batch of 4, the tenant's SLO jobs grew by the 4
+    members (slo_before: its jobs before the resubmits), and one `metrics`
+    and one `trace` op timed against this process's ring."""
     from spgemm_tpu_torch.obs import trace as obs_trace  # noqa: PLC0415
 
     t0 = time.perf_counter()
@@ -3355,13 +3489,20 @@ def _obs_after_h(client, sock: str, smi: str) -> dict:
             or hist.get('spgemm_serve_batch_size_bucket{le="4"}') != 1 \
             or hist.get('spgemm_serve_batch_size_bucket{le="2"}') != 0:
         raise RuntimeError(f"[obs] (h)'s batch-size histogram: {hist}")
+    slo_after = client.slo(sock)["tenants"]["default"]["jobs"]
+    if slo_after - slo_before != SERVE_BATCH_FOLDERS:
+        raise RuntimeError(f"[obs] (h)'s SLO records: the tenant's jobs {slo_before} -> "
+                           f"{slo_after}, not one record per member")
     return {"metrics_op_s": metrics_s, "trace_op_s": trace_s, "ring": ring,
-            "trace_events": len(evs), "metrics_bytes": len(text), "batch_size": hist}
+            "trace_events": len(evs), "metrics_bytes": len(text), "batch_size": hist,
+            "slo_jobs": (slo_before, slo_after)}
 
 
 def _obs_report_h(obs: dict, smi: str) -> None:
     ring = obs["ring"]
-    print(f"[obs] after (h) on {smi}: spgemm_serve_batch_size {obs['batch_size']}; against a "
+    print(f"[obs] after (h) on {smi}: spgemm_serve_batch_size {obs['batch_size']}; the "
+          f"tenant's SLO jobs {obs['slo_jobs'][0]} -> {obs['slo_jobs'][1]} (one record per "
+          f"member of the batch of {SERVE_BATCH_FOLDERS}); against a "
           f"ring of {ring['spans']} spans (capacity {ring['capacity']}, {ring['dropped']} "
           f"evicted so far): one metrics op {obs['metrics_op_s'] * 1e3:.3f} ms "
           f"({obs['metrics_bytes']} bytes), one trace op {obs['trace_op_s'] * 1e3:.3f} ms "
@@ -3391,14 +3532,36 @@ def _obs_overhead(medium, smi: str) -> dict:
                 raise RuntimeError("[obs] SPGEMM_TPU_OBS_TRACE=0 emitted spans")
     med = {on: sorted(w)[len(w) // 2] for on, w in walls.items()}
     cap = obs_trace.RECORDER.stats()["capacity"]
+    # the host cost of what the recorder's knob turns on besides the spans:
+    # a memory sample (9 a Medium chain) against reading the same two
+    # counters through memory_allocated and max_memory_allocated, and one
+    # phase observation (36 a chain)
+    dev = torch.device(DEVICE)
+    costs_us = {}
+    for what, fn in (
+            ("memory_sample", partial(engine._observe_memory, dev)),
+            ("memory_allocated_and_max", lambda: (torch.cuda.memory_allocated(dev),
+                                                  torch.cuda.max_memory_allocated(dev))),
+            ("observe_phase", partial(obs_profile.observe_phase, "plan", 0.001))):
+        t1 = time.perf_counter()
+        for _ in range(OBS_COST_REPEATS):
+            fn()
+        costs_us[what] = (time.perf_counter() - t1) / OBS_COST_REPEATS * 1e6
     out = {"walls_s": walls, "median_s": med, "spans_per_chain": spans, "ring_capacity": cap,
-           "leg_s": time.perf_counter() - t0}
+           "costs_us": costs_us, "leg_s": time.perf_counter() - t0}
     print(f"[obs] recorder on against off, the warm Medium chain on {smi} (in turns on, off, "
           f"off, on, x{OBS_PAIRS}): on {', '.join(f'{w:.6f}' for w in walls['1'])} s, off "
           f"{', '.join(f'{w:.6f}' for w in walls['0'])} s; medians on {med['1']:.6f} s, off "
           f"{med['0']:.6f} s ({(med['1'] / med['0'] - 1) * 100:+.2f}%); spans emitted per chain "
           f"{sorted(set(spans))} against a ring of {cap} (a chain drops "
-          f"{max(0, max(spans) - cap)} of its own); leg {out['leg_s']:.3f} s", flush=True)
+          f"{max(0, max(spans) - cap)} of its own; the medians' gap is "
+          f"{(med['1'] - med['0']) / max(spans) * 1e6:.2f} us a span, each span also feeding "
+          f"obs/profile's phase histogram); on slower in "
+          f"{sum(a > b for a, b in zip(walls['1'], walls['0']))} of {len(walls['1'])} pairs; "
+          f"host cost (mean of {OBS_COST_REPEATS}): a memory sample "
+          f"{costs_us['memory_sample']:.2f} us (memory_allocated and max_memory_allocated: "
+          f"{costs_us['memory_allocated_and_max']:.2f} us), an observe_phase "
+          f"{costs_us['observe_phase']:.2f} us; leg {out['leg_s']:.3f} s", flush=True)
     return out
 
 
@@ -3455,7 +3618,8 @@ def phase_serve(medium, cli: dict) -> dict:
                 out[f"flush_{leg}_s"] = _serve_idle(client, sock)
                 out[leg] = _serve_report(leg, jobs[leg], wall, smi)
                 if leg == "b":
-                    out["obs_ab"] = _obs_after_ab(client, sock, jobs, obs_base, tmp, smi)
+                    out["obs_ab"] = _obs_after_ab(client, sock, jobs, obs_base, tmp, smi,
+                                                  sum(m.tiles.nbytes for m in medium.mats))
             a, b = jobs["a"]["detail"], jobs["b"]["detail"]
             if b["plan_cache_misses"] or \
                     b["plan_cache_hits"] != a["plan_cache_hits"] + a["plan_cache_misses"]:
@@ -3481,18 +3645,25 @@ def phase_serve(medium, cli: dict) -> dict:
                 raise RuntimeError(f"[serve] stats: {st['device']}, degraded {st['degraded']}, "
                                    f"{st['serve']}")
             out["warm_disk"] = {k: st["warm"][k] for k in ("plans", "deltas", "bytes")}
+            # (a), (b), (c0), (c): every multiply of the four jobs took the delta path
+            out["obs_c"] = _obs_delta(client, sock, obs_base, 4 * (MEDIUM["n"] - 1), "c", smi)
             _serve_stop(proc, sock, client, log_path)
             # the second daemon: the watchdog leg armed (its knobs), then (d)
             env_e = _serve_env(SPGEMM_TPU_FAILPOINTS="serve.heartbeat:1:1",
                                SPGEMM_TPU_SERVE_JOB_TIMEOUT=str(SERVE_TIMEOUT_S),
                                SPGEMM_TPU_SERVE_WEDGE_GRACE_S=str(SERVE_GRACE_S),
-                               SPGEMM_TPU_SERVE_RECOVER_S=str(SERVE_RECOVER_S))
+                               SPGEMM_TPU_SERVE_RECOVER_S=str(SERVE_RECOVER_S),
+                               SPGEMM_TPU_SLO_TARGET_S=str(SERVE_SLO_TARGET_S),
+                               SPGEMM_TPU_SLO_ERROR_PCT=str(SERVE_SLO_ERROR_PCT))
             proc, out["restart"] = _serve_start(sock, env_e, log_path)
             out["e"] = _serve_watchdog(client, sock, tmp)
-            out["obs_e"] = _obs_after_e(client, sock, out["e"]["job_id"], smi)
+            out["obs_e"] = _obs_after_e(client, sock, out["e"]["job_id"], out["e"]["trace"],
+                                        smi)
             jobs["d"], wall = _serve_job(client, sock, medium_dir, res, timeout_s=0)
             _serve_check("d", jobs["d"], res, res_a)
             out["d"] = _serve_report("d", jobs["d"], wall, smi)
+            out["obs_d"] = _obs_delta(client, sock, out["obs_e"]["series"], MEDIUM["n"] - 1,
+                                      "d", smi)
             if jobs["d"]["detail"].get("warm_hits", 0) < 1:
                 raise RuntimeError(f"[serve] (d) no warm hit: {jobs['d']['detail']}")
             st = client.stats(sock)

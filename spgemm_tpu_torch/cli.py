@@ -61,6 +61,8 @@ process reads back.  The directory is --dir, else SPGEMM_TPU_WARM_DIR.
     python -m spgemm_tpu_torch.cli metrics
     python -m spgemm_tpu_torch.cli events [--tail N] [--follow]
     python -m spgemm_tpu_torch.cli trace-dump [--merge DIR] [--trace ID] [-o FILE]
+    python -m spgemm_tpu_torch.cli profile [--json]
+    python -m spgemm_tpu_torch.cli slo [--json]
 
 run spgemmd, the resident daemon that owns the card and keeps the engine
 warm across jobs (serve/daemon.py; delta recompute stays on there), and
@@ -70,7 +72,9 @@ batching: up to SPGEMM_TPU_SERVE_BATCH_K queued jobs of one chain structure
 run as one batch (`serve --help` says more).  `metrics` scrapes the
 daemon's Prometheus text, `events` prints its event log (--follow tails
 <socket>.events.jsonl), `trace-dump` writes its span flight recorder as
-trace_event JSON or merges a directory of dumps (obs/).
+trace_event JSON or merges a directory of dumps, `profile` reports its
+build records, device memory watermark and estimator and delta accuracy,
+`slo` its per-tenant latency quantiles, error ratio and burn state (obs/).
 A directory named like a subcommand that holds a `size` file is still a
 chain folder.
 """
@@ -88,7 +92,8 @@ from spgemm_tpu_torch.utils import knobs
 
 # The engine (torch, numpy, the kernels) is imported by the functions that
 # run a chain, so the client subcommands (submit, status, metrics, events,
-# trace-dump) start without it: a scrape is not a cold torch import.
+# trace-dump, profile, slo) start without it: a scrape is not a cold torch
+# import.
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -255,8 +260,21 @@ def _events(argv: list[str]) -> int:
     return client.main_events(argv)
 
 
+def _profile(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    return client.main_profile(argv)
+
+
+def _slo(argv: list[str]) -> int:
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    return client.main_slo(argv)
+
+
 _SUBCOMMANDS = {"warm": run_warm, "serve": _serve, "submit": _submit, "status": _status,
-                "metrics": _metrics, "trace-dump": _trace_dump, "events": _events}
+                "metrics": _metrics, "trace-dump": _trace_dump, "events": _events,
+                "profile": _profile, "slo": _slo}
 
 
 def run(argv: list[str] | None = None) -> int:

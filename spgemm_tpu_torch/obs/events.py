@@ -43,8 +43,8 @@ from spgemm_tpu_torch.utils import knobs
 
 # The port's event kinds (kind -> when it fires): only the kinds the port
 # emits.  tests/test_torch_obs.py holds every emit() literal in the package
-# to this dict and each kind to the JAX package's registry; the compile,
-# slo_*, tune_*, router_* and lock_contention kinds come with their modules.
+# to this dict and each kind to the JAX package's registry; the tune_*,
+# router_* and lock_contention kinds come with their modules.
 EVENT_KINDS: dict[str, str] = {
     "daemon_start": "spgemmd came up (socket, slice, pid)",
     "daemon_drain_reap": "a SIGTERM/SIGINT or shutdown drain failed an in-flight job "
@@ -84,6 +84,11 @@ EVENT_KINDS: dict[str, str] = {
     "warm_flush": "the warm store flushed to disk (entry counts ride along)",
     "chain_failover": "the chain failed over to the host oracle after a lost card, "
                       "with the triggering error",
+    "compile": "jit compile record: site, wall, FLOPs/bytes, memory footprints "
+               "(obs/profile.py)",
+    "slo_burn": "SLO burn-rate breach transition for a (tenant, slice) window; "
+                "carries the newest bad job's trace context",
+    "slo_burn_clear": "the burn condition cleared for the window",
     "failpoint_trigger": "an armed chaos failpoint fired (point name and action "
                          "ride along)",
 }

@@ -1,6 +1,7 @@
 """Metrics registry and Prometheus text-format 0.0.4 renderer (the port's
-copy of the JAX package's `obs/metrics.py`, without the profiling, SLO,
-tuner and fleet families, which come with their modules).
+copy of the JAX package's `obs/metrics.py`, with the profiling (obs/profile)
+and SLO (obs/slo) families; without the tuner and fleet families, which
+come with their modules).
 
 The single source of truth for what the port may emit:
 
@@ -14,7 +15,9 @@ The single source of truth for what the port may emit:
   * the metric families: `render()` raises on an undeclared family or on a
     sample whose labels differ from the declaration.  A family the JAX
     package declares too keeps its HELP text verbatim, so both packages
-    render the same text from the same samples.
+    render the same text from the same samples -- the `spgemm_compile*`
+    families too, although the port's records are library builds with no
+    cost analysis (obs/profile.record_build).
 
 Imports neither torch nor numpy: the client CLI and spgemmd's scrape path
 read it.
@@ -92,6 +95,8 @@ ENGINE_COUNTERS: dict[str, str] = {
     "serve_recoveries": "spgemmd slices reinstated after a live card probe",
     "serve_batches": "spgemmd cross-job batches run (two or more jobs)",
     "serve_batched_jobs": "jobs that rode a cross-job batch",
+    "compiles": "kernel and host library builds or reuses recorded at first load "
+                "(obs/profile.record_build)",
 }
 
 
@@ -260,6 +265,68 @@ _METRICS = (
            "fused dispatch served the whole batch.  No samples while the "
            "window is 0 (the pre-batch scrape, byte-identical).",
            "serve/daemon.py"),
+    # ---- deep profiling layer (obs/profile.py, obs/events.py) ----
+    Metric("spgemm_compiles_total", "counter",
+           "Engine jit compiles recorded per site (obs/profile.ProfiledJit "
+           "wraps the XLA numeric round, assembly gather, delta splice, "
+           "ring/rowshard entrypoints) -- the cold-jit tax the "
+           "persistent-warm-start roadmap item targets.",
+           "obs/profile.py", labels=("site",)),
+    Metric("spgemm_compile_seconds", "histogram",
+           "Compile wall per recorded engine jit compile (lower + "
+           "backend compile, per site).",
+           "obs/profile.py", labels=("site",)),
+    Metric("spgemm_compile_flops_total", "counter",
+           "Cumulative XLA cost_analysis FLOPs of the executables "
+           "compiled per site.",
+           "obs/profile.py", labels=("site",)),
+    Metric("spgemm_compile_bytes_total", "counter",
+           "Cumulative XLA cost_analysis bytes-accessed of the "
+           "executables compiled per site.",
+           "obs/profile.py", labels=("site",)),
+    Metric("spgemm_compile_temp_bytes", "gauge",
+           "Largest memory_analysis temp-buffer footprint among the "
+           "executables compiled per site.",
+           "obs/profile.py", labels=("site",)),
+    Metric("spgemm_phase_seconds", "histogram",
+           "Per-entry engine phase latency distribution, fed from "
+           "completed flight-recorder spans (phase names declared in "
+           "obs/metrics.ENGINE_PHASES) -- scrape-side phase latency "
+           "without a trace dump.",
+           "obs/profile.py", labels=("phase",)),
+    Metric("spgemm_est_rel_error", "histogram",
+           "Sampled-estimator relative error, scored when the deferred "
+           "exact join lands (SpgemmPlan.ensure_exact): |predicted - "
+           "exact| / exact per quantity (keys, pairs, fanout).  A "
+           "drifting estimator is an alert here, not a silent mis-plan.",
+           "obs/profile.py", labels=("quantity",)),
+    Metric("spgemm_delta_dirty_fraction", "histogram",
+           "Predicted-dirty fraction per delta-enabled multiply "
+           "(dirty output rows / total rows; a counted full fallback "
+           "observes 1.0) -- the per-multiply distribution behind the "
+           "aggregate delta_rows_* counters: how incremental the "
+           "submit stream actually is.",
+           "obs/profile.py"),
+    Metric("spgemm_delta_mispredictions_total", "counter",
+           "Delta multiplies whose executed row count diverged from "
+           "the predicted dirty set (the engine executes exactly what "
+           "it predicts, so any nonzero here is an engine bug -- "
+           "alert, don't graph).",
+           "obs/profile.py"),
+    Metric("spgemm_hbm_bytes_in_use", "gauge",
+           "Device bytes in use at the newest engine memory_stats() "
+           "sample (dispatch/assembly boundaries; omitted on backends "
+           "without the API, e.g. CPU).",
+           "obs/profile.py"),
+    Metric("spgemm_hbm_peak_bytes", "gauge",
+           "Peak device bytes in use over all engine memory_stats() "
+           "samples since process start -- the observable form of "
+           "SPGEMM_TPU_DELTA_RETAIN's entries-not-bytes retention bound.",
+           "obs/profile.py"),
+    Metric("spgemm_hbm_samples_total", "counter",
+           "Engine memory_stats() samples recorded (0 and omitted "
+           "gauges = backend never reported).",
+           "obs/profile.py"),
     Metric("spgemm_events_emitted_total", "counter",
            "Structured events emitted into the event log "
            "(obs/events.py: job lifecycle, watchdog transitions, "
@@ -276,6 +343,39 @@ _METRICS = (
            "Current on-disk size of the active event-log file (0 when "
            "no file sink is configured).",
            "obs/events.py"),
+    # ---- SLO engine (obs/slo.py) ----
+    Metric("spgemm_slo_latency_seconds", "gauge",
+           "Rolling-window per-tenant job latency quantile (p50/p95/p99 "
+           "from the SLO engine's fixed-bucket digest, merged over the "
+           "tenant's slices; window = SPGEMM_TPU_SLO_WINDOW_S).  Tenant "
+           "label cardinality is bounded at the source (top-K by "
+           "recency, evictions counted).",
+           "obs/slo.py", labels=("tenant", "quantile")),
+    Metric("spgemm_slo_error_ratio", "gauge",
+           "Rolling-window per-tenant error ratio (failed jobs / total "
+           "jobs in the SLO window).",
+           "obs/slo.py", labels=("tenant",)),
+    Metric("spgemm_slo_queue_wait_share", "gauge",
+           "Rolling-window per-tenant queue-wait share: queued seconds "
+           "/ (queued + execute) seconds -- whether a slow tenant is "
+           "waiting on the pool or on its own jobs.",
+           "obs/slo.py", labels=("tenant",)),
+    Metric("spgemm_slo_burn_active", "gauge",
+           "1 while the (tenant, slice) window is burning its error "
+           "budget in BOTH burn windows (fast = window/12, slow = full "
+           "window; objectives from SPGEMM_TPU_SLO_TARGET_S / "
+           "SPGEMM_TPU_SLO_ERROR_PCT) -- the transition emitted a "
+           "structured slo_burn event whose trace_id resolves via "
+           "`cli trace-dump --merge` to the newest bad job's stitched "
+           "trace; 0 (or the series absent) otherwise.",
+           "obs/slo.py", labels=("slice", "tenant")),
+    Metric("spgemm_slo_tenants_evicted_total", "counter",
+           "Tenants evicted from the SLO engine's top-K-by-recency "
+           "window set (their rolling windows dropped) -- the "
+           "cardinality bound that keeps a tenant-id-per-request "
+           "client from growing the engine or the scrape without "
+           "bound.",
+           "obs/slo.py"),
 )
 
 REGISTRY: dict[str, Metric] = {m.name: m for m in _METRICS}
@@ -367,10 +467,11 @@ def render(samples: list[tuple]) -> str:
 # ----------------------------------------------------- engine collection --
 def collect_engine() -> list[tuple]:
     """Samples for the process-wide engine state: ENGINE phase totals and
-    counters, plan-cache and warm-store stats, flight-recorder ring and
-    event-log health, failpoint triggers.  The daemon adds its serving
-    series.  Imports neither torch nor numpy."""
-    from spgemm_tpu_torch.obs import events, trace  # noqa: PLC0415
+    counters, plan-cache and warm-store stats, flight-recorder ring health,
+    failpoint triggers, then the profiling accounts and event-log health
+    (_collect_profile).  The daemon adds its serving and SLO series.
+    Imports neither torch nor numpy."""
+    from spgemm_tpu_torch.obs import trace  # noqa: PLC0415
     from spgemm_tpu_torch.ops import plancache, warmstore  # noqa: PLC0415
     from spgemm_tpu_torch.utils import failpoints, knobs  # noqa: PLC0415
     from spgemm_tpu_torch.utils.timers import ENGINE  # noqa: PLC0415
@@ -416,6 +517,44 @@ def collect_engine() -> list[tuple]:
     ]
     samples += [("spgemm_failpoints_triggered_total", {"point": point}, n)
                 for point, n in sorted(failpoints.triggered().items())]
+    samples += _collect_profile()
+    return samples
+
+
+def _collect_profile() -> list[tuple]:
+    """The profiling accounts (obs/profile.py) and event-log health: builds
+    per site, phase latency histograms, prediction accountability, the
+    device memory watermark (omitted when the device never reported, as on
+    the CPU), the event counters.  The JAX package's _collect_profile."""
+    from spgemm_tpu_torch.obs import events, profile  # noqa: PLC0415
+
+    samples: list[tuple] = []
+    for site, agg in profile.compile_stats().items():
+        labels = {"site": site}
+        samples += [
+            ("spgemm_compiles_total", labels, agg["count"]),
+            ("spgemm_compile_seconds", labels, agg["seconds"]),
+            ("spgemm_compile_flops_total", labels, agg["flops_total"]),
+            ("spgemm_compile_bytes_total", labels, agg["bytes_total"]),
+            ("spgemm_compile_temp_bytes", labels, agg["temp_bytes_max"]),
+        ]
+    for phase, hist in profile.phase_stats().items():
+        samples.append(("spgemm_phase_seconds", {"phase": phase}, hist))
+    est = profile.est_stats()
+    for quantity, hist in est["rel_error"].items():
+        samples.append(("spgemm_est_rel_error", {"quantity": quantity}, hist))
+    # always rendered (a zero-count histogram, a zero counter), so an alert
+    # rule never has to tell "absent" from "zero"
+    dlt = profile.delta_stats()
+    samples.append(("spgemm_delta_dirty_fraction", {}, dlt["dirty_fraction"]))
+    samples.append(("spgemm_delta_mispredictions_total", {}, dlt["mispredictions"]))
+    mem = profile.memory_stats()
+    samples.append(("spgemm_hbm_samples_total", {}, mem["samples"]))
+    if mem["available"]:
+        samples += [
+            ("spgemm_hbm_bytes_in_use", {}, mem["bytes_in_use"]),
+            ("spgemm_hbm_peak_bytes", {}, mem["peak_bytes"]),
+        ]
     ev = events.LOG.stats()
     samples += [
         ("spgemm_events_emitted_total", {}, ev["emitted"]),

@@ -34,6 +34,7 @@ import threading
 import time
 from collections import deque
 
+from spgemm_tpu_torch.obs import profile
 from spgemm_tpu_torch.utils import knobs
 
 # one monotonic origin per process: every span timestamp is microseconds
@@ -167,6 +168,11 @@ class FlightRecorder:
         tags = self.current_tags()
         if tags:
             span["tags"] = tags
+        if ph == "X":
+            # scrape-side phase latency: every completed span feeds the
+            # per-phase histogram (_commit runs only while emission is on,
+            # so the master knob gates it already)
+            profile.observe_phase(name, dur_s)
         cap = ring_cap()
         with self._lock:
             self._spans.append(span)

@@ -5,6 +5,8 @@ Each `csrc/<name>.cu` becomes `build/torch_kernels/lib<name>-<hash>.so`
 (a shared library with a plain C interface), where the hash covers the
 source, every header in csrc/ (`*.cuh`) and the flags, so a changed source
 or header rebuilds and an unchanged one is reused.  A failed build raises with nvcc's stderr; nothing falls back.
+The first load of each library in a process is recorded in obs/profile
+(site = the source's stem).
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from spgemm_tpu_torch.obs import profile
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -40,13 +45,19 @@ def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless an up-to-date library exists; returns
     the library's path.  nvcc's ptxas report (registers, shared memory,
     spills) is kept beside it as <lib>.log."""
+    return _build(name)[0]
+
+
+def _build(name: str) -> tuple[Path, bool]:
+    """build(name), and whether nvcc ran (False: an up-to-date library was
+    reused)."""
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
-        return lib
+        return lib, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -57,7 +68,7 @@ def build(name: str) -> Path:
                            f"{proc.stderr}")
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib
+    return lib, True
 
 
 def build_all() -> dict[str, Path]:
@@ -67,9 +78,26 @@ def build_all() -> dict[str, Path]:
         return dict(zip(names, pool.map(build, names)))
 
 
+def _ptxas(lib: Path) -> dict | None:
+    """The ptxas report kept beside lib, per kernel (None when missing)."""
+    try:
+        return profile.parse_ptxas(lib.with_suffix(".log").read_text())
+    except OSError:
+        return None
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+    """The loaded library for csrc/<name>.cu, built on first use.  The first
+    load in a process lands a build record (obs/profile.record_build: the
+    wall of the build or reuse plus the dlopen, whether nvcc ran, the ptxas
+    report); a failed build or dlopen raises before anything is recorded."""
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build(name)))
-        return _libs[name]
+        if name in _libs:
+            return _libs[name]
+        t0 = time.perf_counter()
+        path, built = _build(name)
+        lib = _libs[name] = ctypes.CDLL(str(path))
+        wall = time.perf_counter() - t0
+    # outside _lock: the record takes the ENGINE and event-log locks
+    profile.record_build(name, wall, built, path.name, _ptxas(path))
+    return lib

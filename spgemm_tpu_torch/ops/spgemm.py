@@ -78,7 +78,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from spgemm_tpu_torch.obs import events
+from spgemm_tpu_torch.obs import events, profile
 from spgemm_tpu_torch.ops import crossover, delta, estimate, plancache, u64, warmstore
 from spgemm_tpu_torch.ops.cuda_dense import numeric_round_dense
 from spgemm_tpu_torch.ops.cuda_splice import source_map, splice
@@ -186,8 +186,35 @@ def _build_exact(p: SpgemmPlan, route_pred: str | None = None) -> None:
 
 
 def _deferred_build(p: SpgemmPlan, route_pred: str | None) -> None:
+    """An estimated plan's exact join, landed (SpgemmPlan.ensure_exact), and
+    the estimate that steered the plan scored against it (obs/profile's
+    prediction accountability; only on this route, as in the JAX package:
+    a low-confidence estimate that steered nothing is not scored)."""
     with ENGINE.phase("plan_exact"):
         _build_exact(p, route_pred)
+    est, join = p.estimate, p.join
+    profile.observe_estimate(est.est_keys, est.est_pairs, est.est_max_fanout,
+                             join.num_keys, int(join.pair_ptr[-1]),
+                             int(join.fanouts.max()) if join.num_keys else 0)
+
+
+def _observe_memory(device) -> None:
+    """One device memory reading into obs/profile's watermark: on a card the
+    caching allocator's view, its allocated bytes now and at peak (what
+    torch.cuda.memory_allocated and max_memory_allocated return: what the
+    port's tensors hold, not the whole card's use); on the CPU None, so the
+    gauges are omitted.  Reads counters only and never synchronizes the
+    stream.  One memory_stats_as_nested_dict call: memory_allocated and
+    max_memory_allocated each flatten and sort the whole stats dict."""
+    if not profile.enabled():
+        return
+    dev = torch.device(device)
+    stats = None
+    if dev.type == "cuda":
+        allocated = torch.cuda.memory_stats_as_nested_dict(dev)["allocated_bytes"]["all"]
+        stats = {"bytes_in_use": allocated["current"],
+                 "peak_bytes_in_use": allocated["peak"]}
+    profile.observe_memory(stats)
 
 
 def _new_plan(a, b, backend: str, route: str, key_cap: int, split: int | None,
@@ -209,8 +236,8 @@ def _new_plan(a, b, backend: str, route: str, key_cap: int, split: int | None,
     est = p.estimate
     route_pred = estimate.predicted_route(est) if backend != "mxu" else None
     if est is not None and est.confidence >= estimate.confidence_threshold():
-        # confident: return now; the exact join runs in ensure_exact (the
-        # JAX package also calls obs_profile.observe_estimate there)
+        # confident: return now; the exact join runs in ensure_exact, which
+        # also scores the estimate (_deferred_build)
         estimate.note_hit()
         ENGINE.incr("est_hits")
         p.plan_route = "estimated"
@@ -445,6 +472,9 @@ def execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
             used[name] += 1
     _count_rounds(p.backend, used, len(p.rounds), p.join.num_keys)
     slab = _assemble(outs, take)
+    # the watermark at the multiply's boundary: launches and assembly are
+    # queued, so the allocator holds this multiply's working set
+    _observe_memory(dev)
     out_bound = MAX_BOUND
     if p.backend == "hybrid" and proven_rounds == len(p.rounds):
         proven = safe_exact_bound(a.bound(), b.bound(), int(p.join.fanouts.max()), k)
@@ -547,6 +577,7 @@ def execute_batched(p: SpgemmPlan, pairs: list, folds: Folds = KERNELS) -> list:
             results.append(DeviceBlockMatrix(rows=a.rows, cols=b.cols, k=k,
                                              coords=p.join.keys, slab=_assemble(job_outs, take),
                                              val_bound=out_bound))
+    _observe_memory(dev)
     log.info("spgemm[%s,x%d-job-batch]: nnzb %d x %d -> keys=%d pairs=%d rounds=%d "
              "launches=%d fused=%d", p.backend, J, nnzb_a, nnzb_b, p.join.num_keys,
              int(p.join.pair_ptr[-1]), len(p.rounds), launches, fused)
@@ -604,9 +635,9 @@ def _delta_execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
     it cannot prove or an evicted entry is a counted full fallback that
     seeds the entry.  digests: the operands' row digests computed ahead
     for this multiply (delta.stash_digests), else hashed here.  A full
-    fallback emits `delta_fallback` with its reason.  (The JAX package's
-    obs_profile.observe_delta and _observe_memory calls wait for the port
-    of obs/profile.py.)"""
+    fallback emits `delta_fallback` with its reason.  Each call is scored in
+    obs/profile (observe_delta: predicted against executed rows), and a
+    splice samples the device memory watermark."""
     p.check_operands(a, b)
     p.ensure_exact()
     join = p.join
@@ -632,6 +663,8 @@ def _delta_execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
         ENGINE.incr("delta_rows_total", total_rows)
         delta.note_fallback_reason(reason)
         events.emit("delta_fallback", reason=reason, total_rows=total_rows)
+        # a full fallback predicts and executes every row
+        profile.observe_delta(total_rows, total_rows, total_rows)
         result = execute(p, a, b, folds=folds)
         with ENGINE.phase("delta_diff"):
             delta.store_full(key, a, b, result, total_rows, out_row_ids, digests)
@@ -640,6 +673,9 @@ def _delta_execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
     n_dirty = len(d.dirty_rows)
     ENGINE.incr("delta_rows_recomputed", n_dirty)
     ENGINE.incr("delta_rows_total", total_rows)
+    # an all-dirty diff runs the full multiply: every row executes
+    profile.observe_delta(n_dirty, total_rows if n_dirty >= total_rows else n_dirty,
+                          total_rows)
     if n_dirty == 0:
         result = entry.result  # both operands proven unchanged
     elif n_dirty >= total_rows:
@@ -656,6 +692,9 @@ def _delta_execute(p: SpgemmPlan, a: DeviceBlockMatrix, b: DeviceBlockMatrix,
                      MAX_BOUND if sub.val_bound is None else sub.val_bound)
             result = DeviceBlockMatrix(rows=a.rows, cols=b.cols, k=p.k, coords=join.keys,
                                        slab=slab, val_bound=min(vb, MAX_BOUND))
+        # the splice holds the retained result, the sub-result and the new
+        # copy at once: the watermark SPGEMM_TPU_DELTA_RETAIN sizing needs
+        _observe_memory(prev.device)
         log.info("spgemm[delta]: recomputed %d/%d output rows (%d/%d keys)",
                  n_dirty, total_rows, len(kept), join.num_keys)
     delta.commit(entry, result, d, total_rows)
@@ -806,6 +845,7 @@ def spgemm_outofcore(a, b, *, device="cuda", round_size: int | None = None,
         out_t.index_copy_(0, torch.tensor(key_index), host)
 
     _pipeline(p.rounds, stage, launch, land, depth)
+    _observe_memory(dev)
     _count_rounds(backend, used, len(p.rounds), p.join.num_keys)
     return BlockSparseMatrix(rows=a.rows, cols=b.cols, k=k, coords=p.join.keys,
                              tiles=out_tiles.view(np.uint64))

@@ -1,6 +1,6 @@
 """spgemmd client: library calls and the CLI's `submit`, `status`,
-`metrics`, `events` and `trace-dump` (the port's copy of the JAX package's
-`serve/client.py`, without the `profile` and `slo` ops).
+`metrics`, `events`, `trace-dump`, `profile` and `slo` (the port's copy of
+the JAX package's `serve/client.py`).
 
 Imports neither torch nor numpy: a submitting process must not pay the cold
 torch import the daemon exists to amortize, and never touches the card (the
@@ -182,6 +182,19 @@ def trace(socket_path: str | None = None) -> list[dict]:
     return request({"op": "trace"}, socket_path)["trace_events"]
 
 
+def profile(socket_path: str | None = None) -> dict:
+    """The daemon's profiling report (obs/profile.py): build records, the
+    device memory watermark, estimator and delta accountability."""
+    return request({"op": "profile"}, socket_path)["profile"]
+
+
+def slo(socket_path: str | None = None) -> dict:
+    """The daemon's SLO report (obs/slo.py): objectives, per-tenant rolling
+    latency quantiles, error ratio and queue-wait share, per-(tenant,
+    slice) burn state."""
+    return request({"op": "slo"}, socket_path)["slo"]
+
+
 def events(n: int = 50, socket_path: str | None = None) -> list[dict]:
     """The newest n records of the daemon's event log."""
     return request({"op": "events", "n": n}, socket_path)["events"]
@@ -292,6 +305,101 @@ def main_metrics(argv: list[str] | None = None) -> int:
     except (ServeError, OSError) as e:
         print(f"metrics failed: {e}", file=sys.stderr)
         return 1
+    return 0
+
+
+def main_profile(argv: list[str] | None = None) -> int:
+    """`profile [--json]`: the running daemon's profiling accounts."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch profile",
+                                description="report the running spgemmd's profiling accounts: "
+                                            "build records of its kernel and host libraries "
+                                            "(wall, built or reused, ptxas registers and "
+                                            "spills), the device memory watermark, estimator "
+                                            "and delta prediction accuracy")
+    _add_addr_args(p)
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="the whole report (the build records and every account)")
+    args = p.parse_args(argv)
+    try:
+        rep = profile(args.addr or args.socket)
+    except (ServeError, OSError) as e:
+        print(f"profile failed: {e}", file=sys.stderr)
+        return 1
+    if args.as_json:
+        print(json.dumps(rep, indent=2))
+        return 0
+    for rec in rep.get("compiles", []):
+        kernels = rec.get("ptxas") or {}
+        regs = sorted({k["registers"] for k in kernels.values()})
+        spills = sum(k["spill_stores"] + k["spill_loads"] for k in kernels.values())
+        print(f"build {rec['site']}: {'built' if rec.get('built') else 'reused'} "
+              f"wall={rec['wall_s']:.3f}s lib={rec['signature']}"
+              + (f" kernels={len(kernels)} registers={regs} spill_bytes={spills}"
+                 if kernels else ""))
+    if not rep.get("compiles"):
+        print("no build records yet")
+    mem = rep.get("memory", {})
+    if mem.get("available"):
+        print(f"device memory: in_use={mem['bytes_in_use']} peak={mem['peak_bytes']} "
+              f"samples={mem['samples']}")
+    else:
+        print("device memory: not reported (the CPU; gauges omitted)")
+    est = rep.get("estimator", {})
+    if est.get("count"):
+        errs = {q: f"{h['sum'] / h['count']:.4f}"
+                for q, h in est["rel_error"].items() if h["count"]}
+        print(f"estimator: x{est['count']} mean_rel_error={errs}")
+    dlt = rep.get("delta", {})
+    if dlt.get("count"):
+        frac = dlt["dirty_fraction"]
+        mean = frac["sum"] / frac["count"] if frac["count"] else 0.0
+        print(f"delta: x{dlt['count']} predicted={dlt['predicted_rows']} "
+              f"executed={dlt['executed_rows']} mispredictions={dlt['mispredictions']} "
+              f"mean_dirty_fraction={mean:.4f}")
+    ev = rep.get("events", {})
+    print(f"events: emitted={ev.get('emitted', 0)} bytes={ev.get('bytes', 0)} "
+          f"path={ev.get('path')}")
+    return 0
+
+
+def main_slo(argv: list[str] | None = None) -> int:
+    """`slo [--json]`: the running daemon's SLO report."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch slo",
+                                description="report the running spgemmd's SLO engine: "
+                                            "objectives, per-tenant rolling-window latency "
+                                            "quantiles (p50/p95/p99), error ratio, queue-wait "
+                                            "share, and multi-window burn-rate state")
+    _add_addr_args(p)
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="the whole report")
+    args = p.parse_args(argv)
+    try:
+        rep = slo(args.addr or args.socket)
+    except (ServeError, OSError) as e:
+        print(f"slo failed: {e}", file=sys.stderr)
+        return 1
+    if args.as_json:
+        print(json.dumps(rep, indent=2))
+        return 0
+    obj = rep.get("objectives", {})
+    if obj.get("enabled"):
+        print(f"objectives: target_s={obj['target_s']:g} error_pct={obj['error_pct']:g} "
+              f"window_s={obj['window_s']:g}")
+    else:
+        print("objectives: none declared (accounting only; set SPGEMM_TPU_SLO_TARGET_S "
+              "to arm burn-rate evaluation)")
+    for tenant, row in rep.get("tenants", {}).items():
+        lat = row["latency_s"]
+        print(f"tenant {tenant}: jobs={row['jobs']} p50={lat['p50']:g}s p95={lat['p95']:g}s "
+              f"p99={lat['p99']:g}s error_ratio={row['error_ratio']:g} "
+              f"queue_share={row['queue_wait_share']:g}")
+    for b in rep.get("burn", []):
+        if not b.get("active") and not b.get("bad"):
+            continue
+        print(f"burn {b['tenant']}/{b['slice']}: {'BURNING' if b.get('active') else 'ok'} "
+              f"fast={b.get('fast_burn', 0):g} slow={b.get('slow_burn', 0):g} "
+              f"bad={b.get('bad', 0)}/{b.get('jobs', 0)} trace={b.get('trace_id')}")
+    print(f"tenants_evicted={rep.get('tenants_evicted', 0)} records={rep.get('records', 0)}")
     return 0
 
 

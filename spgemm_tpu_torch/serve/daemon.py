@@ -67,12 +67,24 @@ reap, a wedge and a degrade each dump the recorder to
 <socket>.flight/<name>.trace.json, the newest FLIGHT_RETAIN kept.  The
 `metrics` op renders the Prometheus scrape
 (obs/metrics.py), `trace` the recorder as trace_event JSON, `events` the
-event ring's tail.  Nothing in obs catches a kernel failure or moves a job
-to the host: it catches only its own I/O errors.
+event ring's tail, `profile` the profiling accounts (obs/profile.py: build
+records, the device memory watermark, estimator and delta accountability)
+and `slo` the SLO engine's report (obs/slo.py).  Every terminal job feeds
+one record into the SLO engine (tenant, slice, wall, queue wait, error,
+trace id), outside the daemon's lock; with SPGEMM_TPU_SLO_TARGET_S set a
+burning (tenant, slice) window emits `slo_burn` with the newest bad job's
+trace id.  Each pickup opens a device memory window per member
+(profile.memory_job_begin) and a job's detail carries its
+`hbm_peak_bytes` when the card reported: the allocator's view at the
+engine's multiply boundaries.  The engine's samples land in the window of
+the thread's job tag, so under a batch, whose spans all carry the head's
+id, the head's window takes the batch's samples and a mate's holds the
+reading at its pickup (the JAX package's behaviour).  Nothing in obs
+catches a kernel failure or moves a job to the host: it catches only its
+own I/O errors.
 
-Not ported here (each marked where it would go): the tuner (`_maybe_tune`),
-obs/profile.py and obs/slo.py (the `profile` and `slo` ops answer
-bad-request), and pools of more than one slice.  This module imports no
+Not ported here (each marked where it would go): the tuner (`_maybe_tune`)
+and pools of more than one slice.  This module imports no
 torch and no numpy at import time: the engine is imported inside the
 runners, the executor and main().
 """
@@ -93,6 +105,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 from spgemm_tpu_torch.obs import events as obs_events
 from spgemm_tpu_torch.obs import metrics as obs_metrics
+from spgemm_tpu_torch.obs import profile as obs_profile
+from spgemm_tpu_torch.obs import slo as obs_slo
 from spgemm_tpu_torch.obs import trace as obs_trace
 from spgemm_tpu_torch.parallel import mesh as mesh_mod
 from spgemm_tpu_torch.serve import placement, protocol
@@ -109,10 +123,6 @@ SUBMIT_OPTIONS = ("backend", "round_size", "checkpoint_dir", "output", "timeout_
 # ENGINE counters the daemon bumps, reported by `stats`
 SERVE_COUNTERS = ("serve_reaps", "serve_degrades", "serve_recoveries", "serve_batches",
                   "serve_batched_jobs")
-
-# the scrape's per-tenant series keep this many tenants (newest first) under
-# their own label; the rest add up in one `other` row
-TENANT_RETAIN = 32
 
 
 # -------------------------------------------------------- journal framing --
@@ -765,6 +775,10 @@ class Daemon:
                     # every scope this thread carries
                     scope.record("serve_queue_wait",
                                  max(0.0, (job.started_at or job.submitted_at) - job.submitted_at))
+                    # the member's own memory window, seeded with the newest
+                    # reading; the engine's samples land in the window of
+                    # the thread's job tag: the head's
+                    obs_profile.memory_job_begin(job.id)
                 with ENGINE.phase("serve_execute"):
                     if batched:
                         self._batch_runner(jobs, degraded=False)
@@ -853,11 +867,15 @@ class Daemon:
         from spgemm_tpu_torch.ops import plancache  # noqa: PLC0415
 
         counters = scope.counter_snapshot()
+        # the job's device memory high-water mark; omitted (never 0) where
+        # the device did not report, as on the CPU
+        hbm_peak = obs_profile.memory_job_peak(job.id if job is not None else None)
         renamed = {"plan_cache_hits": "plan_cache_hits",
                    "plan_cache_misses": "plan_cache_misses",
                    "delta_rows_recomputed": "delta_rows", "delta_rows_total": "total_rows"}
         return {"phases_s": scope.snapshot(), "degraded": degraded,
                 "plan_cache": plancache.stats(since=job.cache_base if job else None),
+                **({"hbm_peak_bytes": hbm_peak} if hbm_peak is not None else {}),
                 **({"slice": job.slice, "device": job.device, "tenant": job.tenant}
                    if job is not None else {}),
                 **{short: counters.get(name, 0) for name, short in renamed.items()},
@@ -871,9 +889,10 @@ class Daemon:
 
     def _observe_terminal(self, job: Job, outcome: str) -> None:
         """Bookkeeping of a terminal transition this daemon committed: the
-        tenant's in-flight slot, the outcome totals and the job-wall
-        histogram (pickup, or submit for a job never picked up, to the end).
-        (The JAX package also feeds its SLO engine and tuner here.)"""
+        tenant's in-flight slot, the outcome totals, the job-wall histogram
+        (pickup, or submit for a job never picked up, to the end) and one
+        record into the SLO engine's (tenant, slice) window.  (The JAX
+        package also feeds its tuner here.)"""
         self.queue.release(job)
         snap = job.snapshot()
         started = snap["started_at"] or snap["submitted_at"]
@@ -881,6 +900,14 @@ class Daemon:
         with self._lock:
             self._terminal_totals[outcome] = self._terminal_totals.get(outcome, 0) + 1
             _observe_locked(self._job_wall, wall)
+        # outside self._lock: the SLO engine has its own lock, and a burn
+        # transition's event takes the event log's.  Queue wait is admission
+        # to pickup (the whole wall of a job reaped before pickup).
+        queue_wait = max(0.0, (snap["started_at"] or snap["finished_at"]
+                               or snap["submitted_at"]) - snap["submitted_at"])
+        obs_slo.SLO.observe(tenant=job.tenant, slice_name=job.slice or "unplaced",
+                            wall_s=wall, queue_wait_s=queue_wait, error=outcome != "done",
+                            trace_id=job.trace_id)
 
     def _flight_dump(self, name: str) -> str | None:
         """Dump the flight recorder to <socket>.flight/<name>.trace.json
@@ -1177,10 +1204,10 @@ class Daemon:
             return self._op_trace()
         if op == "events":
             return self._op_events(msg)
-        if op in protocol.UNSERVED_OPS:
-            return protocol.error(protocol.E_BAD_REQUEST,
-                                  f"op {op!r} is not served yet by the port's daemon (it "
-                                  f"comes with the port of obs/{op}.py)")
+        if op == "profile":
+            return self._op_profile()
+        if op == "slo":
+            return self._op_slo()
         self._stop.set()  # shutdown: serve_forever (or the owner's stop()) tears down
         return protocol.ok(stopping=True)
 
@@ -1339,6 +1366,8 @@ class Daemon:
             failpoints={"armed": armed, "triggered": failpoints.triggered()},
             trace=obs_trace.RECORDER.stats(),
             events=obs_events.LOG.stats(),
+            profile=obs_profile.summary(),
+            slo=obs_slo.SLO.report(),
             flight_dir=self.flight_dir,
             plan_cache=plancache.stats(),
             delta=delta.stats(),
@@ -1351,7 +1380,8 @@ class Daemon:
         engine's series (collect_engine), then the daemon's -- uptime,
         degrade, queue, connections, journal, the job-wall histogram, the
         batch-size histogram once an armed window has sampled, jobs by
-        state and outcome, the slice's series, per-tenant queue depth."""
+        state and outcome, the slice's series, per-tenant queue depth, and
+        the SLO engine's families."""
         samples = obs_metrics.collect_engine()
         with self._lock:
             degraded = self.degraded
@@ -1388,14 +1418,17 @@ class Daemon:
                 ("spgemm_slice_steals_total", labels, 0),  # one slice: nothing to steal
                 ("spgemm_slice_recoveries_total", labels, row["recoveries"]),
             ]
+        # the SLO engine's tenant cap: the newest TENANT_RETAIN tenants keep
+        # their own label, the rest add up in one `other` row
         tenant_rows = sorted(self.queue.tenants().items(),
                              key=lambda kv: kv[1].get("last_seen", 0.0), reverse=True)
         depths: dict[str, int] = {}
         for i, (tenant, row) in enumerate(tenant_rows):
-            label = tenant if i < TENANT_RETAIN else "other"
+            label = tenant if i < obs_slo.TENANT_RETAIN else "other"
             depths[label] = depths.get(label, 0) + row["queued"]
         samples += [("spgemmd_tenant_queue_depth", {"tenant": tenant}, n)
                     for tenant, n in sorted(depths.items())]
+        samples += obs_slo.SLO.samples()
         return protocol.ok(content_type="text/plain; version=0.0.4; charset=utf-8",
                            text=obs_metrics.render(samples))
 
@@ -1413,6 +1446,17 @@ class Daemon:
         except (TypeError, ValueError):
             return protocol.error(protocol.E_BAD_REQUEST, f"n must be an integer, got {n!r}")
         return protocol.ok(events=obs_events.LOG.tail(n), log=obs_events.LOG.stats())
+
+    def _op_profile(self) -> dict:
+        """The profiling report (obs/profile.py): build records, the device
+        memory watermark, estimator and delta accountability."""
+        return protocol.ok(profile=obs_profile.report())
+
+    def _op_slo(self) -> dict:
+        """The SLO engine's report (obs/slo.py): objectives, per-tenant
+        rolling quantiles, error ratio and queue-wait share, per-(tenant,
+        slice) burn state."""
+        return protocol.ok(slo=obs_slo.SLO.report())
 
 
 def _observe_locked(hist: dict, value: float) -> None:

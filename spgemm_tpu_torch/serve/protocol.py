@@ -18,16 +18,20 @@ Ops:
                                   MAX_WAIT_SLICE_S) ran out
   stats    {}                  -> daemon-wide state (degrade, queue, slice,
                                   journal, plan cache, delta, warm store,
-                                  flight recorder, event log)
+                                  flight recorder, event log, the profiling
+                                  digest, the SLO report)
   metrics  {}                  -> {text: Prometheus text-format 0.0.4,
                                   content_type}
   trace    {}                  -> {spans, trace_events: the flight recorder
                                   as trace_event JSON}
   events   {n?}                -> {events: the newest n event records,
                                   log: the event log's stats}
-  profile, slo                 -> in the wire contract; the port's daemon
-                                  answers them with bad-request until
-                                  obs/profile.py and obs/slo.py are ported
+  profile  {}                  -> {profile: the profiling report -- build
+                                  records, device memory watermark,
+                                  estimator and delta accountability}
+  slo      {}                  -> {slo: the SLO report -- objectives,
+                                  per-tenant quantiles, error ratio,
+                                  queue-wait share, burn state}
   shutdown {}                  -> {stopping: true}
 
 The version rules are the JAX package's: a client stamps version_for(msg),
@@ -104,10 +108,6 @@ DEFAULT_TENANT = "default"
 TENANT_MAX_LEN = 64
 
 OPS = tuple(REQUEST_FIELDS)
-
-# ops in the wire contract that this daemon does not serve yet (the JAX
-# package's profiling report and SLO report)
-UNSERVED_OPS = ("profile", "slo")
 
 # server-side bound on one request line: a peer streaming bytes without a
 # newline exhausts this, not the daemon's memory

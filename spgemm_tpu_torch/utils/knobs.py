@@ -210,6 +210,33 @@ _KNOBS = (
          "<path>.1 (one generation: at most about twice this on disk).  Read by "
          "obs/events.py.",
          default="256", minimum=1),
+    Knob("SPGEMM_TPU_SLO_TARGET_S", "float",
+         "Per-job latency objective, seconds (obs/slo.py SLO engine): a terminal "
+         "job slower than this (or failed) is a bad event against the tenant's "
+         "error budget, and multi-window burn-rate evaluation runs over every "
+         "rolling (tenant, slice) window -- a window whose bad fraction exceeds "
+         "the SPGEMM_TPU_SLO_ERROR_PCT budget in both the fast (window/12) and "
+         "slow (full window) views emits a slo_burn event carrying the newest "
+         "bad job's trace context and flips spgemm_slo_burn_active{tenant=,"
+         "slice=}.  Unset = accounting-only: the latency quantile, error-ratio "
+         "and queue-wait-share series still render, burn evaluation never runs.  "
+         "Read by obs/slo.py.",
+         minimum=0),
+    Knob("SPGEMM_TPU_SLO_ERROR_PCT", "float",
+         "SLO error budget, percent of jobs the rolling window may spend as bad "
+         "events (failed, or slower than SPGEMM_TPU_SLO_TARGET_S) before the "
+         "window counts as burning: burn rate = bad fraction / (this/100), "
+         "breach at >= 1 in both burn windows.  Only consulted while "
+         "SPGEMM_TPU_SLO_TARGET_S is set.  Read by obs/slo.py.",
+         default="1", minimum=0),
+    Knob("SPGEMM_TPU_SLO_WINDOW_S", "float",
+         "SLO rolling-window length, seconds: per-(tenant, slice) job records "
+         "older than this age out of the quantile, error and burn accounting "
+         "(the fast burn window is 1/12 of it).  Window memory stays bounded "
+         "regardless (RECORD_RETAIN records per window, TENANT_RETAIN tenants "
+         "by recency; an evicted tenant's windows are dropped and counted on "
+         "spgemm_slo_tenants_evicted_total).  Read by obs/slo.py.",
+         default="3600", minimum=1),
     Knob("SPGEMM_TPU_FAILPOINTS", "str",
          "Failpoint arming spec (utils/failpoints.py): comma-joined "
          "name[:prob][:count] terms naming registered injection sites; prob "

@@ -4,7 +4,8 @@ first use and called through ctypes.
 
 The three sources become one `build/host_native/libsmmio-<hash>.so`, where
 the hash covers the sources, the flags and the compiler's version, so a
-changed source rebuilds and an unchanged one is reused.  The library is compiled to a temporary file and
+changed source rebuilds and an unchanged one is reused.  The first load in a
+process is recorded in obs/profile (site `native`).  The library is compiled to a temporary file and
 moved into place with os.replace, so processes that build at once never load
 half a file.  It is built for the generic x86-64 target (no -march=native):
 `build/` may be copied to a machine with another CPU.
@@ -27,10 +28,12 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 
+from spgemm_tpu_torch.obs import profile
 from spgemm_tpu_torch.utils import knobs
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "native"
@@ -87,6 +90,12 @@ def build() -> Path:
     version line, so a build/ copied from a machine with another toolchain
     (and C++ runtime) is not reused.  A failed build raises with g++'s
     stderr."""
+    return _build()[0]
+
+
+def _build() -> tuple[Path, bool]:
+    """build(), and whether g++ ran (False: an up-to-date library was
+    reused)."""
     srcs = [SRC_DIR / name for name in SOURCES]
     digest = hashlib.sha256()
     for src in srcs:
@@ -95,7 +104,7 @@ def build() -> Path:
     digest.update(_gxx("--version", timeout=60).stdout.split("\n")[0].encode())
     lib = BUILD_DIR / f"libsmmio-{digest.hexdigest()[:16]}.so"
     if lib.exists():
-        return lib
+        return lib, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = _gxx(*CXX_FLAGS, "-o", str(tmp), *map(str, srcs), timeout=300)
@@ -104,26 +113,33 @@ def build() -> Path:
         raise RuntimeError(f"g++ failed to build the native host library from {SRC_DIR} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib
+    return lib, True
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded library, built on first use."""
+    """The loaded library, built on first use.  The first load in a process
+    lands a build record under site `native` (obs/profile.record_build);
+    a failed build or load raises before anything is recorded."""
     if not enabled():
         raise RuntimeError("SPGEMM_TPU_NO_NATIVE is set: the native host library "
                            "is neither built nor loaded")
     with _lock:
-        if SRC_DIR not in _libs:
-            path = build()
-            try:
-                handle = ctypes.CDLL(str(path))
-                for name, (restype, argtypes) in _SIGNATURES.items():
-                    fn = getattr(handle, name)
-                    fn.restype, fn.argtypes = restype, argtypes
-            except (OSError, AttributeError) as e:
-                raise RuntimeError(f"cannot load the native host library {path}: {e}") from e
-            _libs[SRC_DIR] = handle
-        return _libs[SRC_DIR]
+        if SRC_DIR in _libs:
+            return _libs[SRC_DIR]
+        t0 = time.perf_counter()
+        path, built = _build()
+        try:
+            handle = ctypes.CDLL(str(path))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.restype, fn.argtypes = restype, argtypes
+        except (OSError, AttributeError) as e:
+            raise RuntimeError(f"cannot load the native host library {path}: {e}") from e
+        _libs[SRC_DIR] = handle
+        wall = time.perf_counter() - t0
+    # outside _lock: the record takes the ENGINE and event-log locks
+    profile.record_build("native", wall, built, path.name, None)
+    return handle
 
 
 def _fetch(ptr, shape, dtype, free) -> np.ndarray:

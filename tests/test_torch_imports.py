@@ -2,8 +2,9 @@
 jax nor anything of the JAX package spgemm_tpu, checked in a fresh
 interpreter that imports every port module; and the CLI module, the
 daemon's client side (serve/client, protocol, queue, placement, and
-serve/daemon before it runs) and the obs layer (obs/trace, events, metrics,
-also in use) import neither torch nor numpy."""
+serve/daemon before it runs, serve/obs_smoke) and the obs layer (obs/trace,
+events, metrics, profile, slo, also in use) import neither torch nor
+numpy."""
 
 import os
 import subprocess
@@ -27,7 +28,8 @@ for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
              "parallel.chainpart", "ops.delta", "ops.estimate", "ops.warmstore",
              "ops.cuda_splice", "ops.cuda_dense", "utils.failpoints", "parallel.mesh",
              "serve", "serve.protocol", "serve.queue", "serve.placement", "serve.client",
-             "serve.daemon", "serve.smoke", "obs", "obs.trace", "obs.events", "obs.metrics"):
+             "serve.daemon", "serve.smoke", "serve.obs_smoke", "obs", "obs.trace", "obs.events",
+             "obs.metrics", "obs.profile", "obs.slo"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
@@ -63,7 +65,10 @@ print("light")
                                     "spgemm_tpu_torch.obs",
                                     "spgemm_tpu_torch.obs.trace",
                                     "spgemm_tpu_torch.obs.events",
-                                    "spgemm_tpu_torch.obs.metrics"])
+                                    "spgemm_tpu_torch.obs.metrics",
+                                    "spgemm_tpu_torch.obs.profile",
+                                    "spgemm_tpu_torch.obs.slo",
+                                    "spgemm_tpu_torch.serve.obs_smoke"])
 def test_the_serve_front_loads_neither_torch_nor_numpy(module):
     """A submitting process must not pay the cold torch import the daemon
     exists to amortize; the daemon module loads the engine lazily."""
@@ -75,17 +80,27 @@ def test_the_serve_front_loads_neither_torch_nor_numpy(module):
 
 _OBS_CHILD = """
 import json, os, sys, tempfile
-from spgemm_tpu_torch.obs import events, metrics, trace
+from spgemm_tpu_torch.obs import events, metrics, profile, slo, trace
 from spgemm_tpu_torch.utils.timers import ENGINE
+os.environ["SPGEMM_TPU_SLO_TARGET_S"] = "1"
 d = tempfile.mkdtemp()
 with trace.RECORDER.tagged(job_id="job-1"):
     with ENGINE.phase("serve_execute"):
         ENGINE.incr("launches_numeric_round")
+        profile.observe_memory({"bytes_in_use": 5})
 events.LOG.configure(os.path.join(d, "e.jsonl"))
 events.emit("job_done", job_id="job-1")
+profile.record_build("native", 0.1, False, "lib.so", None)
+profile.observe_estimate(1, 2, 3, 1, 2, 4)
+profile.observe_delta(2, 2, 10)
+slo.SLO.observe("t", "s0", 5.0, 0.1, False, trace_id="ab" * 16)
+assert slo.SLO.report()["burn_active"] == 1 and profile.memory_job_peak("job-1") == 5
 assert events.LOG.flush(10.0)
 text = metrics.render([("spgemm_engine_events_total", {"event": n}, v)
-                       for n, v in ENGINE.counter_snapshot().items()])
+                       for n, v in ENGINE.counter_snapshot().items()]
+                      + metrics._collect_profile() + slo.SLO.samples())
+assert 'spgemm_phase_seconds_count{phase="serve_execute"} 1' in text
+json.dumps(profile.report())
 path = trace.dump_json(os.path.join(d, "t.trace.json"))
 merged = trace.merge_trace_files([path])
 rec = next(events.follow_file(os.path.join(d, "e.jsonl"), poll_s=0.01))
@@ -98,8 +113,9 @@ print("obs")
 
 
 def test_the_obs_layer_in_use_loads_neither_torch_nor_numpy():
-    """Spans, events, a render, a dump, a merge and a follow: what a client
-    process and the daemon's watchdog run."""
+    """Spans, events, the profiling accounts, the SLO engine, a render, a
+    dump, a merge and a follow: what a client process and the daemon's
+    watchdog run."""
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", _OBS_CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

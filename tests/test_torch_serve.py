@@ -558,11 +558,17 @@ def test_queue_full_is_a_structured_answer(tmp_path, make_daemon):
 
 
 @pytest.mark.parametrize("op", ["profile", "slo"])
-def test_the_unported_ops_answer_bad_request(op, make_daemon):
+def test_profile_and_slo_ops_serve(op, make_daemon):
+    """Both ops answer on the raw wire with the JAX package's payload keys,
+    and the daemon serves on."""
+    from spgemm_tpu.obs import profile as jax_profile
+    from spgemm_tpu.obs import slo as jax_slo
+
     d = make_daemon(runner=lambda job, degraded=False: None)
     resp = _raw_roundtrip(d.socket_path, protocol.encode({"v": 4, "op": op}))
-    assert resp["ok"] is False and resp["error"]["code"] == protocol.E_BAD_REQUEST
-    assert repr(op) in resp["error"]["message"] and "not served yet" in resp["error"]["message"]
+    assert resp["ok"] is True, resp
+    want = jax_profile.report() if op == "profile" else jax_slo.SLO.report()
+    assert set(resp[op]) == set(want)
     assert client.stats(d.socket_path)["degraded"] is False  # and it serves on
 
 

@@ -605,13 +605,15 @@ def test_window_bounds_added_latency(tmp_path, batch_env, make_daemon):
 
 
 def test_per_job_records_stay_individual(tmp_path, batch_env, make_daemon):
-    """Each member keeps its own trace id, journal lifecycle, phases and
+    """Each member keeps its own trace id, journal lifecycle, phases,
     events (job_start and job_done with its own job and trace ids and the
-    batch id), while the batch's spans carry the head's job id and the
-    batch id.  Left out until obs/slo.py is ported: the SLO engine's
-    per-tenant count (tests/test_serve_batch.py:238-240)."""
+    batch id) and SLO record (tests/test_serve_batch.py:238-240), while the
+    batch's spans carry the head's job id and the batch id."""
+    from spgemm_tpu_torch.obs import slo
+
     folder, _ = _chain_folder(tmp_path)
     _prime(folder)
+    slo.SLO.clear()  # the process-wide engine: this test's records only
     d = make_daemon(runner=lambda job, degraded=False: None,
                     batch_runner=lambda jobs, degraded=False: None, journal=True)
     jobs = _submit_wait(d, folder, [str(tmp_path / f"o{i}") for i in range(3)], tenant="acme")
@@ -644,6 +646,9 @@ def test_per_job_records_stay_individual(tmp_path, batch_env, make_daemon):
     assert spans[0]["args"]["batch_id"] == head["batch"]
     assert spans[0]["args"]["job_id"] == head["id"] == head["batch"]
     assert spans[0]["args"]["trace_id"] == head["trace"]
+    # the SLO engine saw every member as its own terminal job
+    assert client.slo(d.socket_path)["tenants"]["acme"]["jobs"] == len(jobs)
+    slo.SLO.clear()
 
 
 def test_drr_fairness_decides_membership_before_formation(tmp_path, batch_env, make_daemon):

@@ -1,7 +1,12 @@
-"""spgemmd's obs layer on the port (serve/daemon.py's `metrics`, `trace` and
-`events` ops, its event log and flight dumps, serve/client.py's obs calls
-and the CLI's `metrics`, `events` and `trace-dump`), on device="cpu": the
-three ops answer and their series move after a submit; a job's trace id
+"""spgemmd's obs layer on the port (serve/daemon.py's `metrics`, `trace`,
+`events`, `profile` and `slo` ops, its event log and flight dumps,
+serve/client.py's obs calls and the CLI's `metrics`, `events`,
+`trace-dump`, `profile` and `slo`), on device="cpu": the ops answer and
+their series move after a submit; the profile and slo reports have the JAX
+package's shape; an armed serve.executor failpoint with objectives burns
+the SLO with the client's trace id, and the window's end clears it; a
+job's detail carries its device memory peak (solo and under a batch) only
+when the device reported; serve/obs_smoke.py passes on the CPU; a job's trace id
 runs from the client's span through the daemon's spans; a reap, a wedge and
 a degrade each write their event and a flight dump (runners gated by
 threading.Events, never a race of wall clocks); the flight directory stays
@@ -25,7 +30,9 @@ from spgemm_tpu.obs import events as jax_events
 from spgemm_tpu.obs import trace as jax_trace
 from spgemm_tpu.serve import client as jax_client
 from spgemm_tpu.serve import daemon as jax_daemon
-from spgemm_tpu_torch.obs import events, trace
+from spgemm_tpu.obs import profile as jax_profile
+from spgemm_tpu.obs import slo as jax_slo
+from spgemm_tpu_torch.obs import events, profile, slo, trace
 from spgemm_tpu_torch.ops import delta, plancache, warmstore
 from spgemm_tpu_torch.serve import client, placement, protocol
 from spgemm_tpu_torch.serve.daemon import Daemon
@@ -43,18 +50,21 @@ def _fresh(monkeypatch):
     for name in ("SPGEMM_TPU_FAILPOINTS", "SPGEMM_TPU_WARM_DIR", "SPGEMM_TPU_SERVE_ADDR",
                  "SPGEMM_TPU_SERVE_SLICES", "SPGEMM_TPU_DELTA", "SPGEMM_TPU_OBS_TRACE",
                  "SPGEMM_TPU_OBS_EVENTS", "SPGEMM_TPU_OBS_RING_CAP",
-                 "SPGEMM_TPU_SERVE_BATCH_WINDOW_S"):
+                 "SPGEMM_TPU_SERVE_BATCH_WINDOW_S", "SPGEMM_TPU_SLO_TARGET_S",
+                 "SPGEMM_TPU_SLO_ERROR_PCT", "SPGEMM_TPU_SLO_WINDOW_S"):
         monkeypatch.delenv(name, raising=False)
-    for mod in (delta, plancache, failpoints, placement):
+    for mod in (delta, plancache, failpoints, placement, profile):
         mod.clear()
     warmstore.reset()
     trace.RECORDER.clear()
     events.LOG.clear()
+    slo.SLO.clear()
     yield
-    for mod in (delta, plancache, failpoints, placement):
+    for mod in (delta, plancache, failpoints, placement, profile):
         mod.clear()
     warmstore.reset()
     events.LOG.clear()
+    slo.SLO.clear()
 
 
 @pytest.fixture
@@ -260,6 +270,141 @@ def test_a_trace_runs_from_the_client_through_a_cli_daemon(tmp_path):
             client.shutdown(sock)
             proc.wait(timeout=60)
     assert proc.returncode == 0, proc.stderr.read()
+
+
+def _cli_json(sock: str, *args) -> dict:
+    """A client subcommand of the CLI in its own process, its --json answer."""
+    r = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", *args, "--socket", sock,
+                        "--json"], env={**os.environ, "PYTHONPATH": REPO},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    return json.loads(r.stdout)
+
+
+def test_the_profile_and_slo_ops_and_subcommands_serve(tmp_path, make_daemon):
+    """After one real job: the profile report has the JAX package's keys,
+    one delta observation per multiply (a first contact's full fallbacks),
+    the job's phases in the histograms, no device memory on the CPU; the
+    slo report counts the job for its tenant; `cli profile` and `cli slo`,
+    with and without --json, answer from their own processes."""
+    folder, want = _chain_folder(tmp_path, n=4)
+    d = make_daemon()
+    job = _run(d, folder, str(tmp_path / "out"))
+    assert job["state"] == "done" and open(tmp_path / "out", "rb").read() == want
+    assert "hbm_peak_bytes" not in job["detail"]  # the CPU reports no device memory
+    rep = client.profile(d.socket_path)
+    assert set(rep) == set(jax_profile.report())
+    assert rep["delta"]["count"] == 3 and rep["delta"]["mispredictions"] == 0
+    assert rep["delta"]["dirty_fraction"]["buckets"]["0.9"] == 0  # 1.0 each: full fallbacks
+    assert rep["memory"]["available"] is False
+    assert {"plan", "serve_execute", "serve_chain"} <= set(profile.phase_stats())
+    rep = client.slo(d.socket_path)
+    assert set(rep) == set(jax_slo.SLO.report())
+    row = rep["tenants"]["default"]
+    assert row["jobs"] == 1 and row["errors"] == 0 and row["error_ratio"] == 0
+    assert set(row["latency_s"]) == {"p50", "p95", "p99"}
+    assert rep["objectives"]["enabled"] is False and rep["burn"][0]["slice"] == "s0w1"
+    st = client.stats(d.socket_path)
+    assert st["profile"]["delta_observations"] == 3 and st["slo"]["records"] == 1
+    s = _series(client.metrics(d.socket_path))
+    assert s['spgemm_slo_error_ratio{tenant="default"}'] == 0
+    assert s['spgemm_slo_burn_active{slice="s0w1",tenant="default"}'] == 0
+    assert s["spgemm_delta_dirty_fraction_count"] == 3 and "spgemm_hbm_peak_bytes" not in s
+    assert _cli_json(d.socket_path, "profile")["delta"]["count"] == 3
+    assert _cli_json(d.socket_path, "slo")["tenants"]["default"]["jobs"] == 1
+    env = {**os.environ, "PYTHONPATH": REPO}
+    for sub, line in (("profile", "delta: x3"), ("slo", "tenant default: jobs=1")):
+        r = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", sub, "--socket",
+                            d.socket_path], env=env, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode == 0 and line in r.stdout, (r.stdout, r.stderr)
+
+
+def test_a_wedged_pickup_burns_the_slo_with_the_clients_trace_id(tmp_path, make_daemon,
+                                                                   monkeypatch):
+    """With objectives declared and serve.executor armed to hang once, the
+    reaped job is a bad event: spgemm_slo_burn_active{tenant, slice} reads
+    1, one slo_burn event and the slo report's burning window carry the
+    trace id the client minted; once the window ends (the knob shortened
+    to 1 s, as an operator may) a read clears it with slo_burn_clear."""
+    folder, _ = _chain_folder(tmp_path)
+    monkeypatch.setenv("SPGEMM_TPU_SLO_TARGET_S", "60")
+    monkeypatch.setenv("SPGEMM_TPU_SLO_WINDOW_S", "600")
+    monkeypatch.setenv("SPGEMM_TPU_FAILPOINTS", "serve.executor:1:1")
+    d = make_daemon(runner=lambda job, degraded=False: None, job_timeout_s=0.3,
+                    wedge_grace_s=120)
+    try:
+        resp = client.submit(folder, d.socket_path, {"output": str(tmp_path / "o")})
+        minted = resp["trace"]
+        assert isinstance(minted, str) and len(minted) == 32
+        job = client.wait(resp["id"], d.socket_path, timeout=120)["job"]
+        assert job["error"]["code"] == protocol.E_JOB_TIMEOUT
+        s = _series(client.metrics(d.socket_path))
+        assert s['spgemm_slo_burn_active{slice="s0w1",tenant="default"}'] == 1
+        assert s['spgemm_slo_error_ratio{tenant="default"}'] == 1
+        burns = [e for e in client.events(200, d.socket_path) if e["kind"] == "slo_burn"]
+        assert len(burns) == 1 and burns[0]["trace_id"] == minted
+        assert (burns[0]["tenant"], burns[0]["slice"], burns[0]["bad"]) == ("default", "s0w1", 1)
+        (burn,) = client.slo(d.socket_path)["burn"]
+        assert burn["active"] and burn["trace_id"] == minted
+    finally:
+        monkeypatch.delenv("SPGEMM_TPU_FAILPOINTS")  # the hang ends
+    monkeypatch.setenv("SPGEMM_TPU_SLO_WINDOW_S", "1")
+    time.sleep(1.2)
+    (burn,) = client.slo(d.socket_path)["burn"]
+    assert burn["active"] is False
+    kinds = [e["kind"] for e in client.events(200, d.socket_path)
+             if e["kind"].startswith("slo_burn")]
+    assert kinds == ["slo_burn", "slo_burn_clear"]
+    s = _series(client.metrics(d.socket_path))
+    assert s['spgemm_slo_burn_active{slice="s0w1",tenant="default"}'] == 0
+
+
+def test_a_jobs_detail_carries_its_device_memory_peak(tmp_path, make_daemon, monkeypatch):
+    """Readings pushed on the executor thread land in the job's own window
+    (its span tag): a solo job's detail reports the highest; under a batch
+    every member's window opens at pickup with the newest reading, the
+    batch's readings land in the head's window (its spans carry the head's
+    id), and a mate reports the reading at its pickup.  Each member is its
+    own SLO record."""
+    folder, _ = _chain_folder(tmp_path)
+    monkeypatch.setenv("SPGEMM_TPU_DELTA", "0")
+    readings = iter([800, 2000, 5000])
+
+    def push():
+        profile.observe_memory({"bytes_in_use": next(readings)})
+
+    def runner(job, degraded=False):
+        push()
+        push()
+
+    d = make_daemon(runner=runner, batch_runner=lambda jobs, degraded=False: push())
+    solo = _run(d, folder, str(tmp_path / "o"))
+    assert solo["detail"]["hbm_peak_bytes"] == 2000
+    plancache.note_chain_structure(placement.signature(folder), "fp-test")
+    monkeypatch.setenv("SPGEMM_TPU_SERVE_BATCH_WINDOW_S", "0.5")
+    monkeypatch.setenv("SPGEMM_TPU_SERVE_BATCH_K", "8")
+    gate = threading.Event()
+    d._runner = lambda job, degraded=False: gate.wait(60)  # holds the executor
+    blocker = client.submit(_chain_folder(tmp_path, seed=9, name="blocker")[0], d.socket_path,
+                            {"output": str(tmp_path / "b")})["id"]
+    ids = [client.submit(folder, d.socket_path, {"output": str(tmp_path / f"o{i}")},
+                         tenant="acme")["id"] for i in range(3)]
+    gate.set()
+    client.wait(blocker, d.socket_path, timeout=60)
+    jobs = [client.wait(i, d.socket_path, timeout=60)["job"] for i in ids]
+    assert [j["batch"] for j in jobs] == [ids[0]] * 3
+    assert [j["detail"]["hbm_peak_bytes"] for j in jobs] == [5000, 2000, 2000]
+    assert profile.memory_stats()["peak_bytes"] == 5000
+    assert client.slo(d.socket_path)["tenants"]["acme"]["jobs"] == 3
+
+
+def test_the_obs_smoke_passes_on_the_cpu(tmp_path):
+    env = {**os.environ, "PYTHONPATH": REPO, "TMPDIR": str(tmp_path)}
+    r = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.serve.obs_smoke", "--device",
+                        "cpu"], env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "obs-smoke: OK" in r.stdout and "burn leg OK" in r.stdout
 
 
 # ------------------------------------------------------ watchdog, dumps --
