@@ -179,7 +179,27 @@ the script exits non-zero without printing a result:
                warm Medium chain in this process with SPGEMM_TPU_OBS_TRACE 1
                and 0 in turns (on, off, off, on, four times), its spans per
                chain counted; `[estimate]` also holds obs/profile's estimator
-               count to the estimated plans that landed;
+               count to the estimated plans that landed; then `[tune]`, the
+               autotuner (tune/) in a daemon on the card with a private warm
+               directory, SPGEMM_TPU_TUNE=1, SPGEMM_TPU_TUNE_TRIAL_S=0.5 and
+               SPGEMM_TPU_TUNE_MIN_WIN=1 (so that the promotion path runs;
+               what the default 1.1 decides on the same walls is printed):
+               (t1) Medium twice (the second job's class registered), then
+               idle until the class leaves trialing: each leg's vector, wall,
+               plan seconds, kernel-1 and dense-fold launches and its digest,
+               which must equal the in-memory result's, the ladder leg
+               launching kernel 1 and the dense leg the fold; (t2) if a
+               vector was promoted, Medium as the tuned canary (half its
+               deadline, the golden bytes, one tune_canary_passed, the class
+               live); (t3) the chain of distinct structures twice (a new
+               class), and Medium submitted while its first leg runs: the
+               tune_trial_preempted event and Medium's serve_queue_wait;
+               (t4) a second daemon on the same warm directory: the persisted
+               records adopted, `cli tune --status --json` and `cli knobs
+               --json`, and Medium twice, the second under the adopted
+               vector; (t5) a third daemon under SPGEMM_TPU_TUNE=0: Medium
+               twice with the golden bytes, no class, no leg, no
+               spgemm_tune_* family in the scrape;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -2904,16 +2924,18 @@ def _same_bytes(path_a: str, path_b: str, chunk: int = 64 << 20) -> bool:
 
 
 def _serve_check(leg: str, job: dict, out: str, want: BlockSparseMatrix | str,
-                 keep: str | None = None) -> None:
-    """Kernel 1 launched on the card, not degraded, and ./out equal to want:
-    read back with the native parser against the in-memory engine's result,
-    or, when want is a path, byte for byte against that earlier leg's file.
-    The file is then removed, or renamed to keep."""
+                 keep: str | None = None,
+                 kernels: tuple = ("launches_numeric_round",)) -> None:
+    """A kernel of `kernels` (kernel 1 by default; none asked for when empty)
+    launched on the card, not degraded, and ./out equal to want: read back with the native parser
+    against the in-memory engine's result, or, when want is a path, byte for
+    byte against that earlier leg's file.  The file is then removed, or
+    renamed to keep."""
     det = job["detail"]
     on_card = DEVICE == "cuda"
     if det.get("degraded") is not False or det.get("device") != ("cuda:0" if on_card else "cpu") \
-            or (on_card and det.get("launches_numeric_round", 0) < 1):
-        raise RuntimeError(f"[serve] ({leg}) did not run kernel 1 on the card: {det}")
+            or (on_card and kernels and sum(det.get(k, 0) for k in kernels) < 1):
+        raise RuntimeError(f"[serve] ({leg}) did not launch {kernels} on the card: {det}")
     if isinstance(want, str):
         if not _same_bytes(out, want):
             raise RuntimeError(f"[serve] ({leg}) ./{os.path.basename(out)} differs from the "
@@ -3565,11 +3587,12 @@ def _obs_overhead(medium, smi: str) -> dict:
     return out
 
 
-def phase_serve(medium, cli: dict) -> dict:
+def phase_serve(medium, cli: dict, tmp: str) -> dict:
     """[serve]: the port's daemon (`python -m spgemm_tpu_torch.cli serve`, on
     the card) driven with its client over text directories of the Medium
-    chain and of the Medium chain of distinct structures, under a temporary
-    directory it deletes: (a) Medium cold, (b) Medium again (every plan a
+    chain and of the Medium chain of distinct structures, written under tmp
+    (where [tune] finds them, with (a)'s and (c)'s results as result_a and
+    result_c): (a) Medium cold, (b) Medium again (every plan a
     hit), (c0) the chain of distinct structures, (c) the same with 11 tile
     rows of M5 given new values (delta recompute and the splice); then a
     second daemon on the same socket and warm directory, started with the
@@ -3598,91 +3621,90 @@ def phase_serve(medium, cli: dict) -> dict:
                                              np.random.default_rng(SEED + 5))
         want_c = chain_product(edited, device=DEVICE).prune_zeros()
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
-        t1 = time.perf_counter()
-        medium_dir, distinct_dir = os.path.join(tmp, "medium"), os.path.join(tmp, "distinct")
-        _write_text_dir(medium_dir, medium.mats)
-        _write_text_dir(distinct_dir, dmats)
-        out["write_dirs_s"] = time.perf_counter() - t1
-        sock, log_path = os.path.join(tmp, "d.sock"), os.path.join(tmp, "d.log")
-        proc, out["start"] = _serve_start(sock, _serve_env(), log_path)
-        try:
-            res, res_a = os.path.join(tmp, "result"), os.path.join(tmp, "result_a")
-            jobs = {}
-            obs_base = _obs_series(client.metrics(sock))
-            # (a) is read back against the engine; (b) and (d) must give its bytes
-            for leg, folder, want in (("a", medium_dir, want_a), ("b", medium_dir, res_a),
-                                      ("c0", distinct_dir, want_c0)):
-                jobs[leg], wall = _serve_job(client, sock, folder, res)
-                _serve_check(leg, jobs[leg], res, want, keep=res_a if leg == "a" else None)
-                out[f"flush_{leg}_s"] = _serve_idle(client, sock)
-                out[leg] = _serve_report(leg, jobs[leg], wall, smi)
-                if leg == "b":
-                    out["obs_ab"] = _obs_after_ab(client, sock, jobs, obs_base, tmp, smi,
-                                                  sum(m.tiles.nbytes for m in medium.mats))
-            a, b = jobs["a"]["detail"], jobs["b"]["detail"]
-            if b["plan_cache_misses"] or \
-                    b["plan_cache_hits"] != a["plan_cache_hits"] + a["plan_cache_misses"]:
-                raise RuntimeError(f"[serve] (b) is not every plan a hit: (a) hits "
-                                   f"{a['plan_cache_hits']} misses {a['plan_cache_misses']}, "
-                                   f"(b) hits {b['plan_cache_hits']} misses "
-                                   f"{b['plan_cache_misses']}")
-            io_text.write_matrix(os.path.join(distinct_dir, f"matrix{SERVE_EDIT_LEAF + 1}"),
-                                 edited[SERVE_EDIT_LEAF])
-            jobs["c"], wall = _serve_job(client, sock, distinct_dir, res)
-            _serve_check("c", jobs["c"], res, want_c)
-            out["flush_c_s"] = _serve_idle(client, sock)
-            out["c"] = _serve_report("c", jobs["c"], wall, smi)
-            c = jobs["c"]["detail"]
-            if not 0 < c["delta_rows"] < c["total_rows"] or \
-                    (DEVICE == "cuda" and c.get("launches_splice", 0) < 1):
-                raise RuntimeError(f"[serve] (c) did not take the delta path: {c}")
-            st = client.stats(sock)
-            card = {"type": "cuda", "name": torch.cuda.get_device_name(0)} if DEVICE == "cuda" \
-                else {"type": "cpu", "name": "cpu"}
-            if st["device"] != card \
-                    or st["degraded"] or st["serve"]["serve_degrades"]:
-                raise RuntimeError(f"[serve] stats: {st['device']}, degraded {st['degraded']}, "
-                                   f"{st['serve']}")
-            out["warm_disk"] = {k: st["warm"][k] for k in ("plans", "deltas", "bytes")}
-            # (a), (b), (c0), (c): every multiply of the four jobs took the delta path
-            out["obs_c"] = _obs_delta(client, sock, obs_base, 4 * (MEDIUM["n"] - 1), "c", smi)
-            _serve_stop(proc, sock, client, log_path)
-            # the second daemon: the watchdog leg armed (its knobs), then (d)
-            env_e = _serve_env(SPGEMM_TPU_FAILPOINTS="serve.heartbeat:1:1",
-                               SPGEMM_TPU_SERVE_JOB_TIMEOUT=str(SERVE_TIMEOUT_S),
-                               SPGEMM_TPU_SERVE_WEDGE_GRACE_S=str(SERVE_GRACE_S),
-                               SPGEMM_TPU_SERVE_RECOVER_S=str(SERVE_RECOVER_S),
-                               SPGEMM_TPU_SLO_TARGET_S=str(SERVE_SLO_TARGET_S),
-                               SPGEMM_TPU_SLO_ERROR_PCT=str(SERVE_SLO_ERROR_PCT))
-            proc, out["restart"] = _serve_start(sock, env_e, log_path)
-            out["e"] = _serve_watchdog(client, sock, tmp)
-            out["obs_e"] = _obs_after_e(client, sock, out["e"]["job_id"], out["e"]["trace"],
-                                        smi)
-            jobs["d"], wall = _serve_job(client, sock, medium_dir, res, timeout_s=0)
-            _serve_check("d", jobs["d"], res, res_a)
-            out["d"] = _serve_report("d", jobs["d"], wall, smi)
-            out["obs_d"] = _obs_delta(client, sock, out["obs_e"]["series"], MEDIUM["n"] - 1,
-                                      "d", smi)
-            if jobs["d"]["detail"].get("warm_hits", 0) < 1:
-                raise RuntimeError(f"[serve] (d) no warm hit: {jobs['d']['detail']}")
-            st = client.stats(sock)
-            if st["degraded"] or st["serve"]["serve_degrades"] != 1:
-                raise RuntimeError(f"[serve] (d) a degrade besides (e)'s: {st['serve']}")
-            _serve_stop(proc, sock, client, log_path)
-            t_batch = time.perf_counter()
-            out["batch"] = _serve_batch_legs(medium, tmp, smi)
-            out["batch_s"] = time.perf_counter() - t_batch
-            out["obs_overhead"] = _obs_overhead(medium, smi)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-        stderr_degrade = [ln for ln in open(log_path)
-                          if ln.startswith("spgemmd: slice") and " degraded: " in ln]
-        oracle = [ln for ln in open(log_path) if "serves on the host oracle" in ln]
-        if len(stderr_degrade) != 1 or oracle:
-            raise RuntimeError(f"[serve] want one stderr degrade line, (e)'s, and none "
-                               f"handing a slice to the oracle, got {stderr_degrade + oracle}")
+    t1 = time.perf_counter()
+    medium_dir, distinct_dir = os.path.join(tmp, "medium"), os.path.join(tmp, "distinct")
+    _write_text_dir(medium_dir, medium.mats)
+    _write_text_dir(distinct_dir, dmats)
+    out["write_dirs_s"] = time.perf_counter() - t1
+    sock, log_path = os.path.join(tmp, "d.sock"), os.path.join(tmp, "d.log")
+    proc, out["start"] = _serve_start(sock, _serve_env(), log_path)
+    try:
+        res, res_a = os.path.join(tmp, "result"), os.path.join(tmp, "result_a")
+        jobs = {}
+        obs_base = _obs_series(client.metrics(sock))
+        # (a) is read back against the engine; (b) and (d) must give its bytes
+        for leg, folder, want in (("a", medium_dir, want_a), ("b", medium_dir, res_a),
+                                  ("c0", distinct_dir, want_c0)):
+            jobs[leg], wall = _serve_job(client, sock, folder, res)
+            _serve_check(leg, jobs[leg], res, want, keep=res_a if leg == "a" else None)
+            out[f"flush_{leg}_s"] = _serve_idle(client, sock)
+            out[leg] = _serve_report(leg, jobs[leg], wall, smi)
+            if leg == "b":
+                out["obs_ab"] = _obs_after_ab(client, sock, jobs, obs_base, tmp, smi,
+                                              sum(m.tiles.nbytes for m in medium.mats))
+        a, b = jobs["a"]["detail"], jobs["b"]["detail"]
+        if b["plan_cache_misses"] or \
+                b["plan_cache_hits"] != a["plan_cache_hits"] + a["plan_cache_misses"]:
+            raise RuntimeError(f"[serve] (b) is not every plan a hit: (a) hits "
+                               f"{a['plan_cache_hits']} misses {a['plan_cache_misses']}, "
+                               f"(b) hits {b['plan_cache_hits']} misses "
+                               f"{b['plan_cache_misses']}")
+        io_text.write_matrix(os.path.join(distinct_dir, f"matrix{SERVE_EDIT_LEAF + 1}"),
+                             edited[SERVE_EDIT_LEAF])
+        jobs["c"], wall = _serve_job(client, sock, distinct_dir, res)
+        _serve_check("c", jobs["c"], res, want_c, keep=os.path.join(tmp, "result_c"))
+        out["flush_c_s"] = _serve_idle(client, sock)
+        out["c"] = _serve_report("c", jobs["c"], wall, smi)
+        c = jobs["c"]["detail"]
+        if not 0 < c["delta_rows"] < c["total_rows"] or \
+                (DEVICE == "cuda" and c.get("launches_splice", 0) < 1):
+            raise RuntimeError(f"[serve] (c) did not take the delta path: {c}")
+        st = client.stats(sock)
+        card = {"type": "cuda", "name": torch.cuda.get_device_name(0)} if DEVICE == "cuda" \
+            else {"type": "cpu", "name": "cpu"}
+        if st["device"] != card \
+                or st["degraded"] or st["serve"]["serve_degrades"]:
+            raise RuntimeError(f"[serve] stats: {st['device']}, degraded {st['degraded']}, "
+                               f"{st['serve']}")
+        out["warm_disk"] = {k: st["warm"][k] for k in ("plans", "deltas", "bytes")}
+        # (a), (b), (c0), (c): every multiply of the four jobs took the delta path
+        out["obs_c"] = _obs_delta(client, sock, obs_base, 4 * (MEDIUM["n"] - 1), "c", smi)
+        _serve_stop(proc, sock, client, log_path)
+        # the second daemon: the watchdog leg armed (its knobs), then (d)
+        env_e = _serve_env(SPGEMM_TPU_FAILPOINTS="serve.heartbeat:1:1",
+                           SPGEMM_TPU_SERVE_JOB_TIMEOUT=str(SERVE_TIMEOUT_S),
+                           SPGEMM_TPU_SERVE_WEDGE_GRACE_S=str(SERVE_GRACE_S),
+                           SPGEMM_TPU_SERVE_RECOVER_S=str(SERVE_RECOVER_S),
+                           SPGEMM_TPU_SLO_TARGET_S=str(SERVE_SLO_TARGET_S),
+                           SPGEMM_TPU_SLO_ERROR_PCT=str(SERVE_SLO_ERROR_PCT))
+        proc, out["restart"] = _serve_start(sock, env_e, log_path)
+        out["e"] = _serve_watchdog(client, sock, tmp)
+        out["obs_e"] = _obs_after_e(client, sock, out["e"]["job_id"], out["e"]["trace"],
+                                    smi)
+        jobs["d"], wall = _serve_job(client, sock, medium_dir, res, timeout_s=0)
+        _serve_check("d", jobs["d"], res, res_a)
+        out["d"] = _serve_report("d", jobs["d"], wall, smi)
+        out["obs_d"] = _obs_delta(client, sock, out["obs_e"]["series"], MEDIUM["n"] - 1,
+                                  "d", smi)
+        if jobs["d"]["detail"].get("warm_hits", 0) < 1:
+            raise RuntimeError(f"[serve] (d) no warm hit: {jobs['d']['detail']}")
+        st = client.stats(sock)
+        if st["degraded"] or st["serve"]["serve_degrades"] != 1:
+            raise RuntimeError(f"[serve] (d) a degrade besides (e)'s: {st['serve']}")
+        _serve_stop(proc, sock, client, log_path)
+        t_batch = time.perf_counter()
+        out["batch"] = _serve_batch_legs(medium, tmp, smi)
+        out["batch_s"] = time.perf_counter() - t_batch
+        out["obs_overhead"] = _obs_overhead(medium, smi)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    stderr_degrade = [ln for ln in open(log_path)
+                      if ln.startswith("spgemmd: slice") and " degraded: " in ln]
+    oracle = [ln for ln in open(log_path) if "serves on the host oracle" in ln]
+    if len(stderr_degrade) != 1 or oracle:
+        raise RuntimeError(f"[serve] want one stderr degrade line, (e)'s, and none "
+                           f"handing a slice to the oracle, got {stderr_degrade + oracle}")
     e = out["e"]
     obs_s = out["obs_ab"]["leg_s"] + out["obs_e"]["leg_s"] + out["obs_overhead"]["leg_s"]
     _phase("serve", t0, f"on {smi}: daemon up in {out['start']['start_s']:.3f} s, of which "
@@ -3708,6 +3730,224 @@ def phase_serve(medium, cli: dict) -> dict:
            f"{out['obs_ab']['leg_s']:.3f}, after (e) {out['obs_e']['leg_s']:.3f}, recorder "
            f"on/off {out['obs_overhead']['leg_s']:.3f}); the phase beyond writing the directories "
            f"{time.perf_counter() - t0 - out['write_dirs_s']:.3f} s")
+    return out
+
+
+TUNE_TRIAL_S = 0.5   # [tune]: the daemon's idle-trial cadence
+TUNE_WAIT_S = 300.0  # [tune]: the longest wait for a class to leave trialing
+TUNE_KERNELS = ("launches_numeric_round", "launches_dense_fold")
+
+
+def _tune_rows(client, sock: str) -> dict:
+    """The daemon's tuner rows by class key."""
+    return {r["class"]: r for r in client.stats(sock)["tune"]["classes"]}
+
+
+def _tune_settle(client, sock: str, ck: str | None) -> dict:
+    """Poll `stats` until class ck (the only class when None) holds a state
+    other than idle or trialing; its row."""
+    deadline = time.time() + TUNE_WAIT_S
+    while time.time() < deadline:
+        rows = _tune_rows(client, sock)
+        row = rows.get(ck) if ck is not None else (next(iter(rows.values())) if rows else None)
+        if row is not None and row["state"] not in ("idle", "trialing"):
+            return row
+        time.sleep(0.1)
+    raise RuntimeError(f"[tune] class {ck} did not leave trialing in {TUNE_WAIT_S:g} s: "
+                       f"{_tune_rows(client, sock)}")
+
+
+def _tune_events(client, sock: str, kind: str, ck: str | None = None) -> list:
+    return [e for e in client.events(512, sock)
+            if e["kind"] == kind and (ck is None or e.get("class_key") == ck)]
+
+
+def _tune_cli(sub: list, env: dict) -> dict:
+    """`python -m spgemm_tpu_torch.cli <sub...> --json` in its own process."""
+    r = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", *sub, "--json"],
+                       env={**env, "PYTHONPATH": REPO}, cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"[tune] cli {sub} exited {r.returncode}: {r.stderr[-2000:]}")
+    return json.loads(r.stdout)
+
+
+def _tune_legs(legs: list, want_digest: str, smi: str) -> dict:
+    """(t1)'s legs: one line each, the digest check, the kernels each route
+    must launch on the card, and what the default SPGEMM_TPU_TUNE_MIN_WIN
+    decides on these walls."""
+    for e in legs:
+        c = e["counters"]
+        print(f"[tune] (t1) leg {e['knobs'] or 'base'} on {smi}: wall {e['seconds']:.6f} s, "
+              f"plan {e['phases_s'].get('plan', 0.0):.4f} s, plan_wait "
+              f"{e['phases_s'].get('plan_wait', 0.0):.4f} s, kernel 1 "
+              f"{c.get('launches_numeric_round', 0)}, dense fold "
+              f"{c.get('launches_dense_fold', 0)}, digest {e['digest'][:16]} "
+              f"({'equal to' if e['digest'] == want_digest else 'DIFFERS FROM'} the in-memory "
+              "result's)", flush=True)
+    if any(e["digest"] != want_digest for e in legs):
+        raise RuntimeError("[tune] (t1) a leg's digest differs from the in-memory result's")
+    by_route = {e["knobs"].get("SPGEMM_TPU_ACCUM_ROUTE"): e["counters"] for e in legs}
+    if DEVICE == "cuda" and (by_route["ladder"].get("launches_numeric_round", 0) < 1
+                             or by_route["dense"].get("launches_dense_fold", 0) < 1):
+        raise RuntimeError(f"[tune] (t1) the ladder leg ran no kernel 1 or the dense leg no "
+                           f"fold: {by_route}")
+    base = legs[0]["seconds"]
+    best = min(legs[1:], key=lambda e: e["seconds"])
+    win = base / best["seconds"]
+    print(f"[tune] (t1) best candidate {best['knobs']}: win {win:.4f} (baseline / best wall); "
+          f"the default SPGEMM_TPU_TUNE_MIN_WIN=1.1 would "
+          f"{'promote it' if win >= 1.1 else 'settle the class untuned'}; this daemon runs "
+          "with SPGEMM_TPU_TUNE_MIN_WIN=1 to drive the promotion path", flush=True)
+    return {"walls": {json.dumps(e["knobs"]): e["seconds"] for e in legs},
+            "plan_s": {json.dumps(e["knobs"]): e["phases_s"].get("plan", 0.0) for e in legs},
+            "win": win, "best": best["knobs"], "default_min_win_promotes": win >= 1.1}
+
+
+def phase_tune(medium, tmp: str) -> dict:
+    """[tune]: the autotuner in the port's daemon on the card, over [serve]'s
+    Medium and distinct-structure text directories under tmp (see the module
+    docstring, (t1)-(t5)).  Every job's bytes equal the golden file ((a)'s
+    and (c)'s results of [serve]), every leg's digest the in-memory Medium
+    result's."""
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+    from spgemm_tpu_torch.serve.daemon import result_digest  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    medium_dir, distinct_dir = os.path.join(tmp, "medium"), os.path.join(tmp, "distinct")
+    golden, golden_c = os.path.join(tmp, "result_a"), os.path.join(tmp, "result_c")
+    want_digest = result_digest(medium.res_host)
+    warm = os.path.join(tmp, "tune.warm")
+    sock, log_path, res = (os.path.join(tmp, n) for n in ("t.sock", "t.log", "t.result"))
+    env = _serve_env(SPGEMM_TPU_WARM_DIR=warm, SPGEMM_TPU_TUNE="1",
+                     SPGEMM_TPU_TUNE_TRIAL_S=str(TUNE_TRIAL_S), SPGEMM_TPU_TUNE_MIN_WIN="1")
+    both = TUNE_KERNELS
+    out = {"legs_launches": dict.fromkeys(TUNE_KERNELS, 0)}
+
+    def medium_job(leg: str, **options) -> dict:
+        job, wall = _serve_job(client, sock, medium_dir, res, **options)
+        _serve_check(leg, job, res, golden, kernels=both)
+        _serve_idle(client, sock)
+        out[leg] = _serve_report(f"tune {leg}", job, wall, smi)
+        return job
+
+    def count_legs() -> list:
+        legs = _tune_events(client, sock, "tune_trial")
+        for e in legs:
+            for k in TUNE_KERNELS:
+                out["legs_launches"][k] += e["counters"].get(k, 0)
+        return legs
+
+    proc, out["start"] = _serve_start(sock, env, log_path)
+    try:
+        # (t1): the first job records Medium's structure, so the second has a class
+        medium_job("t1.0", timeout_s=0)
+        medium_job("t1.1", timeout_s=0)
+        t_idle = time.perf_counter()
+        row = _tune_settle(client, sock, None)
+        ck = row["class"]
+        out["t1_settle_s"] = time.perf_counter() - t_idle
+        legs = _tune_events(client, sock, "tune_trial", ck)
+        if [e["knobs"] for e in legs] != [{}, {"SPGEMM_TPU_ACCUM_ROUTE": "ladder"},
+                                          {"SPGEMM_TPU_ACCUM_ROUTE": "dense"},
+                                          {"SPGEMM_TPU_PLAN_AHEAD": "0"}]:
+            raise RuntimeError(f"[tune] (t1) the legs are not the trial plan: {legs}")
+        out["t1"] = _tune_legs(legs, want_digest, smi)
+        out["t1"].update(state=row["state"], class_key=ck, knobs=row["knobs"], win_row=row["win"])
+        print(f"[tune] (t1) class {ck}: {row['state']}, win {row['win']}, knobs {row['knobs']} "
+              f"({out['t1_settle_s']:.3f} s from idle to settled)", flush=True)
+        # (t2): the tuned canary
+        if row["state"] == "canary":
+            job = medium_job("t2", timeout_s=600)
+            passed = _tune_events(client, sock, "tune_canary_passed", ck)
+            row2 = _tune_rows(client, sock)[ck]
+            if job["timeout_s"] != 300 or len(passed) != 1 or row2["state"] != "live":
+                raise RuntimeError(f"[tune] (t2) the canary: deadline {job['timeout_s']}, "
+                                   f"passed {passed}, {row2}")
+            out["t2"] = {"timeout_s": job["timeout_s"], "state": row2["state"],
+                         "launches": {k: job["detail"].get(k, 0) for k in TUNE_KERNELS}}
+            print(f"[tune] (t2) the tuned canary under {row['knobs']}: deadline 600 -> "
+                  f"{job['timeout_s']:g} s, golden bytes, launches {out['t2']['launches']}, one "
+                  "tune_canary_passed, the class live", flush=True)
+        else:
+            out["t2"] = None
+            print(f"[tune] (t2) skipped: nothing was promoted (the class is {row['state']}, "
+                  f"win {row['win']} below SPGEMM_TPU_TUNE_MIN_WIN=1)", flush=True)
+        # (t3): a new class, and a real job preempting its first leg
+        for i in range(2):
+            job, _ = _serve_job(client, sock, distinct_dir, res, timeout_s=0)
+            # the second submit's content is unchanged: delta recompute serves
+            # every row from the first's retained results, with no launch
+            _serve_check(f"t3.{i}", job, res, golden_c, kernels=both if i == 0 else ())
+            _serve_idle(client, sock)
+        trials = client.stats(sock)["tune"]["trials"]
+        deadline = time.time() + 60
+        while client.stats(sock)["tune"]["trials"] == trials:
+            if time.time() > deadline:
+                raise RuntimeError("[tune] (t3) no leg of the new class started")
+            time.sleep(0.01)
+        job, wall = _serve_job(client, sock, medium_dir, res, timeout_s=0)
+        _serve_check("t3", job, res, golden, kernels=both)
+        _serve_idle(client, sock)
+        pre = [e for e in _tune_events(client, sock, "tune_trial_preempted") if e["class_key"] != ck]
+        if not pre or pre[-1]["reason"] != "preempted":
+            raise RuntimeError(f"[tune] (t3) no preempted leg of the new class: {pre}")
+        qwait = job["detail"]["phases_s"].get("serve_queue_wait", 0.0)
+        out["t3"] = {"queue_wait_s": qwait, "wall_s": wall, "preempted": pre[-1]["knobs"]}
+        print(f"[tune] (t3) Medium submitted while the new class's leg {pre[-1]['knobs'] or 'base'} "
+              f"ran: tune_trial_preempted (preempted), its serve_queue_wait {qwait:.4f} s "
+              f"(a leg's read plus one multiply at most), submit wall {wall:.6f} s", flush=True)
+        count_legs()
+        _serve_stop(proc, sock, client, log_path)
+        # (t4): the restart adopts the persisted records
+        proc, out["restart"] = _serve_start(sock, env, log_path)
+        rows = _tune_rows(client, sock)
+        if row["state"] == "canary" and rows.get(ck, {}).get("state") != "live":
+            raise RuntimeError(f"[tune] (t4) the live record was not adopted: {rows}")
+        tune_cli = _tune_cli(["tune", "--status", "--dir", warm], env)
+        knobs_cli = _tune_cli(["knobs"], env)
+        marked = {r["name"]: r["tuned_classes"] for r in knobs_cli["knobs"]
+                  if r.get("tuned_classes")}
+        if set(tune_cli["overrides"]) != {k for k, r in rows.items()
+                                          if r["state"] in ("canary", "live", "reverted")} \
+                or any(ck not in marked.get(k, [ck]) for k in row["knobs"]):
+            raise RuntimeError(f"[tune] (t4) cli tune / knobs disagree with stats: "
+                               f"{tune_cli['overrides']} {marked} {rows}")
+        out["t4"] = {"adopted": {k: r["state"] for k, r in rows.items()}, "marked": marked}
+        print(f"[tune] (t4) restart: adopted {out['t4']['adopted']} (a canary record "
+              f"re-auditions at its class's first job); cli tune --status --json "
+              f"{sorted(tune_cli['overrides'])}; cli knobs --json marks {marked}", flush=True)
+        medium_job("t4.0", timeout_s=0)  # the restarted daemon's first contact
+        job = medium_job("t4.1", timeout_s=0)  # under the adopted vector
+        out["t4"]["launches"] = {k: job["detail"].get(k, 0) for k in TUNE_KERNELS}
+        count_legs()
+        _serve_stop(proc, sock, client, log_path)
+        # (t5): SPGEMM_TPU_TUNE=0
+        proc, out["off_start"] = _serve_start(sock, {**env, "SPGEMM_TPU_TUNE": "0"}, log_path)
+        medium_job("t5.0", timeout_s=0)
+        medium_job("t5.1", timeout_s=0)
+        time.sleep(4 * TUNE_TRIAL_S)  # idle ticks pass
+        tstats = client.stats(sock)["tune"]
+        scrape = client.metrics(sock)
+        if tstats["enabled"] or tstats["classes"] or tstats["trials"] \
+                or "spgemm_tune" in scrape or _tune_events(client, sock, "tune_trial"):
+            raise RuntimeError(f"[tune] (t5) SPGEMM_TPU_TUNE=0 is not inert: {tstats}")
+        print("[tune] (t5) SPGEMM_TPU_TUNE=0: two Medium jobs with the golden bytes, no class, "
+              "no leg, no spgemm_tune_* family in the scrape", flush=True)
+        _serve_stop(proc, sock, client, log_path)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if DEVICE == "cuda" and (out["legs_launches"]["launches_numeric_round"] < 1
+                             or out["legs_launches"]["launches_dense_fold"] < 1):
+        raise RuntimeError(f"[tune] the legs launched {out['legs_launches']}")
+    _phase("tune", t0, f"on {smi}: daemon starts {out['start']['start_s']:.3f}, "
+           f"{out['restart']['start_s']:.3f}, {out['off_start']['start_s']:.3f} s; the trial "
+           f"legs' launches {out['legs_launches']}; class {out['t1']['state']} at win "
+           f"{out['t1']['win']:.4f}; (t2) {'ran' if out['t2'] else 'skipped'}; (t3) queue wait "
+           f"{out['t3']['queue_wait_s']:.4f} s")
     return out
 
 
@@ -3762,7 +4002,12 @@ def main() -> int:
     splice_row["warm"] = phase_warm()
     splice_row["estimate"] = phase_estimate(medium)
     dense_row = phase_dense(medium, row["ms"])
-    row["serve"] = phase_serve(medium, row["cli"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        row["serve"] = phase_serve(medium, row["cli"], tmp)
+        row["tune"] = phase_tune(medium, tmp)
+    # the [tune] path's own counts: the trial legs' launches
+    row["tune_launches"] = row["tune"]["legs_launches"]["launches_numeric_round"]
+    dense_row["tune_launches"] = row["tune"]["legs_launches"]["launches_dense_fold"]
     del medium
     torch.cuda.empty_cache()
     no_mod_row, mxu_row = phase_medium_small()

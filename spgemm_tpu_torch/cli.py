@@ -75,8 +75,19 @@ daemon's Prometheus text, `events` prints its event log (--follow tails
 trace_event JSON or merges a directory of dumps, `profile` reports its
 build records, device memory watermark and estimator and delta accuracy,
 `slo` its per-tenant latency quantiles, error ratio and burn state (obs/).
-A directory named like a subcommand that holds a `size` file is still a
-chain folder.
+
+    python -m spgemm_tpu_torch.cli knobs [--json]
+    python -m spgemm_tpu_torch.cli tune [--status | --clear] [--dir PATH] [--json]
+
+`knobs` lists every SPGEMM_TPU_* knob (value, source env|tuned|default,
+default; the knobs the autotuner searches are marked [tuned-search], those a
+persisted override carries [tuned: N class(es)]) and the live plan-cache,
+estimator, delta, warm-store and profiling blocks; an invalid value is
+reported on its row.  `tune` reads the autotuner's persisted per-class
+overrides (the warm store's tune tier, tune/) from disk, or deletes them;
+the directory is --dir, else SPGEMM_TPU_WARM_DIR, else the default socket's
+<socket>.warm.  A directory named like a subcommand that holds a `size`
+file is still a chain folder.
 """
 
 from __future__ import annotations
@@ -92,8 +103,8 @@ from spgemm_tpu_torch.utils import knobs
 
 # The engine (torch, numpy, the kernels) is imported by the functions that
 # run a chain, so the client subcommands (submit, status, metrics, events,
-# trace-dump, profile, slo) start without it: a scrape is not a cold torch
-# import.
+# trace-dump, profile, slo, knobs, tune) start without torch: a scrape is not
+# a cold torch import.
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -224,6 +235,200 @@ def run_warm(argv: list[str]) -> int:
     return 0
 
 
+def _tune_dir(explicit: str | None = None) -> str:
+    """The warm directory `tune` and `knobs` read: explicit, else
+    SPGEMM_TPU_WARM_DIR, else the default socket's <socket>.warm (the
+    daemon's own default)."""
+    from spgemm_tpu_torch.serve import protocol  # noqa: PLC0415
+
+    return explicit or knobs.get("SPGEMM_TPU_WARM_DIR") or protocol.default_socket_path() + ".warm"
+
+
+def _tuned_classes() -> dict[str, list[str]]:
+    """knob name -> the class keys whose persisted canary or live override
+    carries it, read from disk (nothing where no directory can be read)."""
+    from spgemm_tpu_torch.ops import warmstore  # noqa: PLC0415
+
+    tuned_by: dict[str, list[str]] = {}
+    for ck, rec in sorted(warmstore.scan_tunes(_tune_dir()).items()):
+        if rec.get("state") in ("canary", "live"):
+            for name in {**(rec.get("knobs") or {}), **(rec.get("est") or {})}:
+                tuned_by.setdefault(str(name), []).append(ck)
+    return tuned_by
+
+
+def _stats_or_error(fn, fallback: dict) -> dict:
+    """fn()'s block, or fallback with the error where an invalid knob makes
+    fn raise: the listing reports it in place and goes on."""
+    try:
+        return fn()
+    except ValueError as e:
+        return {**fallback, "error": str(e)}
+
+
+def run_knobs(argv: list[str]) -> int:
+    """`knobs [--json]` (the JAX package's cli.run_knobs): the registry's
+    live state, one row per knob, and the engine's live blocks beside it."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch knobs",
+                                description="list the engine's env knobs: current value, "
+                                            "default and source")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="machine-readable: {knobs: [one object per knob], plan_cache, "
+                        "estimator, delta, warm, profile}")
+    args = p.parse_args(argv)
+    from spgemm_tpu_torch.obs import profile as obs_profile  # noqa: PLC0415
+    from spgemm_tpu_torch.ops import delta, estimate, plancache, warmstore  # noqa: PLC0415
+
+    rows = knobs.snapshot()
+    tuned_by = _tuned_classes()
+    for r in rows:
+        if r["name"] in tuned_by:
+            r["tuned_classes"] = tuned_by[r["name"]]
+    cache = _stats_or_error(
+        lambda: {**plancache.stats(), "capacity": knobs.get("SPGEMM_TPU_PLAN_CACHE_CAP"),
+                 "enabled": plancache.enabled()},
+        {"hits": 0, "misses": 0, "evictions": 0, "entries": 0, "capacity": "?",
+         "enabled": "?"})
+    est = _stats_or_error(estimate.stats, {"hits": 0, "fallbacks": 0, "enabled": "?",
+                                           "sample_rows": "?", "confidence_threshold": "?"})
+    dlt = _stats_or_error(delta.stats, {"hits": 0, "full_fallbacks": 0, "evictions": 0,
+                                        "rows_recomputed": 0, "rows_total": 0, "entries": 0,
+                                        "capacity": "?", "enabled": "?"})
+    warm = _stats_or_error(warmstore.stats, {"plans": 0, "deltas": 0, "tunes": 0, "bytes": 0,
+                                             "plan_hits": 0, "plan_misses": 0,
+                                             "delta_hits": 0, "delta_misses": 0,
+                                             "corrupt": 0, "dir": None, "enabled": "?"})
+    if args.as_json:
+        print(json.dumps({"knobs": rows, "plan_cache": cache, "estimator": est, "delta": dlt,
+                          "warm": warm, "profile": _stats_or_error(obs_profile.report, {})},
+                         indent=2))
+        return 0
+    prof = _stats_or_error(obs_profile.summary, {"compiles": 0, "compile_s": 0,
+                                                 "est_mean_rel_error": {},
+                                                 "delta_mean_dirty_fraction": None,
+                                                 "hbm_peak_bytes": None})
+
+    def flag(v):
+        return v if v == "?" else int(v)
+
+    name_w = max(len(r["name"]) for r in rows)
+    val_w = max(len(r["value"]) for r in rows)
+    lines = []
+    for r in rows:
+        search = " [tuned-search]" if r["tuned_search"] else ""
+        tuned = (f" [tuned: {len(r['tuned_classes'])} class(es)]"
+                 if r.get("tuned_classes") else "")
+        lines.append(f"{r['name']:<{name_w}}  {r['value']:>{val_w}}  "
+                     f"({r['source']}, default {r['default']}){search}{tuned}")
+        if r.get("error"):
+            lines.append(f"{'':<{name_w}}  !! {r['error']}")
+        lines.append(f"{'':<{name_w}}  {r['doc']}")
+    blocks = [
+        (f"plan cache: hits={cache['hits']} misses={cache['misses']} "
+         f"evictions={cache.get('evictions', 0)} entries={cache['entries']}/"
+         f"{cache['capacity']} enabled={flag(cache['enabled'])}  [ops/plancache.py]", cache),
+        (f"estimator:  est_hits={est['hits']} est_fallbacks={est['fallbacks']} "
+         f"enabled={flag(est['enabled'])} sample_rows={est['sample_rows']} "
+         f"confidence>={est['confidence_threshold']}  [ops/estimate.py]", est),
+        (f"delta:      hits={dlt['hits']} full_fallbacks={dlt['full_fallbacks']} "
+         f"rows={dlt['rows_recomputed']}/{dlt['rows_total']} "
+         f"entries={dlt['entries']}/{dlt['capacity']} enabled={flag(dlt['enabled'])}"
+         "  [ops/delta.py]", dlt),
+        (f"warm:       plans={warm['plans']} deltas={warm['deltas']} tunes={warm['tunes']} "
+         f"bytes={warm['bytes']} hits={warm['plan_hits'] + warm['delta_hits']} "
+         f"misses={warm['plan_misses'] + warm['delta_misses']} corrupt={warm['corrupt']} "
+         f"dir={warm['dir'] or '(unbound)'} enabled={flag(warm['enabled'])}"
+         "  [ops/warmstore.py]", warm),
+        (f"profile:    compiles={prof['compiles']} ({prof['compile_s']}s) "
+         f"est_err={prof['est_mean_rel_error'] or None} "
+         f"delta_dirty_frac={prof['delta_mean_dirty_fraction']} "
+         f"hbm_peak={prof['hbm_peak_bytes']}  [obs/profile.py]", prof),
+    ]
+    for line, block in blocks:
+        lines.append(line)
+        if block.get("error"):
+            lines.append(f"  !! {block['error']}")
+    try:
+        for line in lines:
+            print(line)
+    except BrokenPipeError:
+        # `knobs | head` closing the pipe is not an error for a listing; point
+        # stdout at devnull so the interpreter's exit flush cannot raise again
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+    return 0
+
+
+def _crossover_entries(prefix: str) -> dict:
+    """The crossover cache's entries under a key prefix, read from the file
+    ops/crossover.cache_path() names, without importing that module (it
+    imports torch); {} where the file cannot be read."""
+    root = knobs.get("SPGEMM_TPU_CROSSOVER_CACHE") or os.path.join(
+        os.path.expanduser("~"), ".cache", "spgemm_tpu_torch")
+    try:
+        with open(os.path.join(root, "hybrid_crossover.json")) as f:
+            entries = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return {k: v for k, v in entries.items() if k.startswith(prefix)} \
+        if isinstance(entries, dict) else {}
+
+
+def run_tune(argv: list[str]) -> int:
+    """`tune [--status|--clear] [--dir PATH] [--json]` (the JAX package's
+    cli.run_tune): the autotuner's persisted overrides, one row per
+    structure class (state, knob vector, measured win, estimator
+    adaptation), and the dense-route gate's `dense-v1:` measurements in the
+    crossover cache, which trial legs under `auto` fill as jobs do.  Read
+    from disk: works against a stopped daemon."""
+    p = argparse.ArgumentParser(prog="spgemm_tpu_torch tune",
+                                description="inspect (--status, the default) or empty "
+                                            "(--clear) the autotuner's persisted per-class "
+                                            "knob overrides")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--status", action="store_true",
+                   help="the override table: class, state, knob vector, measured win, "
+                        "estimator adaptation (the default)")
+    g.add_argument("--clear", action="store_true",
+                   help="delete the tune tier's entries (plans and delta entries stay); "
+                        "refuses while a live process holds the dir")
+    p.add_argument("--dir", default=None, metavar="PATH",
+                   help="warm dir (default: SPGEMM_TPU_WARM_DIR, else <default socket>.warm)")
+    p.add_argument("--json", action="store_true", dest="as_json")
+    args = p.parse_args(argv)
+    from spgemm_tpu_torch.ops import warmstore  # noqa: PLC0415
+
+    target = _tune_dir(args.dir)
+    if args.clear:
+        try:
+            removed = warmstore.clear_tunes(target)
+        except RuntimeError as e:
+            print(f"tune: {e}", file=sys.stderr)
+            return 1
+        print(f"tune: cleared {removed} override record(s) from {target}")
+        return 0
+    records = warmstore.scan_tunes(target)
+    dense = _crossover_entries("dense-v1:")
+    if args.as_json:
+        print(json.dumps({"dir": target, "overrides": records, "crossover_dense": dense},
+                         indent=2))
+        return 0
+    print(f"tune store {target}: {len(records)} class record(s)")
+    for ck, rec in sorted(records.items()):
+        vec = " ".join(f"{k}={v}" for k, v in sorted((rec.get("knobs") or {}).items())) or "-"
+        est = " ".join(f"{k}={v}" for k, v in sorted((rec.get("est") or {}).items()))
+        win = rec.get("win")
+        line = f"  {ck}  [{rec.get('state', '?')}]  win={win if win is not None else '-'}  {vec}"
+        print(line + (f"  est: {est}" if est else ""))
+    if dense:
+        print(f"crossover dense-v1 captures: {len(dense)}")
+        for key, hit in sorted(dense.items()):
+            ladder_s, dense_s = hit.get("ladder_s"), hit.get("dense_s")
+            verdict = "dense" if (dense_s is not None and ladder_s is not None
+                                  and dense_s < ladder_s) else "ladder"
+            print(f"  {key}  ladder={ladder_s}s dense={dense_s}s -> {verdict}")
+    return 0
+
+
 def _serve(argv: list[str]) -> int:
     from spgemm_tpu_torch.serve import daemon  # noqa: PLC0415
 
@@ -272,9 +477,10 @@ def _slo(argv: list[str]) -> int:
     return client.main_slo(argv)
 
 
-_SUBCOMMANDS = {"warm": run_warm, "serve": _serve, "submit": _submit, "status": _status,
-                "metrics": _metrics, "trace-dump": _trace_dump, "events": _events,
-                "profile": _profile, "slo": _slo}
+_SUBCOMMANDS = {"knobs": run_knobs, "warm": run_warm, "tune": run_tune, "serve": _serve,
+                "submit": _submit, "status": _status, "metrics": _metrics,
+                "trace-dump": _trace_dump, "events": _events, "profile": _profile,
+                "slo": _slo}
 
 
 def run(argv: list[str] | None = None) -> int:

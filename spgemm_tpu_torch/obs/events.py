@@ -43,8 +43,8 @@ from spgemm_tpu_torch.utils import knobs
 
 # The port's event kinds (kind -> when it fires): only the kinds the port
 # emits.  tests/test_torch_obs.py holds every emit() literal in the package
-# to this dict and each kind to the JAX package's registry; the tune_*,
-# router_* and lock_contention kinds come with their modules.
+# to this dict and each kind to the JAX package's registry; the router_* and
+# lock_contention kinds come with their modules.
 EVENT_KINDS: dict[str, str] = {
     "daemon_start": "spgemmd came up (socket, slice, pid)",
     "daemon_drain_reap": "a SIGTERM/SIGINT or shutdown drain failed an in-flight job "
@@ -91,6 +91,18 @@ EVENT_KINDS: dict[str, str] = {
     "slo_burn_clear": "the burn condition cleared for the window",
     "failpoint_trigger": "an armed chaos failpoint fired (point name and action "
                          "ride along)",
+    "tune_trial": "autotuner ran one timed trial leg on an idle slice (class, knob "
+                  "vector, measured wall ride along; the port adds the leg's digest, "
+                  "phases and counters)",
+    "tune_trial_preempted": "a trial leg aborted because a real job arrived (or the "
+                            "overlay was swapped mid-measurement, or it failed); the "
+                            "measurement was discarded",
+    "tune_apply": "a class's tuned override was promoted (trial winner persisted to "
+                  "the warm tune tier, canary armed)",
+    "tune_canary_passed": "the first job under a fresh tuned override committed "
+                          "clean; the override is live",
+    "tune_revert": "a tuned override was dropped (canary failure or trial-time parity "
+                   "mismatch) and its class backed off before re-trial",
 }
 
 

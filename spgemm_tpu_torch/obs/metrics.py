@@ -1,7 +1,7 @@
 """Metrics registry and Prometheus text-format 0.0.4 renderer (the port's
-copy of the JAX package's `obs/metrics.py`, with the profiling (obs/profile)
-and SLO (obs/slo) families; without the tuner and fleet families, which
-come with their modules).
+copy of the JAX package's `obs/metrics.py`, with the profiling (obs/profile),
+autotuner (tune/) and SLO (obs/slo) families; without the fleet families,
+which come with their module).
 
 The single source of truth for what the port may emit:
 
@@ -60,6 +60,10 @@ ENGINE_PHASES: dict[str, str] = {
                    "job's content",
     "serve_chain": "spgemmd: a job's (or a batch's) chain reduction",
     "serve_write": "spgemmd: writing a job's result in the reference's text format",
+    "tune_trial": "autotuner: one timed trial leg (one knob vector of the per-class "
+                  "enumeration) run on an idle slice (tune/)",
+    "tune_apply": "autotuner: activating a class's tuned override at job pickup, and "
+                  "persisting a fresh winner into the warm store's tune tier",
 }
 
 # Engine event COUNTER names: the only names the port may pass to
@@ -97,6 +101,12 @@ ENGINE_COUNTERS: dict[str, str] = {
     "serve_batched_jobs": "jobs that rode a cross-job batch",
     "compiles": "kernel and host library builds or reuses recorded at first load "
                 "(obs/profile.record_build)",
+    "tune_trials": "autotuner trial legs run on idle slices (one knob vector each; "
+                   "preempted or overlay-skewed legs count too: they spent the idle "
+                   "time even when the measurement was discarded)",
+    "tune_reverts": "autotuner override reverts: a canary failure or a trial-time "
+                    "parity mismatch dropped the class's tuned vector and backed off "
+                    "its re-trial",
 }
 
 
@@ -343,6 +353,22 @@ _METRICS = (
            "Current on-disk size of the active event-log file (0 when "
            "no file sink is configured).",
            "obs/events.py"),
+    # ---- autotuner (tune/) ----
+    Metric("spgemm_tune_overrides", "gauge",
+           "Structure classes currently holding a tuned knob override, "
+           "by rollout state (canary = first post-promotion job still "
+           "pending under the tightened deadline, live = canary passed, "
+           "reverted = canary failed or parity mismatched -- held in "
+           "backoff before re-trial).  No series while the tuner holds "
+           "no class state (the SPGEMM_TPU_TUNE=0 scrape is "
+           "byte-identical to the pre-tuner daemon).",
+           "serve/daemon.py", labels=("state",)),
+    Metric("spgemm_tune_win_ratio", "gauge",
+           "Measured speedup (incumbent wall / winner wall) of each "
+           "class's tuned override, labeled by the structure class key; "
+           "only promoted overrides render (>= SPGEMM_TPU_TUNE_MIN_WIN "
+           "by construction).",
+           "serve/daemon.py", labels=("class",)),
     # ---- SLO engine (obs/slo.py) ----
     Metric("spgemm_slo_latency_seconds", "gauge",
            "Rolling-window per-tenant job latency quantile (p50/p95/p99 "
@@ -509,6 +535,10 @@ def collect_engine() -> list[tuple]:
             ("spgemm_warm_entries", {"kind": "delta"}, warm["deltas"]),
             ("spgemm_warm_bytes", {}, warm["bytes"]),
         ]
+        # only once an override persisted: a scrape without one keeps the
+        # bytes it had before the tuner
+        if warm["tunes"]:
+            samples.append(("spgemm_warm_entries", {"kind": "tune"}, warm["tunes"]))
     ring = trace.RECORDER.stats()
     samples += [
         ("spgemm_trace_spans", {}, ring["spans"]),

@@ -1,6 +1,6 @@
-"""Structure-keyed LRU cache of SpgemmPlan, and spgemmd's structure book
-(the port's copy of the JAX package's `ops/plancache.py`, without the
-tuner's class keys).
+"""Structure-keyed LRU cache of SpgemmPlan, spgemmd's structure book and the
+autotuner's class key (the port's copy of the JAX package's
+`ops/plancache.py`).
 
 A plan (ops/spgemm.plan) depends only on the operands' block structures and
 the plan parameters, never on tile values, so a multiply whose structures
@@ -110,6 +110,17 @@ def chain_structure(sig: str | None) -> str | None:
         if fp is not None:
             _STRUCTS.move_to_end(sig)
         return fp
+
+
+def tune_class_key(fp: str | None, device_kind: str) -> str | None:
+    """The autotuner's structure-class key: a 12-hex prefix of the chain
+    structure fingerprint (classes group structures; they need not tell
+    every folder apart) joined with the device kind its jobs run on.  None
+    passes through: a first-contact job (no recorded structure) is never
+    tuned."""
+    if not fp:
+        return None
+    return f"{fp[:12]}@{device_kind or 'unknown'}"
 
 
 def lookup(key: str):

@@ -1,6 +1,6 @@
-"""Persistent warm store: the plan cache and the delta store on disk (the
-port's copy of the plan and delta tiers of the JAX package's
-`ops/warmstore.py`).
+"""Persistent warm store: the plan cache, the delta store and the autotuner's
+overrides on disk (the port's copy of the plan, delta and tune tiers of the
+JAX package's `ops/warmstore.py`).
 
 A process that outlives one chain keeps its plans (ops/plancache) and its
 retained results (ops/delta) in memory; this module keeps them across a
@@ -10,7 +10,15 @@ restart:
     the fingerprint covers the operand coords and every plan parameter, so
     it is the file's key, and a reloaded plan replays the same folds;
   * a delta entry is one `delta-<hash of key>.npz`: the operands'
-    provenance and the retained result's slab fetched to the host.
+    provenance and the retained result's slab fetched to the host;
+  * a tuned override is one `tune-<hash of class key>.npz`: the tuner's
+    JSON record of a structure class (tune/tuner.py), written at once on
+    each change (save_tune, an atomic replace: unlike a plan, a record
+    changes) and read back whole at daemon start (load_tunes).  Its
+    signature is the package's plus knobs.base_tuned_vector(), the env >
+    default values of the searched knobs: an override measured under an
+    exported SPGEMM_TPU_ACCUM_ROUTE is a counted cold fallback once the
+    export changes.
 
 ops/spgemm reads a plan here after a plan-cache miss (and writes an exact
 plan through at once), and a delta entry after a delta-store miss.  flush()
@@ -24,10 +32,9 @@ plan codec skew) is counted (`warm_corrupt`), removed, and the caller goes
 on cold.  It never raises into the engine and never yields other bits.
 
 One process owns a directory at a time (a flock on `<dir>/lock`); another
-runs cold.  The JAX package's third tier, its XLA compile cache, has no
-counterpart here: the port's kernels and host library are built once into
-content-hashed caches (ops/_build.py, utils/native.py).  Its tune tier
-waits for the port's tune/.
+runs cold.  The JAX package's XLA compile-cache tier has no counterpart
+here: the port's kernels and host library are built once into
+content-hashed caches (ops/_build.py, utils/native.py).
 
 Knobs (utils/knobs.py): SPGEMM_TPU_WARM 0|1 (default 1),
 SPGEMM_TPU_WARM_DIR (unset: no persistence), SPGEMM_TPU_WARM_MAX_MB (256).
@@ -40,6 +47,7 @@ from __future__ import annotations
 
 import fcntl
 import hashlib
+import json
 import logging
 import os
 import shutil
@@ -65,7 +73,8 @@ _LOCK_FILE = None               # guarded by _LOCK
 # delta entries on disk, key -> version (an unchanged entry is not rewritten)
 _SAVED_DELTA: dict = {}         # guarded by _LOCK
 _STATS = {"plan_hits": 0, "plan_misses": 0, "delta_hits": 0, "delta_misses": 0,
-          "corrupt": 0, "saved_plans": 0, "saved_deltas": 0, "pruned": 0}  # guarded by _LOCK
+          "corrupt": 0, "saved_plans": 0, "saved_deltas": 0, "saved_tunes": 0,
+          "pruned": 0}  # guarded by _LOCK
 
 _VAL_BOUND_NONE = (1 << 64) - 1  # stands for a val_bound of None
 
@@ -88,6 +97,13 @@ def _knob_sig() -> str:
     an entry of the JAX package (whose signature is its jit-static knob
     vector) never matches."""
     return repr(("spgemm_tpu_torch", SCHEMA_VERSION))
+
+
+def _tune_sig() -> str:
+    """The tune tier's signature: the package's and the base (env > default)
+    values of the knobs the tuner searches.  The JAX package's tune entries
+    carry its jit-static vector and never match."""
+    return repr(("spgemm_tpu_torch", SCHEMA_VERSION, knobs.base_tuned_vector()))
 
 
 def _try_flock(fh) -> bool:
@@ -134,11 +150,12 @@ def configure(path: str | None = None) -> bool:
             events.emit("warm_disabled", dir=directory, reason="lock_contention")
             return False
         _DIR, _DISABLED, _LOCK_FILE = directory, None, fh
-        plans, deltas, size = _scan_dir(directory)
+        plans, deltas, tunes, size = _scan_dir(directory)
     _fence_delta_versions(directory)
-    log.info("warm store at %s: %d plans, %d delta entries, %d bytes",
-             directory, plans, deltas, size)
-    events.emit("warm_load", dir=directory, plans=plans, deltas=deltas, bytes=size)
+    log.info("warm store at %s: %d plans, %d delta entries, %d tuned overrides, %d bytes",
+             directory, plans, deltas, tunes, size)
+    events.emit("warm_load", dir=directory, plans=plans, deltas=deltas, tunes=tunes,
+                bytes=size)
     return True
 
 
@@ -219,6 +236,11 @@ def _delta_path(d: str, key: str) -> str:
     return os.path.join(d, f"delta-{hashlib.sha256(key.encode()).hexdigest()[:40]}.npz")
 
 
+def _tune_path(d: str, class_key: str) -> str:
+    # the class key holds a device name: hashed into the name, stored whole inside
+    return os.path.join(d, f"tune-{hashlib.sha256(class_key.encode()).hexdigest()[:40]}.npz")
+
+
 def _atomic_savez(path: str, payload: dict) -> None:
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     try:
@@ -240,9 +262,9 @@ def _listdir(d: str) -> list:
         return []
 
 
-def _scan_dir(d: str) -> tuple[int, int, int]:
-    """(plan files, delta files, bytes of all entries) of d."""
-    plans = deltas = size = 0
+def _scan_dir(d: str) -> tuple[int, int, int, int]:
+    """(plan files, delta files, tune files, bytes of all entries) of d."""
+    plans = deltas = tunes = size = 0
     for name in _listdir(d):
         if not name.endswith(".npz") or name.endswith(".tmp.npz"):
             continue
@@ -252,7 +274,8 @@ def _scan_dir(d: str) -> tuple[int, int, int]:
             continue
         plans += name.startswith("plan-")
         deltas += name.startswith("delta-")
-    return plans, deltas, size
+        tunes += name.startswith("tune-")
+    return plans, deltas, tunes, size
 
 
 def _note_corrupt(path: str, reason: str) -> None:
@@ -269,8 +292,9 @@ def _note_corrupt(path: str, reason: str) -> None:
     log.warning("warm entry %s skipped (%s); removed, cold path", path, reason)
 
 
-def _check_envelope(z, path: str, kind: str, ident: str) -> bool:
-    """Schema, kind, identity and knob signature; False = counted corrupt."""
+def _check_envelope(z, path: str, kind: str, ident: str, sig: str | None = None) -> bool:
+    """Schema, kind, identity and knob signature (`sig`, default
+    _knob_sig()); False = counted corrupt."""
     if failpoints.check("warm.load"):
         _note_corrupt(path, "failpoint warm.load")
         return False
@@ -281,7 +305,7 @@ def _check_envelope(z, path: str, kind: str, ident: str) -> bool:
     if str(z["kind"]) != kind or str(z["ident"]) != ident:
         _note_corrupt(path, "entry identity mismatch")
         return False
-    if str(z["knobs"]) != _knob_sig():
+    if str(z["knobs"]) != (sig if sig is not None else _knob_sig()):
         _note_corrupt(path, "knob signature mismatch")
         return False
     return True
@@ -459,6 +483,99 @@ def load_delta(key: str) -> dict | None:
     return out
 
 
+# -------------------------------------------------------------------- tunes --
+def save_tune(class_key: str, record: dict) -> bool:
+    """Write one structure class's tuner record (tune/tuner.Tuner's persist
+    hook, at each promotion, canary settle, revert and estimator change),
+    replacing the class's earlier record.  False when not written."""
+    d = _bound_dir()
+    if d is None:
+        return False
+    payload = {"schema": np.int64(SCHEMA_VERSION), "kind": np.array("tune"),
+               "ident": np.array(class_key), "knobs": np.array(_tune_sig()),
+               "payload": np.array(json.dumps(record, sort_keys=True))}
+    try:
+        _atomic_savez(_tune_path(d, class_key), payload)
+    except OSError as e:
+        log.warning("tune record for %s not written (%r); continuing", class_key, e)
+        return False
+    with _LOCK:
+        _STATS["saved_tunes"] += 1
+    return True
+
+
+def load_tunes() -> dict[str, dict]:
+    """Every tuner record in the bound directory, by class key (daemon
+    start).  An unreadable, schema-skewed or foreign entry, or one whose
+    base tuned vector differs from this process's, is a counted corrupt
+    entry, removed: the class trials again."""
+    d = _bound_dir()
+    if d is None:
+        return {}
+    sig = _tune_sig()
+    out: dict[str, dict] = {}
+    for name in sorted(_listdir(d)):
+        if not (name.startswith("tune-") and name.endswith(".npz")) \
+                or name.endswith(".tmp.npz"):
+            continue
+        path = os.path.join(d, name)
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                ident = str(z["ident"]) if "ident" in z.files else ""
+                if not _check_envelope(z, path, "tune", ident, sig=sig):
+                    continue
+                record = json.loads(str(z["payload"]))
+        except Exception as e:  # noqa: BLE001 -- any unreadable entry is a counted cold path
+            _note_corrupt(path, repr(e))
+            continue
+        if isinstance(record, dict):
+            out[ident] = record
+    return out
+
+
+def scan_tunes(path: str) -> dict[str, dict]:
+    """A read-only view of any directory's tuner records, by class key, for
+    `cli tune --status` and `cli knobs`: no binding and no flock, and an
+    unreadable entry is skipped, never counted or removed (a live daemon
+    may own the directory)."""
+    out: dict[str, dict] = {}
+    for name in sorted(_listdir(path)):
+        if not (name.startswith("tune-") and name.endswith(".npz")) \
+                or name.endswith(".tmp.npz"):
+            continue
+        try:
+            with np.load(os.path.join(path, name), allow_pickle=False) as z:
+                if str(z["kind"]) != "tune":
+                    continue
+                record = json.loads(str(z["payload"]))
+                ident = str(z["ident"])
+        except Exception:  # noqa: BLE001 -- a read-only probe skips what it cannot read
+            continue
+        if isinstance(record, dict):
+            out[ident] = record
+    return out
+
+
+def clear_tunes(path: str) -> int:
+    """Delete only the tune tier's entries under `path` (`cli tune
+    --clear`): plans and delta entries stay.  Refuses while another live
+    process holds the directory.  Returns the count."""
+    if not os.path.isdir(path):
+        return 0
+    if _held_elsewhere(path):
+        raise RuntimeError(f"warm dir {path} is in use by a live process; stop it "
+                           "before clearing tune overrides")
+    removed = 0
+    for name in _listdir(path):
+        if name.startswith("tune-") and name.endswith(".npz"):
+            try:
+                os.unlink(os.path.join(path, name))
+                removed += 1
+            except OSError:
+                pass
+    return removed
+
+
 # -------------------------------------------------------------------- flush --
 def flush() -> dict:
     """Write every plan and delta entry not on disk yet, then prune to the
@@ -529,10 +646,10 @@ def stats() -> dict:
     """The bound store's files and this process's counts."""
     with _LOCK:
         d = _DIR
-        plans, deltas, size = _scan_dir(d) if d else (0, 0, 0)
+        plans, deltas, tunes, size = _scan_dir(d) if d else (0, 0, 0, 0)
         return {"dir": d, "enabled": enabled(), "active": _LOCK_FILE is not None,
                 "disabled_reason": _DISABLED, "plans": plans, "deltas": deltas,
-                "bytes": size, "budget_bytes": budget_bytes(), **_STATS}
+                "tunes": tunes, "bytes": size, "budget_bytes": budget_bytes(), **_STATS}
 
 
 def _held_elsewhere(path: str) -> bool:
@@ -557,10 +674,10 @@ def _held_elsewhere(path: str) -> bool:
 def scan(path: str) -> dict:
     """A read-only view of any warm directory, without binding it: entry
     counts, bytes, and whether a live process holds it."""
-    out = {"dir": path, "exists": os.path.isdir(path), "plans": 0, "deltas": 0,
+    out = {"dir": path, "exists": os.path.isdir(path), "plans": 0, "deltas": 0, "tunes": 0,
            "bytes": 0, "locked": False, "budget_bytes": budget_bytes()}
     if out["exists"]:
-        out["plans"], out["deltas"], out["bytes"] = _scan_dir(path)
+        out["plans"], out["deltas"], out["tunes"], out["bytes"] = _scan_dir(path)
         out["locked"] = _held_elsewhere(path)
     return out
 
@@ -612,7 +729,7 @@ def clone(src: str, dst: str) -> dict:
             continue
         prefix = name.split("-", 1)[0]
         reason = None
-        if prefix not in ("plan", "delta"):
+        if prefix not in ("plan", "delta", "tune"):
             reason = "unknown-kind"
         elif os.path.exists(os.path.join(dst, name)):
             reason = "exists"

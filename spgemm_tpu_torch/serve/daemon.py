@@ -83,15 +83,29 @@ reading at its pickup (the JAX package's behaviour).  Nothing in obs
 catches a kernel failure or moves a job to the host: it catches only its
 own I/O errors.
 
-Not ported here (each marked where it would go): the tuner (`_maybe_tune`)
-and pools of more than one slice.  This module imports no
-torch and no numpy at import time: the engine is imported inside the
-runners, the executor and main().
+The autotuner (tune/): at start the daemon wires the warm store's tune
+tier as the tuner's store and adopts its records.  An executor whose poll
+comes up empty may run one timed trial leg (_maybe_tune) while the pool is
+idle, the queue empty and the slice neither degraded nor auditioning; the
+leg (_tune_run_fn) reads the class's representative folder and reduces its
+chain exactly, under SPGEMM_TPU_DELTA=0, and a job queued meanwhile preempts
+it at the next multiply boundary.  At pickup a job's class key
+(ops/plancache.tune_class_key: its group key and the card's name) selects
+the overlay it runs under (ENGINE phase tune_apply when it changes), and the
+first job under a freshly promoted vector is the tuned canary: a tightened
+deadline and no batching.  The terminal path registers the class and its
+folder, settles a canary and scores the estimator for the class.  Under
+SPGEMM_TPU_TUNE=0 none of this runs.
+
+Pools of more than one slice are not ported.  This module imports no torch
+and no numpy at import time: the engine is imported inside the runners, the
+executor and main().
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import logging
 import os
@@ -103,6 +117,7 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
+from spgemm_tpu_torch import tune as tune_mod
 from spgemm_tpu_torch.obs import events as obs_events
 from spgemm_tpu_torch.obs import metrics as obs_metrics
 from spgemm_tpu_torch.obs import profile as obs_profile
@@ -194,6 +209,17 @@ def _book_chain(job: Job, mats: list) -> None:
                                                plancache.chain_fingerprint(coords))
     except Exception as e:  # noqa: BLE001 -- pricing never decides a result
         log.warning("placement pricing failed for %s: %r", job.folder, e)
+
+
+def result_digest(result) -> str:
+    """sha256 over a chain result's coords and tiles (ops/plancache.
+    hash_update): the autotuner's parity digest of a trial leg."""
+    from spgemm_tpu_torch.ops import plancache  # noqa: PLC0415 -- the engine loads lazily
+
+    h = hashlib.sha256()
+    plancache.hash_update(h, result.coords)
+    plancache.hash_update(h, result.tiles)
+    return h.hexdigest()
 
 
 def run_chain_job(job: Job, degraded: bool = False) -> None:
@@ -342,7 +368,8 @@ class Daemon:
     with a time limit); both are injectable for tests.  slices: the slice
     spec (default SPGEMM_TPU_SERVE_SLICES), checked against n_devices, the
     visible cards, when given; it must come to one single-device slice.
-    device_name is reported by `stats`.  batch_runner(jobs, degraded=)
+    device_name is reported by `stats` and is the device half of the
+    autotuner's class keys (`cpu` on the CPU).  batch_runner(jobs, degraded=)
     runs a batch of two or more jobs (default run_chain_jobs), injectable
     so tests watch batches form without running chains."""
 
@@ -430,6 +457,11 @@ class Daemon:
         self.slices = [_Slice(pool[0], mesh_mod.slice_device(pool[0], device))]
         self.degraded = False                    # guarded by _lock
         self.degrade_reason: str | None = None   # guarded by _lock
+        # the autotuner's class keys carry the card's name, so a vector tuned
+        # on one kind of card is never adopted on another; one trial leg per
+        # SPGEMM_TPU_TUNE_TRIAL_S across the pool's executors
+        self._tune_device_kind = self.device_name or self.device
+        self._tune_last_trial = 0.0              # guarded by _lock
         self._probe_outcome: str | None = None   # guarded by _lock
         self._started_at = time.time()
         self._next_id = 1                        # guarded by _lock
@@ -548,6 +580,13 @@ class Daemon:
                         slices=[s.name for s in self.slices], pid=os.getpid())
         # loading stays lazy: the first fingerprint match reads its entry
         warmstore.configure(self.warm_dir)
+        # the tuner's records are small and read whole: a restarted daemon
+        # serves a class's first job tuned (a canary record audits again)
+        if tune_mod.enabled():
+            tune_mod.TUNER.persist_with(warmstore.save_tune)
+            adopted = tune_mod.TUNER.load(warmstore.load_tunes())
+            if adopted:
+                log.info("tuner: adopted %d persisted override record(s)", adopted)
         self._journal_replay()
         self._listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
         self._listener.bind(self.socket_path)
@@ -693,12 +732,14 @@ class Daemon:
             job = self.queue.next(timeout=0.2,
                                   accept=lambda j: gen == sl.gen and self._accepts(sl, j))
             if job is None:
-                continue  # (the JAX package's tuner runs its trial legs on idle ticks)
+                self._maybe_tune(sl, gen)
+                continue
             if job.state != "queued":  # reaped while still queued
                 if sl.current is job:
                     sl.current = None
                 continue
             job.slice, job.device = sl.name, sl.device
+            tcanary = self._tune_activate(job)
             with self._lock:
                 # an oracle executor whose slice a live probe reinstated while
                 # it took this job runs it on the card: the oracle only ever
@@ -718,10 +759,33 @@ class Daemon:
                     job.timeout_s = tight
                 obs_events.emit("slice_canary", slice=sl.name, job_id=job.id,
                                 timeout_s=job.timeout_s)
+            if tcanary:
+                # the first job under a freshly promoted vector: a vector that
+                # misbehaves costs one short job, and note_terminal reverts it
+                tight = job.timeout_s / 2 if job.timeout_s > 0 else self._wedge_grace_s
+                if tight > 0:
+                    job.timeout_s = tight
             # a pickup on the card drains its batch mates; pickups of an oracle
             # executor and canaries never batch (an audition risks one job)
-            mates = [] if degraded or canary else self._drain_batch_mates(sl, job)
+            mates = [] if degraded or canary or tcanary \
+                else self._drain_batch_mates(sl, job)
             self._run_pickup(sl, job, mates, on_oracle)
+
+    def _tune_activate(self, job: Job) -> bool:
+        """The autotuner at pickup: the job's class, the overlay swapped to
+        the class's vector (the base where it has none; ENGINE phase
+        tune_apply when it changes), the estimator's account for the
+        terminal diff.  True when this job is the class's tuned canary.
+        No-ops under SPGEMM_TPU_TUNE=0 or for a class with nothing tuned."""
+        from spgemm_tpu_torch.ops import plancache  # noqa: PLC0415
+
+        job.tune_class = plancache.tune_class_key(job.group_key, self._tune_device_kind)
+        overlay = tune_mod.TUNER.overlay_for(job.tune_class)
+        if overlay != knobs.tuned_overlay():
+            with ENGINE.phase("tune_apply"):
+                knobs.set_tuned(overlay)
+        job.est_base = obs_profile.est_stats()
+        return tune_mod.TUNER.consume_canary(job.tune_class)
 
     def _run_pickup(self, sl: _Slice, head: Job, mates: list[Job], on_oracle: bool) -> None:
         """Run a pickup: the head alone (the runner, on the host oracle when
@@ -891,8 +955,10 @@ class Daemon:
         """Bookkeeping of a terminal transition this daemon committed: the
         tenant's in-flight slot, the outcome totals, the job-wall histogram
         (pickup, or submit for a job never picked up, to the end) and one
-        record into the SLO engine's (tenant, slice) window.  (The JAX
-        package also feeds its tuner here.)"""
+        record into the SLO engine's (tenant, slice) window, and the
+        autotuner's feed: the class sighting and its folder, a tuned
+        canary's outcome, and the estimator's mean relative error over the
+        job (obs/profile's account against the pickup's)."""
         self.queue.release(job)
         snap = job.snapshot()
         started = snap["started_at"] or snap["submitted_at"]
@@ -908,6 +974,24 @@ class Daemon:
         obs_slo.SLO.observe(tenant=job.tenant, slice_name=job.slice or "unplaced",
                             wall_s=wall, queue_wait_s=queue_wait, error=outcome != "done",
                             trace_id=job.trace_id)
+        # outside self._lock too: the tuner has its own.  None for a
+        # first-contact or never-picked-up job, and for a batch's mates
+        ck = job.tune_class
+        if ck is None:
+            return
+        tune_mod.TUNER.note_job(ck, self._tune_device_kind)
+        placement.note_class(ck, job.folder)
+        tune_mod.TUNER.note_terminal(ck, outcome == "done")
+        if job.est_base is not None:
+            base = job.est_base.get("rel_error") or {}
+            errs = []
+            for qty, hist in obs_profile.est_stats()["rel_error"].items():
+                prev = base.get(qty, {"sum": 0.0, "count": 0})
+                dn = hist["count"] - prev["count"]
+                if dn > 0:
+                    errs.append((hist["sum"] - prev["sum"]) / dn)
+            if errs:
+                tune_mod.TUNER.note_est_accuracy(ck, sum(errs) / len(errs))
 
     def _flight_dump(self, name: str) -> str | None:
         """Dump the flight recorder to <socket>.flight/<name>.trace.json
@@ -940,6 +1024,55 @@ class Daemon:
             log.warning("flight-dump pruning failed (dump %s is on disk): %r", path, e)
         log.info("flight recorder dumped to %s", path)
         return path
+
+    # ----------------------------------------------------------- autotune --
+    def _maybe_tune(self, sl: _Slice, gen: int) -> None:
+        """The idle tick's autotuner hook: with trials armed
+        (SPGEMM_TPU_TUNE_TRIAL_S > 0, SPGEMM_TPU_TUNE on), at most one leg,
+        only while the whole pool is idle, the queue empty and the slice
+        neither degraded nor auditioning; the cadence stamp is claimed under
+        _lock.  A leg never touches the queue, a tenant's accounting or an
+        SLO window."""
+        if self._stop.is_set() or gen != sl.gen:
+            return
+        cadence = tune_mod.trial_cadence_s()
+        if cadence <= 0 or not tune_mod.enabled():
+            return
+        now = time.monotonic()
+        with self._lock:
+            if sl.degraded or sl.canary:
+                return
+            if any(s.current is not None for s in self.slices):
+                return
+            if now - self._tune_last_trial < cadence:
+                return
+            self._tune_last_trial = now
+        if self.queue.counts()["depth"] > 0:
+            return
+        tune_mod.run_trial_leg(self._tune_run_fn(sl, gen), placement.rep_folder,
+                               extra={"SPGEMM_TPU_DELTA": "0"})
+
+    def _tune_run_fn(self, sl: _Slice, gen: int):
+        """A trial leg's runner: read the class's folder, reduce its chain
+        on the slice's device as a solo `exact` job would, and return a
+        digest of the result's coords and tiles (the tuner's parity
+        spot-check).  The heartbeat it plants before the read and between
+        multiplies raises TrialPreempted once a job is queued, the daemon
+        stops or this executor generation retired."""
+        def run(folder: str) -> str:
+            from spgemm_tpu_torch import chain  # noqa: PLC0415 -- the engine loads lazily
+            from spgemm_tpu_torch.utils import io_text  # noqa: PLC0415
+
+            def beat() -> None:
+                if self._stop.is_set() or gen != sl.gen or self.queue.counts()["depth"] > 0:
+                    raise tune_mod.TrialPreempted(folder)
+
+            beat()  # a job may have landed between the claim and here
+            n, k = io_text.read_size(folder)
+            mats = io_text.read_chain(folder, 0, n - 1, k)
+            return result_digest(chain.chain_product(mats, device=sl.device, heartbeat=beat))
+
+        return run
 
     # ----------------------------------------------------------- watchdog --
     def _watchdog_loop(self) -> None:
@@ -1368,6 +1501,7 @@ class Daemon:
             events=obs_events.LOG.stats(),
             profile=obs_profile.summary(),
             slo=obs_slo.SLO.report(),
+            tune=tune_mod.TUNER.stats(),
             flight_dir=self.flight_dir,
             plan_cache=plancache.stats(),
             delta=delta.stats(),
@@ -1429,6 +1563,16 @@ class Daemon:
         samples += [("spgemmd_tenant_queue_depth", {"tenant": tenant}, n)
                     for tenant, n in sorted(depths.items())]
         samples += obs_slo.SLO.samples()
+        # only once the tuner holds a class: a SPGEMM_TPU_TUNE=0 scrape, and
+        # one of a daemon no job of a recorded structure reached, keep the
+        # bytes they had before the tuner
+        tstats = tune_mod.TUNER.stats()
+        if tstats["classes"]:
+            samples += [("spgemm_tune_overrides", {"state": state}, n)
+                        for state, n in sorted(tstats["overrides"].items())]
+            samples += [("spgemm_tune_win_ratio", {"class": row["class"]}, row["win"])
+                        for row in tstats["classes"]
+                        if row["state"] in ("canary", "live") and row["win"] is not None]
         return protocol.ok(content_type="text/plain; version=0.0.4; charset=utf-8",
                            text=obs_metrics.render(samples))
 

@@ -1,5 +1,5 @@
-"""Estimator-priced job placement for spgemmd (the port's copy of the JAX
-package's `serve/placement.py`, without the tuner's class book).
+"""Estimator-priced job placement for spgemmd, and the autotuner's class book
+(the port's copy of the JAX package's `serve/placement.py`).
 
 At admission (`route`, cheap: stat calls only) a job's input folder is
 looked up by its stat signature (file names, sizes, mtimes).  A hit prices
@@ -12,7 +12,11 @@ predicted tile pairs of the first reduction pass.
 With the port's single slice every class lands on the same card; the
 record still rides each job's status, and the book feeds the multi-slice
 pool when it is ported.  Pricing steers placement only, never the bytes.
-Imports the standard library only.
+
+The class book maps an autotuner structure class (ops/plancache.
+tune_class_key) to a representative folder: the newest folder a job of the
+class ran (`note_class`, the executor's terminal path), which the tuner's idle
+trial legs replay (`rep_folder`).  Imports the standard library only.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ BOOK_CAP = 4096
 
 _LOCK = threading.Lock()
 _BOOK: "OrderedDict[str, float]" = OrderedDict()  # guarded by _LOCK
+# tune class -> representative folder, the same LRU discipline
+_CLASS_BOOK: "OrderedDict[str, str]" = OrderedDict()  # guarded by _LOCK
 _STATS = {"book_hits": 0, "book_misses": 0, "routed": {}}  # guarded by _LOCK
 
 
@@ -87,6 +93,32 @@ def lookup_mass(folder: str) -> float | None:
         return _BOOK[sig]
 
 
+def note_class(class_key: str | None, folder: str) -> None:
+    """Record the folder as the class's representative (the newest sighting
+    wins: any folder of a class has its structure)."""
+    if class_key is None:
+        return
+    with _LOCK:
+        _CLASS_BOOK[class_key] = folder
+        _CLASS_BOOK.move_to_end(class_key)
+        while len(_CLASS_BOOK) > BOOK_CAP:
+            _CLASS_BOOK.popitem(last=False)
+
+
+def rep_folder(class_key: str) -> str | None:
+    """The class's representative folder, or None: never seen, evicted, or
+    the folder is gone (checked here, so a deleted input never reaches a
+    trial leg; the stale entry is dropped)."""
+    with _LOCK:
+        folder = _CLASS_BOOK.get(class_key)
+    if folder is not None and not os.path.isdir(folder):
+        with _LOCK:
+            if _CLASS_BOOK.get(class_key) == folder:
+                del _CLASS_BOOK[class_key]
+        return None
+    return folder
+
+
 def route(folder: str) -> dict:
     """The admission-time placement record: `class` small|large|default and
     where the price came from."""
@@ -115,8 +147,9 @@ def stats() -> dict:
 
 
 def clear() -> None:
-    """Drop the book and zero the counts."""
+    """Drop the books and zero the counts."""
     with _LOCK:
         _BOOK.clear()
+        _CLASS_BOOK.clear()
         _STATS["book_hits"] = _STATS["book_misses"] = 0
         _STATS["routed"].clear()

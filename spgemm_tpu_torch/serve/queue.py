@@ -104,6 +104,11 @@ class Job:
         self.scope = None
         self.scope_degraded = False
         self.cache_base = None
+        # set by the executor at pickup: the job's autotuner class
+        # (ops/plancache.tune_class_key; None on first contact) and the
+        # estimator's account then, which the terminal path diffs
+        self.tune_class: str | None = None
+        self.est_base = None
         self._lock = threading.Lock()
         self._terminal = threading.Event()
 

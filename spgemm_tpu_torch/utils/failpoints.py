@@ -1,6 +1,5 @@
 """Registry of named fault-injection sites, armed by one env knob (the port's
-copy of the JAX package's `utils/failpoints.py`, cut to the sites the port
-has).
+copy of the JAX package's `utils/failpoints.py`, with the same sites).
 
 Every site is declared here once (name, kind, module, doc), and
 `check("name")` at the site is its whole wiring.  `SPGEMM_TPU_FAILPOINTS`
@@ -20,8 +19,7 @@ Kinds, what a trigger does at the site:
   delay   sleep DELAY_S, then go on
 
 No trigger changes a result: a triggered site fails loudly or slowly, never
-wrongly.  The JAX package's `tune.trial` site waits for the port's tuner.
-Imports the standard library, the knob registry and the event log only (a
+wrongly.  Imports the standard library, the knob registry and the event log only (a
 trigger emits `failpoint_trigger`).
 """
 
@@ -102,6 +100,10 @@ _FAILPOINTS = (
     Failpoint("serve.heartbeat", "hang", "serve/daemon.py",
               "The chain's heartbeat hangs between multiplies: no beat reaches "
               "the watchdog and the wedge grace runs out."),
+    Failpoint("tune.trial", "raise", "tune/tuner.py",
+              "An autotuner trial leg dies before it measures: the leg is "
+              "discarded with no revert, and no real job's result, SLO window "
+              "or admission is touched."),
 )
 
 REGISTRY: dict[str, Failpoint] = {f.name: f for f in _FAILPOINTS}

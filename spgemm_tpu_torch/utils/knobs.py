@@ -6,11 +6,19 @@ value means the default (None where the knob has none, False for a flag),
 surrounding whitespace is stripped, and an invalid value raises ValueError
 naming the knob.  Reads are lazy: the environment is consulted at each
 `get()`, so tests may set a value mid-process.
+
+Resolution is env > tuned > default: the autotuner (tune/) activates a
+structure class's winning vector by replacing the process-wide tuned
+overlay (`set_tuned`), and an exported value always beats a tuned one.
+`base_get` ignores the overlay.  The port has no jit-static knobs; the knobs
+its tuner searches carry `tuned=True`, and `base_tuned_vector()` (their env >
+default values) is what the warm store's tune tier validates against.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 
@@ -25,6 +33,7 @@ class Knob:
       (False for a flag) and the consuming module owns the fallback.
     minimum: inclusive lower bound of an int or a float.
     doc: what the knob does, and the module that reads it.
+    tuned: the autotuner's trial legs search it (tune/tuner.trial_vectors).
     """
 
     name: str
@@ -33,6 +42,7 @@ class Knob:
     default: str | None = None
     choices: tuple[str, ...] | None = None
     minimum: float | None = None
+    tuned: bool = False
 
 
 _KNOBS = (
@@ -40,7 +50,7 @@ _KNOBS = (
          "Chain plan-ahead depth: up to N upcoming pairs of a pass are planned "
          "by a host worker thread while the main thread dispatches the current "
          "pair; 0 = inline planning (bit-identical either way).  Read by chain.py.",
-         default="2", minimum=0),
+         default="2", minimum=0, tuned=True),
     Knob("SPGEMM_TPU_OOC_DEPTH", "int",
          "Out-of-core pipeline depth: 1 = synchronous, each round landed before "
          "the next is staged; >= 2 = staging, device and landing stages overlap "
@@ -120,7 +130,7 @@ _KNOBS = (
          "dense_wins) picks per round.  Bit-identical on every input.  The mxu "
          "backend and out-of-core always plan ladder.  Read by ops/symbolic.py "
          "and ops/spgemm.py.",
-         default="auto", choices=("auto", "ladder", "dense")),
+         default="auto", choices=("auto", "ladder", "dense"), tuned=True),
     Knob("SPGEMM_TPU_CROSSOVER_CACHE", "path",
          "Crossover-measurement cache directory (unset: "
          "~/.cache/spgemm_tpu_torch).  Read by ops/crossover.py."),
@@ -237,6 +247,32 @@ _KNOBS = (
          "by recency; an evicted tenant's windows are dropped and counted on "
          "spgemm_slo_tenants_evicted_total).  Read by obs/slo.py.",
          default="3600", minimum=1),
+    Knob("SPGEMM_TPU_TUNE", "bool01",
+         "Autotuner master switch (tune/): 1 = spgemmd loads persisted tuned "
+         "overrides from the warm store at start, applies each structure class's "
+         "winning knob vector at job pickup behind the canary gate (the first job "
+         "under a fresh vector runs a tightened deadline; a canary failure reverts "
+         "the override and backs off), and adapts the estimator's per-class "
+         "sampling budget from its observed relative error; 0 = no override is "
+         "ever applied or loaded and no trial runs, the daemon as it was before "
+         "the tuner.  Every searched knob is bit-identical A/B, so tuning changes "
+         "wall time only, never bits.  Read by tune/tuner.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_TUNE_TRIAL_S", "float",
+         "Idle trial cadence, seconds: an executor whose whole pool is idle (an "
+         "empty queue, no slice busy) this long after the previous trial leg runs "
+         "ONE timed trial leg (one knob vector of the class's deterministic "
+         "enumeration) on the class's representative folder, and returns to the "
+         "job poll between legs, so a real job preempts a leg at its next "
+         "multiply boundary.  0 = no trials (the default: persisted overrides "
+         "still apply under SPGEMM_TPU_TUNE=1).  Read by serve/daemon.py.",
+         default="0", minimum=0),
+    Knob("SPGEMM_TPU_TUNE_MIN_WIN", "float",
+         "Least measured speedup (incumbent wall / candidate wall) for the "
+         "autotuner to promote a trial winner to a tuned override; below it the "
+         "class keeps its incumbent vector (settled).  Keeps measurement noise "
+         "from becoming canary churn.  Read by tune/tuner.py.",
+         default="1.1", minimum=1),
     Knob("SPGEMM_TPU_FAILPOINTS", "str",
          "Failpoint arming spec (utils/failpoints.py): comma-joined "
          "name[:prob][:count] terms naming registered injection sites; prob "
@@ -245,6 +281,69 @@ _KNOBS = (
 )
 
 REGISTRY: dict[str, Knob] = {kb.name: kb for kb in _KNOBS}
+
+
+class _TunedOverlay:
+    """The process-wide tuned overlay (tune/).  The tuner activates a class's
+    vector by replacing it whole; every value it may hold is bit-identical
+    A/B, so a thread that reads a just-swapped overlay (the chain's planner
+    thread reads the route) changes wall time only.  The generation counter
+    lets a timed trial leg see that the overlay was swapped under it."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._values: dict[str, str] = {}  # guarded by _lock
+        self._gen = 0                      # guarded by _lock
+
+    def replace(self, mapping: dict[str, str]) -> None:
+        validated: dict[str, str] = {}
+        for name, raw in mapping.items():
+            kb = REGISTRY[name]  # registering is the price of tuning
+            if kb.kind == "flag":
+                raise ValueError(f"{name} is a flag and has no value to tune")
+            _parse(kb, str(raw))  # an invalid tuned value raises here
+            validated[name] = str(raw)
+        with self._lock:
+            if validated != self._values:
+                self._values = validated
+                self._gen += 1
+
+    def lookup(self, name: str) -> str | None:
+        with self._lock:
+            return self._values.get(name)
+
+    def snapshot(self) -> dict[str, str]:
+        with self._lock:
+            return dict(self._values)
+
+    def generation(self) -> int:
+        with self._lock:
+            return self._gen
+
+
+_OVERLAY = _TunedOverlay()
+
+
+def set_tuned(mapping: dict[str, str]) -> None:
+    """Replace the tuned overlay with `mapping` ({knob name: string value});
+    {} clears it.  Each value is validated at once."""
+    _OVERLAY.replace(mapping)
+
+
+def clear_tuned() -> None:
+    """Drop every tuned override."""
+    _OVERLAY.replace({})
+
+
+def tuned_overlay() -> dict[str, str]:
+    """A copy of the live tuned overlay ({} when none is active)."""
+    return _OVERLAY.snapshot()
+
+
+def tuned_generation() -> int:
+    """The overlay's swap counter: a timed trial leg reads it before and
+    after its measurement and discards the leg when it moved."""
+    return _OVERLAY.generation()
 
 
 def _parse(kb: Knob, raw: str):
@@ -271,25 +370,81 @@ def _parse(kb: Knob, raw: str):
     raise AssertionError(f"unknown knob kind {kb.kind!r}")  # registry bug
 
 
-def get(name: str):
-    """Typed, validated value of a registered knob: a non-empty environment
-    value, else the default.  Unregistered names raise KeyError."""
+def _resolve(name: str, use_tuned: bool):
     kb = REGISTRY[name]
     raw = os.environ.get(name)
     if kb.kind == "flag":
         return bool(raw)
-    raw = (raw or "").strip() or kb.default
+    raw = (raw or "").strip()
+    if not raw and use_tuned:
+        raw = _OVERLAY.lookup(name) or ""
+    raw = raw or kb.default
     return None if raw is None else _parse(kb, raw)
 
 
+def get(name: str):
+    """Typed, validated value of a registered knob: a non-empty environment
+    value, else a live tuned override, else the default.  Unregistered names
+    raise KeyError."""
+    return _resolve(name, use_tuned=True)
+
+
+def base_get(name: str):
+    """get() with the tuned overlay ignored: env > default.  The tune tier
+    validates its entries against this form; against the overlaid one it
+    would be circular, since loading an override changes the overlay."""
+    return _resolve(name, use_tuned=False)
+
+
+def base_tuned_vector() -> tuple:
+    """(name, base value) of every knob the tuner searches, in registry
+    order: the signature of a persisted tuned override.  An exported value
+    that changed across a restart makes every persisted override a counted
+    cold fallback, since it was measured on another base."""
+    return tuple((kb.name, str(base_get(kb.name))) for kb in _KNOBS if kb.tuned)
+
+
 def source(name: str) -> str:
-    """'env' where the environment gives the knob a non-empty value, else
-    'default'."""
+    """'env' where the environment gives the knob a non-empty value, 'tuned'
+    where a live tuned override covers it, else 'default'."""
     kb = REGISTRY[name]
     raw = os.environ.get(name)
     if kb.kind == "flag":
         return "env" if raw else "default"
-    return "env" if raw is not None and raw.strip() else "default"
+    if raw is not None and raw.strip():
+        return "env"
+    return "tuned" if _OVERLAY.lookup(name) is not None else "default"
+
+
+def _display(val) -> str:
+    if val is None:
+        return "(unset)"
+    if isinstance(val, bool):
+        return "1" if val else "0"
+    if isinstance(val, float):
+        return f"{val:g}"
+    return str(val)
+
+
+def snapshot() -> list[dict]:
+    """Every knob's state for `cli knobs`: name, current value, default,
+    source, kind, whether the tuner searches it, doc.  An invalid env value
+    does not abort the listing: its row shows the raw value and an `error`,
+    while get() at the consuming site stays strict."""
+    rows = []
+    for kb in _KNOBS:
+        try:
+            value, error = _display(get(kb.name)), None
+        except ValueError as e:
+            value, error = f"INVALID {os.environ.get(kb.name, '')!r}", str(e)
+        rows.append({
+            "name": kb.name, "value": value,
+            "default": _display(False if kb.kind == "flag" and kb.default is None
+                                else kb.default),
+            "source": source(kb.name), "kind": kb.kind, "tuned_search": kb.tuned,
+            "doc": kb.doc, **({"error": error} if error else {}),
+        })
+    return rows
 
 
 def pin_unless_exported(name: str, value: str):

@@ -2,9 +2,10 @@
 jax nor anything of the JAX package spgemm_tpu, checked in a fresh
 interpreter that imports every port module; and the CLI module, the
 daemon's client side (serve/client, protocol, queue, placement, and
-serve/daemon before it runs, serve/obs_smoke) and the obs layer (obs/trace,
-events, metrics, profile, slo, also in use) import neither torch nor
-numpy."""
+serve/daemon before it runs, serve/obs_smoke), the obs layer (obs/trace,
+events, metrics, profile, slo, also in use) and the autotuner (tune/, also
+running a leg) import neither torch nor numpy; the `knobs` and `tune`
+subcommands load no torch."""
 
 import os
 import subprocess
@@ -29,7 +30,7 @@ for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
              "ops.cuda_splice", "ops.cuda_dense", "utils.failpoints", "parallel.mesh",
              "serve", "serve.protocol", "serve.queue", "serve.placement", "serve.client",
              "serve.daemon", "serve.smoke", "serve.obs_smoke", "obs", "obs.trace", "obs.events",
-             "obs.metrics", "obs.profile", "obs.slo"):
+             "obs.metrics", "obs.profile", "obs.slo", "tune", "tune.tuner"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
@@ -68,7 +69,9 @@ print("light")
                                     "spgemm_tpu_torch.obs.metrics",
                                     "spgemm_tpu_torch.obs.profile",
                                     "spgemm_tpu_torch.obs.slo",
-                                    "spgemm_tpu_torch.serve.obs_smoke"])
+                                    "spgemm_tpu_torch.serve.obs_smoke",
+                                    "spgemm_tpu_torch.tune",
+                                    "spgemm_tpu_torch.tune.tuner"])
 def test_the_serve_front_loads_neither_torch_nor_numpy(module):
     """A submitting process must not pay the cold torch import the daemon
     exists to amortize; the daemon module loads the engine lazily."""
@@ -120,6 +123,65 @@ def test_the_obs_layer_in_use_loads_neither_torch_nor_numpy():
     proc = subprocess.run([sys.executable, "-c", _OBS_CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "obs", proc.stderr
+
+
+_TUNE_CHILD = """
+import sys
+from spgemm_tpu_torch.obs import events, metrics
+from spgemm_tpu_torch.tune import TUNER, run_trial_leg, trial_vectors
+from spgemm_tpu_torch.utils.timers import ENGINE
+TUNER.note_job("ck@cpu", "cpu")
+for _ in trial_vectors():
+    assert run_trial_leg(lambda folder: "d0", lambda key: "/x", extra={"SPGEMM_TPU_DELTA": "0"})
+assert TUNER.stats()["classes"][0]["state"] == "settled", TUNER.stats()
+text = metrics.render(
+    [("spgemm_phase_entries_total", {"phase": n}, c) for n, c in ENGINE.count_snapshot().items()]
+    + [("spgemm_engine_events_total", {"event": n}, c)
+       for n, c in ENGINE.counter_snapshot().items()])
+assert 'spgemm_phase_entries_total{phase="tune_trial"} 4' in text, text
+assert 'spgemm_engine_events_total{event="tune_trials"} 4' in text, text
+assert [e["kind"] for e in events.LOG.tail(10)] == ["tune_trial"] * 4
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "numpy", "jax", "jaxlib", "spgemm_tpu"))
+assert not bad, bad
+print("tune")
+"""
+
+
+def test_the_tuner_running_legs_loads_neither_torch_nor_numpy():
+    """The tuner's state machine, a leg's bookkeeping and the scrape of its
+    phase and counter: the daemon's idle tick pays no engine import until a
+    leg's run_fn reads a chain."""
+    # walls of an empty run_fn are noise: nothing may promote on them
+    env = {**os.environ, "PYTHONPATH": REPO, "SPGEMM_TPU_TUNE_MIN_WIN": "1000"}
+    proc = subprocess.run([sys.executable, "-c", _TUNE_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "tune", proc.stderr
+
+
+_SUBCOMMAND_CHILD = """
+import runpy, sys
+sys.argv = ["spgemm_tpu_torch.cli", *sys.argv[1:]]
+try:
+    runpy.run_module("spgemm_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "spgemm_tpu"))
+assert not bad, bad
+print("no-torch", file=sys.stderr)
+"""
+
+
+@pytest.mark.parametrize("argv", [["knobs", "--json"], ["knobs"], ["tune", "--status", "--json"],
+                                  ["tune"]])
+def test_the_knobs_and_tune_subcommands_load_no_torch(argv, tmp_path):
+    """`python -m spgemm_tpu_torch.cli knobs|tune ...` answers without the
+    cold torch import (numpy reads the tune tier's entries)."""
+    env = {**os.environ, "PYTHONPATH": REPO, "SPGEMM_TPU_WARM_DIR": str(tmp_path)}
+    proc = subprocess.run([sys.executable, "-c", _SUBCOMMAND_CHILD, *argv], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stderr.split()[-1] == "no-torch", proc.stderr
+    assert proc.stdout
 
 
 def test_the_package_data_ships_every_port_source():
