@@ -55,10 +55,13 @@ the script exits non-zero without printing a result:
                execute over one chain, which must be 0), `[medium-cli]` (the
                chain written as text by the native writer, `python -m
                spgemm_tpu_torch.cli <dir> -v` with the default loader
-               threads, with --threads 1 (the default's load must be faster)
-               and with SPGEMM_TPU_NO_NATIVE=1, each ./matrix read back equal
-               to the in-memory result after prune_zeros; about 4 GB under
-               TMPDIR, deleted after) and `[medium] parity fold` (kernel 1's
+               threads and with --threads 1 (the default's load must be
+               faster), each ./matrix read back equal to the in-memory result
+               after prune_zeros; then, cut in depth to Medium's first 3
+               matrices (links to the same files), natively and with
+               SPGEMM_TPU_NO_NATIVE=1, the two ./matrix files byte-equal;
+               about 4 GB under TMPDIR, deleted after) and `[medium] parity
+               fold` (kernel 1's
                output of every level-1 multiply against the native u64 fold,
                every key, 0 bad keys).  The main path's line reports the plan
                cache's hits and misses from an empty cache; the planner's
@@ -199,7 +202,41 @@ the script exits non-zero without printing a result:
                --json`, and Medium twice, the second under the adopted
                vector; (t5) a third daemon under SPGEMM_TPU_TUNE=0: Medium
                twice with the golden bytes, no class, no leg, no
-               spgemm_tune_* family in the scrape;
+               spgemm_tune_* family in the scrape; then `[fleet]`, the fleet
+               layer (fleet/) on the card, in the same temporary directory:
+               two of the port's daemons started at once, each its own
+               process, CUDA context, socket, TCP port (`serve --addr`) and
+               SPGEMM_TPU_WARM_DIR, with SPGEMM_TPU_DELTA=0 and
+               SPGEMM_TPU_TUNE=0, behind one `cli route` subprocess polling
+               every 0.5 s: (f1) both up, waited for on the router's `stats`
+               backends block, the daemons' start times and the time until
+               the router marks both healthy; (f2) [serve]'s Medium text
+               directory through the router twice from one tenant: each
+               result byte-equal to (a)'s golden file, each answer naming its
+               backend, each job's detail with the main path's kernel-1
+               launches (74), the book merged by a poll (merged > 0,
+               book_entries >= 1) and the second submit placed by price
+               (book_hits + 1; which branch of the placement, Medium's mass
+               against LARGE_MASS_PAIRS), each wall beside [serve]'s direct
+               (a) and (b), the router's router_submit spans; (f3) [serve]
+               (g)'s eight small chains from two tenants, each result equal
+               to the in-memory engine's, both backends serving; (f4) one
+               scrape through the router (its four spgemm_router_* families,
+               each backend's series under backend=) and `cli trace-dump
+               --merge` over this process's ring, the router's dump and the
+               serving backend's, which must resolve (f2)'s client-minted
+               trace id to spans of all three processes (client_submit,
+               router_submit, serve_execute); (f5) Medium and four small
+               chains submitted, their waits started, and once Medium's
+               status says running, the backend holding it SIGKILLed: every
+               job ends with its bytes exact or with the structured
+               backend-lost, Medium re-submitted once to the survivor
+               (spgemm_router_failovers_total >= 1, a router_failover event
+               with outcome resubmitted), no wait past its deadline; the time
+               from the kill to Medium's done; a later submit lands on the
+               survivor; (f6) SIGTERM to the router and the survivor, both
+               exit 0; kernel 1's row in the kernels line gains
+               `fleet_launches`, the launches the phase's jobs report;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -252,9 +289,11 @@ import logging
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -1231,14 +1270,18 @@ def _write_text_dir(folder: str, mats: list) -> None:
                                                      mats[i]), range(len(mats))))
 
 
+MEDIUM_CLI_NUMPY_N = 3  # [medium-cli]: the numpy leg runs on Medium's first 3 matrices
+
+
 def phase_medium_cli(medium) -> dict:
     """The port's CLI on the Medium chain's text directory (written by the
     native writer), run as `python -m spgemm_tpu_torch.cli <dir> -v` with
-    the default loader threads, with --threads 1 (the default's load must
-    be faster) and with SPGEMM_TPU_NO_NATIVE=1 (the numpy paths); each
-    ./matrix, read back with the native parser, must equal the in-memory
-    result after prune_zeros.  Needs about 4 GB of disk under TMPDIR and
-    deletes it."""
+    the default loader threads and with --threads 1 (the default's load must
+    be faster), each ./matrix, read back with the native parser, equal to
+    the in-memory result after prune_zeros; then on a directory of Medium's
+    first MEDIUM_CLI_NUMPY_N matrices (links to the same files) natively and
+    with SPGEMM_TPU_NO_NATIVE=1 (the numpy paths), the two ./matrix files
+    byte-equal.  Needs about 4 GB of disk under TMPDIR and deletes it."""
     t0 = time.perf_counter()
     want = medium.res_host.prune_zeros()
     k = want.k
@@ -1253,11 +1296,22 @@ def phase_medium_cli(medium) -> dict:
         out["write_dir_s"] = time.perf_counter() - t1
         out["text_bytes"] = sum(os.path.getsize(os.path.join(folder, f"matrix{i + 1}"))
                                 for i in range(len(medium.mats)))
+        # the numpy leg's depth cut: Medium's first matrices, the same files
+        folder_n = os.path.join(tmp, "medium_head")
+        os.makedirs(folder_n)
+        with open(os.path.join(folder_n, "size"), "w") as f:
+            f.write(f"{MEDIUM_CLI_NUMPY_N} {k}\n")
+        for i in range(MEDIUM_CLI_NUMPY_N):
+            os.symlink(os.path.join(folder, f"matrix{i + 1}"),
+                       os.path.join(folder_n, f"matrix{i + 1}"))
         env = {**os.environ, "PYTHONPATH": REPO}
-        for name, extra, knob in (("default", [], {}), ("threads_1", ["--threads", "1"], {}),
-                                  ("no_native", [], {"SPGEMM_TPU_NO_NATIVE": "1"})):
+        for name, src, n, extra, knob in (
+                ("default", folder, len(medium.mats), [], {}),
+                ("threads_1", folder, len(medium.mats), ["--threads", "1"], {}),
+                ("native_head", folder_n, MEDIUM_CLI_NUMPY_N, [], {}),
+                ("no_native", folder_n, MEDIUM_CLI_NUMPY_N, [], {"SPGEMM_TPU_NO_NATIVE": "1"})):
             proc = subprocess.run(
-                [sys.executable, "-m", "spgemm_tpu_torch.cli", folder, "-v", "--device", DEVICE,
+                [sys.executable, "-m", "spgemm_tpu_torch.cli", src, "-v", "--device", DEVICE,
                  *extra], cwd=tmp, env={**env, **knob}, capture_output=True, text=True,
                 timeout=900)
             if proc.returncode != 0:
@@ -1265,25 +1319,34 @@ def phase_medium_cli(medium) -> dict:
                                    f"{proc.returncode}:\n{proc.stderr[-4000:]}")
             lines = proc.stdout.splitlines()
             taken = re.fullmatch(r"time taken (\S+) seconds", lines[-1] if lines else "")
-            if lines[:-1] != _multiplying_lines(len(medium.mats)) or not taken:
+            if lines[:-1] != _multiplying_lines(n) or not taken:
                 raise RuntimeError(f"cli stdout on the Medium directory is not the "
                                    f"reference's:\n{proc.stdout[-2000:]}")
             phases = {m.group(1): float(m.group(2))
                       for m in re.finditer(r"phase (\S+): ([0-9.]+)s", proc.stderr)}
             matrix = os.path.join(tmp, "matrix")
+            out[name] = {"time_taken_s": float(taken.group(1)), "phases": phases,
+                         "matrix_bytes": os.path.getsize(matrix)}
+            if name == "native_head":
+                os.replace(matrix, os.path.join(tmp, "matrix.native_head"))
+                continue
+            if name == "no_native":
+                if not _same_bytes(matrix, os.path.join(tmp, "matrix.native_head")):
+                    raise RuntimeError(f"cli ./matrix under SPGEMM_TPU_NO_NATIVE=1 on Medium's "
+                                       f"first {n} matrices differs from the native run's")
+                os.remove(matrix)
+                continue
             t1 = time.perf_counter()
             got = io_text.read_matrix(matrix, k)
-            read_s = time.perf_counter() - t1
+            out[name]["read_back_s"] = time.perf_counter() - t1
             if (got.rows, got.cols) != (want.rows, want.cols) or \
                     not np.array_equal(got.coords, want.coords) or \
                     not np.array_equal(got.tiles, want.tiles):
                 raise RuntimeError(f"cli ./matrix on the Medium directory ({name}) differs "
                                    "from the in-memory chain result after prune_zeros")
-            out[name] = {"time_taken_s": float(taken.group(1)), "phases": phases,
-                         "matrix_bytes": os.path.getsize(matrix), "read_back_s": read_s}
             os.remove(matrix)
         out["ranks_8"] = _medium_cli_ranks(medium, folder, tmp, env, want)
-    d, t, n = out["default"], out["threads_1"], out["no_native"]
+    d, t, h, n = out["default"], out["threads_1"], out["native_head"], out["no_native"]
     if not d["phases"]["load"] < t["phases"]["load"]:
         raise RuntimeError(f"the CLI's load with the default threads ({d['phases']['load']} s) "
                            f"is not faster than with --threads 1 ({t['phases']['load']} s)")
@@ -1294,11 +1357,14 @@ def phase_medium_cli(medium) -> dict:
            f"(plan {d['phases'].get('plan')}, plan_wait {d['phases'].get('plan_wait')}, "
            f"upload {d['phases'].get('upload')} s); --threads 1: time taken "
            f"{t['time_taken_s']:.6f} s, load {t['phases'].get('load')} s; "
-           f"SPGEMM_TPU_NO_NATIVE=1 (numpy text I/O and join): time taken "
-           f"{n['time_taken_s']:.6f} s, load {n['phases'].get('load')}, chain "
-           f"{n['phases'].get('chain')}, prune+write {n['phases'].get('prune+write')} s; "
+           f"on Medium's first {MEDIUM_CLI_NUMPY_N} matrices, SPGEMM_TPU_NO_NATIVE=1 (numpy "
+           f"text I/O and join): time taken {n['time_taken_s']:.6f} s, load "
+           f"{n['phases'].get('load')}, chain {n['phases'].get('chain')}, prune+write "
+           f"{n['phases'].get('prune+write')} s, against native {h['time_taken_s']:.6f} s (load "
+           f"{h['phases'].get('load')}, prune+write {h['phases'].get('prune+write')} s), "
+           f"./matrix ({n['matrix_bytes'] / 1e9:.3f} GB) byte-equal; "
            f"./matrix ({d['matrix_bytes'] / 1e9:.3f} GB) read back in {d['read_back_s']:.3f} s "
-           "equals the in-memory result after prune_zeros (all three runs); --ranks 8: time "
+           "equals the in-memory result after prune_zeros (both full runs); --ranks 8: time "
            f"taken {out['ranks_8']['time_taken_s']:.6f} s (chain "
            f"{out['ranks_8']['phases'].get('chain')} s), "
            f"{out['ranks_8']['tiles_differing_from_p1']} of {out['ranks_8']['tiles']} tiles "
@@ -3229,6 +3295,7 @@ def _serve_batch_legs(medium, tmp: str, smi: str) -> dict:
     t2 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         want = [chain_product(m, device=DEVICE).prune_zeros() for m in small]
+    medium.small_batch = (small, want)  # [fleet] (f3) and (f5) submit these chains
     out["h"] = _serve_batch_daemon(tmp, small, want, smi)
     out["h_s"] = time.perf_counter() - t2
     out["resident_blocks"] = resident
@@ -3951,6 +4018,344 @@ def phase_tune(medium, tmp: str) -> dict:
     return out
 
 
+FLEET_POLL_S = 0.5     # [fleet]: the router's poll cadence
+FLEET_WAIT_S = 600.0   # [fleet]: the deadline of every wait through the router
+FLEET_KILL_SMALL = 4   # [fleet] (f5): small chains submitted beside Medium
+
+
+def _fleet_fail(procs, msg: str):
+    """RuntimeError(msg) with the tail of every process's log."""
+    tails = "".join(f"\n--- {p.log_path}:\n" + open(p.log_path, errors="replace").read()[-3000:]
+                    for p in procs)
+    return RuntimeError(f"[fleet] {msg}{tails}")
+
+
+def _fleet_job_check(leg: str, job: dict, out: str, want, procs) -> int:
+    """A done job of the fleet: run on the card (the CPU when DEVICE is),
+    not degraded, kernel 1 launched on the card, ./out equal to want (a
+    path: byte for byte; else read back against the engine's result).  Its
+    kernel-1 launches."""
+    det = job.get("detail") or {}
+    launches = det.get("launches_numeric_round", 0)
+    if job.get("state") != "done" or det.get("degraded") is not False \
+            or det.get("device") != ("cuda:0" if DEVICE == "cuda" else "cpu") \
+            or (DEVICE == "cuda" and launches < 1):
+        raise _fleet_fail(procs, f"({leg}) job {job.get('id')} did not run on the card: "
+                                 f"{job.get('state')} {job.get('error')} {det}")
+    if isinstance(want, str):
+        same = _same_bytes(out, want)
+    else:
+        same = _host_equal(io_text.read_matrix(out, want.k), want)
+    if not same:
+        raise _fleet_fail(procs, f"({leg}) job {job['id']}'s ./{os.path.basename(out)} differs "
+                                 "from the wanted bytes")
+    os.remove(out)
+    return launches
+
+
+def phase_fleet(medium, tmp: str, serve_out: dict, medium_launches: int) -> dict:
+    """[fleet]: two of the port's daemons on the card, each its own process,
+    CUDA context, socket, TCP port and warm directory (delta and the tuner
+    off), behind one `cli route` subprocess, over [serve]'s Medium text
+    directory and golden result under tmp and [serve] (g)'s eight small
+    chains; (f1)-(f6) in the module docstring.  Every wait has a deadline;
+    any failed check raises.  The kernel-1 launches the jobs' details report
+    are the phase's `fleet_launches`."""
+    from spgemm_tpu_torch.fleet.fleet_smoke import _free_port, _spawn  # noqa: PLC0415
+    from spgemm_tpu_torch.obs import trace as obs_trace  # noqa: PLC0415
+    from spgemm_tpu_torch.serve import client, placement  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    medium_dir, golden = os.path.join(tmp, "medium"), os.path.join(tmp, "result_a")
+    small, small_want = medium.small_batch
+    ftmp = os.path.join(tmp, "fleet")
+    os.makedirs(ftmp)
+    small_dirs = []
+    for j, mats in enumerate(small):
+        folder = os.path.join(ftmp, f"small{j}")
+        io_text.write_chain_dir(folder, mats, mats[0].k)
+        small_dirs.append(folder)
+    ports = [_free_port(), _free_port()]
+    names = [f"tcp:127.0.0.1:{p}" for p in ports]
+    raddr = f"tcp:127.0.0.1:{_free_port()}"
+    socks = [os.path.join(ftmp, f"b{i}.sock") for i in (0, 1)]
+    base_env = {k: v for k, v in _serve_env().items() if not k.startswith("SPGEMM_TPU_ROUTER")}
+    out = {"launches": 0}
+    tw = time.perf_counter()
+    backends = [_spawn([sys.executable, "-m", "spgemm_tpu_torch.cli", "serve", "--socket",
+                        socks[i], "--addr", names[i], "--device", DEVICE, "-v"],
+                       {**base_env, "SPGEMM_TPU_WARM_DIR": os.path.join(ftmp, f"b{i}.warm"),
+                        "SPGEMM_TPU_DELTA": "0", "SPGEMM_TPU_TUNE": "0"},
+                       os.path.join(ftmp, f"b{i}.log")) for i in (0, 1)]
+    router = _spawn([sys.executable, "-m", "spgemm_tpu_torch.cli", "route", "--listen", raddr,
+                     "--backends", ",".join(names), "--poll-s", str(FLEET_POLL_S), "-v"],
+                    base_env, os.path.join(ftmp, "router.log"))
+    procs = [*backends, router]
+    try:
+        # (f1): both up, by the router's poll
+        started, healthy_s, deadline = {}, None, time.time() + 300
+        while healthy_s is None:
+            for i, proc in enumerate(procs):
+                if proc.poll() is not None:
+                    raise _fleet_fail(procs, f"(f1) process {i} exited {proc.returncode} before "
+                                             "the fleet came up")
+            for i in (0, 1):
+                if i not in started and os.path.exists(socks[i]):
+                    started[i] = time.perf_counter() - tw
+            try:
+                st = client.request({"op": "stats"}, raddr, timeout=10, retry_total_s=0.0)
+            except (client.ServeError, OSError):
+                st = {}
+            rows = st.get("backends") or {}
+            if len(rows) == 2 and all(b["up"] and not b["degraded"] for b in rows.values()):
+                healthy_s = time.perf_counter() - tw
+            elif time.time() > deadline:
+                raise _fleet_fail(procs, f"(f1) the router never saw both backends healthy: "
+                                         f"{rows}")
+            else:
+                time.sleep(0.05)
+        warm = [re.findall(r"probed and warmed up in ([0-9.]+) s", open(p.log_path).read())
+                for p in backends]
+        out["f1"] = {"start_s": [started.get(0), started.get(1)], "healthy_s": healthy_s,
+                     "probe_warm_s": [float(w[-1]) if w else None for w in warm]}
+        print(f"[fleet] (f1) on {smi}: both daemons started at once, sockets bound at "
+              f"{started.get(0):.3f} and {started.get(1):.3f} s (probe and warm-up "
+              f"{out['f1']['probe_warm_s']} s); the router marked both up and undegraded at "
+              f"{healthy_s:.3f} s (poll every {FLEET_POLL_S} s)", flush=True)
+
+        # (f2): Medium twice through the router from one tenant
+        sig = placement.signature(medium_dir)
+        f2 = []
+        for i in (0, 1):
+            res = os.path.join(ftmp, f"f2_{i}")
+            book_before = client.stats(raddr)["placement"]
+            t1 = time.perf_counter()
+            resp = client.submit(medium_dir, raddr, {"output": res}, tenant="fleet-a")
+            job = client.wait(resp["id"], raddr, timeout=FLEET_WAIT_S)["job"]
+            wall = time.perf_counter() - t1
+            if resp.get("backend") not in names or job["id"] != resp["id"]:
+                raise _fleet_fail(procs, f"(f2) submit {i}: backend {resp.get('backend')}, "
+                                         f"fleet id {resp['id']} answered as {job['id']}")
+            launches = _fleet_job_check("f2", job, res, golden, procs)
+            if DEVICE == "cuda" and launches != medium_launches:
+                raise _fleet_fail(procs, f"(f2) submit {i} launched kernel 1 {launches} times, "
+                                         f"the main path {medium_launches}")
+            out["launches"] += launches
+            book_after = client.stats(raddr)["placement"]
+            f2.append({"backend": resp["backend"], "wall_s": wall, "launches": launches,
+                       "trace": resp["trace"], "phases_s": job["detail"]["phases_s"],
+                       "book_hits": book_after["book_hits"] - book_before["book_hits"]})
+            if i == 0:  # a poll merges the serving backend's gossip
+                deadline = time.time() + 30
+                while True:
+                    book = client.stats(raddr)["placement"]
+                    if book["merged"] > 0 and book["book_entries"] >= 1:
+                        break
+                    if time.time() > deadline:
+                        raise _fleet_fail(procs, f"(f2) no poll merged the book: {book}")
+                    time.sleep(0.05)
+                gossip = client.stats(resp["backend"])["placement"]["book"]
+                mass = gossip.get(sig)
+                if mass is None:
+                    raise _fleet_fail(procs, "(f2) the serving backend does not gossip "
+                                             "Medium's price")
+        if f2[0]["book_hits"] != 0 or f2[1]["book_hits"] != 1:
+            raise _fleet_fail(procs, f"(f2) book hits per submit {[e['book_hits'] for e in f2]}"
+                                     ", want 0 then 1 (placed by price)")
+        branch = ("large: the widest backend first" if mass >= placement.LARGE_MASS_PAIRS
+                  else "cheap: the least-loaded backend first")
+        spans = [ev for ev in client.trace(raddr)
+                 if ev["name"] == "router_submit" and ev["args"].get("trace_id")
+                 in {e["trace"] for e in f2}]
+        router_ms = sorted(ev["dur"] / 1e3 for ev in spans)
+        if len(router_ms) != 2:
+            raise _fleet_fail(procs, f"(f2) {len(router_ms)} router_submit spans for the two "
+                                     "submits")
+        out["f2"] = {"jobs": f2, "mass": mass, "branch": branch, "router_submit_ms": router_ms,
+                     "book": book}
+        print(f"[fleet] (f2) on {smi}: Medium through the router, tenant fleet-a: submit walls "
+              f"{f2[0]['wall_s']:.6f} s on {f2[0]['backend']} (first contact) and "
+              f"{f2[1]['wall_s']:.6f} s on {f2[1]['backend']} (priced: book hit +1; Medium's "
+              f"mass {mass:g} pairs against LARGE_MASS_PAIRS {placement.LARGE_MASS_PAIRS:g}: "
+              f"{branch}), against [serve]'s direct (a) {serve_out['a']['wall_s']:.6f} and (b) "
+              f"{serve_out['b']['wall_s']:.6f} s; phases_s {f2[0]['phases_s']} and "
+              f"{f2[1]['phases_s']}; the router's router_submit spans {router_ms} ms; kernel-1 "
+              f"launches {f2[0]['launches']} and {f2[1]['launches']}; the router's book {book}; "
+              "both results equal the golden bytes", flush=True)
+
+        # (f3): [serve] (g)'s eight chains from two tenants
+        t1 = time.perf_counter()
+        burst = []
+        for j, folder in enumerate(small_dirs):
+            res = os.path.join(ftmp, f"f3_{j}")
+            resp = client.submit(folder, raddr, {"output": res},
+                                 tenant="fleet-a" if j % 2 == 0 else "fleet-b")
+            burst.append((j, resp, res))
+        served = {}
+        for j, resp, res in burst:
+            job = client.wait(resp["id"], raddr, timeout=FLEET_WAIT_S)["job"]
+            out["launches"] += _fleet_job_check("f3", job, res, small_want[j], procs)
+            served[resp["backend"]] = served.get(resp["backend"], 0) + 1
+        if set(served) != set(names):
+            raise _fleet_fail(procs, f"(f3) the burst did not reach both backends: {served}")
+        out["f3"] = {"served": served, "wall_s": time.perf_counter() - t1}
+        print(f"[fleet] (f3) on {smi}: {len(small_dirs)} chains of [serve] (g) from tenants "
+              f"fleet-a and fleet-b in {out['f3']['wall_s']:.6f} s, jobs per backend {served}, "
+              "every result equal to the in-memory engine's", flush=True)
+
+        # (f4): one scrape, one trace
+        scrape = client.metrics(raddr)
+        need = ["spgemm_router_failovers_total 0"]
+        for name in names:
+            need += [f'spgemm_router_backend_up{{backend="{name}"}} 1',
+                     f'spgemm_router_backend_queue_depth{{backend="{name}"}}',
+                     f'spgemm_router_jobs_total{{backend="{name}"}}',
+                     f'spgemmd_jobs_terminal_total{{backend="{name}",outcome="done"}}']
+        missing = [n for n in need if n not in scrape]
+        if missing:
+            raise _fleet_fail(procs, f"(f4) the scrape lacks {missing}")
+        trace_id, t_backend = f2[1]["trace"], f2[1]["backend"]
+        stitch = os.path.join(ftmp, "stitch")
+        obs_trace.dump_json(os.path.join(stitch, "client.trace.json"),
+                            process_name="chip-smoke-client")
+        env = {**os.environ, "PYTHONPATH": REPO}
+        for addr, fname in ((raddr, "router.trace.json"), (t_backend, "backend.trace.json")):
+            r = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", "trace-dump",
+                                "--addr", addr, "-o", os.path.join(stitch, fname)], env=env,
+                               cwd=REPO, capture_output=True, text=True, timeout=120)
+            if r.returncode != 0:
+                raise _fleet_fail(procs, f"(f4) trace-dump --addr {addr}: {r.stderr[-1000:]}")
+        merged_path = os.path.join(ftmp, "merged.trace.json")
+        r = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", "trace-dump",
+                            "--merge", stitch, "--trace", trace_id, "-o", merged_path], env=env,
+                           cwd=REPO, capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise _fleet_fail(procs, f"(f4) trace-dump --merge: {r.stderr[-1000:]}")
+        spans = [ev for ev in json.load(open(merged_path)) if ev.get("ph") != "M"]
+        by_pid = {}
+        for ev in spans:
+            by_pid.setdefault(ev["pid"], set()).add(ev["name"])
+        span_names = set().union(*by_pid.values()) if by_pid else set()
+        if len(by_pid) < 3 or not {"client_submit", "router_submit", "serve_execute"} \
+                <= span_names:
+            raise _fleet_fail(procs, f"(f4) trace {trace_id} does not span the client, the "
+                                     f"router and the backend: {by_pid}")
+        out["f4"] = {"scrape_lines": len(scrape.splitlines()), "pids": len(by_pid),
+                     "spans": len(spans)}
+        print(f"[fleet] (f4) on {smi}: one scrape, {out['f4']['scrape_lines']} lines: the four "
+              f"spgemm_router_* families and both backends' series under backend=; trace "
+              f"{trace_id} merged from this process, the router and {t_backend}: "
+              f"{len(spans)} spans in {len(by_pid)} processes, span names by process "
+              f"{[sorted(v) for v in by_pid.values()]}", flush=True)
+
+        # (f5): the backend holding a running Medium job is killed
+        res_m = os.path.join(ftmp, "f5_medium")
+        kill_jobs = [("medium", client.submit(medium_dir, raddr, {"output": res_m},
+                                              tenant="fleet-a"), res_m, golden)]
+        for j in range(FLEET_KILL_SMALL):
+            res = os.path.join(ftmp, f"f5_{j}")
+            kill_jobs.append((f"small{j}", client.submit(small_dirs[j], raddr, {"output": res},
+                                                         tenant="fleet-b"), res, small_want[j]))
+        ended = {}
+
+        def waiter(label: str, fleet_id: str) -> None:
+            try:
+                ended[label] = (client.wait(fleet_id, raddr, timeout=FLEET_WAIT_S),
+                                time.perf_counter())
+            except Exception as e:  # noqa: BLE001 -- judged after the join
+                ended[label] = (e, time.perf_counter())
+
+        threads = [threading.Thread(target=waiter, args=(label, resp["id"]), daemon=True)
+                   for label, resp, _, _ in kill_jobs]
+        for t in threads:
+            t.start()
+        medium_id, holder = kill_jobs[0][1]["id"], kill_jobs[0][1]["backend"]
+        deadline = time.time() + 300
+        while (state := client.status(medium_id, raddr)["job"]["state"]) != "running":
+            if time.time() > deadline or state in ("done", "failed"):
+                raise _fleet_fail(procs, f"(f5) Medium's job never showed running ({state})")
+            time.sleep(0.02)
+        victim = backends[names.index(holder)]
+        survivor_name = names[1 - names.index(holder)]
+        victim.kill()  # SIGKILL mid-job: its CUDA context goes with it
+        t_kill = time.perf_counter()
+        for t in threads:
+            t.join(timeout=max(1.0, FLEET_WAIT_S + 60 - (time.perf_counter() - t_kill)))
+        hung = [label for label, *_ in kill_jobs if label not in ended]
+        if hung:
+            raise _fleet_fail(procs, f"(f5) waits that never returned: {hung}")
+        outcomes = {}
+        for label, resp, res, want in kill_jobs:
+            got, at = ended[label]
+            if isinstance(got, client.ServeError) and got.code == "backend-lost":
+                outcomes[label] = "backend-lost"
+                continue
+            if isinstance(got, Exception):
+                raise _fleet_fail(procs, f"(f5) {label} ended with {got!r}")
+            out["launches"] += _fleet_job_check(f"f5 {label}", got["job"], res, want, procs)
+            outcomes[label] = f"done on {got['backend']}"
+            if label == "medium":
+                kill_to_done = at - t_kill
+        rst = client.stats(raddr)
+        failover_events = [e for e in client.events(512, raddr) if e["kind"] == "router_failover"]
+        resubmitted = [e for e in failover_events if e.get("outcome") == "resubmitted"]
+        if outcomes["medium"] != f"done on {survivor_name}" or rst["jobs"]["failovers"] < 1 \
+                or not resubmitted or f"spgemm_router_failovers_total {rst['jobs']['failovers']}" \
+                not in client.metrics(raddr):
+            raise _fleet_fail(procs, f"(f5) Medium did not fail over to the survivor: "
+                                     f"{outcomes}, {rst['jobs']}, {failover_events}")
+        deadline = time.time() + 60
+        while client.stats(raddr)["backends"][holder]["up"]:
+            if time.time() > deadline:
+                raise _fleet_fail(procs, "(f5) the router still reports the killed backend up")
+            time.sleep(0.05)
+        res = os.path.join(ftmp, "f5_after")
+        resp = client.submit(small_dirs[-1], raddr, {"output": res}, tenant="fleet-b")
+        job = client.wait(resp["id"], raddr, timeout=FLEET_WAIT_S)["job"]
+        if resp["backend"] != survivor_name:
+            raise _fleet_fail(procs, f"(f5) a later submit landed on {resp['backend']}, not the "
+                                     f"survivor {survivor_name}")
+        out["launches"] += _fleet_job_check("f5 later", job, res, small_want[-1], procs)
+        out["f5"] = {"outcomes": outcomes, "failovers": rst["jobs"]["failovers"],
+                     "kill_to_done_s": kill_to_done, "killed": holder,
+                     "events": [{k: e.get(k) for k in ("job", "dead", "to", "outcome")}
+                                for e in failover_events]}
+        print(f"[fleet] (f5) on {smi}: SIGKILL of {holder} while Medium ran there; outcomes "
+              f"{outcomes}; failovers {rst['jobs']['failovers']}, router_failover events "
+              f"{out['f5']['events']}; kill to the re-submitted Medium job's done "
+              f"{kill_to_done:.6f} s (a cold start of Medium on the survivor's card); a later "
+              f"submit on the survivor {survivor_name}; every finished job's bytes exact, no wait "
+              "hung", flush=True)
+
+        # (f6): SIGTERM to the router and the survivor
+        survivor = backends[names.index(survivor_name)]
+        rcs = {}
+        for label, proc in (("router", router), ("survivor", survivor)):
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rcs[label] = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                raise _fleet_fail(procs, f"(f6) the {label} did not exit after SIGTERM") from None
+        if rcs != {"router": 0, "survivor": 0}:
+            raise _fleet_fail(procs, f"(f6) exit codes after SIGTERM {rcs}")
+        print(f"[fleet] (f6) SIGTERM: router and survivor exited {rcs}", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    out["fleet_s"] = time.perf_counter() - t0
+    _phase("fleet", t0, f"on {smi}: two daemons and a router, both up at "
+           f"{out['f1']['healthy_s']:.3f} s; Medium through the router {f2[0]['wall_s']:.6f} / "
+           f"{f2[1]['wall_s']:.6f} s, the second placed by price ({branch}); 8 small chains "
+           f"over {out['f3']['served']}; one scrape, one trace over 3 processes; kill leg: "
+           f"{out['f5']['outcomes']}, kill to done {out['f5']['kill_to_done_s']:.3f} s; clean "
+           f"SIGTERM; kernel-1 launches over the phase's jobs {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -4005,6 +4410,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         row["serve"] = phase_serve(medium, row["cli"], tmp)
         row["tune"] = phase_tune(medium, tmp)
+        row["fleet"] = phase_fleet(medium, tmp, row["serve"], row["launches"])
+    # the [fleet] path's own count: the kernel-1 launches its jobs report
+    row["fleet_launches"] = row["fleet"]["launches"]
     # the [tune] path's own counts: the trial legs' launches
     row["tune_launches"] = row["tune"]["legs_launches"]["launches_numeric_round"]
     dense_row["tune_launches"] = row["tune"]["legs_launches"]["launches_dense_fold"]

@@ -76,6 +76,15 @@ trace_event JSON or merges a directory of dumps, `profile` reports its
 build records, device memory watermark and estimator and delta accuracy,
 `slo` its per-tenant latency quantiles, error ratio and burn state (obs/).
 
+    python -m spgemm_tpu_torch.cli route --backends ADDR[,ADDR...]
+        [--listen tcp:H:P] [--poll-s S] [-v]
+
+runs spgemm-router (fleet/router.py), one front door for several spgemmd
+daemons (each started with `serve --addr tcp:H:P`): it polls their stats,
+places each submit by the fleet's price book, proxies status and wait,
+joins their scrapes, and re-submits a job once when its daemon dies.  The
+client subcommands talk to it with `--addr` as to a daemon.
+
     python -m spgemm_tpu_torch.cli knobs [--json]
     python -m spgemm_tpu_torch.cli tune [--status | --clear] [--dir PATH] [--json]
 
@@ -477,10 +486,16 @@ def _slo(argv: list[str]) -> int:
     return client.main_slo(argv)
 
 
+def _route(argv: list[str]) -> int:
+    from spgemm_tpu_torch.fleet import router  # noqa: PLC0415
+
+    return router.main(argv)
+
+
 _SUBCOMMANDS = {"knobs": run_knobs, "warm": run_warm, "tune": run_tune, "serve": _serve,
                 "submit": _submit, "status": _status, "metrics": _metrics,
                 "trace-dump": _trace_dump, "events": _events, "profile": _profile,
-                "slo": _slo}
+                "slo": _slo, "route": _route}
 
 
 def run(argv: list[str] | None = None) -> int:

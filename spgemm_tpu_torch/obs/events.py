@@ -43,8 +43,8 @@ from spgemm_tpu_torch.utils import knobs
 
 # The port's event kinds (kind -> when it fires): only the kinds the port
 # emits.  tests/test_torch_obs.py holds every emit() literal in the package
-# to this dict and each kind to the JAX package's registry; the router_* and
-# lock_contention kinds come with their modules.
+# to this dict and each kind to the JAX package's registry; the
+# lock_contention kind comes with its module.
 EVENT_KINDS: dict[str, str] = {
     "daemon_start": "spgemmd came up (socket, slice, pid)",
     "daemon_drain_reap": "a SIGTERM/SIGINT or shutdown drain failed an in-flight job "
@@ -103,6 +103,14 @@ EVENT_KINDS: dict[str, str] = {
                           "clean; the override is live",
     "tune_revert": "a tuned override was dropped (canary failure or trial-time parity "
                    "mismatch) and its class backed off before re-trial",
+    "router_start": "spgemm-router came up (listen address, backend list, poll cadence)",
+    "router_backend_down": "a backend failed its stats poll (or was degraded) and left "
+                           "placement",
+    "router_backend_up": "a backend answered its stats poll healthy and (re)joined "
+                         "placement",
+    "router_failover": "a job's backend died mid-flight; the job was re-submitted once to "
+                       "a healthy peer (or failed structured backend-lost -- outcome rides "
+                       "along)",
 }
 
 

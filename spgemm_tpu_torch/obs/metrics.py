@@ -1,7 +1,7 @@
 """Metrics registry and Prometheus text-format 0.0.4 renderer (the port's
 copy of the JAX package's `obs/metrics.py`, with the profiling (obs/profile),
-autotuner (tune/) and SLO (obs/slo) families; without the fleet families,
-which come with their module).
+autotuner (tune/), SLO (obs/slo) and fleet router (fleet/router.py)
+families).
 
 The single source of truth for what the port may emit:
 
@@ -260,6 +260,29 @@ _METRICS = (
            "unattributable and dropped with it, so this counts tears, "
            "not dropped records.",
            "serve/daemon.py"),
+    # ---- fleet layer (fleet/router.py: the router's own scrape; each
+    # backend's series ride the aggregated passthrough with an injected
+    # backend= label, not this registry) ----
+    Metric("spgemm_router_backend_up", "gauge",
+           "1 while the backend answers its stats poll healthy "
+           "(undegraded), 0 while it is down or degraded -- the "
+           "fleet-level analogue of spgemm_slice_degraded (a down "
+           "backend is excluded from placement the same way).",
+           "fleet/router.py", labels=("backend",)),
+    Metric("spgemm_router_backend_queue_depth", "gauge",
+           "Queued jobs last reported by each backend's stats poll "
+           "(the router's load signal for least-loaded placement).",
+           "fleet/router.py", labels=("backend",)),
+    Metric("spgemm_router_jobs_total", "counter",
+           "Submits the router placed per backend (failover re-submits "
+           "count on the backend that finally accepted).",
+           "fleet/router.py", labels=("backend",)),
+    Metric("spgemm_router_failovers_total", "counter",
+           "Jobs re-submitted once to a healthy peer after their "
+           "backend died mid-job (the idempotent-by-fingerprint "
+           "failover; a job that cannot fail over gets a structured "
+           "backend-lost error instead).",
+           "fleet/router.py"),
     Metric("spgemm_failpoints_triggered_total", "counter",
            "Chaos failpoint triggers per registered injection point "
            "(utils/failpoints.py registry, armed via "

@@ -11,7 +11,10 @@ predicted tile pairs of the first reduction pass.
 
 With the port's single slice every class lands on the same card; the
 record still rides each job's status, and the book feeds the multi-slice
-pool when it is ported.  Pricing steers placement only, never the bytes.
+pool when it is ported.  `stats()` gossips the book's newest entries
+(`book`, at most BOOK_GOSSIP_CAP), which the fleet router merges into its
+replicated price book (fleet/pricebook.py) to place submits across
+daemons.  Pricing steers placement only, never the bytes.
 
 The class book maps an autotuner structure class (ops/plancache.
 tune_class_key) to a representative folder: the newest folder a job of the
@@ -33,6 +36,10 @@ LARGE_INPUT_BYTES = 64 << 20
 
 # price-book capacity (LRU past it)
 BOOK_CAP = 4096
+
+# the newest book entries stats() gossips to a fleet router: a bound that
+# keeps a stats answer a small wire line with a full book
+BOOK_GOSSIP_CAP = 64
 
 _LOCK = threading.Lock()
 _BOOK: "OrderedDict[str, float]" = OrderedDict()  # guarded by _LOCK
@@ -139,11 +146,15 @@ def route(folder: str) -> dict:
 
 
 def stats() -> dict:
-    """The book's size and hit counts and the routing histogram."""
+    """The book's size and hit counts, the routing histogram, and the gossip
+    sample `book`: the newest (most recently used) BOOK_GOSSIP_CAP
+    signatures and their masses."""
     with _LOCK:
+        newest = list(_BOOK.items())[-BOOK_GOSSIP_CAP:]
         return {"book_entries": len(_BOOK), "book_hits": _STATS["book_hits"],
                 "book_misses": _STATS["book_misses"], "routed": dict(_STATS["routed"]),
-                "large_mass_pairs": LARGE_MASS_PAIRS, "large_input_bytes": LARGE_INPUT_BYTES}
+                "large_mass_pairs": LARGE_MASS_PAIRS, "large_input_bytes": LARGE_INPUT_BYTES,
+                "book": dict(newest)}
 
 
 def clear() -> None:

@@ -57,7 +57,7 @@ from spgemm_tpu_torch.utils import knobs
 PROTOCOL_VERSION = 4
 
 # versions the daemon speaks: v2 added the submit `tenant`, v3 the submit
-# `trace`, v4 response fields of the JAX package's fleet router only
+# `trace`, v4 the fleet router's response fields only
 ACCEPTED_VERSIONS = (1, 2, 3, 4)
 
 # op -> field -> the lowest protocol version whose daemons understand it
@@ -159,6 +159,9 @@ E_UNAVAILABLE = "daemon-unavailable"  # minted by the client, never the daemon
 E_JOB_TIMEOUT = "job-timeout"
 E_EXECUTOR_DIED = "executor-died"
 E_JOB_ERROR = "job-error"
+# minted by the fleet router (fleet/router.py), never a daemon
+E_BACKEND_LOST = "backend-lost"
+E_NO_BACKEND = "no-backend"
 
 # tenant names are label values: a bounded charset, no quotes or whitespace
 _TENANT_RE = re.compile(r"^[A-Za-z0-9._:-]+$")
@@ -226,6 +229,14 @@ def parse_addr(spec: str):
             raise ValueError(f"empty unix path in {spec!r}")
         return ("unix", path)
     return ("unix", spec)
+
+
+def format_addr(parsed) -> str:
+    """The canonical spec of a parse_addr() result: a backend's stable name
+    in the router's labels and log lines."""
+    if parsed[0] == "tcp":
+        return f"tcp:{parsed[1]}:{parsed[2]}"
+    return f"unix:{parsed[1]}"
 
 
 def default_addr() -> str:

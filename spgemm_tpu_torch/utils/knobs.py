@@ -144,6 +144,19 @@ _KNOBS = (
          "the same protocol, and clients that inherit the export dial it by "
          "default.  Unset = unix socket only.  A malformed spec fails startup.  "
          "Read by serve/protocol.py and serve/daemon.py."),
+    Knob("SPGEMM_TPU_ROUTER_BACKENDS", "str",
+         "spgemm-router backend list: comma-joined wire addresses (tcp:HOST:PORT or "
+         "unix socket paths) of the spgemmd daemons the fleet router fronts "
+         "(`cli route --backends` overrides).  Each is polled for health, queue "
+         "depth and its price-book gossip; a dead or degraded backend leaves "
+         "placement.  Empty with no --backends fails router startup.  Read by "
+         "fleet/router.py."),
+    Knob("SPGEMM_TPU_ROUTER_POLL_S", "float",
+         "spgemm-router poll cadence, seconds: each cycle reads every backend's "
+         "stats op (queue depth, slices, degraded flag, price-book sample) off "
+         "the request path; a backend that fails its poll is down until a later "
+         "poll answers.  Read by fleet/router.py.",
+         default="2", minimum=0.1),
     Knob("SPGEMM_TPU_SERVE_SLICES", "str",
          "spgemmd device-pool slice spec (parallel/mesh.slice_pool): terms "
          "[COUNTx]WIDTH[*] joined by '+', or 'auto'.  The port serves one "

@@ -3,9 +3,11 @@ jax nor anything of the JAX package spgemm_tpu, checked in a fresh
 interpreter that imports every port module; and the CLI module, the
 daemon's client side (serve/client, protocol, queue, placement, and
 serve/daemon before it runs, serve/obs_smoke), the obs layer (obs/trace,
-events, metrics, profile, slo, also in use) and the autotuner (tune/, also
-running a leg) import neither torch nor numpy; the `knobs` and `tune`
-subcommands load no torch."""
+events, metrics, profile, slo, also in use), the autotuner (tune/, also
+running a leg) and the fleet router (fleet/router, pricebook) import neither
+torch nor numpy; the `knobs` and `tune` subcommands load no torch, and
+`route` loads neither torch nor numpy.  The fleet's event kinds, metric
+families and knobs are held to the JAX registries."""
 
 import os
 import subprocess
@@ -30,7 +32,8 @@ for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
              "ops.cuda_splice", "ops.cuda_dense", "utils.failpoints", "parallel.mesh",
              "serve", "serve.protocol", "serve.queue", "serve.placement", "serve.client",
              "serve.daemon", "serve.smoke", "serve.obs_smoke", "obs", "obs.trace", "obs.events",
-             "obs.metrics", "obs.profile", "obs.slo", "tune", "tune.tuner"):
+             "obs.metrics", "obs.profile", "obs.slo", "tune", "tune.tuner", "fleet",
+             "fleet.router", "fleet.pricebook", "fleet.fleet_smoke"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
@@ -71,7 +74,11 @@ print("light")
                                     "spgemm_tpu_torch.obs.slo",
                                     "spgemm_tpu_torch.serve.obs_smoke",
                                     "spgemm_tpu_torch.tune",
-                                    "spgemm_tpu_torch.tune.tuner"])
+                                    "spgemm_tpu_torch.tune.tuner",
+                                    "spgemm_tpu_torch.fleet",
+                                    "spgemm_tpu_torch.fleet.router",
+                                    "spgemm_tpu_torch.fleet.pricebook",
+                                    "spgemm_tpu_torch.fleet.fleet_smoke"])
 def test_the_serve_front_loads_neither_torch_nor_numpy(module):
     """A submitting process must not pay the cold torch import the daemon
     exists to amortize; the daemon module loads the engine lazily."""
@@ -182,6 +189,85 @@ def test_the_knobs_and_tune_subcommands_load_no_torch(argv, tmp_path):
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stderr.split()[-1] == "no-torch", proc.stderr
     assert proc.stdout
+
+
+_ROUTE_CHILD = """
+import runpy, sys
+sys.argv = ["spgemm_tpu_torch.cli", *sys.argv[1:]]
+try:
+    runpy.run_module("spgemm_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    print("exit", e.code, file=sys.stderr)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "numpy", "jax", "jaxlib", "spgemm_tpu"))
+assert not bad, bad
+assert "spgemm_tpu_torch.fleet.router" in sys.modules
+print("light", file=sys.stderr)
+"""
+
+
+@pytest.mark.parametrize("argv, code", [(["route", "--help"], 0),
+                                        (["route", "--backends", ""], 1)])
+def test_the_route_subcommand_loads_neither_torch_nor_numpy(argv, code, tmp_path):
+    """`python -m spgemm_tpu_torch.cli route` runs the router, which owns
+    only sockets: neither torch nor numpy is loaded."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    env.pop("SPGEMM_TPU_ROUTER_BACKENDS", None)
+    proc = subprocess.run([sys.executable, "-c", _ROUTE_CHILD, *argv], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stderr.split()[-3:] == ["exit", str(code), "light"], \
+        proc.stderr
+    if code == 0:
+        assert "--backends" in proc.stdout and "--listen" in proc.stdout
+
+
+_FLEET_KINDS = ("router_start", "router_backend_down", "router_backend_up", "router_failover")
+_FLEET_FAMILIES = ("spgemm_router_backend_up", "spgemm_router_backend_queue_depth",
+                   "spgemm_router_jobs_total", "spgemm_router_failovers_total")
+
+
+def test_the_fleet_kinds_and_families_are_the_jax_ones():
+    from spgemm_tpu.obs import events as jax_events
+    from spgemm_tpu.obs import metrics as jax_metrics
+    from spgemm_tpu_torch.obs import events, metrics
+
+    for kind in _FLEET_KINDS:
+        assert kind in events.EVENT_KINDS and kind in jax_events.EVENT_KINDS
+        assert events.EVENT_KINDS[kind] == jax_events.EVENT_KINDS[kind]
+    for name in _FLEET_FAMILIES:
+        m, j = metrics.REGISTRY[name], jax_metrics.REGISTRY[name]
+        assert (m.kind, m.doc, m.module, m.labels) == (j.kind, j.doc, j.module, j.labels)
+    samples = [(n, {"backend": "tcp:h:1"} if metrics.REGISTRY[n].labels else {}, 3)
+               for n in _FLEET_FAMILIES]
+    assert metrics.render(samples) == jax_metrics.render(samples)
+    # every family of the JAX registry is now the port's too
+    assert set(jax_metrics.REGISTRY) == set(metrics.REGISTRY)
+
+
+@pytest.mark.parametrize("name, values", [
+    ("SPGEMM_TPU_ROUTER_BACKENDS", (None, "", "tcp:127.0.0.1:1,/tmp/b.sock", "  x  ")),
+    ("SPGEMM_TPU_ROUTER_POLL_S", (None, "", "2", "0.1", "0.05", "0", "-1", "x", " 0.5 ")),
+])
+def test_the_router_knobs_parse_like_jax(name, values, monkeypatch):
+    from spgemm_tpu.utils import knobs as jax_knobs
+    from spgemm_tpu_torch.utils import knobs
+
+    mine, theirs = knobs.REGISTRY[name], jax_knobs.REGISTRY[name]
+    assert (mine.kind, mine.default, mine.minimum) == (theirs.kind, theirs.default,
+                                                       theirs.minimum)
+    for value in values:
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+        try:
+            want = jax_knobs.get(name)
+        except ValueError as e:
+            with pytest.raises(ValueError) as got:
+                knobs.get(name)
+            assert str(got.value) == str(e)
+            continue
+        assert knobs.get(name) == want, value
 
 
 def test_the_package_data_ships_every_port_source():

@@ -210,7 +210,7 @@ def test_render_gives_the_jax_text_on_shared_families():
 
 def test_render_refuses_undeclared_families_and_wrong_labels():
     with pytest.raises(ValueError, match="undeclared metric"):
-        metrics.render([("spgemm_router_jobs_total", {"backend": "b"}, 1)])  # a JAX-only family
+        metrics.render([("spgemm_no_such_family", {"backend": "b"}, 1)])
     with pytest.raises(ValueError, match="declares labels"):
         metrics.render([("spgemm_slice_busy", {}, 1)])
     assert metrics.escape_label('a"b\\c\nd') == jax_metrics.escape_label('a"b\\c\nd')
