@@ -933,22 +933,25 @@ def _same_plans(xs: list, ys: list) -> bool:
 
 def _ptxas_report() -> dict:
     """Registers and spill bytes of kernel 1's two instances, of kernel 2's
-    instances at 8x8 and 3x3 byte limbs (10 and 3 7-bit limbs) and of the
-    segmented fold, from the ptxas reports _build keeps beside the
-    libraries."""
+    instances at 8x8 and 3x3 byte limbs (10 and 3 7-bit limbs), of the
+    segmented fold and of kernel 4's instance on the FFN's main path, from
+    the ptxas reports _build keeps beside the libraries."""
     out = {}
     for lib, pattern, name in (
             ("numeric_round", r"numeric_round_kernelILb([01])E",
              lambda m: "no_mod" if m.group(1) == "1" else "mod"),
             ("numeric_round_mxu", r"numeric_round_mxu_kernelILi(\d)ELi(\d)E",
              lambda m: f"mxu {m.group(1)}x{m.group(2)}"),
-            ("numeric_round_dense", r"numeric_round_kernelILb0ELb1E", lambda m: "dense")):
+            ("numeric_round_dense", r"numeric_round_kernelILb0ELb1E", lambda m: "dense"),
+            # kernel 4 on the FFN's main path: bf16, k 128, 2 n-tiles a warp (block_m 16)
+            ("bsmm", r"bsmm_resident_kernelI13__nv_bfloat16Li128ELi2E",
+             lambda m: "bsmm_resident")):
         log = _build.build(lib).with_suffix(".log").read_text()
         for entry, stats in obs_profile.parse_ptxas(log).items():
             m = re.search(pattern, entry)
             if m:
                 out[name(m)] = {k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
-    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense"}
+    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense", "bsmm_resident"}
     if not want <= set(out):
         raise RuntimeError(f"no ptxas report for {sorted(want - set(out))}: {out}")
     return {name: out[name] for name in sorted(want)}
@@ -2075,6 +2078,21 @@ def phase_ffn() -> list[dict]:
     print(f"[ffn] launch geometry on {sms} SMs (kernel 3: br from row_tile, any block_m; "
           f"kernel 4 at block_m 16: br rows, col_blocks chunks of col_chunk columns): "
           f"{geometry}", flush=True)
+    # kernel 4's ring and cluster on matmul 1, what the card holds of each cluster
+    layout = cuda_bsmm.resident_layout(cfg.d_model, 16, x.element_size(), cfg.k)
+    k4_plan = {M: {"stages": layout.stages, "smem_bytes": layout.total,
+                   "ring_offset": layout.ring_offset,
+                   "cluster": cuda_bsmm.cluster_size(M // 16, cfg.k),
+                   "clusters_allowed": cuda_bsmm.cluster_sizes(M // 16, cfg.k)}
+               for M in (m_full, m_small)}
+    active = {c: cuda_bsmm.max_active_clusters(cfg.d_model, cfg.k, 16, x.dtype, c,
+                                               torch.cuda.current_device())
+              for c in cuda_bsmm.CLUSTER_SIZES}
+    k4_ptxas = _ptxas_report()["bsmm_resident"]
+    print(f"[ffn] kernel 4 at block_m 16 (d_in {cfg.d_model}, bf16, k {cfg.k}): ring of "
+          f"{layout.stages} stages, {layout.total} bytes of shared memory (panel "
+          f"{layout.panel_bytes}, ring at {layout.ring_offset}); cluster by M {k4_plan}; "
+          f"cudaOccupancyMaxActiveClusters by cluster {active}; ptxas {k4_ptxas}", flush=True)
 
     # the main path: runs (i), (ii), (iii), (iv), counts zeroed before, read after
     t0 = time.perf_counter()
@@ -2122,6 +2140,16 @@ def phase_ffn() -> list[dict]:
                                   flush)
     t["k3_mm2"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm2, block_m=128), flush)
     t["k4_mm1"] = _median_ms(lambda: cuda_bsmm.bsmm_resident(*mm1, block_m=16), flush)
+    # kernel 4's variants: each ring depth alone, each cluster, the stream without products
+    k4_variants = {f"k4_mm1_s{st}_c1": {"stages": st, "cluster": 1}
+                   for st in range(2, layout.stages + 1)}
+    for c in k4_plan[m_full]["clusters_allowed"]:
+        k4_variants[f"k4_mm1_s{layout.stages}_c{c}"] = {"stages": layout.stages, "cluster": c}
+        k4_variants[f"k4_mm1_stream_c{c}"] = {"stages": layout.stages, "cluster": c,
+                                              "stream_only": True}
+    for name, kw in k4_variants.items():
+        t[name] = _median_ms(
+            lambda kw=kw: cuda_bsmm._launch(*mm1, 16, False, resident=True, **kw), flush)
     t["k3_mm2_16"] = _median_ms(lambda: cuda_bsmm.bsmm(*mm2, block_m=16), flush)
     # the launch block_m 16 took before row_tile: 16-row blocks
     t["k3_mm2_br16"] = _median_ms(
@@ -2146,6 +2174,9 @@ def phase_ffn() -> list[dict]:
                                          *BSMM_TOL[torch.bfloat16])}
     if not torch.equal(t["k4_mm1"][2], t["k3_mm1"][2]):
         raise RuntimeError("bsmm_resident != bsmm on matmul 1 at full width")
+    for name, kw in k4_variants.items():
+        if not kw.get("stream_only") and not torch.equal(t[name][2], t["k3_mm1"][2]):
+            raise RuntimeError(f"bsmm_resident {kw} != bsmm on matmul 1 at full width")
     if not torch.equal(t["k3_mm2_16"][2], t["k3_mm2"][2]):
         raise RuntimeError("bsmm at block_m 16 != block_m 128 on matmul 2 at full width")
     brs = _same_at_row_tiles("bsmm matmul 2 at full width", t["k3_mm2"][2], *mm2)
@@ -2221,6 +2252,10 @@ def phase_ffn() -> list[dict]:
         "max_abs_err": err["bsmm_resident"], "ms": ms["k4_mm1"], "plain_ms": ms["plain_mm1"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": ms["lib_mm1"],
         "timed_on": "matmul 1 of the full-width FFN forward, block_m 16",
+        "redesigned": "TMA-fed tile ring, producer warp, cluster multicast",
+        "stages": layout.stages, "cluster": k4_plan[m_full]["cluster"],
+        "smem_bytes": layout.total, "max_active_clusters": active, "ptxas": k4_ptxas,
+        "variants_ms": {name: ms[name] for name in k4_variants},
         "ms_small_m": ms["k4_mm1_small"], "bound_small_m": b1s,
         "library_ms_small_m": ms["lib_mm1_small"], **common}
     return [stream_row, resident_row]

@@ -10,8 +10,24 @@ an optional tanh-form gelu on that f32 sum, cast to x.dtype.
 
 Both kernels run one device body (bf16 on the tensor cores with
 mma.sync m16n8k16, float32 on plain FMA), so at the same inputs they give
-identical bits, whatever the block_m.  What bounds them at the FFN's full
-width is operations and bytes about equally (PERF.md).
+identical bits, whatever the block_m, the ring depth or the cluster.  What
+bounds kernel 3 at the FFN's full width is operations and bytes about
+equally (PERF.md).
+
+Kernel 4 (redesigned for Hopper) holds a block's x panel in shared memory
+and streams the tiles through a ring of `stages` swizzled stages after it,
+fed by a tensor map (TMA) from a producer warp, with a full and an empty
+mbarrier a stage; a cluster of `cluster` blocks on consecutive panels
+shares each tile by TMA multicast.  resident_layout mirrors its shared
+memory and picks the ring's depth (3 at full width); cluster_size picks the
+cluster.  At block_m 16 every block sweeps every tile of its column chunk,
+so the tile stream from L2 (6.44 / cluster GB for matmul 1 at full width)
+bounds it once each warp's products run unguarded over its compile-time
+n-tiles.  The earlier body (two padded buffers filled by every thread, the
+products guarded per n-tile) took 5.48 ms; the redesign 1.06 ms, the
+stream alone 0.69 ms, torch.matmul 1.30 ms, clusters of 2 and 4 1.15 and
+1.43 ms, so FASTEST_CLUSTER is 1 (NVIDIA H100 80GB HBM3, 700.00 W;
+tools/bsmm_resident_ab.py, PERF.md).
 
 block_m is the TPU's row tile (the BlockSpec's); here it says what M is a
 multiple of and where kernel 4 may run.  launch_geometry derives each grid
@@ -22,12 +38,12 @@ The resident gate changes its verdict from the TPU's.  The JAX gate
 (spgemm_tpu/ops/pallas_bsmm.py:149) takes a 4 MB VMEM panel budget and
 needs k % 128 == 0.  A Hopper thread block has 232,448 bytes of shared
 memory, so here the block's panel (block_rows(block_m) x d_in, each row
-padded by 16 bytes) plus two padded k x k tiles (kernel 4 double-buffers
-them) must fit that, and k must be one the kernel takes.  At the FFN's
-full width (bf16, k = 128) W1's panel (d_in = 4096) fits at block_m = 16
-and not at 32, and W2's (d_in = 16384) never fits: with resident=None,
-block_m = 128 streams both matmuls and block_m = 16 takes kernel 4 for
-matmul 1 only.
+padded by 16 bytes) plus two padded k x k tiles must fit that, and k must
+be one the kernel takes.  At the FFN's full width (bf16, k = 128) W1's
+panel (d_in = 4096) fits at block_m = 16 and not at 32, and W2's (d_in =
+16384) never fits: with resident=None, block_m = 128 streams both matmuls
+and block_m = 16 takes kernel 4 for matmul 1 only.  Wherever the gate
+holds, resident_layout fits a ring of at least 2 unpadded stages.
 """
 
 from __future__ import annotations
@@ -47,6 +63,14 @@ _KERNEL = "bsmm"
 KERNEL_KS = (16, 32, 64, 128)      # tile edges the kernel takes
 SMEM_BYTES = 232_448               # shared memory a Hopper block can use
 _ROW_PAD_BYTES = 16                # each shared row is padded by this much
+_MBARRIER_BYTES = 8
+RESIDENT_STAGES = (2, 3, 4)        # depths of kernel 4's tile ring
+CLUSTER_SIZES = (1, 2, 4)          # blocks of kernel 4 that share each tile
+# The cluster that measured fastest for kernel 4 at the FFN's full width on
+# the H100 (PERF.md, kernel table); cluster_size takes the largest size up
+# to it that a launch allows.
+FASTEST_CLUSTER = 1
+_ERR_ENCODE = 100_000              # csrc/bsmm.cu's kErrEncode
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,6 +98,69 @@ def resident_panel_fits(d_in: int, block_m: int, dtype_bytes: int = 2,
     panel = block_rows(block_m) * (d_in * dtype_bytes + _ROW_PAD_BYTES)
     tile = k * (k * dtype_bytes + _ROW_PAD_BYTES)
     return panel + 2 * tile <= SMEM_BYTES
+
+
+def swizzle_span(k: int, dtype_bytes: int) -> int:
+    """Bytes of a tile row that kernel 4's tensor map swizzles as one span:
+    min(128, k * dtype_bytes).  The swizzle's pattern repeats every 8 rows,
+    8 * span bytes."""
+    return min(128, k * dtype_bytes)
+
+
+@dataclass(frozen=True)
+class ResidentLayout:
+    """Kernel 4's shared memory, in bytes (csrc/bsmm.cu:resident_layout):
+    the padded x panel from 0, the ring of `stages` unpadded k x k tiles
+    from ring_offset, then barrier_bytes of mbarriers (a full and an empty
+    one a stage); `total` is what the launch asks for."""
+    panel_bytes: int
+    ring_offset: int
+    stage_bytes: int
+    stages: int
+    barrier_bytes: int
+    total: int
+
+
+def resident_layout(d_in: int, block_m: int, dtype_bytes: int = 2, k: int = 128,
+                    stages: int | None = None) -> ResidentLayout | None:
+    """Kernel 4's shared memory at these shapes.  The ring starts at the
+    first multiple of the swizzle's pattern (8 * swizzle_span bytes: 1024
+    wherever a tile row is 128 bytes or more) after the panel; every stage
+    is a whole number of patterns.  stages=None takes the deepest ring of
+    RESIDENT_STAGES that fits a block's SMEM_BYTES and gives None where not
+    even 2 stages fit; a given depth that does not fit raises ValueError."""
+    panel = block_rows(block_m) * (d_in * dtype_bytes + _ROW_PAD_BYTES)
+    align = 8 * swizzle_span(k, dtype_bytes)
+    ring = -(-panel // align) * align
+    tile = k * k * dtype_bytes
+
+    def layout(s: int) -> ResidentLayout:
+        barriers = 2 * _MBARRIER_BYTES * s
+        return ResidentLayout(panel, ring, tile, s, barriers, ring + s * tile + barriers)
+
+    if stages is None:
+        fits = [layout(s) for s in RESIDENT_STAGES if layout(s).total <= SMEM_BYTES]
+        return fits[-1] if fits else None
+    if stages not in RESIDENT_STAGES or layout(stages).total > SMEM_BYTES:
+        raise ValueError(f"kernel 4 takes a ring of {RESIDENT_STAGES} stages within "
+                         f"{SMEM_BYTES} bytes of shared memory; {stages} stages of {tile} "
+                         f"bytes after a {panel}-byte panel need {layout(stages).total}")
+    return layout(stages)
+
+
+def cluster_sizes(panels: int, k: int) -> tuple[int, ...]:
+    """The clusters kernel 4 can launch with: C of CLUSTER_SIZES dividing
+    the row panels (a cluster's blocks sit on consecutive panels of one
+    column chunk) and k / 8 (each block loads k / C rows of every tile, a
+    whole number of the swizzle's 8-row patterns)."""
+    return tuple(c for c in CLUSTER_SIZES if panels % c == 0 and k % (8 * c) == 0)
+
+
+def cluster_size(panels: int, k: int, fastest: int = FASTEST_CLUSTER) -> int:
+    """The cluster kernel 4 launches with: the largest of cluster_sizes
+    that is at most `fastest`, the size that measured fastest (1 where no
+    other divides the panels)."""
+    return max(c for c in cluster_sizes(panels, k) if c <= fastest)
 
 
 def row_tile(M: int, nbc: int, sms: int) -> int:
@@ -162,11 +249,20 @@ def bsmm_ref(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, *,
 
 
 def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: int,
-            fuse_gelu: bool, resident: bool, br: int | None = None) -> torch.Tensor:
-    """Launch kernel 3 or 4 on launch_geometry's grid; br, for kernel 3
-    only, replaces row_tile's rows per block (the checks that no bit
-    depends on the row tile give it)."""
+            fuse_gelu: bool, resident: bool, br: int | None = None,
+            cluster: int | None = None, stages: int | None = None,
+            stream_only: bool = False) -> torch.Tensor:
+    """Launch kernel 3 or 4 on launch_geometry's grid.  br, for kernel 3
+    only, replaces row_tile's rows per block; cluster, stages and
+    stream_only, for kernel 4 only, replace cluster_size's cluster and
+    resident_layout's ring depth, and skip the products (a diagnostic: the
+    output is then not the product).  The checks that no bit depends on
+    these give them."""
     M, d_in, nbc, rpc, k = check_operands(x, rows, tiles, block_m)
+    if not resident and (cluster is not None or stages is not None or stream_only):
+        raise ValueError("cluster, stages and stream_only are kernel 4's")
+    if resident and br is not None:
+        raise ValueError("kernel 4's row tile is block_rows(block_m)")
     if x.device.type == "cpu":
         return bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu)
     if x.device.type != "cuda":
@@ -186,29 +282,59 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
     out = torch.empty((M, nbc * k), dtype=x.dtype, device=x.device)
     if M == 0 or nbc == 0:
         return out
-    lib = _build.load(_KERNEL)
     geo = launch_geometry(M, nbc, block_m, resident, sm_count(x.device.index))
     if br is not None:
-        if resident:
-            raise ValueError("kernel 4's row tile is block_rows(block_m)")
         geo = Geometry(br, M // br, 1, nbc)
-    # kernel 4 takes its column chunk after br; kernel 3 sweeps one column
-    chunk = [geo.col_chunk] if resident else []
+    extra = []  # kernel 4's: column chunk, ring depth, cluster, stream_only
+    if resident:
+        layout = resident_layout(d_in, block_m, x.element_size(), k, stages)
+        if cluster is None:
+            cluster = cluster_size(geo.panels, k)
+        elif cluster not in cluster_sizes(geo.panels, k):
+            raise ValueError(f"kernel 4 takes a cluster of {cluster_sizes(geo.panels, k)} "
+                             f"blocks at {geo.panels} panels and k={k}, not {cluster}")
+        extra = [geo.col_chunk, layout.stages, cluster, int(stream_only)]
+    lib = _build.load(_KERNEL)
     fn = lib.spgemm_bsmm_resident if resident else lib.spgemm_bsmm
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * (8 + len(chunk)) + [ctypes.c_void_p]
+        + [ctypes.c_int] * (8 + len(extra)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), rows.data_ptr(), tiles.data_ptr(), out.data_ptr(), M, d_in,
-             nbc, rpc, k, geo.br, *chunk, _DTYPE_CODES[x.dtype], int(fuse_gelu),
+             nbc, rpc, k, geo.br, *extra, _DTYPE_CODES[x.dtype], int(fuse_gelu),
              x.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"bsmm kernel launch failed: CUDA error {err} (M={M}, "
-                           f"d_in={d_in}, nbc={nbc}, rpc={rpc}, k={k}, block_m={block_m}, "
-                           f"{x.dtype}, resident={resident}, {geo})")
+        what = (f"the tiles' tensor map could not be encoded: CUresult {err - _ERR_ENCODE}"
+                if err >= _ERR_ENCODE else f"CUDA error {err}")
+        raise RuntimeError(f"bsmm kernel launch failed: {what} (M={M}, d_in={d_in}, "
+                           f"nbc={nbc}, rpc={rpc}, k={k}, block_m={block_m}, {x.dtype}, "
+                           f"resident={resident}, {geo}, ring/cluster {extra[1:3]})")
     # the launch counters, bumped here and nowhere else
     ENGINE.incr("launches_bsmm_resident" if resident else "launches_bsmm")
     return out
+
+
+def max_active_clusters(d_in: int, k: int, block_m: int, dtype: torch.dtype, cluster: int,
+                        device: int, stages: int | None = None) -> int:
+    """cudaOccupancyMaxActiveClusters of kernel 4 at these shapes on CUDA
+    device `device`: how many clusters of `cluster` blocks the card holds
+    at once (card only; raises where the runtime refuses)."""
+    layout = resident_layout(d_in, block_m, torch.empty((), dtype=dtype).element_size(), k,
+                             stages)
+    if layout is None:
+        raise ValueError(f"kernel 4's panel and ring do not fit at d_in={d_in}, k={k}, "
+                         f"block_m={block_m}, {dtype}")
+    fn = _build.load(_KERNEL).spgemm_bsmm_resident_clusters
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(d_in, k, block_rows(block_m), layout.stages, cluster, _DTYPE_CODES[dtype],
+             device, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err} "
+                           f"(d_in={d_in}, k={k}, block_m={block_m}, {dtype}, "
+                           f"cluster={cluster}, {layout})")
+    return n.value
 
 
 def bsmm(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, *,

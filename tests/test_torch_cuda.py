@@ -448,6 +448,61 @@ def test_bsmm_row_tile_at_block_m_16(cuda, dtype, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fuse_gelu", [False, True], ids=["plain", "gelu"])
+@pytest.mark.parametrize("M", [16, 208, 256, 8192])
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bsmm_resident_at_every_ring_and_cluster(cuda, dtype, k, M, fuse_gelu):
+    """Kernel 4 forced to every ring depth from 2 to resident_layout's
+    deepest and every cluster it can take (cluster_sizes: 1 alone at 13
+    panels, M = 208, and at one panel) gives kernel 3's bits, and its
+    default launch is within tolerance of bsmm_ref."""
+    x, rows, tiles = _bsmm_case(M + k, M, 4, 6, 3, k, dtype, cuda)
+    want = cuda_bsmm.bsmm(x, rows, tiles, block_m=16, fuse_gelu=fuse_gelu)
+    deepest = cuda_bsmm.resident_layout(x.shape[1], 16, x.element_size(), k).stages
+    clusters = cuda_bsmm.cluster_sizes(M // 16, k)
+    assert 1 in clusters and (M // 16 not in (1, 13) or clusters == (1,))
+    before = _launches("bsmm_resident")
+    for stages in range(2, deepest + 1):
+        for cluster in clusters:
+            got = cuda_bsmm._launch(x, rows, tiles, 16, fuse_gelu, resident=True,
+                                    cluster=cluster, stages=stages)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (stages, cluster)
+    assert _launches("bsmm_resident") == before + (deepest - 1) * len(clusters)
+    rtol, atol = BSMM_TOL[dtype]
+    got = cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=16, fuse_gelu=fuse_gelu)
+    torch.testing.assert_close(got.float(), cuda_bsmm.bsmm_ref(
+        x, rows, tiles, fuse_gelu=fuse_gelu).float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bsmm_resident_refuses_a_ring_or_cluster_it_cannot_take(cuda):
+    x, rows, tiles = _bsmm_case(5, 208, 32, 2, 3, 128, torch.bfloat16, cuda)  # 13 panels
+    with pytest.raises(ValueError, match="cluster"):
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, cluster=2)
+    with pytest.raises(ValueError, match="stages"):  # d_in 4096: 3 stages at most
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, stages=4)
+    x, rows, tiles = _bsmm_case(6, 64, 4, 2, 3, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="cluster"):  # k 16: 16 / 4 rows a block
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, cluster=4)
+
+
+@pytest.mark.cuda
+def test_bsmm_resident_clusters_fit_the_card(cuda):
+    """cudaOccupancyMaxActiveClusters at full width (d_in 4096, bf16, k 128,
+    block_m 16): one block an SM, so at most the SMs at cluster 1, and a
+    cluster of C holds C SMs."""
+    sms = cuda_bsmm.sm_count(cuda.index or 0)
+    got = {c: cuda_bsmm.max_active_clusters(4096, 128, 16, torch.bfloat16, c, cuda.index or 0)
+           for c in cuda_bsmm.CLUSTER_SIZES}
+    assert got[1] == sms
+    for c, n in got.items():
+        assert 0 < n * c <= sms, got
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("round_size", [None, 3])
 @pytest.mark.parametrize("depth", ["1", "2", "4"])
 @pytest.mark.parametrize("backend,dist", [("exact", "adversarial"), ("hybrid", "small"),

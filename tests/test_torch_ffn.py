@@ -215,6 +215,109 @@ def test_launch_geometry_covers_the_output(M, nbc, resident):
         assert g.col_chunk == 1
 
 
+def test_resident_layout_at_full_width():
+    """Kernel 4 on W1 at full width (d_in 4096, bf16, k 128, block_m 16): the
+    panel, the ring at the next 1024 bytes, three 32 KB stages and six
+    mbarriers."""
+    lay = cuda_bsmm.resident_layout(4096, 16, 2, 128)
+    assert lay == cuda_bsmm.ResidentLayout(panel_bytes=131_328, ring_offset=132_096,
+                                           stage_bytes=32_768, stages=3, barrier_bytes=48,
+                                           total=230_448)
+    assert lay.ring_offset % 1024 == 0 and lay.total <= cuda_bsmm.SMEM_BYTES
+
+
+@pytest.mark.parametrize("stages,total", [(2, 197_664), (3, 230_448)])
+def test_resident_layout_at_a_given_depth(stages, total):
+    lay = cuda_bsmm.resident_layout(4096, 16, 2, 128, stages=stages)
+    assert (lay.stages, lay.total, lay.barrier_bytes) == (stages, total, 16 * stages)
+
+
+@pytest.mark.parametrize("stages", [1, 4, 5])
+def test_resident_layout_refuses_a_depth_it_cannot_take(stages):
+    with pytest.raises(ValueError, match="stages"):
+        cuda_bsmm.resident_layout(4096, 16, 2, 128, stages=stages)
+
+
+def test_resident_layout_where_no_ring_fits():
+    assert cuda_bsmm.resident_layout(16384, 16, 2, 128) is None  # W2 at full width
+    assert not cuda_bsmm.resident_panel_fits(16384, 16, 2, 128)
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", cuda_bsmm.KERNEL_KS)
+def test_resident_layout_fits_wherever_the_gate_holds(dtype_bytes, k):
+    """Wherever resident_panel_fits lets kernel 4 run, its ring is 2 to 4
+    stages deep within a block's shared memory, and every stage starts on
+    the swizzle's 8-row pattern: 1024 bytes wherever a row is 128 bytes or
+    more (the panel's end is rounded up to it)."""
+    span = cuda_bsmm.swizzle_span(k, dtype_bytes)
+    assert span == min(128, k * dtype_bytes) and span in (32, 64, 128)
+    seen = 0
+    for block_m in range(16, 272, 16):
+        for d_in in range(k, 32_768 + 1, k):
+            if not cuda_bsmm.resident_panel_fits(d_in, block_m, dtype_bytes, k):
+                continue
+            seen += 1
+            lay = cuda_bsmm.resident_layout(d_in, block_m, dtype_bytes, k)
+            assert lay is not None and 2 <= lay.stages <= 4, (d_in, block_m)
+            assert lay.total <= cuda_bsmm.SMEM_BYTES, (d_in, block_m)
+            assert lay.panel_bytes <= lay.ring_offset < lay.panel_bytes + 8 * span
+            assert lay.stage_bytes == k * k * dtype_bytes
+            assert lay.total == lay.ring_offset + lay.stages * lay.stage_bytes \
+                + lay.barrier_bytes
+            for stage in range(lay.stages):
+                start = lay.ring_offset + stage * lay.stage_bytes
+                assert start % (8 * span) == 0
+                if span == 128:
+                    assert start % 1024 == 0
+            if lay.stages < 4:  # the deepest ring that fits
+                deeper = lay.ring_offset + (lay.stages + 1) * (lay.stage_bytes + 16)
+                assert deeper > cuda_bsmm.SMEM_BYTES
+    assert seen > 0
+
+
+@pytest.mark.parametrize("panels,k,fastest,want", [
+    (512, 128, 4, 4),   # matmul 1 at full width
+    (512, 128, 2, 2),
+    (512, 128, 1, 1),
+    (16, 128, 4, 4),    # run (iv), M = 256
+    (1, 128, 4, 1),     # a single panel
+    (13, 128, 4, 1),    # M = 208: 13 panels, which no C > 1 divides
+    (6, 128, 4, 2),
+    (512, 16, 4, 2),    # k 16: a block's slice of 16 / C rows stays 8 deep
+    (512, 32, 4, 4),
+])
+def test_cluster_size(panels, k, fastest, want):
+    c = cuda_bsmm.cluster_size(panels, k, fastest=fastest)
+    assert c == want and panels % c == 0 and k % (8 * c) == 0
+    assert c in cuda_bsmm.cluster_sizes(panels, k)
+
+
+@pytest.mark.parametrize("M", [16, 208, 256, 8192])
+def test_cluster_size_divides_the_panels(M):
+    panels = M // cuda_bsmm.block_rows(16)
+    c = cuda_bsmm.cluster_size(panels, 128)
+    assert c in cuda_bsmm.CLUSTER_SIZES and panels % c == 0
+    assert c <= cuda_bsmm.FASTEST_CLUSTER
+    if M in (16, 208):  # one panel; 13 panels
+        assert c == 1
+
+
+def test_kernel_4_options_on_the_cpu():
+    """On CPU tensors the kernel-4 options change nothing (bsmm_ref runs);
+    kernel 3 refuses them and kernel 4 refuses a row tile."""
+    x, rows, tiles = map(torch.from_numpy, _bsmm_case(11, 32, nb_in=4, nbc=3, rpc=2, k=8))
+    want = cuda_bsmm.bsmm_ref(x, rows, tiles)
+    got = cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, cluster=2, stages=2)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="kernel 4"):
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, cluster=2)
+    with pytest.raises(ValueError, match="kernel 4"):
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, stages=3)
+    with pytest.raises(ValueError, match="row tile"):
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, br=32)
+
+
 def test_full_width_config_matches_jax():
     got, want = ffn.BlockSparseFFNConfig(), jffn.BlockSparseFFNConfig()
     assert got.__dict__ == want.__dict__
