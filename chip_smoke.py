@@ -272,11 +272,31 @@ the script exits non-zero without printing a result:
                x; then each kernel per matmul (full width and M = 256), each
                forward, the plain versions and the dense x @ W product
                timed, kernel 4 bit-equal to kernel 3 on matmul 1 and kernel
-               3 on matmul 2 bit-equal across the row tiles 16 to 128.
+               3 on matmul 2 bit-equal across the row tiles 16 to 128;
+  9. ffn-train -- the FFN training step at the same width (x and a target
+               (8, 1024, 4096) bf16 from SEED + 2, lr 1e-3): first the plain
+               autograd step in bf16 against float32, the basis of the
+               limits (FFN_TRAIN_LOSS_RTOL, FFN_TRAIN_GRAD_TOL); then three
+               steps at block_m 128 and one at block_m 16 through
+               make_sharded_train_step on a 1 x 1 mesh, each a main path
+               with the counts zeroed before and read after (forward 2 and
+               dgrad 1 on kernels 3 and 4 as the resident gate picks, kernel
+               5 twice), each step's loss and gradients against the plain
+               step's within the limits; the step's forward bit-equal to
+               ffn_forward_kernels'; then the dgrad (kernel 3 at block_m
+               128, kernel 4 at 16, bit-equal) and kernel 5 (dW1, dW2)
+               against their plain versions, timed beside them, torch.bmm
+               of the gathered strips and torch.matmul of dy by the dense
+               W2^T, and the whole step against the plain one.
+               `python3 chip_smoke.py --only ffn-train` runs the device and
+               build phases and this one alone (no result line).
 
-Then one JSON line describing every ported kernel (the splice and the dense fold last) and,
-last, the device line
-`{"ok": true, "device": {...}}`.  Imports torch, numpy and the port only.
+Then one JSON line describing every ported kernel (kernel 5 and the dgrad
+after kernels 3 and 4, the splice and the dense fold last) and, last, the
+device line `{"ok": true, "device": {...}}`.  The rows known so far are also
+printed as `[kernels so far]` lines after the Medium, dense, medium-small
+and ffn phases and written to build/chip_smoke_kernels.json, so that a cut
+output tail loses no row.  Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -307,12 +327,13 @@ from spgemm_tpu_torch.chain import chain_product, chain_products_batched
 from spgemm_tpu_torch.models import ffn
 from spgemm_tpu_torch.obs import profile as obs_profile
 from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_dense, cuda_mxu, cuda_splice
-from spgemm_tpu_torch.ops import cuda_spgemm
+from spgemm_tpu_torch.ops import cuda_bsmm_grad, cuda_spgemm
 from spgemm_tpu_torch.ops import delta, estimate, mxu_spgemm, plancache, symbolic, warmstore
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.ops.spgemm import Folds, plan, spgemm, spgemm_device, spgemm_outofcore
 from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned
+from spgemm_tpu_torch.parallel.mesh import train_mesh
 from spgemm_tpu_torch.utils import backend_probe, io_text, native
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.gen import (banded_block_sparse, powerlaw_block_sparse,
@@ -352,6 +373,28 @@ FFN_BATCH, FFN_SEQ = 8, 1024
 FFN_SMALL_SEQ = 256   # run (iv): one sequence of 256 tokens, the small-M shape
 FFN_TOL = (2 ** -7, 2 ** -5)
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor cores
+# [ffn-train]: the training step at the same width on x and a target
+# (8, 1024, 4096) bf16 from SEED + 2, SGD at the JAX step's default lr;
+# FFN_TRAIN_STEPS steps at block_m 128 (every matmul on kernel 3), then one
+# at block_m 16 (the resident gate takes kernel 4 for matmul 1 and the dgrad)
+FFN_TRAIN_STEPS = 3
+FFN_TRAIN_LR = 1e-3
+# The kernel step against the plain autograd step, both in bf16: the loss
+# within FFN_TRAIN_LOSS_RTOL, each weight gradient within
+# FFN_TRAIN_GRAD_TOL times the plain gradient's largest |entry| (max abs
+# error).  Set from the plain step in bf16 against the plain step in
+# float32 on these inputs, which every run prints first: on an NVIDIA H100
+# 80GB HBM3 (700.00 W) the loss 6.5e-5 apart (relative), dW1 3.3e-3 and dW2
+# 3.0e-3 of their largest entry.  Two bf16 steps may sit on opposite sides
+# of float32, so twice that; a margin of two over it, rounded up to a power
+# of two: 4 x 6.5e-5 -> 2^-11, 4 x 3.3e-3 -> 2^-6.
+FFN_TRAIN_LOSS_RTOL = 2 ** -11
+FFN_TRAIN_GRAD_TOL = 2 ** -6
+# a bf16 kernel of the step against its plain version on the same inputs:
+# |got - want| <= rtol |want| + atol_frac max |want| (the gradients' values
+# are ~1e-6, so an absolute floor must scale with them); both sum the same
+# products in float32 in another order and round once to bf16
+GRAD_KERNEL_TOL = (2 ** -7, 2 ** -10)
 L2_BYTES = 50 << 20
 
 # H100 SXM peaks (NVIDIA data sheet).  The fp32 rate, 67e12 FLOP/s, is
@@ -934,8 +977,9 @@ def _same_plans(xs: list, ys: list) -> bool:
 def _ptxas_report() -> dict:
     """Registers and spill bytes of kernel 1's two instances, of kernel 2's
     instances at 8x8 and 3x3 byte limbs (10 and 3 7-bit limbs), of the
-    segmented fold and of kernel 4's instance on the FFN's main path, from
-    the ptxas reports _build keeps beside the libraries."""
+    segmented fold, of kernel 4's two instances on the FFN's paths (the
+    forward's and the dgrad's gelu_grad one) and of kernel 5's, from the
+    ptxas reports _build keeps beside the libraries."""
     out = {}
     for lib, pattern, name in (
             ("numeric_round", r"numeric_round_kernelILb([01])E",
@@ -943,15 +987,19 @@ def _ptxas_report() -> dict:
             ("numeric_round_mxu", r"numeric_round_mxu_kernelILi(\d)ELi(\d)E",
              lambda m: f"mxu {m.group(1)}x{m.group(2)}"),
             ("numeric_round_dense", r"numeric_round_kernelILb0ELb1E", lambda m: "dense"),
-            # kernel 4 on the FFN's main path: bf16, k 128, 2 n-tiles a warp (block_m 16)
-            ("bsmm", r"bsmm_resident_kernelI13__nv_bfloat16Li128ELi2E",
-             lambda m: "bsmm_resident")):
+            # kernel 4 on the FFN's main path: bf16, k 128, 2 n-tiles a warp (block_m 16),
+            # the forward's instance and the gelu_grad one (the dgrad at block_m 16)
+            ("bsmm", r"bsmm_resident_kernelI13__nv_bfloat16Li128ELi2ELb([01])E",
+             lambda m: "bsmm_resident" + ("_gelu_grad" if m.group(1) == "1" else "")),
+            # kernel 5 on the FFN training step's path: bf16, k 128
+            ("bsmm_grad", r"bsmm_wgrad_kernelI13__nv_bfloat16Li128E", lambda m: "bsmm_wgrad")):
         log = _build.build(lib).with_suffix(".log").read_text()
         for entry, stats in obs_profile.parse_ptxas(log).items():
             m = re.search(pattern, entry)
             if m:
                 out[name(m)] = {k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
-    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense", "bsmm_resident"}
+    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense", "bsmm_resident",
+            "bsmm_resident_gelu_grad", "bsmm_wgrad"}
     if not want <= set(out):
         raise RuntimeError(f"no ptxas report for {sorted(want - set(out))}: {out}")
     return {name: out[name] for name in sorted(want)}
@@ -961,7 +1009,8 @@ def _ptxas_report() -> dict:
 LAUNCH_COUNTERS = {"mod": "launches_numeric_round", "no_mod": "launches_numeric_round_no_mod",
                    "mxu": "launches_numeric_round_mxu", "splice": "launches_splice",
                    "dense": "launches_dense_fold", "bsmm": "launches_bsmm",
-                   "bsmm_resident": "launches_bsmm_resident"}
+                   "bsmm_resident": "launches_bsmm_resident",
+                   "bsmm_wgrad": "launches_bsmm_wgrad"}
 
 
 def _zero_counts() -> None:
@@ -2259,6 +2308,261 @@ def phase_ffn() -> list[dict]:
         "ms_small_m": ms["k4_mm1_small"], "bound_small_m": b1s,
         "library_ms_small_m": ms["lib_mm1_small"], **common}
     return [stream_row, resident_row]
+
+
+def _grad_err(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Max abs error over the largest |entry| of want, and the norm of the
+    difference over want's."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise RuntimeError("non-finite gradient")
+    return {"max_over_scale": float((g - w).abs().max()) / float(w.abs().max()),
+            "norm_rel": float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))}
+
+
+def _check_scaled(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """_check_close at GRAD_KERNEL_TOL, the absolute floor scaled by want's
+    largest |entry|; returns the max abs error."""
+    rtol, frac = GRAD_KERNEL_TOL
+    return _check_close(what, got, want, rtol, frac * float(want.float().abs().max()))
+
+
+def _wgrad_bound(a: torch.Tensor, b: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
+                 k: int) -> dict:
+    """Kernel 5's least time: 2 M P k^2 flops on the bf16 tensor cores,
+    against the strips of a and b its pairs name, each read once, and its
+    tiles written once."""
+    M, P, es = a.shape[0], ia.numel(), a.element_size()
+    flops = 2 * M * P * k * k
+    nbytes = ((len(torch.unique(ia)) + len(torch.unique(ib))) * M * k + P * k * k) * es
+    ops_ms, bytes_ms = flops / BF16_TENSOR_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = _bound(ops_ms, bytes_ms)
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _strips(t: torch.Tensor, idx: torch.Tensor, k: int, transpose: bool) -> torch.Tensor:
+    """The k-wide column strips idx of t (M, n*k) stacked for torch.bmm:
+    (P, k, M) transposed, else (P, M, k)."""
+    g = t.reshape(t.shape[0], -1, k)[:, idx.long()]   # (M, P, k)
+    return (g.permute(1, 2, 0) if transpose else g.permute(1, 0, 2)).contiguous()
+
+
+def phase_ffn_train() -> list[dict]:
+    t0 = time.perf_counter()
+    cfg = FFN_CFG
+    gen = torch.Generator().manual_seed(SEED + 2)
+    params = ffn.init_params(cfg, gen, device=DEVICE)
+    x = torch.randn((FFN_BATCH, FFN_SEQ, cfg.d_model), generator=gen).to(DEVICE, torch.bfloat16)
+    target = torch.randn((FFN_BATCH, FFN_SEQ, cfg.d_model), generator=gen).to(
+        DEVICE, torch.bfloat16)
+    params32 = {name: {key: t.float() if t.is_floating_point() else t for key, t in w.items()}
+                for name, w in params.items()}
+    # the limits' basis: the plain step in bf16 against the plain step in float32
+    loss32, g32 = ffn.loss_and_grads_ref(params32, x.float(), target.float(), cfg)
+    loss_p, g_p = ffn.loss_and_grads_ref(params, x, target, cfg)
+    plain_vs_f32 = {"loss_rel": abs(float(loss_p) - float(loss32)) / float(loss32),
+                    **{name: _grad_err(g_p[name], g32[name]) for name in ("w1", "w2")}}
+    del loss_p, g_p
+    torch.cuda.empty_cache()
+    _phase("ffn-train", t0, f"x and target {tuple(x.shape)} bf16, lr {FFN_TRAIN_LR}; the plain "
+           f"step in bf16 against float32 (the limits' basis): {plain_vs_f32}; limits: loss "
+           f"rtol {FFN_TRAIN_LOSS_RTOL}, each gradient {FFN_TRAIN_GRAD_TOL} of its largest "
+           f"|entry|")
+
+    # the main path: FFN_TRAIN_STEPS steps at block_m 128, one at block_m 16,
+    # each with the counts zeroed before and read after, against the plain step
+    t0 = time.perf_counter()
+    mesh = train_mesh(device=DEVICE)
+    steps = {bm: ffn.make_sharded_train_step(mesh, cfg, lr=FFN_TRAIN_LR, block_m=bm)
+             for bm in (128, 16)}
+    # (bsmm, bsmm_resident, bsmm_wgrad) a step: forward 2 + dgrad 1 on kernel 3
+    # or 4 as the resident gate picks (at full width: all kernel 3 at block_m
+    # 128; kernel 4 for matmul 1 and the dgrad at 16), kernel 5 twice
+    want_counts = {}
+    for bm in (128, 16):
+        res = sum(cuda_bsmm.resident_panel_fits(d_in, bm, x.element_size(), cfg.k)
+                  for d_in in (cfg.d_model, cfg.d_ff, cfg.d_model))
+        want_counts[bm] = (3 - res, res, 2)
+    p_k = p_p = params
+    per_step, counts, vs_f32 = [], [], None
+    for i, bm in enumerate([128] * FFN_TRAIN_STEPS + [16]):
+        torch.cuda.synchronize()
+        _zero_counts()
+        loss_k, g_k = steps[bm].loss_and_grads(p_k, x, target)
+        new_k = ffn.sgd(p_k, g_k, FFN_TRAIN_LR)
+        torch.cuda.synchronize()
+        c = _read_counts()
+        got = (c["bsmm"], c["bsmm_resident"], c["bsmm_wgrad"])
+        if got != want_counts[bm]:
+            raise RuntimeError(f"ffn-train step {i + 1} (block_m {bm}): (bsmm, bsmm_resident, "
+                               f"bsmm_wgrad) launches {got}, want {want_counts[bm]}")
+        counts.append({"block_m": bm, "bsmm": got[0], "bsmm_resident": got[1],
+                       "bsmm_wgrad": got[2]})
+        loss_p, g_p = ffn.loss_and_grads_ref(p_p, x, target, cfg)
+        new_p = ffn.sgd(p_p, g_p, FFN_TRAIN_LR)
+        errs = {"block_m": bm, "loss": float(loss_k), "plain_loss": float(loss_p),
+                "loss_rel": abs(float(loss_k) - float(loss_p)) / float(loss_p),
+                **{name: _grad_err(g_k[name], g_p[name]) for name in ("w1", "w2")}}
+        if i == 0:
+            vs_f32 = {"loss_rel": abs(float(loss_k) - float(loss32)) / float(loss32),
+                      **{name: _grad_err(g_k[name], g32[name]) for name in ("w1", "w2")}}
+        if not np.isfinite(errs["loss"]) or errs["loss_rel"] > FFN_TRAIN_LOSS_RTOL or any(
+                errs[name]["max_over_scale"] > FFN_TRAIN_GRAD_TOL for name in ("w1", "w2")):
+            raise RuntimeError(f"ffn-train step {i + 1}: the kernel step against the plain one "
+                               f"beyond the limits: {errs}")
+        errs["tiles_differing"] = {
+            name: int((new_k[name]["tiles"] != new_p[name]["tiles"]).sum()) for name in ("w1", "w2")}
+        errs["tiles_moved"] = {
+            name: int((new_k[name]["tiles"] != p_k[name]["tiles"]).sum()) for name in ("w1", "w2")}
+        per_step.append(errs)
+        p_k, p_p = new_k, new_p
+    del g32, loss32, params32
+    torch.cuda.empty_cache()
+    # the step's forward gives the forward's bits (kernels 3 and 4 unchanged)
+    xf = x.reshape(-1, cfg.d_model)
+    index = steps[128].index(params)
+    w1t, w2t_rm = params["w1"]["tiles"], params["w2"]["tiles"]
+    pparams = ffn.prepare_kernel_params(params, cfg)
+    with torch.no_grad():
+        for bm in (128, 16):
+            y_step = ffn._KernelFFN.apply(xf, w1t, w2t_rm, index, bm, None)
+            if not torch.equal(y_step.reshape(x.shape), ffn.ffn_forward_kernels(
+                    pparams, x, cfg, block_m=bm)):
+                raise RuntimeError(f"ffn-train: the step's forward at block_m {bm} differs from "
+                                   f"ffn_forward_kernels'")
+    del y_step
+    _phase("ffn-train", t0, f"main path: {FFN_TRAIN_STEPS} steps at block_m 128 and 1 at "
+           f"block_m 16 through make_sharded_train_step on a 1 x 1 mesh, launches {counts}; "
+           f"against the plain autograd step each: {per_step}; step 1 against float32: "
+           f"{vs_f32}; the step's forward equals ffn_forward_kernels' bits at block_m 128 "
+           f"and 16")
+
+    # the backward's kernels alone, on the step's own operands
+    t0 = time.perf_counter()
+    k, M = cfg.k, xf.shape[0]
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    pre = cuda_bsmm.bsmm(xf, index.rows1, w1t)
+    h = cuda_bsmm.gelu(pre)
+    y_pred = cuda_bsmm.bsmm(h, index.rows2, cuda_bsmm.gather_column_major(w2t_rm,
+                                                                          index.tile_idx2))
+    dy = (2 * (y_pred.float() - target.reshape(M, -1).float()) / y_pred.numel()).to(
+        torch.bfloat16)
+    del y_pred
+    w2t = w2t_rm.transpose(-1, -2).contiguous()
+    dgrad = (dy, index.cols2, w2t)
+    t = {}
+    t["dgrad_k3"] = _median_ms(lambda: cuda_bsmm.bsmm(*dgrad, gelu_grad=pre), flush)
+    t["dgrad_k4"] = _median_ms(
+        lambda: cuda_bsmm.bsmm_resident(*dgrad, block_m=16, gelu_grad=pre), flush)
+    t["dgrad_plain"] = _median_ms(lambda: cuda_bsmm.bsmm_ref(*dgrad, gelu_grad=pre), flush)
+    dpre = t["dgrad_k3"][2]
+    if not torch.equal(t["dgrad_k4"][2], dpre):
+        raise RuntimeError("ffn-train: the dgrad on kernel 4 != kernel 3")
+    err_dgrad = _check_scaled("ffn-train dgrad (kernel 3, gelu_grad)", dpre, t["dgrad_plain"][2])
+    dw1 = (xf, dpre, index.ia1, index.ib1)
+    dw2 = (h, dy, index.ia2, index.ib2)
+    t["dw1"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad(*dw1, k=k), flush)
+    t["dw2"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad(*dw2, k=k), flush)
+    t["dw1_plain"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad_ref(*dw1, k=k), flush)
+    t["dw2_plain"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad_ref(*dw2, k=k), flush)
+    err_wgrad = max(_check_scaled("ffn-train dW1 (kernel 5)", t["dw1"][2], t["dw1_plain"][2]),
+                    _check_scaled("ffn-train dW2 (kernel 5)", t["dw2"][2], t["dw2_plain"][2]))
+    b_dw1, b_dw2 = _wgrad_bound(*dw1, k), _wgrad_bound(*dw2, k)
+    # the product alone in one PyTorch call: torch.bmm of the pre-gathered
+    # strips (a check that the strips are kernel 5's: cuBLAS may split the sum)
+    lib_err = 0.0
+    for name, (a, b, ia, ib) in (("dw1", dw1), ("dw2", dw2)):
+        sa, sb = _strips(a, ia, k, True), _strips(b, ib, k, False)
+        t[f"{name}_lib"] = _median_ms(lambda: torch.bmm(sa, sb), flush)
+        lib_err = max(lib_err, _check_scaled(f"ffn-train {name}: torch.bmm against kernel 5",
+                                             t[f"{name}_lib"][2], t[name][2]))
+        del sa, sb
+    w2_dense = _dense(params["w2"]["cols"], w2t_rm, cfg.nb_ff, cfg.nb_model, False)
+    t["dgrad_lib"] = _median_ms(lambda: torch.matmul(dy, w2_dense.t()), flush)
+    del w2_dense
+    b_dgrad = _bsmm_bound(dy, len(torch.unique(index.cols2)), index.cols2.numel(), cfg.nb_ff, k)
+    pre_bytes = pre.numel() * pre.element_size()  # the epilogue's read of pre
+    b_dgrad = {**b_dgrad, "bytes": b_dgrad["bytes"] + pre_bytes,
+               "bytes_ms": b_dgrad["bytes_ms"] + pre_bytes / HBM_BYTES_PER_S * 1e3}
+    b_dgrad["bound_ms"], b_dgrad["bound_by"] = _bound(b_dgrad["ops_ms"], b_dgrad["bytes_ms"])
+    # the whole step, kernels against the plain autograd step
+    t["step"] = _median_ms(lambda: steps[128](params, x, target), flush)
+    t["step_16"] = _median_ms(lambda: steps[16](params, x, target), flush)
+    t["step_plain"] = _median_ms(
+        lambda: ffn.train_step_ref(params, x, target, cfg, FFN_TRAIN_LR), flush)
+    # the step's least time: its five products (2 forward, the dgrad, 2 weight
+    # gradients) on the tensor cores, against x, the target and the tiles
+    # read and the tiles written once
+    real = index.ia1.numel() + 3 * index.ia2.numel()   # mm1 and dW1; mm2, dgrad, dW2
+    step_flops = 2 * M * k * k * (index.ia1.numel() + real)
+    tile_bytes = sum(params[w]["tiles"].numel() for w in ("w1", "w2")) * 2
+    step_bytes = 2 * x.numel() * 2 + 2 * tile_bytes
+    step_bound, step_bound_by = _bound(step_flops / BF16_TENSOR_FLOPS * 1e3,
+                                       step_bytes / HBM_BYTES_PER_S * 1e3)
+    ms = {name: v[0] for name, v in t.items()}
+    _phase("ffn-train", t0, f"medians of {KERNEL_REPEATS} (ms): {ms}; runs "
+           f"{ {name: v[1] for name, v in t.items()} }; bounds: dW1 {b_dw1['bound_ms']:.6f} ms "
+           f"({b_dw1['bound_by']}: {b_dw1['flops'] / 1e9:.3f} GFLOP -> {b_dw1['ops_ms']:.6f} ms, "
+           f"{b_dw1['bytes'] / 1e6:.3f} MB -> {b_dw1['bytes_ms']:.6f} ms), dW2 "
+           f"{b_dw2['bound_ms']:.6f} ms ({b_dw2['bound_by']}), dgrad {b_dgrad['bound_ms']:.6f} "
+           f"ms ({b_dgrad['bound_by']}: {b_dgrad['flops'] / 1e9:.3f} GFLOP, "
+           f"{b_dgrad['bytes'] / 1e6:.3f} MB), the step {step_bound:.6f} ms ({step_bound_by}: "
+           f"{step_flops / 1e9:.3f} GFLOP, {step_bytes / 1e6:.3f} MB); against the plain "
+           f"versions: dgrad {err_dgrad}, kernel 5 {err_wgrad}; torch.bmm against kernel 5 "
+           f"{lib_err}; the dgrad on kernel 4 == kernel 3")
+    del flush, pre, h, dy, dpre, w2t
+    torch.cuda.empty_cache()
+
+    launches = {name: sum(c[name] for c in counts) for name in ("bsmm", "bsmm_resident",
+                                                                 "bsmm_wgrad")}
+    # the dgrad's kernel in each step: kernel 4 where its panel (d_in d_model) fits
+    dgrad_launches = {"bsmm": 0, "bsmm_resident": 0}
+    for c in counts:
+        fits = cuda_bsmm.resident_panel_fits(cfg.d_model, c["block_m"], 2, cfg.k)
+        dgrad_launches["bsmm_resident" if fits else "bsmm"] += 1
+    train = {"steps": per_step, "launches_by_step": counts, "plain_vs_f32": plain_vs_f32,
+             "kernel_vs_f32": vs_f32, "limits": {"loss_rtol": FFN_TRAIN_LOSS_RTOL,
+                                                 "grad_max_over_scale": FFN_TRAIN_GRAD_TOL},
+             "step_ms": ms["step"], "step_ms_block_m16": ms["step_16"],
+             "plain_step_ms": ms["step_plain"], "step_bound_ms": step_bound,
+             "step_bound_by": step_bound_by, "lr": FFN_TRAIN_LR}
+    wgrad_row = {
+        "name": "bsmm_wgrad", "route": "cuda", "source": "spgemm_tpu_torch/csrc/bsmm_grad.cu",
+        "replaces": "spgemm_tpu/models/ffn.py:204",
+        "replaces_what": "XLA's weight-gradient transposes of bsmm_gather / bsmm_scatter "
+                         "(ffn.py:85,94) under jax.value_and_grad; no Pallas kernel",
+        "launches": launches["bsmm_wgrad"], "max_abs_err": err_wgrad,
+        "ms": ms["dw1"] + ms["dw2"], "plain_ms": ms["dw1_plain"] + ms["dw2_plain"],
+        "bound_ms": b_dw1["bound_ms"] + b_dw2["bound_ms"],
+        "bound_by": b_dw1["bound_by"] if b_dw1["bound_ms"] >= b_dw2["bound_ms"]
+        else b_dw2["bound_by"],
+        "library_ms": ms["dw1_lib"] + ms["dw2_lib"],
+        "library_call": "torch.bmm in bf16 of the pre-gathered strips (the product alone)",
+        "timed_on": f"both weight gradients of one full-width step: dW1 (x against dpre) and "
+                    f"dW2 (h against dy), {index.ia1.numel()} tiles each, M {M}",
+        "ms_by_call": {"dw1": ms["dw1"], "dw2": ms["dw2"]},
+        "bound_by_call": {"dw1": b_dw1, "dw2": b_dw2},
+        "library_ms_by_call": {"dw1": ms["dw1_lib"], "dw2": ms["dw2_lib"]},
+        "ptxas": _ptxas_report()["bsmm_wgrad"], "train": train}
+    dgrad_row = {
+        "name": "bsmm_dgrad", "route": "cuda", "source": "spgemm_tpu_torch/csrc/bsmm.cu",
+        "replaces": "spgemm_tpu/models/ffn.py:204",
+        "replaces_what": "XLA's transpose of bsmm_scatter (ffn.py:94) and of the gelu under "
+                         "jax.value_and_grad: kernels 3 and 4 with the gelu_grad epilogue",
+        "launches": launches["bsmm"] + launches["bsmm_resident"] - 2 * len(counts),
+        "launches_by_kernel": dgrad_launches,
+        "forward_launches": {name: launches[name] - dgrad_launches[name]
+                             for name in ("bsmm", "bsmm_resident")},
+        "max_abs_err": err_dgrad, "ms": ms["dgrad_k3"], "ms_resident": ms["dgrad_k4"],
+        "plain_ms": ms["dgrad_plain"], "bound_ms": b_dgrad["bound_ms"],
+        "bound_by": b_dgrad["bound_by"], "bound": b_dgrad, "library_ms": ms["dgrad_lib"],
+        "library_call": "torch.matmul in bf16 of dy by the dense W2^T (the product alone, "
+                        "without gelu')",
+        "timed_on": "the full-width step's dgrad: kernel 3 at block_m 128 (the step's "
+                    "default); ms_resident kernel 4 at block_m 16",
+        "ptxas_resident": _ptxas_report()["bsmm_resident_gelu_grad"], "train": train}
+    return [wgrad_row, dgrad_row]
 
 
 DELTA_EDIT_LEAF = 4    # M5, the A operand of level-1 multiply (4, 5)
@@ -4391,6 +4695,20 @@ def phase_fleet(medium, tmp: str, serve_out: dict, medium_launches: int) -> dict
     return out
 
 
+KERNELS_FILE = os.path.join(REPO, "build", "chip_smoke_kernels.json")
+
+
+def _kernels_so_far(rows: list) -> None:
+    """The kernels line as far as the run has come, printed (not as the
+    bare JSON object the last lines carry) and written to KERNELS_FILE, so
+    that a cut output tail loses no row."""
+    line = json.dumps({"kernels": rows})
+    print(f"[kernels so far] {line}", flush=True)
+    os.makedirs(os.path.dirname(KERNELS_FILE), exist_ok=True)
+    with open(KERNELS_FILE, "w") as f:
+        f.write(line + "\n")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -4398,6 +4716,12 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--warm-child"]:
         return _warm_child(sys.argv[2])
+    # --only ffn-train: the device and build phases, then [ffn-train] alone
+    # (its kernels line, no result line); a diagnostic, not the smoke run
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
+    if only not in (None, "ffn-train"):
+        print(f"chip_smoke: --only takes ffn-train, not {only!r}", file=sys.stderr)
+        return 2
     # every phase before [delta] runs without delta recompute, so its numbers
     # compare with earlier runs; the later phases set it themselves.  The
     # estimator keeps the port's default (off) everywhere but [estimate].
@@ -4425,6 +4749,9 @@ def main() -> int:
     for lib in libs:
         _build.load(lib)  # loaded here, so no timed launch pays the first load
     _phase("build", t0, f"built {', '.join(sorted(libs))} with nvcc")
+    if only:
+        print(json.dumps({"kernels": phase_ffn_train()}), flush=True)
+        return 0
 
     rng = np.random.default_rng(SEED)
     kernel_err = phase_kernel(rng)
@@ -4438,10 +4765,12 @@ def main() -> int:
     row["ooc"] = phase_medium_ooc(medium, row["peak_bytes"], row["peak_above_inputs_bytes"])
     row["cli"] = phase_medium_cli(medium)
     row["parity_fold"] = phase_medium_parity(medium)
+    _kernels_so_far([row])
     splice_row = phase_delta(medium)
     splice_row["warm"] = phase_warm()
     splice_row["estimate"] = phase_estimate(medium)
     dense_row = phase_dense(medium, row["ms"])
+    _kernels_so_far([row, splice_row, dense_row])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         row["serve"] = phase_serve(medium, row["cli"], tmp)
         row["tune"] = phase_tune(medium, tmp)
@@ -4458,13 +4787,20 @@ def main() -> int:
     no_mod_row["ptxas"] = row["ptxas"]["no_mod"]
     no_mod_row["geometry"] = row["geometry"]["no_mod"]
     mxu_row["max_abs_err"] = max(mxu_row["max_abs_err"], kernel_err["mxu"])
+    _kernels_so_far([row, no_mod_row, mxu_row, splice_row, dense_row])
     row["cli_modes"] = phase_cli_modes(rng)
     torch.cuda.empty_cache()
     ffn_rows = phase_ffn()
     for r in ffn_rows:
         r["max_abs_err"] = max(r["max_abs_err"], kernel_err[r["name"]])
-    print(json.dumps({"kernels": [row, no_mod_row, mxu_row, *ffn_rows, splice_row,
-                                  dense_row]}), flush=True)
+    _kernels_so_far([row, no_mod_row, mxu_row, *ffn_rows, splice_row, dense_row])
+    torch.cuda.empty_cache()
+    train_rows = phase_ffn_train()
+    for r in ffn_rows:  # the forward launches of [ffn-train]'s main path
+        r["train_launches"] = train_rows[1]["forward_launches"][r["name"]]
+    kernels = [row, no_mod_row, mxu_row, *ffn_rows, *train_rows, splice_row, dense_row]
+    _kernels_so_far(kernels)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -9,8 +9,13 @@
 //   out[m, c*k + n] = cast(act(sum over r = 0..rpc-1 ascending, j = 0..k-1 of
 //                              x[m, rows[c, r]*k + j] * tiles[c, r][j, n]))
 //
-// with the sum in float32, act the tanh-form gelu (jax.nn.gelu's default) when
-// fuse_gelu is set and the identity otherwise, and cast to x's dtype.
+// with the sum in float32, act the epilogue, and cast to x's dtype.  The
+// epilogue is the identity, the tanh-form gelu (jax.nn.gelu's default;
+// fuse_gelu), or, for the FFN's backward, gelu_grad: the sum times gelu'(pre)
+// with pre an (M, nbc * k) tensor in x's dtype read at the output element
+// (PyTorch's gelu_backward, tanh form).  With x = dy, rows = W2's cols and
+// W2's tiles transposed, that is the training step's dpre = (dy . W2^T) *
+// gelu'(pre) in one pass, so dh is never written and read back.
 //
 // What bounds it: at the FFN's full width (BlockSparseFFNConfig(), M = 8192,
 // bf16, k = 128) each matmul does 103 GFLOP of useful work and must move about
@@ -338,6 +343,11 @@ __device__ __forceinline__ void accumulate(float (&acc)[NT][4], const float* xs,
   }
 }
 
+// The epilogues (the C entries' `epilogue`).
+constexpr int kEpilogueNone = 0;
+constexpr int kEpilogueGelu = 1;
+constexpr int kEpilogueGeluGrad = 2;
+
 // gelu, tanh form, in float32: PyTorch's own expression for
 // F.gelu(x, approximate="tanh").
 __device__ __forceinline__ float gelu_tanh(float v) {
@@ -345,6 +355,31 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   const float kKappa = 0.044715f;
   const float cube = v * v * v;
   return 0.5f * v * (1.0f + tanhf(kBeta * (v + kKappa * cube)));
+}
+
+// g * gelu'(v), tanh form, in float32: PyTorch's own expression for
+// gelu_backward(g, v, approximate="tanh").
+__device__ __forceinline__ float gelu_tanh_grad(float g, float v) {
+  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float kKappa = 0.044715f;
+  const float v_sq = v * v;
+  const float inner = kBeta * (v + kKappa * v_sq * v);
+  const float tanh_inner = tanhf(inner);
+  const float left = 0.5f * v;
+  const float right = 1.0f + tanh_inner;
+  const float left_derivative = 0.5f * right;
+  const float tanh_derivative = 1.0f - tanh_inner * tanh_inner;
+  const float inner_derivative = kBeta * (1.0f + 3.0f * kKappa * v_sq);
+  const float right_derivative = left * tanh_derivative * inner_derivative;
+  return g * (left_derivative + right_derivative);
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -355,23 +390,34 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Epilogue: the optional gelu on the f32 sums, the cast, the store of the
-// warp's share of output block-column c for rows m0.. (row stride ldo); then
-// the accumulators are zeroed for the next column.
-template <typename T, int K, int NT>
-__device__ __forceinline__ void store_tile(float (&acc)[NT][4], T* out, long long ldo,
-                                           long long m0, int c, const WarpTile& w,
-                                           int fuse_gelu) {
+// Epilogue: the epilogue on the f32 sums (gelu_grad reads pre at the same
+// elements), the cast, the store of the warp's share of output block-column
+// c for rows m0.. (row stride ldo); then the accumulators are zeroed for the
+// next column.  kGrad compiles the gelu_grad epilogue in (kernel 3 always;
+// kernel 4 in the instance that takes it, so that its other instances keep
+// the body, the registers and the time they had without it).
+template <typename T, int K, int NT, bool kGrad>
+__device__ __forceinline__ void store_tile(float (&acc)[NT][4], T* out, const T* pre,
+                                           long long ldo, long long m0, int c,
+                                           const WarpTile& w, int epilogue) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  T* o0 = out + (m0 + w.row + g) * ldo + (long long)c * K + 2 * t4;
+  const long long off = (m0 + w.row + g) * ldo + (long long)c * K + 2 * t4;
+  T* o0 = out + off;
   T* o1 = o0 + 8 * ldo;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     if (t < w.n_count) {
       float v[4] = {acc[t][0], acc[t][1], acc[t][2], acc[t][3]};
-      if (fuse_gelu) {
+      if (epilogue == kEpilogueGelu) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[e] = gelu_tanh(v[e]);
+      } else if (kGrad && epilogue == kEpilogueGeluGrad) {
+        const float2 p0 = load2(pre + off + 8 * (w.n_first + t));
+        const float2 p1 = load2(pre + off + 8 * ldo + 8 * (w.n_first + t));
+        v[0] = gelu_tanh_grad(v[0], p0.x);
+        v[1] = gelu_tanh_grad(v[1], p0.y);
+        v[2] = gelu_tanh_grad(v[2], p1.x);
+        v[3] = gelu_tanh_grad(v[3], p1.y);
       }
       store2(o0 + 8 * (w.n_first + t), v[0], v[1]);
       store2(o1 + 8 * (w.n_first + t), v[2], v[3]);
@@ -385,8 +431,8 @@ __device__ __forceinline__ void store_tile(float (&acc)[NT][4], T* out, long lon
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 bsmm_kernel(const T* __restrict__ x, const int32_t* __restrict__ rows,
-            const T* __restrict__ tiles, T* __restrict__ out, int d_in, int nbc, int rpc,
-            int br, int fuse_gelu) {
+            const T* __restrict__ tiles, T* __restrict__ out, const T* __restrict__ pre,
+            int d_in, int nbc, int rpc, int br, int epilogue) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kLd = K + pad_elems<T>();
   T* xs = reinterpret_cast<T*>(smem);  // br x K: the pair's x block
@@ -409,7 +455,7 @@ bsmm_kernel(const T* __restrict__ x, const int32_t* __restrict__ rows,
     accumulate<K, K / 8, true, PaddedTile<T, K>>(acc, xs, kLd, ws, w);
     __syncthreads();  // the stage is no longer read
   }
-  store_tile<T, K, K / 8>(acc, out, (long long)nbc * K, m0, c, w, fuse_gelu);
+  store_tile<T, K, K / 8, true>(acc, out, pre, (long long)nbc * K, m0, c, w, epilogue);
 }
 
 // Kernel 4: block (panel blockIdx.x, column chunk blockIdx.y) loads x rows
@@ -422,12 +468,14 @@ bsmm_kernel(const T* __restrict__ x, const int32_t* __restrict__ rows,
 // tile: each loads rows rank*K/cluster.. of it into all of them.
 // stream_only skips the products (a diagnostic of the tile stream alone).
 // NT = warp_ntiles(K, br): each consumer warp owns NT n-tiles or none.
-template <typename T, int K, int NT>
+// kGrad: the instance that takes the gelu_grad epilogue (store_tile).
+template <typename T, int K, int NT, bool kGrad>
 __global__ void __launch_bounds__(kResidentThreads, 1)
 bsmm_resident_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restrict__ x,
-                     const int32_t* __restrict__ rows, T* __restrict__ out, int d_in, int nbc,
-                     int rpc, int br, int col_chunk, int ring_off, int stages, int cluster,
-                     int stream_only, int fuse_gelu) {
+                     const int32_t* __restrict__ rows, T* __restrict__ out,
+                     const T* __restrict__ pre, int d_in, int nbc, int rpc, int br,
+                     int col_chunk, int ring_off, int stages, int cluster, int stream_only,
+                     int epilogue) {
   extern __shared__ __align__(1024) unsigned char shm[];
   using Tile = SwizzledTile<T, K>;
   constexpr int kTileBytes = K * K * (int)sizeof(T);
@@ -505,7 +553,7 @@ bsmm_resident_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restri
         }
       }
       if (++r == rpc) {
-        store_tile<T, K, NT>(acc, out, (long long)nbc * K, m0, c, w, fuse_gelu);
+        store_tile<T, K, NT, kGrad>(acc, out, pre, (long long)nbc * K, m0, c, w, epilogue);
         r = 0;
         ++c;
       }
@@ -522,8 +570,9 @@ struct Args {
   const void* rows;
   const void* tiles;
   void* out;
+  const void* pre;
   long long M;
-  int d_in, nbc, rpc, br, col_chunk, stages, cluster, stream_only, fuse_gelu, device;
+  int d_in, nbc, rpc, br, col_chunk, stages, cluster, stream_only, epilogue, device;
   cudaStream_t stream;
 };
 
@@ -539,8 +588,8 @@ int launch_stream(const Args& a) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   bsmm_kernel<T, K><<<(unsigned)blocks, kThreads, smem, a.stream>>>(
-      (const T*)a.x, (const int32_t*)a.rows, (const T*)a.tiles, (T*)a.out, a.d_in, a.nbc,
-      a.rpc, a.br, a.fuse_gelu);
+      (const T*)a.x, (const int32_t*)a.rows, (const T*)a.tiles, (T*)a.out, (const T*)a.pre,
+      a.d_in, a.nbc, a.rpc, a.br, a.epilogue);
   return (int)cudaGetLastError();
 }
 
@@ -617,17 +666,19 @@ constexpr int warp_ntiles(int k, int br) {
 }
 
 template <typename T>
-using ResidentKernel = void (*)(const CUtensorMap, const T*, const int32_t*, T*, int, int, int,
-                                int, int, int, int, int, int, int);
+using ResidentKernel = void (*)(const CUtensorMap, const T*, const int32_t*, T*, const T*, int,
+                                int, int, int, int, int, int, int, int, int);
 
-// Kernel 4's instance for warps of nt n-tiles (nullptr for none it has).
+// Kernel 4's instance for warps of nt n-tiles and the gelu_grad epilogue or
+// not (nullptr for none it has).
 template <typename T, int K, int NT>
-ResidentKernel<T> resident_kernel_nt(int nt) {
+ResidentKernel<T> resident_kernel_nt(int nt, bool grad) {
   if constexpr (NT * 8 < K / 8) {  // fewer than any br gives
     return nullptr;
   } else {
-    if (nt == NT) return bsmm_resident_kernel<T, K, NT>;
-    if constexpr (NT > 1) return resident_kernel_nt<T, K, NT / 2>(nt);
+    if (nt == NT)
+      return grad ? bsmm_resident_kernel<T, K, NT, true> : bsmm_resident_kernel<T, K, NT, false>;
+    if constexpr (NT > 1) return resident_kernel_nt<T, K, NT / 2>(nt, grad);
     return nullptr;
   }
 }
@@ -643,7 +694,8 @@ int launch_resident(const Args& a, int* clusters) {
     return (int)cudaErrorInvalidValue;
   const Layout lay = resident_layout<T, K>(a.br, a.d_in, a.stages);
   const int col_blocks = (a.nbc + a.col_chunk - 1) / a.col_chunk;
-  const ResidentKernel<T> kernel = resident_kernel_nt<T, K, K / 8>(warp_ntiles(K, a.br));
+  const ResidentKernel<T> kernel =
+      resident_kernel_nt<T, K, K / 8>(warp_ntiles(K, a.br), a.epilogue == kEpilogueGeluGrad);
   if (lay.bytes > (size_t)kSmemBytes || panels > 0x7fffffffLL || col_blocks > 65535 || !kernel)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel,
@@ -670,9 +722,9 @@ int launch_resident(const Args& a, int* clusters) {
   const int enc = encode_tiles<T, K>(&map, a);
   if (enc != 0) return enc;
   err = cudaLaunchKernelEx(&cfg, kernel, map, (const T*)a.x,
-                           (const int32_t*)a.rows, (T*)a.out, a.d_in, a.nbc, a.rpc, a.br,
-                           a.col_chunk, (int)lay.ring_off, a.stages, a.cluster, a.stream_only,
-                           a.fuse_gelu);
+                           (const int32_t*)a.rows, (T*)a.out, (const T*)a.pre, a.d_in, a.nbc,
+                           a.rpc, a.br, a.col_chunk, (int)lay.ring_off, a.stages, a.cluster,
+                           a.stream_only, a.epilogue);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -698,7 +750,8 @@ int launch_any(const Args& a, int k, int dtype, bool resident, int* clusters = n
   if (err != cudaSuccess) return (int)err;
   if (a.M <= 0 || a.nbc <= 0) return (int)cudaSuccess;
   if ((a.br != 16 && a.br != 32 && a.br != 64 && a.br != 128) || a.M % a.br || a.rpc < 1 ||
-      k < 1 || a.d_in < k || a.d_in % k)
+      k < 1 || a.d_in < k || a.d_in % k || a.epilogue < kEpilogueNone ||
+      a.epilogue > kEpilogueGeluGrad || (a.epilogue == kEpilogueGeluGrad) != (a.pre != nullptr))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0: return launch_k<float>(a, k, resident, clusters);
@@ -710,17 +763,20 @@ int launch_any(const Args& a, int k, int dtype, bool resident, int* clusters = n
 }  // namespace
 
 // Kernel 3 on `stream` (a cudaStream_t) of device `device`.
-//   x      : (M, d_in) float32 (dtype 0) or bfloat16 (dtype 1), 16-byte aligned;
-//   rows   : (nbc, rpc) int32, every entry below d_in / k;
-//   tiles  : (nbc, rpc, k, k) in x's dtype, 16-byte aligned;
-//   out    : (M, nbc * k) in x's dtype, written whole;
+//   x        : (M, d_in) float32 (dtype 0) or bfloat16 (dtype 1), 16-byte aligned;
+//   rows     : (nbc, rpc) int32, every entry below d_in / k;
+//   tiles    : (nbc, rpc, k, k) in x's dtype, 16-byte aligned;
+//   out      : (M, nbc * k) in x's dtype, written whole;
+//   pre      : (M, nbc * k) in x's dtype, 16-byte aligned, for epilogue 2
+//              only (nullptr otherwise);
+//   epilogue : 0 none, 1 gelu, 2 gelu_grad (times gelu'(pre));
 //   k in {16, 32, 64, 128}; br, the rows a block owns, in {16, 32, 64, 128}
 //   and dividing M.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int spgemm_bsmm(const void* x, const void* rows, const void* tiles, void* out,
-                           long long M, int d_in, int nbc, int rpc, int k, int br, int dtype,
-                           int fuse_gelu, int device, void* stream) {
-  const Args a{x, rows, tiles, out, M, d_in, nbc, rpc, br, 1, 0, 1, 0, fuse_gelu, device,
+                           const void* pre, long long M, int d_in, int nbc, int rpc, int k,
+                           int br, int dtype, int epilogue, int device, void* stream) {
+  const Args a{x, rows, tiles, out, pre, M, d_in, nbc, rpc, br, 1, 0, 1, 0, epilogue, device,
                (cudaStream_t)stream};
   return launch_any(a, k, dtype, false);
 }
@@ -736,12 +792,12 @@ extern "C" int spgemm_bsmm(const void* x, const void* rows, const void* tiles, v
 // memory, or it returns cudaErrorInvalidValue; kErrEncode + a CUresult when
 // the tensor map of the tiles cannot be encoded.
 extern "C" int spgemm_bsmm_resident(const void* x, const void* rows, const void* tiles,
-                                    void* out, long long M, int d_in, int nbc, int rpc, int k,
-                                    int br, int col_chunk, int stages, int cluster,
-                                    int stream_only, int dtype, int fuse_gelu, int device,
-                                    void* stream) {
-  const Args a{x, rows, tiles, out, M, d_in, nbc, rpc, br, col_chunk, stages, cluster,
-               stream_only, fuse_gelu, device, (cudaStream_t)stream};
+                                    void* out, const void* pre, long long M, int d_in, int nbc,
+                                    int rpc, int k, int br, int col_chunk, int stages,
+                                    int cluster, int stream_only, int dtype, int epilogue,
+                                    int device, void* stream) {
+  const Args a{x, rows, tiles, out, pre, M, d_in, nbc, rpc, br, col_chunk, stages, cluster,
+               stream_only, epilogue, device, (cudaStream_t)stream};
   return launch_any(a, k, dtype, true);
 }
 
@@ -749,8 +805,8 @@ extern "C" int spgemm_bsmm_resident(const void* x, const void* rows, const void*
 // (the most clusters of `cluster` blocks the card holds at once).
 extern "C" int spgemm_bsmm_resident_clusters(int d_in, int k, int br, int stages, int cluster,
                                              int dtype, int device, int* clusters) {
-  const Args a{nullptr, nullptr, nullptr, nullptr, (long long)br * cluster, d_in, 1, 1, br, 1,
-               stages, cluster, 0, 0, device, (cudaStream_t)0};
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, (long long)br * cluster, d_in, 1,
+               1, br, 1, stages, cluster, 0, 0, device, (cudaStream_t)0};
   *clusters = 0;
   return launch_any(a, k, dtype, true, clusters);
 }

@@ -76,6 +76,7 @@ ENGINE_COUNTERS: dict[str, str] = {
     "launches_splice": "delta splice launches (csrc/splice.cu)",
     "launches_bsmm": "kernel 3 launches (csrc/bsmm.cu)",
     "launches_bsmm_resident": "kernel 4 launches (csrc/bsmm.cu, resident weights)",
+    "launches_bsmm_wgrad": "kernel 5 launches (csrc/bsmm_grad.cu, the FFN weight gradient)",
     "route_dense": "rounds dispatched on the dense accumulator route",
     "plan_cache_hits": "structure-keyed plan cache hits",
     "plan_cache_misses": "structure-keyed plan cache misses",

@@ -6,7 +6,10 @@ Replaces the TPU kernels spgemm_tpu/ops/pallas_bsmm.py:bsmm_pallas
 on chip).  Contract of both: x (M, d_in) times a column-major block-sparse
 W, whose output block-column c owns rpc k x k tiles; out[:, c*k:(c+1)*k] is
 the f32 sum over r ascending of x[:, rows[c, r]*k : +k] @ tiles[c, r], with
-an optional tanh-form gelu on that f32 sum, cast to x.dtype.
+an optional epilogue on that f32 sum, cast to x.dtype: the tanh-form gelu
+(fuse_gelu), or gelu_grad=pre, the sum times gelu'(pre) at the same element,
+which is the FFN backward's dpre = (dy . W2^T) * gelu'(pre) when x = dy,
+rows = W2's cols and tiles = W2's tiles transposed (models/ffn.py).
 
 Both kernels run one device body (bf16 on the tensor cores with
 mma.sync m16n8k16, float32 on plain FMA), so at the same inputs they give
@@ -72,6 +75,7 @@ CLUSTER_SIZES = (1, 2, 4)          # blocks of kernel 4 that share each tile
 FASTEST_CLUSTER = 1
 _ERR_ENCODE = 100_000              # csrc/bsmm.cu's kErrEncode
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_EPILOGUE_GELU, _EPILOGUE_GELU_GRAD = 1, 2  # csrc/bsmm.cu's kEpilogue*; 0 is none
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -233,38 +237,60 @@ def check_operands(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor,
     return M, d_in, nbc, rpc, k
 
 
+def check_pre(pre: torch.Tensor | None, x: torch.Tensor, nbc: int, k: int,
+              fuse_gelu: bool) -> None:
+    """gelu_grad's pre: (M, nbc * k) in x's dtype, contiguous, on x's
+    device; not together with fuse_gelu."""
+    if pre is None:
+        return
+    if fuse_gelu:
+        raise ValueError("fuse_gelu and gelu_grad are two epilogues; pass one")
+    if tuple(pre.shape) != (x.shape[0], nbc * k) or pre.dtype != x.dtype:
+        raise ValueError(f"gelu_grad must be ({x.shape[0]}, {nbc * k}) {x.dtype}, got "
+                         f"{tuple(pre.shape)} {pre.dtype}")
+    if pre.device != x.device or not pre.is_contiguous():
+        raise ValueError("gelu_grad must be contiguous and on x's device")
+
+
 def bsmm_ref(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, *,
-             fuse_gelu: bool = False) -> torch.Tensor:
+             fuse_gelu: bool = False, gelu_grad: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version of kernels 3 and 4, on any device: gather
     the x blocks, take the products in float32 (a float32 matmul on the card
     is TF32 only if torch.backends.cuda.matmul.allow_tf32 is set), apply the
-    optional gelu to the f32 sum, cast to x.dtype."""
+    optional epilogue to the f32 sum (gelu, or the sum times gelu'(pre) with
+    pre = gelu_grad read in float32), cast to x.dtype."""
     M, d_in = x.shape
     nbc, rpc, k, _ = tiles.shape
+    check_pre(gelu_grad, x, nbc, k, fuse_gelu)
     gathered = x.reshape(M, d_in // k, k).float()[:, rows.long()]   # (M, nbc, rpc, k)
     acc = torch.einsum("mcrk,crkj->mcj", gathered, tiles.float())
     if fuse_gelu:
         acc = gelu(acc)
+    elif gelu_grad is not None:
+        # autograd's own backward of the tanh-form gelu
+        acc = torch.ops.aten.gelu_backward(acc, gelu_grad.float().reshape(M, nbc, k),
+                                           approximate="tanh")
     return acc.reshape(M, nbc * k).to(x.dtype)
 
 
 def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: int,
             fuse_gelu: bool, resident: bool, br: int | None = None,
             cluster: int | None = None, stages: int | None = None,
-            stream_only: bool = False) -> torch.Tensor:
+            stream_only: bool = False, gelu_grad: torch.Tensor | None = None) -> torch.Tensor:
     """Launch kernel 3 or 4 on launch_geometry's grid.  br, for kernel 3
     only, replaces row_tile's rows per block; cluster, stages and
     stream_only, for kernel 4 only, replace cluster_size's cluster and
     resident_layout's ring depth, and skip the products (a diagnostic: the
     output is then not the product).  The checks that no bit depends on
-    these give them."""
+    these give them.  gelu_grad (pre) takes the gelu_grad epilogue."""
     M, d_in, nbc, rpc, k = check_operands(x, rows, tiles, block_m)
+    check_pre(gelu_grad, x, nbc, k, fuse_gelu)
     if not resident and (cluster is not None or stages is not None or stream_only):
         raise ValueError("cluster, stages and stream_only are kernel 4's")
     if resident and br is not None:
         raise ValueError("kernel 4's row tile is block_rows(block_m)")
     if x.device.type == "cpu":
-        return bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu)
+        return bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu, gelu_grad=gelu_grad)
     if x.device.type != "cuda":
         raise ValueError(f"no bsmm for device {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -277,8 +303,8 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
         raise ValueError(f"the resident x panel ({block_rows(block_m)} x {d_in} "
                          f"{x.dtype}) and two tiles do not fit {SMEM_BYTES} bytes of "
                          f"shared memory (k={k}, block_m={block_m})")
-    if any(t.data_ptr() % 16 for t in (x, tiles)):
-        raise ValueError("x and tiles must start on a 16-byte boundary")
+    if any(t.data_ptr() % 16 for t in (x, tiles, *([] if gelu_grad is None else [gelu_grad]))):
+        raise ValueError("x, tiles and gelu_grad must start on a 16-byte boundary")
     out = torch.empty((M, nbc * k), dtype=x.dtype, device=x.device)
     if M == 0 or nbc == 0:
         return out
@@ -296,19 +322,22 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
         extra = [geo.col_chunk, layout.stages, cluster, int(stream_only)]
     lib = _build.load(_KERNEL)
     fn = lib.spgemm_bsmm_resident if resident else lib.spgemm_bsmm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
         + [ctypes.c_int] * (8 + len(extra)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), rows.data_ptr(), tiles.data_ptr(), out.data_ptr(), M, d_in,
-             nbc, rpc, k, geo.br, *extra, _DTYPE_CODES[x.dtype], int(fuse_gelu),
-             x.device.index, stream)
+    epilogue = (_EPILOGUE_GELU if fuse_gelu else
+                _EPILOGUE_GELU_GRAD if gelu_grad is not None else 0)
+    err = fn(x.data_ptr(), rows.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+             None if gelu_grad is None else gelu_grad.data_ptr(), M, d_in, nbc, rpc, k,
+             geo.br, *extra, _DTYPE_CODES[x.dtype], epilogue, x.device.index, stream)
     if err != 0:
         what = (f"the tiles' tensor map could not be encoded: CUresult {err - _ERR_ENCODE}"
                 if err >= _ERR_ENCODE else f"CUDA error {err}")
         raise RuntimeError(f"bsmm kernel launch failed: {what} (M={M}, d_in={d_in}, "
                            f"nbc={nbc}, rpc={rpc}, k={k}, block_m={block_m}, {x.dtype}, "
-                           f"resident={resident}, {geo}, ring/cluster {extra[1:3]})")
+                           f"resident={resident}, epilogue {epilogue}, {geo}, ring/cluster "
+                           f"{extra[1:3]})")
     # the launch counters, bumped here and nowhere else
     ENGINE.incr("launches_bsmm_resident" if resident else "launches_bsmm")
     return out
@@ -338,34 +367,36 @@ def max_active_clusters(d_in: int, k: int, block_m: int, dtype: torch.dtype, clu
 
 
 def bsmm(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, *,
-         block_m: int = 128, fuse_gelu: bool = False) -> torch.Tensor:
+         block_m: int = 128, fuse_gelu: bool = False,
+         gelu_grad: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel 3, streaming: x (M, d_in) @ column-major block-sparse W ->
     (M, nbc * k) in x.dtype.  rows (nbc, rpc) int32, every entry below
     d_in / k (not checked on the card: a check would synchronise); tiles
-    (nbc, rpc, k, k) in x.dtype; M a multiple of block_m.  On CUDA tensors
-    it launches the kernel on the current stream or raises; on CPU tensors
-    it runs bsmm_ref."""
-    return _launch(x, rows, tiles, block_m, fuse_gelu, resident=False)
+    (nbc, rpc, k, k) in x.dtype; M a multiple of block_m.  fuse_gelu or
+    gelu_grad (pre, (M, nbc * k) in x.dtype) picks the epilogue.  On CUDA
+    tensors it launches the kernel on the current stream or raises; on CPU
+    tensors it runs bsmm_ref."""
+    return _launch(x, rows, tiles, block_m, fuse_gelu, resident=False, gelu_grad=gelu_grad)
 
 
 def bsmm_resident(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, *,
-                  block_m: int = 128, fuse_gelu: bool = False) -> torch.Tensor:
+                  block_m: int = 128, fuse_gelu: bool = False,
+                  gelu_grad: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel 4: bsmm with each thread block's x panel read once into shared
     memory and held across its sweep of output block-columns.  The same
     contract and bits as bsmm; on CUDA tensors it raises ValueError where
     resident_panel_fits is false."""
-    return _launch(x, rows, tiles, block_m, fuse_gelu, resident=True)
+    return _launch(x, rows, tiles, block_m, fuse_gelu, resident=True, gelu_grad=gelu_grad)
 
 
-def w2_to_column_major(cols, tiles: torch.Tensor, nb_out: int):
-    """Row-major W2 (each input block-row owns cpc block-cols) -> column-major
-    (each output block-col owns rpc block-rows): (rows int32, tiles) on the
-    tiles' device.  Ragged fan-in is padded with an appended zero tile,
-    exactly as spgemm_tpu/ops/pallas_bsmm.py:160 does.  The bookkeeping
-    runs on the host with numpy, the tile gather where the tiles lie; once
-    per weight."""
+def w2_column_major_index(cols, nb_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """The bookkeeping of w2_to_column_major, on the host with numpy: rows
+    (nb_out, rpc) int32, the x block-row each output block-col reads, and
+    tile_idx (nb_out, rpc) int64 into W2's tiles flattened to (nbr * cpc,
+    k, k) with one zero tile appended (index nbr * cpc, the pad of a ragged
+    fan-in).  It depends on cols alone, so a training step computes it once."""
     cols_np = cols.cpu().numpy() if isinstance(cols, torch.Tensor) else np.asarray(cols)
-    nbr, cpc, k, _ = tiles.shape
+    nbr, cpc = cols_np.shape
     fan = np.bincount(cols_np.reshape(-1), minlength=nb_out)
     rpc = max(1, int(fan.max()))
     rows_out = np.zeros((nb_out, rpc), np.int32)             # x block-row to read
@@ -376,7 +407,25 @@ def w2_to_column_major(cols, tiles: torch.Tensor, nb_out: int):
             rows_out[c, fill[c]] = r
             tile_idx[c, fill[c]] = r * cpc + ci
             fill[c] += 1
+    return rows_out, tile_idx
+
+
+def gather_column_major(tiles: torch.Tensor, tile_idx: torch.Tensor) -> torch.Tensor:
+    """W2's tiles (nbr, cpc, k, k) in the column-major order of tile_idx
+    (w2_column_major_index's, on the tiles' device), the pad tile zero."""
+    nbr, cpc, k, _ = tiles.shape
     flat = torch.cat([tiles.reshape(nbr * cpc, k, k),
                       torch.zeros((1, k, k), dtype=tiles.dtype, device=tiles.device)])
+    return flat[tile_idx].contiguous()
+
+
+def w2_to_column_major(cols, tiles: torch.Tensor, nb_out: int):
+    """Row-major W2 (each input block-row owns cpc block-cols) -> column-major
+    (each output block-col owns rpc block-rows): (rows int32, tiles) on the
+    tiles' device.  Ragged fan-in is padded with an appended zero tile,
+    exactly as spgemm_tpu/ops/pallas_bsmm.py:160 does.  The bookkeeping
+    runs on the host with numpy, the tile gather where the tiles lie; once
+    per weight."""
+    rows_out, tile_idx = w2_column_major_index(cols, nb_out)
     idx = torch.from_numpy(tile_idx).to(tiles.device)
-    return torch.from_numpy(rows_out).to(tiles.device), flat[idx].contiguous()
+    return torch.from_numpy(rows_out).to(tiles.device), gather_column_major(tiles, idx)

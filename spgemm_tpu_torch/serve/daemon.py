@@ -453,7 +453,7 @@ class Daemon:
             raise mesh_mod.SliceSpecError(
                 f"slice spec {self._slice_spec!r} gives {len(pool)} slices; the port's "
                 "daemon serves one slice (the multi-slice pool waits for the port of "
-                "parallel/*, ROADMAP section 1, item 6)")
+                "parallel/rowshard.py and of the JAX daemon's slice pool)")
         self.slices = [_Slice(pool[0], mesh_mod.slice_device(pool[0], device))]
         self.degraded = False                    # guarded by _lock
         self.degrade_reason: str | None = None   # guarded by _lock

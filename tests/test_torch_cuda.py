@@ -11,7 +11,9 @@ the full one, the port's daemon (`cli serve` without --device) serving a
 chain on the card, and the segmented fold of the dense route against its plain
 version (any seg, sentinel and pad slots, no rows), against kernel 1 on a
 planner's round, raising on what it does not take, and a hub multiply on
-every route.  Tolerance: exact (torch.equal)
+every route; the FFN training step's kernels (the gelu_grad epilogue of
+kernels 3 and 4, kernel 5 of csrc/bsmm_grad.cu at any M) against their plain
+versions and one step against the plain autograd step.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -29,10 +31,12 @@ import torch
 
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
-from spgemm_tpu_torch.ops import cuda_bsmm, cuda_dense, cuda_mxu, cuda_splice, cuda_spgemm
+from spgemm_tpu_torch.ops import (cuda_bsmm, cuda_bsmm_grad, cuda_dense, cuda_mxu, cuda_splice,
+                                  cuda_spgemm)
 from spgemm_tpu_torch.ops import delta, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
+from spgemm_tpu_torch.parallel.mesh import train_mesh
 from spgemm_tpu_torch.utils.gen import random_chain, random_values
 from spgemm_tpu_torch.utils.timers import ENGINE
 
@@ -500,6 +504,130 @@ def test_bsmm_resident_clusters_fit_the_card(cuda):
     assert got[1] == sms
     for c, n in got.items():
         assert 0 < n * c <= sms, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,M", [(16, 96), (32, 208), (64, 64), (128, 256)])
+def test_bsmm_gelu_grad_epilogue_matches_plain_version(cuda, dtype, k, M):
+    """Kernels 3 and 4 with the gelu_grad epilogue (the FFN backward's
+    dpre) against bsmm_ref with it, the same bits in both kernels, at every
+    row tile of kernel 3 and every ring depth of kernel 4."""
+    x, rows, tiles = _bsmm_case(3 * k + M, M, 4, 6, 3, k, dtype, cuda)
+    pre = (2 * torch.randn((M, 6 * k), generator=torch.Generator().manual_seed(k))).to(
+        cuda, dtype)
+    before = (_launches("bsmm"), _launches("bsmm_resident"))
+    got = cuda_bsmm.bsmm(x, rows, tiles, block_m=16, gelu_grad=pre)
+    got_res = cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=16, gelu_grad=pre)
+    want = cuda_bsmm.bsmm_ref(x, rows, tiles, gelu_grad=pre)
+    torch.cuda.synchronize()
+    assert (_launches("bsmm"), _launches("bsmm_resident")) == (before[0] + 1, before[1] + 1)
+    rtol, atol = BSMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, got_res)
+    for br in (16, 32, 64, 128):
+        if M % br == 0:
+            assert torch.equal(got, cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False,
+                                                      br=br, gelu_grad=pre)), br
+    deepest = cuda_bsmm.resident_layout(x.shape[1], 16, x.element_size(), k).stages
+    for stages in range(2, deepest + 1):
+        assert torch.equal(got, cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True,
+                                                  stages=stages, gelu_grad=pre)), stages
+    # the other epilogues keep their bits beside it
+    assert torch.equal(cuda_bsmm.bsmm(x, rows, tiles, block_m=16),
+                       cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=16))
+
+
+# kernel 5 against bsmm_wgrad_ref, (rtol, atol): the operands are scaled by
+# M^-1/4 so each sum is about one; both sum the same products in float32 in
+# another order, and bfloat16 rounds once (one bf16 ulp)
+WGRAD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-4)}
+
+
+def _wgrad_case(seed, M, nA, nB, P, k, dtype, device):
+    rng = np.random.default_rng(seed)
+    scale = max(M, 1) ** -0.25
+    a = (rng.standard_normal((M, nA * k)) * scale).astype(np.float32)
+    b = (rng.standard_normal((M, nB * k)) * scale).astype(np.float32)
+    ia = rng.integers(0, nA, P).astype(np.int32)
+    ib = rng.integers(0, nB, P).astype(np.int32)
+    return (torch.from_numpy(a).to(device, dtype), torch.from_numpy(b).to(device, dtype),
+            torch.from_numpy(ia).to(device), torch.from_numpy(ib).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("M", [1, 17, 64, 100, 1000])
+def test_wgrad_kernel_matches_plain_version(cuda, dtype, k, M):
+    """Kernel 5 at every k it takes and any M: a ragged last chunk (1, 17,
+    100, 1000 rows), whole chunks (64)."""
+    a, b, ia, ib = _wgrad_case(k + M, M, 5, 3, 11, k, dtype, cuda)
+    before = _launches("bsmm_wgrad")
+    got = cuda_bsmm_grad.bsmm_wgrad(a, b, ia, ib, k=k)
+    want = cuda_bsmm_grad.bsmm_wgrad_ref(a, b, ia, ib, k=k)
+    torch.cuda.synchronize()
+    assert _launches("bsmm_wgrad") == before + 1
+    assert got.dtype == dtype and got.shape == (11, k, k)
+    rtol, atol = WGRAD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_wgrad_kernel_edges(cuda):
+    """No rows gives zero tiles; no pairs launches nothing; what the kernel
+    does not take raises."""
+    a, b, ia, ib = _wgrad_case(1, 0, 2, 2, 4, 32, torch.bfloat16, cuda)
+    got = cuda_bsmm_grad.bsmm_wgrad(a, b, ia, ib, k=32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+    before = _launches("bsmm_wgrad")
+    assert cuda_bsmm_grad.bsmm_wgrad(a, b, ia[:0], ib[:0], k=32).shape == (0, 32, 32)
+    assert _launches("bsmm_wgrad") == before
+    a, b, ia, ib = _wgrad_case(2, 16, 2, 2, 4, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="k in"):
+        cuda_bsmm_grad.bsmm_wgrad(a, b, ia, ib, k=8)
+    with pytest.raises(TypeError):
+        cuda_bsmm_grad.bsmm_wgrad(a.half(), b.half(), ia, ib, k=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block_m,resident", [(128, None), (16, None), (16, False)])
+def test_ffn_train_step_on_card(cuda, dtype, block_m, resident):
+    """One training step through the kernels against the plain autograd
+    step: forward 2 launches, dgrad 1 (kernels 3 and 4 as the resident gate
+    picks), kernel 5 twice.  Tolerance: float32 1e-4 (the kernels sum in
+    another order); bf16 rtol 2^-5, atol 2^-5 of each gradient's largest
+    entry (the plain version rounds its partial sums and dh to bf16 at
+    other places)."""
+    cfg = ffn.BlockSparseFFNConfig(d_model=512, d_ff=1024, k=32, block_density=0.3,
+                                   dtype=str(dtype).removeprefix("torch."))
+    params = ffn.init_params(cfg, torch.Generator().manual_seed(7), device=cuda)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 40, cfg.d_model), generator=gen).to(cuda, dtype)
+    y = torch.randn((2, 40, cfg.d_model), generator=gen).to(cuda, dtype)
+    step = ffn.make_sharded_train_step(train_mesh(device=cuda), cfg, lr=1.0,
+                                       block_m=block_m, resident=resident)
+    torch.cuda.synchronize()
+    ENGINE.zero("launches_")
+    loss, grads = step.loss_and_grads(params, x, y)
+    torch.cuda.synchronize()
+    counts = ENGINE.counter_snapshot()
+    es = x.element_size()
+    fits = [resident if resident is not None else
+            cuda_bsmm.resident_panel_fits(d_in, block_m, es, cfg.k)
+            for d_in in (cfg.d_model, cfg.d_ff, cfg.d_model)]  # matmul 1, matmul 2, dgrad
+    assert counts.get("launches_bsmm_resident", 0) == sum(fits)
+    assert counts.get("launches_bsmm", 0) == 3 - sum(fits)
+    assert counts.get("launches_bsmm_wgrad", 0) == 2
+    want_loss, want = ffn.loss_and_grads_ref(params, x, y, cfg)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -5
+    torch.testing.assert_close(loss, want_loss, rtol=tol, atol=0)
+    for name in ("w1", "w2"):
+        scale = float(want[name].float().abs().max())
+        torch.testing.assert_close(grads[name].float(), want[name].float(), rtol=tol,
+                                   atol=tol * scale)
 
 
 @pytest.mark.cuda

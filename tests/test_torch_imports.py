@@ -26,7 +26,7 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
-             "models.ffn", "ops.cuda_bsmm", "utils.native", "utils.knobs", "utils.mtx",
+             "models.ffn", "ops.cuda_bsmm", "ops.cuda_bsmm_grad", "utils.native", "utils.knobs", "utils.mtx",
              "ops.plancache", "utils.checkpoint", "utils.backend_probe", "parallel",
              "parallel.chainpart", "ops.delta", "ops.estimate", "ops.warmstore",
              "ops.cuda_splice", "ops.cuda_dense", "utils.failpoints", "parallel.mesh",
@@ -327,3 +327,33 @@ def test_the_batched_path_imports_neither_jax_nor_spgemm_tpu():
     proc = subprocess.run([sys.executable, "-c", _BATCH_CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "batched", proc.stderr
+
+
+_TRAIN_CHILD = """
+import sys
+import torch
+from spgemm_tpu_torch.models import ffn
+from spgemm_tpu_torch.parallel.mesh import train_mesh
+
+cfg = ffn.BlockSparseFFNConfig(32, 64, 8, 0.5, "float32")
+params = ffn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+x = torch.randn((2, 4, 32), generator=torch.Generator().manual_seed(1))
+step = ffn.make_sharded_train_step(train_mesh(device="cpu"), cfg, block_m=8)
+params, loss = step(params, x, x)
+ffn.train_step_ref(params, x, x, cfg)
+assert torch.isfinite(loss)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
+assert not bad, bad
+print("trained")
+"""
+
+
+def test_the_training_step_imports_neither_jax_nor_spgemm_tpu():
+    """The FFN training step (models/ffn.make_sharded_train_step on a 1 x 1
+    parallel/mesh.train_mesh, kernel 5's wrapper, the plain step) run on
+    the CPU imports no jax and nothing of the JAX package."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "trained", proc.stderr
