@@ -263,7 +263,10 @@ the script exits non-zero without printing a result:
                (BlockSparseFFNConfig(), x (8, 1024, 4096) bf16, weights from
                init_params on a generator seeded with SEED): first the launch
                geometry of kernels 3 and 4 on each matmul (kernel 3's row
-               tile, kernel 4's column chunks); then
+               tile, kernel 4's column chunks), kernel 4's ring and
+               clusters, kernel 3's consumer tile, ring, shared memory,
+               blocks an SM and persistent grid, both kernels' ptxas
+               figures; then
                (i) block_m 128, (ii) the same with gelu fused, (iii) block_m
                16 with the resident gate deciding, (iv) x (1, 256, 4096) at
                block_m 16, each a main path with the bsmm counts zeroed
@@ -273,6 +276,11 @@ the script exits non-zero without printing a result:
                forward, the plain versions and the dense x @ W product
                timed, kernel 4 bit-equal to kernel 3 on matmul 1 and kernel
                3 on matmul 2 bit-equal across the row tiles 16 to 128;
+               kernel 3's variants on both matmuls timed (each ring depth,
+               mma.sync warps in place of wgmma's warpgroups, row tile 64,
+               one block an item, the pair
+               stream alone with and without the epilogue), each but the
+               streams bit-equal to the default;
   9. ffn-train -- the FFN training step at the same width (x and a target
                (8, 1024, 4096) bf16 from SEED + 2, lr 1e-3): first the plain
                autograd step in bf16 against float32, the basis of the
@@ -284,12 +292,15 @@ the script exits non-zero without printing a result:
                5 twice), each step's loss and gradients against the plain
                step's within the limits; the step's forward bit-equal to
                ffn_forward_kernels'; then the dgrad (kernel 3 at block_m
-               128, kernel 4 at 16, bit-equal) and kernel 5 (dW1, dW2)
+               128, kernel 4 at 16, bit-equal; kernel 3's gelu_grad
+               instance's layout, grid and ptxas, and its variants timed as
+               in ffn) and kernel 5 (dW1, dW2)
                against their plain versions, timed beside them, torch.bmm
                of the gathered strips and torch.matmul of dy by the dense
                W2^T, and the whole step against the plain one.
-               `python3 chip_smoke.py --only ffn-train` runs the device and
-               build phases and this one alone (no result line).
+               `python3 chip_smoke.py --only ffn-train` (or `--only ffn`)
+               runs the device and build phases and that phase alone (no
+               result line).
 
 Then one JSON line describing every ported kernel (kernel 5 and the dgrad
 after kernels 3 and 4, the splice and the dense fold last) and, last, the
@@ -977,10 +988,14 @@ def _same_plans(xs: list, ys: list) -> bool:
 def _ptxas_report() -> dict:
     """Registers and spill bytes of kernel 1's two instances, of kernel 2's
     instances at 8x8 and 3x3 byte limbs (10 and 3 7-bit limbs), of the
-    segmented fold, of kernel 4's two instances on the FFN's paths (the
-    forward's and the dgrad's gelu_grad one) and of kernel 5's, from the
-    ptxas reports _build keeps beside the libraries."""
+    segmented fold, of kernel 3's and kernel 4's two instances each on the
+    FFN's paths (the forward's and the dgrad's gelu_grad one) and of kernel
+    5's, from the ptxas reports _build keeps beside the libraries."""
     out = {}
+    k3_rows = cuda_bsmm.warp_rows(128, 128, 2)  # 64: the wgmma warpgroups' instance
+    k3_wg = int(k3_rows == 64)
+    k3_mt = 1 if k3_wg else k3_rows // 16
+    k3_nt = cuda_bsmm.warp_ntiles(128, 128, k3_rows)
     for lib, pattern, name in (
             ("numeric_round", r"numeric_round_kernelILb([01])E",
              lambda m: "no_mod" if m.group(1) == "1" else "mod"),
@@ -991,6 +1006,10 @@ def _ptxas_report() -> dict:
             # the forward's instance and the gelu_grad one (the dgrad at block_m 16)
             ("bsmm", r"bsmm_resident_kernelI13__nv_bfloat16Li128ELi2ELb([01])E",
              lambda m: "bsmm_resident" + ("_gelu_grad" if m.group(1) == "1" else "")),
+            # kernel 3 on the FFN's main path: bf16, k 128, row tile 128, warp_rows'
+            # warps, the forward's instance and the gelu_grad one (the dgrad)
+            ("bsmm", rf"bsmm_kernelI13__nv_bfloat16Li128ELi{k3_mt}ELi{k3_nt}ELb([01])ELb{k3_wg}E",
+             lambda m: "bsmm" + ("_gelu_grad" if m.group(1) == "1" else "")),
             # kernel 5 on the FFN training step's path: bf16, k 128
             ("bsmm_grad", r"bsmm_wgrad_kernelI13__nv_bfloat16Li128E", lambda m: "bsmm_wgrad")):
         log = _build.build(lib).with_suffix(".log").read_text()
@@ -998,8 +1017,8 @@ def _ptxas_report() -> dict:
             m = re.search(pattern, entry)
             if m:
                 out[name(m)] = {k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
-    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense", "bsmm_resident",
-            "bsmm_resident_gelu_grad", "bsmm_wgrad"}
+    want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense", "bsmm", "bsmm_gelu_grad",
+            "bsmm_resident", "bsmm_resident_gelu_grad", "bsmm_wgrad"}
     if not want <= set(out):
         raise RuntimeError(f"no ptxas report for {sorted(want - set(out))}: {out}")
     return {name: out[name] for name in sorted(want)}
@@ -2086,6 +2105,62 @@ def _dense(rows: torch.Tensor, tiles: torch.Tensor, n_in: int, n_out: int,
     return w.reshape(n_in * k, n_out * k)
 
 
+def _k3_plan(M: int, nbc: int, k: int, epilogue: int) -> dict:
+    """Kernel 3's launch on one bf16 matmul at block_m 128: its row tile,
+    consumer tile (rows x columns: a warp's on mma.sync, a warpgroup's on
+    wgmma), ring depth, shared memory, blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor of the epilogue's
+    instance), items and persistent grid."""
+    dev = torch.cuda.current_device()
+    sms = cuda_bsmm.sm_count(dev)
+    geo = cuda_bsmm.launch_geometry(M, nbc, 128, False, sms)
+    lay = cuda_bsmm.stream_layout(geo.br, k, 2)
+    rows = cuda_bsmm.warp_rows(geo.br, k, 2)
+    per_sm = cuda_bsmm.stream_blocks_per_sm(k, geo.br, rows, lay.stages, torch.bfloat16,
+                                            epilogue, dev)
+    items = geo.panels * nbc
+    return {"br": geo.br, "warp_tile": [rows, 8 * cuda_bsmm.warp_ntiles(k, geo.br, rows)],
+            "stages": lay.stages, "smem_bytes": lay.total, "blocks_per_sm": per_sm,
+            "items": items, "grid": cuda_bsmm.stream_grid(items, sms, per_sm)}
+
+
+def _k3_variants(M: int, nbc: int, k: int) -> dict:
+    """name -> cuda_bsmm._launch keywords of kernel 3's variants on one bf16
+    matmul at block_m 128: each ring depth, the other consumer tiles (warps
+    of 16 and 32 rows on mma.sync beside wgmma's warpgroups), row tile 64,
+    one block an item, the pair stream alone with the epilogue (stream_only
+    1) and without it (2)."""
+    br = cuda_bsmm.launch_geometry(M, nbc, 128, False,
+                                   cuda_bsmm.sm_count(torch.cuda.current_device())).br
+    rows = cuda_bsmm.warp_rows(br, k, 2)
+    out = {f"s{s}": {"stages": s} for s in range(1, cuda_bsmm.stream_layout(br, k, 2).stages + 1)}
+    for other in cuda_bsmm.warp_row_options(br, k, 2):
+        if other != rows:
+            out[f"warp{other}"] = {"warp_m": other}
+    if br != 64 and M % 64 == 0:
+        out["br64"] = {"br": 64}
+    out["per_item"] = {"persistent": False}
+    out["stream1"] = {"stream_only": 1}
+    out["stream2"] = {"stream_only": 2}
+    return out
+
+
+def _k3_variant_times(what: str, args: tuple, want: torch.Tensor, flush: torch.Tensor,
+                      gelu_grad: torch.Tensor | None = None) -> dict:
+    """Each of _k3_variants' launches of kernel 3 on args (x, rows, tiles)
+    timed (median ms, _median_ms), each but the streams bit-equal to want,
+    the default launch's output."""
+    x, rows, tiles = args
+    out = {}
+    for name, kw in _k3_variants(x.shape[0], tiles.shape[0], tiles.shape[-1]).items():
+        ms, _, got = _median_ms(lambda kw=kw: cuda_bsmm._launch(
+            x, rows, tiles, 128, False, resident=False, gelu_grad=gelu_grad, **kw), flush)
+        if not kw.get("stream_only") and not torch.equal(got, want):
+            raise RuntimeError(f"{what}: kernel 3 {kw} gives other bits than its default launch")
+        out[name] = ms
+    return out
+
+
 def _expect_launches(run: str, got: tuple[int, int], want: tuple[int, int]) -> None:
     if got != want:
         raise RuntimeError(f"ffn run {run}: (bsmm, bsmm_resident) launches {got}, want {want}")
@@ -2142,6 +2217,16 @@ def phase_ffn() -> list[dict]:
           f"{layout.stages} stages, {layout.total} bytes of shared memory (panel "
           f"{layout.panel_bytes}, ring at {layout.ring_offset}); cluster by M {k4_plan}; "
           f"cudaOccupancyMaxActiveClusters by cluster {active}; ptxas {k4_ptxas}", flush=True)
+
+    # kernel 3's launch on each matmul at both sizes
+    k3_plan = {f"{name} M={M}": _k3_plan(M, nbc, cfg.k, 0)
+               for M in (m_full, m_small)
+               for name, nbc in (("matmul 1", cfg.nb_ff), ("matmul 2", cfg.nb_model))}
+    k3_ptxas = {name: v for name, v in _ptxas_report().items()
+                if name in ("bsmm", "bsmm_gelu_grad")}
+    print(f"[ffn] kernel 3 at block_m 128 (bf16, k {cfg.k}; TMA-fed ring of x blocks and tiles, "
+          f"producer warp, wgmma warpgroups at row tile 128, output tile stored by TMA, "
+          f"persistent grid): {k3_plan}; ptxas {k3_ptxas}", flush=True)
 
     # the main path: runs (i), (ii), (iii), (iv), counts zeroed before, read after
     t0 = time.perf_counter()
@@ -2239,6 +2324,9 @@ def phase_ffn() -> list[dict]:
     if not torch.equal(t["k4_mm1_small"][2], cuda_bsmm.bsmm(*mm1s, block_m=xs.shape[0])):
         raise RuntimeError(f"bsmm_resident != bsmm on matmul 1 at M = {xs.shape[0]}")
     err = {name: max(e, err_small[name]) for name, e in err.items()}
+    k3_variants = {
+        "mm1": _k3_variant_times("bsmm matmul 1 at full width", mm1, t["k3_mm1"][2], flush),
+        "mm2": _k3_variant_times("bsmm matmul 2 at full width", mm2, t["k3_mm2"][2], flush)}
     del want
     w1_dense = _dense(params["w1"]["rows"], params["w1"]["tiles"], cfg.nb_model, cfg.nb_ff, True)
     w2_dense = _dense(params["w2"]["cols"], params["w2"]["tiles"], cfg.nb_ff, cfg.nb_model, False)
@@ -2268,7 +2356,8 @@ def phase_ffn() -> list[dict]:
            f"matmul 2 {b2s['bound_ms']:.6f} ms ({b2s['bound_by']}); kernels vs bsmm_ref max "
            f"abs err {err}, x @ W1_dense vs bsmm {lib_err}; kernel 4 == kernel 3 on matmul 1 "
            f"at both sizes, kernel 3 on matmul 2 the same bits at row tiles {brs} and at "
-           f"block_m 16 and 128")
+           f"block_m 16 and 128; kernel 3's variants (ms, each but the streams bit-equal to "
+           f"its default) {k3_variants}")
 
     launches = {run: {"bsmm": c[0], "bsmm_resident": c[1]} for run, c in counts.items()}
     common = {"route": "cuda", "source": "spgemm_tpu_torch/csrc/bsmm.cu", "equal_3_4": True,
@@ -2286,6 +2375,9 @@ def phase_ffn() -> list[dict]:
         "bound_by": b1["bound_by"] if b1["bound_ms"] >= b2["bound_ms"] else b2["bound_by"],
         "library_ms": ms["lib_mm1"] + ms["lib_mm2"],
         "timed_on": "both matmuls of the full-width FFN forward, block_m 128",
+        "redesigned": "TMA-fed ring of x blocks and tiles, producer warp, wgmma warpgroups, "
+                      "persistent grid, output tile stored by TMA",
+        "plan": k3_plan, "ptxas": k3_ptxas, "variants_ms": k3_variants,
         "ms_by_matmul": {"mm1": ms["k3_mm1"], "mm1_gelu": ms["k3_mm1_gelu"],
                          "mm2": ms["k3_mm2"], "mm2_block_m16": ms["k3_mm2_16"],
                          "mm2_row_tile_16": ms["k3_mm2_br16"],
@@ -2459,6 +2551,12 @@ def phase_ffn_train() -> list[dict]:
     dpre = t["dgrad_k3"][2]
     if not torch.equal(t["dgrad_k4"][2], dpre):
         raise RuntimeError("ffn-train: the dgrad on kernel 4 != kernel 3")
+    dgrad_plan = _k3_plan(M, cfg.nb_ff, k, 2)
+    dgrad_variants = _k3_variant_times("ffn-train dgrad", dgrad, dpre, flush, gelu_grad=pre)
+    dgrad_ptxas = _ptxas_report()["bsmm_gelu_grad"]
+    print(f"[ffn-train] the dgrad on kernel 3 (the gelu_grad instance): {dgrad_plan}; ptxas "
+          f"{dgrad_ptxas}; variants (ms, each but the streams bit-equal to its default) "
+          f"{dgrad_variants}", flush=True)
     err_dgrad = _check_scaled("ffn-train dgrad (kernel 3, gelu_grad)", dpre, t["dgrad_plain"][2])
     dw1 = (xf, dpre, index.ia1, index.ib1)
     dw2 = (h, dy, index.ia2, index.ib2)
@@ -2561,6 +2659,7 @@ def phase_ffn_train() -> list[dict]:
                         "without gelu')",
         "timed_on": "the full-width step's dgrad: kernel 3 at block_m 128 (the step's "
                     "default); ms_resident kernel 4 at block_m 16",
+        "plan": dgrad_plan, "ptxas": dgrad_ptxas, "variants_ms": dgrad_variants,
         "ptxas_resident": _ptxas_report()["bsmm_resident_gelu_grad"], "train": train}
     return [wgrad_row, dgrad_row]
 
@@ -4716,11 +4815,11 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--warm-child"]:
         return _warm_child(sys.argv[2])
-    # --only ffn-train: the device and build phases, then [ffn-train] alone
-    # (its kernels line, no result line); a diagnostic, not the smoke run
+    # --only ffn or ffn-train: the device and build phases, then that phase
+    # alone (its kernels line, no result line); a diagnostic, not the smoke run
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    if only not in (None, "ffn-train"):
-        print(f"chip_smoke: --only takes ffn-train, not {only!r}", file=sys.stderr)
+    if only not in (None, "ffn", "ffn-train"):
+        print(f"chip_smoke: --only takes ffn or ffn-train, not {only!r}", file=sys.stderr)
         return 2
     # every phase before [delta] runs without delta recompute, so its numbers
     # compare with earlier runs; the later phases set it themselves.  The
@@ -4750,7 +4849,8 @@ def main() -> int:
         _build.load(lib)  # loaded here, so no timed launch pays the first load
     _phase("build", t0, f"built {', '.join(sorted(libs))} with nvcc")
     if only:
-        print(json.dumps({"kernels": phase_ffn_train()}), flush=True)
+        rows = phase_ffn() if only == "ffn" else phase_ffn_train()
+        print(json.dumps({"kernels": rows}), flush=True)
         return 0
 
     rng = np.random.default_rng(SEED)

@@ -30,58 +30,94 @@
 //     one thread, which adds the pairs r in ascending order, and within a
 //     pair the 16-deep steps of mma.sync.m16n8k16 (bf16 x bf16 -> f32) in
 //     ascending order.  The element's sum does not depend on which block or
-//     warp owns it, so the bits depend on neither the row tile nor block_m.
-//     float32 runs the same ownership on plain FMA (j ascending), not TF32;
-//   * a block has 8 warps and owns br rows (16, 32, 64 or 128) of one output
-//     block-column at a time; warp w owns 16 rows and a run of the column's
-//     8-wide n-tiles (br / 16 warps down, 8 / (br / 16) across);
-//   * kernel 3: a 1-D grid over (M / br row panels) x nbc columns, column
-//     fastest, so neighbouring blocks share their x rows in L2.  Per pair the
-//     block stages the x block at column rows[c, r]*k and the tile through
-//     shared memory (cp.async, 16 bytes a thread), then multiplies.  br is
-//     the wrapper's row_tile, the widest that still gives every SM a block,
-//     not block_m: a block of 16 rows would restage each 32 KB tile for 16
-//     rows of work;
+//     warp owns it, nor on where its operands lie in shared memory
+//     (accumulate takes an addressing policy for each), so the bits depend
+//     on neither the row tile, the warp tile, the ring, the grid nor
+//     block_m.  float32 runs the same ownership on plain FMA (j ascending),
+//     not TF32.  Kernel 3's bf16 path at k 128 and br 128 runs the same
+//     16-deep steps, ascending, as wgmma.m64n128k16 (A the x block, K-major;
+//     B the tile, N-major, both read by descriptor from the 128-byte-swizzled
+//     stages), and on the H100 that gives mma.sync's bits: at full width on
+//     all three of the FFN's calls, and on inputs whose exponents spread over
+//     2^-40..2^40 (tools/bsmm_bits_ab.py, tests/test_torch_cuda.py);
+//   * a block has 8 consumer warps and owns br rows (16, 32, 64 or 128) of
+//     one output block-column at a time; on mma.sync warp w owns MT x 16
+//     rows and NT 8-wide n-tiles of the column, or none (br / (16 MT) warps
+//     down, the rest across; NT = warp_ntiles(k, br, MT) fixed at compile
+//     time, so the products' loop has no per-n-tile guard: such a guard
+//     doubled kernel 4's time); on wgmma each of the two warpgroups owns 64
+//     rows of all 128 columns, warp w rows 64 (w / 4) + 16 (w % 4), as the
+//     m64 step lays out its accumulators (mma's C fragment per n-tile);
+//   * both kernels are fed by a ninth warp, the producer, whose one lane
+//     issues every TMA load into a ring of stages in shared memory; each
+//     stage has a full mbarrier (the stage's bytes as its transaction count)
+//     and an empty one (one arrival per consumer warp), and the pair loop has
+//     no __syncthreads.  The tensor maps swizzle by min(128, k * element
+//     bytes) bytes, so ldmatrix reads each row's 16-byte chunk at its index
+//     XORed with the row and hits distinct banks;
+//   * kernel 3 (redesigned for Hopper): a persistent grid of min(items, SMs x
+//     blocks an SM) blocks walks the items (row panel, output block-column),
+//     column fastest, item += gridDim.x, so neighbouring blocks share their x
+//     rows in L2.  Each stage holds the pair's br x k x block, loaded by TMA
+//     from a 2-D map of x at column rows[c, r]*k (the gather happens in the
+//     copy), and its k x k tile; the block's pairs run as one stream across
+//     item boundaries, so the next item's loads are in flight during this
+//     item's epilogue.  The epilogue writes the item's output into a staged
+//     br x k tile in shared memory (swizzled like the stages) and one thread
+//     stores it by TMA without waiting; the gelu_grad instance has the
+//     producer load the item's pre into that tile by TMA while the item's
+//     later pairs multiply, and overwrites it in place.  br is the wrapper's
+//     row_tile (128 at full width), the ring cuda_bsmm.stream_layout's
+//     deepest (3 x 64 KB and the 32 KB staged tile at full width), the
+//     consumers cuda_bsmm.warp_rows' widest: wgmma's warpgroups where they
+//     fit, else warps of 32 x (k / 8 over the warps across), else 16-row
+//     warps (br 16, float32).  Measured at full width on an NVIDIA H100
+//     80GB HBM3, 700.00 W (PERF.md, tools/bsmm_bits_ab.py), kernel 3 took
+//     0.224 / 0.385 / 0.412 ms on matmul 1 / matmul 2 / the dgrad against
+//     the earlier body's 0.671 / 1.017 / 0.838 (in turns); in one sweep
+//     wgmma took 0.242 / 0.415 / 0.452 against mma.sync's 32 x 64 warp
+//     tiles' 0.461 / 0.637 / 0.658, and the pair stream alone 0.29 / 0.42 /
+//     0.24, so matmul 2, which also streams its zero pad tiles, and matmul
+//     1 are bound by it.  Not kept, on matmul 1 in one sweep where the
+//     32 x 64 tiles read 0.42 ms: 16 x 128 warp tiles (0.80 ms: 168
+//     registers, the cap at 288 threads, and spills), row tiles 64 and 32
+//     (0.47 and 0.57), one ring stage (0.58), one block an item (0.55); and,
+//     in earlier calls, the first epilogue, which stored from registers (on
+//     matmul 1 the epilogue alone, the pair stream with it against without
+//     it, cost 0.18 ms; the staged tile's TMA store 0.05) and read pre into
+//     registers before the item's last pair (the dgrad 1.08 ms: 116 bytes
+//     of spills);
 //   * kernel 4: a block loads its br x d_in x panel into dynamic shared memory
 //     once (cp.async, rows padded by 16 bytes) and sweeps a chunk of
 //     col_chunk output columns (the wrapper splits the columns only as far
 //     as about 2 blocks per SM need); the pair's x slice is read from the
-//     panel at rows[c, r]*k.  The tiles stream through a ring of S stages
-//     (2 to 4; 3 at the FFN's full width) of unpadded k x k tiles in shared
-//     memory after the panel, fed by a tensor map (TMA, swizzled by
-//     min(128, k * element bytes) bytes, so ldmatrix reads each row's
-//     16-byte chunk at its index XORed with the row).  A ninth warp, the
-//     producer, is the only one that issues tile loads; the 8 consumer
-//     warps run the same accumulate and store_tile as kernel 3 on the
-//     swizzled addresses.  Each stage has a full mbarrier (the tile's bytes
-//     as its transaction count) and an empty one (one arrival per consumer
-//     warp); the pair loop has no __syncthreads.  With a cluster of C
-//     blocks on consecutive panels of one column chunk (C in 1, 2, 4) each
-//     block's producer loads 1/C of every tile's rows and multicasts it to
-//     all C blocks; every consumer warp then arrives on the empty barrier
-//     of all C blocks (mapa), so a slice is rewritten only after all C
-//     blocks have read its stage.  cuda_bsmm.resident_layout mirrors the
-//     shared-memory layout and cuda_bsmm.cluster_size picks C.
-//     Each consumer warp owns NT = warp_ntiles(k, br) n-tiles or none, NT
-//     fixed at compile time: the per-n-tile guard kernel 3 keeps in its
-//     products' loop doubled kernel 4's time, and the earlier body's loop
-//     over all k / 8 n-tiles, guarded, is what held it at 5.5 ms.
-//     What bounds it at block_m 16 and full width: 512 blocks of 16 rows,
-//     one per SM (the panel fills it), each reading all 384 tiles of W1:
-//     6.44 / C GB of tiles from L2 for 103 GFLOP.  Measured on an NVIDIA
-//     H100 80GB HBM3, 700.00 W (PERF.md, tools/bsmm_resident_ab.py): 1.06 ms
-//     at S = 3, C = 1, the tile stream alone (no products) 0.69 ms, the
-//     earlier body 5.48 ms, torch.matmul of x by the dense W1 1.30 ms.
-//     Not kept: clusters of 2 and 4 (1.15 and 1.43 ms: multicast did not
-//     shorten the stream, and 30 clusters of 4 fit the card against 132
-//     single blocks), S = 2 (1.10 ms); earlier, rotating each block's start
-//     column, and multicast over clusters of 8 with one tile in flight;
-//   * kernel 3's shared rows are padded by 16 bytes, so ldmatrix's 8 row
-//     addresses hit distinct banks; kernel 4's tiles get the same from the
-//     swizzle;
+//     panel at rows[c, r]*k.  Only the tiles stream through its ring (2 to
+//     4 stages; 3 at the FFN's full width).  With a cluster of C blocks on
+//     consecutive panels of one column chunk (C in 1, 2, 4) each block's
+//     producer loads 1/C of every tile's rows and multicasts it to all C
+//     blocks; every consumer warp then arrives on the empty barrier of all C
+//     blocks (mapa), so a slice is rewritten only after all C blocks have
+//     read its stage.  cuda_bsmm.resident_layout mirrors the shared-memory
+//     layout and cuda_bsmm.cluster_size picks C.  What bounds it at block_m
+//     16 and full width: 512 blocks of 16 rows, one per SM (the panel fills
+//     it), each reading all 384 tiles of W1: 6.44 / C GB of tiles from L2
+//     for 103 GFLOP.  Measured on an NVIDIA H100 80GB HBM3, 700.00 W
+//     (PERF.md, tools/bsmm_resident_ab.py): 1.06 ms at S = 3, C = 1, the
+//     tile stream alone (no products) 0.69 ms, the earlier body 5.48 ms,
+//     torch.matmul of x by the dense W1 1.30 ms.  Not kept: clusters of 2
+//     and 4 (1.15 and 1.43 ms: multicast did not shorten the stream, and 30
+//     clusters of 4 fit the card against 132 single blocks), S = 2 (1.10
+//     ms); earlier, rotating each block's start column, and multicast over
+//     clusters of 8 with one tile in flight;
+//   * kernel 3's earlier body (one block per item, all 256 threads staging
+//     the padded x block and tile by cp.async, then __syncthreads, the
+//     products over all k / 8 n-tiles with a per-n-tile guard, __syncthreads
+//     again) took 0.769 / 1.096 / 0.979 ms on the three calls in chip_smoke
+//     (PERF.md);
 //   * no masking: M % br == 0 and d_in % k == 0 are checked.
-// Left for later: wgmma (for kernels 3 and 4 together, since it changes the
-// order inside the 16-deep step), wider warp tiles, a persistent grid.
+// Left for later: wgmma for kernel 4 and for kernel 3's other shapes, an
+// epilogue that overlaps the next item's products (two accumulator sets,
+// which need setmaxnreg), clusters for kernel 3.
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is reached at run time
 #include <cuda_bf16.h>
@@ -94,10 +130,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kPadBytes = 16;        // each shared row is padded by this much
+constexpr int kPadBytes = 16;        // each row of kernel 4's panel is padded by this much
 constexpr int kSmemBytes = 232448;   // shared memory a Hopper block can use
-constexpr int kResidentThreads = kThreads + 32;  // kernel 4: 8 consumer warps and a producer
-constexpr int kMaxStages = 4;        // kernel 4's deepest tile ring
+constexpr int kPipeThreads = kThreads + 32;  // 8 consumer warps and a producer
+constexpr int kMaxStages = 4;        // the deepest ring of either kernel
+constexpr long long kIntMax = 0x7fffffffLL;
 
 template <typename T>
 __host__ __device__ constexpr int pad_elems() { return kPadBytes / (int)sizeof(T); }
@@ -145,8 +182,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// mbarriers, TMA and clusters (kernel 4), in the forms CUTLASS's sm90
-// pipelines use.
+// mbarriers, TMA and clusters, in the forms CUTLASS's sm90 pipelines use.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
@@ -220,6 +256,82 @@ __device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap*
       : "memory");
 }
 
+// The box of the map's view at (c0 columns, c1 rows) from src in shared
+// memory, as one bulk group of this thread; then commit it.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
+                                          int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// This thread's writes to shared memory, seen by the TMA unit (the async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma (kernel 3's bf16 warpgroups at k 128, row tile 128): a shared-memory
+// matrix descriptor of the 128-byte swizzle (start, leading and stride byte
+// offsets in 16-byte units), and one m64n128k16 step, d += A (64 x 16, K-major,
+// from desc a) * B (16 x 128, N-major: transposed, from desc b), accumulating
+// (scale-d 1) into d, whose [i][0..3] are n-tile i's C fragment as mma's.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
+                   "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[16][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t cluster_ctarank() {
   uint32_t rank;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
@@ -231,7 +343,7 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// The 8 consumer warps of kernel 4 (named barrier 1; the producer is not in it).
+// The 8 consumer warps (named barrier 1; the producer is not in it).
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
@@ -249,95 +361,109 @@ __device__ __forceinline__ void stage_rows(T* dst, int dst_ld, const T* src, lon
   }
 }
 
-// The warp's share of a br x k output tile: 16 rows from `row`, and n_count
-// 8-wide n-tiles from n_first (0 when k / 8 is less than the warps across).
+// The warp's share of a br x k output tile: 16 * mt rows from `row`, and
+// n_count 8-wide n-tiles from n_first (0 when k / 8 is less than the warps
+// across).
 struct WarpTile {
   int row, n_first, n_count;
 };
 
-__device__ __forceinline__ WarpTile warp_tile(int br, int k) {
+__device__ __forceinline__ WarpTile warp_tile(int br, int k, int mt = 1) {
   const int warp = threadIdx.x >> 5;
-  const int warps_m = br / 16, warps_n = kWarps / warps_m;
+  const int warps_m = br / (16 * mt), warps_n = kWarps / warps_m;
   const int wm = warp % warps_m, wn = warp / warps_m;
   const int ntiles = k / 8, per = (ntiles + warps_n - 1) / warps_n;
   const int first = wn * per;
-  return WarpTile{16 * wm, first, max(0, min(ntiles, first + per) - first)};
+  return WarpTile{16 * mt * wm, first, max(0, min(ntiles, first + per) - first)};
 }
 
-// Where element (j, col) of a k x k tile lies in shared memory.  Kernel 3
-// stages tiles with rows padded by 16 bytes.
-template <typename T, int K>
-struct PaddedTile {
-  __device__ static __forceinline__ const T* at(const T* ws, int j, int col) {
-    return ws + j * (K + pad_elems<T>()) + col;
-  }
+// The n-tiles a consumer warp of mt x 16 rows owns at br rows a block
+// (warp_tile's per; every warp owns that many or none).
+constexpr int warp_ntiles(int k, int br, int mt = 1) {
+  return (k / 8 + 128 * mt / br - 1) / (128 * mt / br);
+}
+
+// Where element (i, j) of an operand lies in shared memory (A: i the row, j
+// the k index; B: i the k index, j the output column).
+
+// Kernel 4's x panel: rows of ld elements from base (the pair's column).
+template <typename T>
+struct PaddedRows {
+  const T* base;
+  int ld;
+  __device__ __forceinline__ const T* at(int i, int j) const { return base + i * ld + j; }
 };
 
-// Kernel 4's tiles as the tensor map writes them: kBoxes column boxes of
-// kSpan bytes a row, each all K rows deep and stored whole one after the
-// other; inside a box, row j's 16-byte chunk i lies at chunk i ^ ((j * kSpan
-// / 128) % (kSpan / 16)) (CU_TENSOR_MAP_SWIZZLE_32B/64B/128B; the pattern
-// repeats every 8 rows, so a box starts on a multiple of 8 * kSpan bytes).
+// Rows of K elements as a tensor map writes them, swizzled by kSpan = min(128,
+// K * element bytes): kBoxes column boxes of kSpan bytes a row, each
+// box_bytes / kSpan rows deep and stored whole one after the other; inside a
+// box, row i's 16-byte chunk q lies at chunk q ^ ((i * kSpan / 128) % (kSpan
+// / 16)) (CU_TENSOR_MAP_SWIZZLE_32B/64B/128B; the pattern repeats every 8
+// rows, so a box starts on a multiple of 8 * kSpan bytes).  Kernel 3's x
+// blocks (br rows) and both kernels' tiles (K rows).
 template <typename T, int K>
-struct SwizzledTile {
+struct Swizzled {
   static constexpr int kRowBytes = K * (int)sizeof(T);
   static constexpr int kSpan = kRowBytes < 128 ? kRowBytes : 128;
   static constexpr int kBoxes = kRowBytes / kSpan;
-  static constexpr int kBoxBytes = K * kSpan;
-  __device__ static __forceinline__ const T* at(const T* ws, int j, int col) {
-    const int cb = col * (int)sizeof(T);
-    int off = j * kSpan + cb % kSpan;
+  const unsigned char* base;
+  int box_bytes;
+  __device__ __forceinline__ const T* at(int i, int j) const {
+    const int cb = j * (int)sizeof(T);
+    int off = i * kSpan + cb % kSpan;
     off ^= ((off >> 7) & (kSpan / 16 - 1)) << 4;
-    return reinterpret_cast<const T*>(reinterpret_cast<const char*>(ws) +
-                                      (cb / kSpan) * kBoxBytes + off);
+    return reinterpret_cast<const T*>(base + (cb / kSpan) * box_bytes + off);
   }
 };
 
-// acc[t] += x slice (the warp's 16 rows, k columns; row stride xs_ld) times the
-// tile's n-tile n_first + t, for bf16 on the tensor cores; Tile says where the
-// tile's elements lie.  The accumulator element c of n-tile t sits at row g +
-// 8 (c / 2), column 8 (n_first + t) + 2 (lane % 4) + c % 2, with g = lane / 4:
-// mma's C fragment.  NT n-tiles at most; kGuarded runs only the warp's
-// n_count of them (kernel 3), else all NT (kernel 4, whose warps own NT or
-// none: a guard in this loop doubled kernel 4's time on the H100).
-template <int K, int NT, bool kGuarded, class Tile>
-__device__ __forceinline__ void accumulate(float (&acc)[NT][4], const bf16* xs, int xs_ld,
-                                           const bf16* ws, const WarpTile& w) {
+// acc[m][t] += x slice (the warp's MT x 16 rows, K columns) times the tile's
+// n-tile n_first + t; xs and ws say where the operands' elements lie.  For
+// bf16 on the tensor cores: the accumulator element c of (m, t) sits at row
+// 16 m + g + 8 (c / 2), column 8 (n_first + t) + 2 (lane % 4) + c % 2, with g
+// = lane / 4: mma's C fragment, each 16-deep step in ascending order.  For
+// float32 the same ownership on plain FMA, j ascending.  Every warp owns NT
+// n-tiles or none, so the loop runs all NT (a guard in it doubled kernel 4's
+// time on the H100).
+template <typename T, int K, int MT, int NT, class A, class B>
+__device__ __forceinline__ void accumulate(float (&acc)[MT][NT][4], const A& xs, const B& ws,
+                                           const WarpTile& w) {
   const int lane = threadIdx.x & 31;
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks) {
-    uint32_t a[4];
-    ldmatrix_x4(a, xs + (w.row + (lane & 15)) * xs_ld + 16 * ks + 8 * (lane >> 4));
+    for (int ks = 0; ks < K / 16; ++ks) {
+      uint32_t a[MT][4];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (!kGuarded || t < w.n_count) {
+      for (int m = 0; m < MT; ++m)
+        ldmatrix_x4(a[m], xs.at(w.row + 16 * m + (lane & 15), 16 * ks + 8 * (lane >> 4)));
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
         uint32_t b[2];
-        ldmatrix_x2_trans(b, Tile::at(ws, 16 * ks + (lane & 15), 8 * (w.n_first + t)));
-        mma_bf16(acc[t], a, b);
+        ldmatrix_x2_trans(b, ws.at(16 * ks + (lane & 15), 8 * (w.n_first + t)));
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_bf16(acc[m][t], a[m], b);
       }
     }
-  }
-}
-
-// The same for float32, on plain FMA with j ascending, same element ownership.
-template <int K, int NT, bool kGuarded, class Tile>
-__device__ __forceinline__ void accumulate(float (&acc)[NT][4], const float* xs, int xs_ld,
-                                           const float* ws, const WarpTile& w) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const float* x0 = xs + (w.row + g) * xs_ld;
-  const float* x1 = x0 + 8 * xs_ld;
+  } else {
+    const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll 4
-  for (int j = 0; j < K; ++j) {
-    const float a0 = x0[j], a1 = x1[j];
+    for (int j = 0; j < K; ++j) {
+      float a[MT][2];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (!kGuarded || t < w.n_count) {
-        const float* wr = Tile::at(ws, j, 8 * (w.n_first + t) + 2 * t4);
+      for (int m = 0; m < MT; ++m) {
+        a[m][0] = *xs.at(w.row + 16 * m + g, j);
+        a[m][1] = *xs.at(w.row + 16 * m + g + 8, j);
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const T* wr = ws.at(j, 8 * (w.n_first + t) + 2 * t4);
         const float b0 = wr[0], b1 = wr[1];
-        acc[t][0] = fmaf(a0, b0, acc[t][0]);
-        acc[t][1] = fmaf(a0, b1, acc[t][1]);
-        acc[t][2] = fmaf(a1, b0, acc[t][2]);
-        acc[t][3] = fmaf(a1, b1, acc[t][3]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          acc[m][t][0] = fmaf(a[m][0], b0, acc[m][t][0]);
+          acc[m][t][1] = fmaf(a[m][0], b1, acc[m][t][1]);
+          acc[m][t][2] = fmaf(a[m][1], b0, acc[m][t][2]);
+          acc[m][t][3] = fmaf(a[m][1], b1, acc[m][t][3]);
+        }
       }
     }
   }
@@ -374,12 +500,24 @@ __device__ __forceinline__ float gelu_tanh_grad(float g, float v) {
   return g * (left_derivative + right_derivative);
 }
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
+// Two neighbouring elements of T, as loaded.
+template <typename T>
+struct Pair2;
+template <>
+struct Pair2<float> {
+  typedef float2 type;
+};
+template <>
+struct Pair2<bf16> {
+  typedef __nv_bfloat162 type;
+};
 
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+__device__ __forceinline__ float2 to_float2(float2 v) { return v; }
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  return to_float2(*reinterpret_cast<const typename Pair2<T>::type*>(p));
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -390,72 +528,238 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// gelu_grad's pre at the pair of elements at (row, col) of the warp's br x K
+// tile, element offset o in pre: read from device memory where the epilogue
+// uses it (kernel 4) ...
+template <typename T>
+struct PreAtUse {
+  const T* pre;
+  __device__ __forceinline__ float2 get(long long o, int, int) const { return load2(pre + o); }
+};
+
+// ... or from kernel 3's staged tile, which the producer loaded by TMA ahead
+// of the epilogue (the epilogue then overwrites each pair with its output).
+template <typename T, int K>
+struct StagedPre {
+  Swizzled<T, K> tile;
+  __device__ __forceinline__ float2 get(long long, int row, int col) const {
+    return load2(tile.at(row, col));
+  }
+};
+
+// Where the epilogue puts the pair of output elements at (row, col) of the
+// warp's br x K tile, element offset o in out: straight to device memory
+// (kernel 4) ...
+template <typename T>
+struct GlobalOut {
+  T* out;
+  __device__ __forceinline__ void put(long long o, int, int, float a, float b) const {
+    store2(out + o, a, b);
+  }
+};
+
+// ... or to kernel 3's swizzled tile in shared memory, which the TMA unit
+// then stores whole.
+template <typename T, int K>
+struct StagedOut {
+  Swizzled<T, K> tile;
+  __device__ __forceinline__ void put(long long, int row, int col, float a, float b) const {
+    store2(const_cast<T*>(tile.at(row, col)), a, b);
+  }
+};
+
 // Epilogue: the epilogue on the f32 sums (gelu_grad reads pre at the same
 // elements), the cast, the store of the warp's share of output block-column
-// c for rows m0.. (row stride ldo); then the accumulators are zeroed for the
-// next column.  kGrad compiles the gelu_grad epilogue in (kernel 3 always;
-// kernel 4 in the instance that takes it, so that its other instances keep
-// the body, the registers and the time they had without it).
-template <typename T, int K, int NT, bool kGrad>
-__device__ __forceinline__ void store_tile(float (&acc)[NT][4], T* out, const T* pre,
-                                           long long ldo, long long m0, int c,
+// c for rows m0.. (row stride ldo) through `dst`; then the accumulators are
+// zeroed for the next column.  kGrad compiles the gelu_grad epilogue in (in
+// the instances that take it, so that the others keep the body, the
+// registers and the time they had without it).
+template <typename T, int K, int MT, int NT, bool kGrad, class Pre, class Out>
+__device__ __forceinline__ void store_tile(float (&acc)[MT][NT][4], const Out& dst,
+                                           const Pre& pre, long long ldo, long long m0, int c,
                                            const WarpTile& w, int epilogue) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const long long off = (m0 + w.row + g) * ldo + (long long)c * K + 2 * t4;
-  T* o0 = out + off;
-  T* o1 = o0 + 8 * ldo;
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (t < w.n_count) {
-      float v[4] = {acc[t][0], acc[t][1], acc[t][2], acc[t][3]};
-      if (epilogue == kEpilogueGelu) {
+  for (int m = 0; m < MT; ++m) {
+    const int row = w.row + 16 * m + g;
+    const long long off = (m0 + row) * ldo + (long long)c * K + 2 * t4;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = gelu_tanh(v[e]);
-      } else if (kGrad && epilogue == kEpilogueGeluGrad) {
-        const float2 p0 = load2(pre + off + 8 * (w.n_first + t));
-        const float2 p1 = load2(pre + off + 8 * ldo + 8 * (w.n_first + t));
-        v[0] = gelu_tanh_grad(v[0], p0.x);
-        v[1] = gelu_tanh_grad(v[1], p0.y);
-        v[2] = gelu_tanh_grad(v[2], p1.x);
-        v[3] = gelu_tanh_grad(v[3], p1.y);
+    for (int t = 0; t < NT; ++t) {
+      if (t < w.n_count) {
+        const int col = 8 * (w.n_first + t) + 2 * t4;
+        const long long o = off + 8 * (w.n_first + t);
+        float v[4] = {acc[m][t][0], acc[m][t][1], acc[m][t][2], acc[m][t][3]};
+        if (epilogue == kEpilogueGelu) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = gelu_tanh(v[e]);
+        } else if (kGrad && epilogue == kEpilogueGeluGrad) {
+          const float2 p0 = pre.get(o, row, col);
+          const float2 p1 = pre.get(o + 8 * ldo, row + 8, col);
+          v[0] = gelu_tanh_grad(v[0], p0.x);
+          v[1] = gelu_tanh_grad(v[1], p0.y);
+          v[2] = gelu_tanh_grad(v[2], p1.x);
+          v[3] = gelu_tanh_grad(v[3], p1.y);
+        }
+        dst.put(o, row, col, v[0], v[1]);
+        dst.put(o + 8 * ldo, row + 8, col, v[2], v[3]);
       }
-      store2(o0 + 8 * (w.n_first + t), v[0], v[1]);
-      store2(o1 + 8 * (w.n_first + t), v[2], v[3]);
-    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[m][t][e] = 0.0f;
+    }
   }
 }
 
-// Kernel 3: block (panel p, column c) -> out rows p*br.., block-column c.
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-bsmm_kernel(const T* __restrict__ x, const int32_t* __restrict__ rows,
-            const T* __restrict__ tiles, T* __restrict__ out, const T* __restrict__ pre,
-            int d_in, int nbc, int rpc, int br, int epilogue) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kLd = K + pad_elems<T>();
-  T* xs = reinterpret_cast<T*>(smem);  // br x K: the pair's x block
-  T* ws = xs + br * kLd;               // K x K: the pair's tile
-  const int c = blockIdx.x % nbc;
-  const long long m0 = (long long)(blockIdx.x / nbc) * br;
-  const WarpTile w = warp_tile(br, K);
-  float acc[K / 8][4];
-#pragma unroll
-  for (int t = 0; t < K / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+// Kernel 3: block b walks the items b, b + gridDim.x, ... below `items`;
+// item = p * nbc + c -> out rows p*br.., block-column c.  Its pairs (item,
+// r) run in order as one stream whose x block and tile the producer warp
+// keeps `stages` deep in the ring: the block's pair n lands in stage n %
+// stages.  Shared memory (cuda_bsmm.stream_layout): `stages` stages, each
+// the br x K x block then the K x K tile as the tensor maps' swizzled boxes,
+// then a full and an empty mbarrier a stage.  stream_only 1 skips the
+// products, 2 the epilogue too (diagnostics of the pair stream alone, with
+// and without the output's store).  Each consumer warp owns
+// MT x 16 rows and NT = warp_ntiles(K, br, MT) n-tiles or none.  kGrad: the
+// instance that takes the gelu_grad epilogue, with pre read into registers
+// before the item's last pair.
+template <typename T, int K, int MT, int NT, bool kGrad, bool kWg = false>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+bsmm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap tmap,
+            const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap pmap,
+            const int32_t* __restrict__ rows, int nbc, int rpc, int br, int items, int stages,
+            int stream_only, int epilogue) {
+  extern __shared__ __align__(1024) unsigned char shm[];
+  using Sw = Swizzled<T, K>;
+  constexpr int kTileBytes = K * K * (int)sizeof(T);
+  const int x_bytes = br * K * (int)sizeof(T);
+  const int stage_bytes = x_bytes + kTileBytes;
+  unsigned char* staged = shm + stages * stage_bytes;  // br x K: the item's pre, then output
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + x_bytes);
+  uint64_t* empty = full + stages;
+  uint64_t* pre_full = empty + stages;  // gelu_grad: the item's pre has landed in staged
+  uint64_t* out_free = pre_full + 1;    // gelu_grad: the last store has read staged
+  const bool grad = kGrad && epilogue == kEpilogueGeluGrad && stream_only < 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int r = 0; r < rpc; ++r) {
-    const long long pair = (long long)c * rpc + r;
-    const long long col = (long long)rows[pair] * K;
-    stage_rows(xs, kLd, x + m0 * d_in + col, d_in, br, K);
-    stage_rows(ws, kLd, tiles + pair * K * K, K, K, K);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    accumulate<K, K / 8, true, PaddedTile<T, K>>(acc, xs, kLd, ws, w);
-    __syncthreads();  // the stage is no longer read
+  if (threadIdx.x == 0) {
+    if (smem_addr(shm) & 1023) __trap();  // the swizzle needs the stages where the host put them
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    mbar_init(pre_full, 1);
+    mbar_init(out_free, 1);
+    fence_mbarrier_init();
   }
-  store_tile<T, K, K / 8, true>(acc, out, pre, (long long)nbc * K, m0, c, w, epilogue);
+  __syncthreads();
+
+  if (warp == kWarps) {  // the producer: one lane issues every load
+    if (lane == 0) {
+      prefetch_tmap(&xmap);
+      prefetch_tmap(&tmap);
+      prefetch_tmap(&omap);
+      if (grad) prefetch_tmap(&pmap);
+      int n = 0, j = 0;  // the block's pair stream, and its items
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+        const int c = item % nbc, m0 = (item / nbc) * br;
+        for (int r = 0; r < rpc; ++r, ++n) {
+          const int s = n % stages, pair = c * rpc + r;
+          const int col = rows[pair] * K;  // read before the wait, so its latency hides there
+          if (n >= stages) mbar_wait(&empty[s], ((n / stages) - 1) & 1);
+          mbar_expect_tx(&full[s], (uint32_t)stage_bytes);
+          unsigned char* st = shm + s * stage_bytes;
+#pragma unroll
+          for (int b = 0; b < Sw::kBoxes; ++b) {
+            const int box_col = b * Sw::kSpan / (int)sizeof(T);
+            tma_load(st + b * br * Sw::kSpan, &xmap, col + box_col, m0, &full[s]);
+            tma_load(st + x_bytes + b * K * Sw::kSpan, &tmap, box_col, pair * K, &full[s]);
+          }
+        }
+        // gelu_grad: after the item's pairs, its pre into staged once the last
+        // store has read it (the consumers say so after this item's first
+        // pair), so it lands while they multiply the rest
+        if (grad) {
+          if (j > 0) mbar_wait(out_free, (j - 1) & 1);
+          mbar_expect_tx(pre_full, (uint32_t)x_bytes);
+#pragma unroll
+          for (int b = 0; b < Sw::kBoxes; ++b)
+            tma_load(staged + b * br * Sw::kSpan, &pmap, c * K + b * Sw::kSpan / (int)sizeof(T),
+                     m0, pre_full);
+        }
+      }
+    }
+    __syncwarp();
+  } else {  // the 8 consumer warps
+    // n_count is NT or 0; with wgmma warp w owns rows 64 (w / 4) + 16 (w % 4).. of
+    // all K columns, as the m64 step's accumulator lays them out
+    const WarpTile w = kWg ? WarpTile{64 * (warp >> 2) + 16 * (warp & 3), 0, K / 8}
+                           : warp_tile(br, K, MT);
+    const bool products = !stream_only && w.n_count > 0;
+    const long long ldo = (long long)nbc * K;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int t = 0; t < NT; ++t) acc[m][t][0] = acc[m][t][1] = acc[m][t][2] = acc[m][t][3] = 0.0f;
+    const Sw tile_out{staged, br * Sw::kSpan};
+    int n = 0, j = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+      const int c = item % nbc;
+      const long long m0 = (long long)(item / nbc) * br;
+      for (int r = 0; r < rpc; ++r, ++n) {
+        const int s = n % stages;
+        mbar_wait(&full[s], (n / stages) & 1);
+        const unsigned char* st = shm + s * stage_bytes;
+        if constexpr (kWg) {
+          if (products) {
+            // A: this warpgroup's 64 rows of the x block, K-major; step ks lies
+            // 32 bytes on per step in a 128-byte box row (the hardware swizzles
+            // the address), and 4 steps a box.  B: the tile's rows 16 ks..,
+            // N-major; its two 64-column boxes lie K * 128 bytes apart (the
+            // leading offset), and each 8-row group 1024 bytes on (the stride)
+            const unsigned char* a = st + (warp >> 2) * 64 * Sw::kSpan;
+            const unsigned char* b = st + x_bytes;
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < K / 16; ++ks) {
+              const uint64_t da =
+                  gmma_desc(a + (ks / 4) * br * Sw::kSpan + (ks % 4) * 32, 16, 1024);
+              const uint64_t db = gmma_desc(b + ks * 16 * Sw::kSpan, K * Sw::kSpan, 1024);
+              wgmma_m64n128(acc[0], da, db);
+            }
+            wgmma_commit_wait();
+          }
+        } else if (products) {
+          accumulate<T, K, MT, NT>(acc, Sw{st, br * Sw::kSpan},
+                                   Sw{st + x_bytes, K * Sw::kSpan}, w);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+        if (grad && r == 0 && j > 0 && threadIdx.x == 0) {  // staged is free for this item's pre
+          bulk_wait_read();
+          mbar_arrive(out_free);
+        }
+      }
+      if (stream_only >= 2) continue;
+      if (grad) {
+        mbar_wait(pre_full, j & 1);  // implies the last store has read staged
+      } else {  // the staged tile is free once the previous item's store has read it
+        if (threadIdx.x == 0) bulk_wait_read();
+        consumer_sync();
+      }
+      store_tile<T, K, MT, NT, kGrad>(acc, StagedOut<T, K>{tile_out}, StagedPre<T, K>{tile_out},
+                                      ldo, m0, c, w, epilogue);
+      fence_async_shared();
+      consumer_sync();
+      if (threadIdx.x == 0) {  // one thread stores the tile, and no consumer waits for it
+#pragma unroll
+        for (int b = 0; b < Sw::kBoxes; ++b)
+          tma_store(&omap, staged + b * br * Sw::kSpan, c * K + b * Sw::kSpan / (int)sizeof(T),
+                    (int)m0);
+        bulk_commit();
+      }
+    }
+    if (threadIdx.x == 0) bulk_wait_read();  // the last store has read the staged tile
+  }
 }
 
 // Kernel 4: block (panel blockIdx.x, column chunk blockIdx.y) loads x rows
@@ -470,14 +774,14 @@ bsmm_kernel(const T* __restrict__ x, const int32_t* __restrict__ rows,
 // NT = warp_ntiles(K, br): each consumer warp owns NT n-tiles or none.
 // kGrad: the instance that takes the gelu_grad epilogue (store_tile).
 template <typename T, int K, int NT, bool kGrad>
-__global__ void __launch_bounds__(kResidentThreads, 1)
+__global__ void __launch_bounds__(kPipeThreads, 1)
 bsmm_resident_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restrict__ x,
                      const int32_t* __restrict__ rows, T* __restrict__ out,
                      const T* __restrict__ pre, int d_in, int nbc, int rpc, int br,
                      int col_chunk, int ring_off, int stages, int cluster, int stream_only,
                      int epilogue) {
   extern __shared__ __align__(1024) unsigned char shm[];
-  using Tile = SwizzledTile<T, K>;
+  using Tile = Swizzled<T, K>;
   constexpr int kTileBytes = K * K * (int)sizeof(T);
   const int panel_ld = d_in + pad_elems<T>();
   T* panel = reinterpret_cast<T*>(shm);  // br x d_in: the block's x rows
@@ -518,9 +822,9 @@ bsmm_resident_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restri
         for (int b = 0; b < Tile::kBoxes; ++b) {
           const int col = b * Tile::kSpan / (int)sizeof(T);
           if (cluster == 1) {
-            tma_load(dst + b * Tile::kBoxBytes, &tmap, col, row, &full[s]);
+            tma_load(dst + b * K * Tile::kSpan, &tmap, col, row, &full[s]);
           } else {
-            tma_load_multicast(dst + b * Tile::kBoxBytes, &tmap, col, row, &full[s], mask);
+            tma_load_multicast(dst + b * K * Tile::kSpan, &tmap, col, row, &full[s], mask);
           }
         }
       }
@@ -533,17 +837,17 @@ bsmm_resident_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restri
     consumer_sync();  // the whole panel has landed
     const WarpTile w = warp_tile(br, K);  // n_count is NT or 0
     const bool products = !stream_only && w.n_count > 0;
-    float acc[NT][4];
+    float acc[1][NT][4];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+    for (int t = 0; t < NT; ++t) acc[0][t][0] = acc[0][t][1] = acc[0][t][2] = acc[0][t][3] = 0.0f;
     int c = blockIdx.y * col_chunk, r = 0;  // pair p0 + n is (c, r)
     for (int n = 0; n < n_pairs; ++n) {
       const int s = n % stages;
       const T* xs = panel + rows[p0 + n] * K;
       mbar_wait(&full[s], (n / stages) & 1);
       if (products)
-        accumulate<K, NT, false, Tile>(acc, xs, panel_ld,
-                                       reinterpret_cast<const T*>(ring + s * kTileBytes), w);
+        accumulate<T, K, 1, NT>(acc, PaddedRows<T>{xs, panel_ld},
+                                Tile{ring + s * kTileBytes, K * Tile::kSpan}, w);
       __syncwarp();
       if (lane == 0) {  // this warp is done with stage s, in every block that shares it
         if (cluster == 1) {
@@ -553,7 +857,8 @@ bsmm_resident_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restri
         }
       }
       if (++r == rpc) {
-        store_tile<T, K, NT, kGrad>(acc, out, pre, (long long)nbc * K, m0, c, w, epilogue);
+        store_tile<T, K, 1, NT, kGrad>(acc, GlobalOut<T>{out}, PreAtUse<T>{pre},
+                                       (long long)nbc * K, m0, c, w, epilogue);
         r = 0;
         ++c;
       }
@@ -572,42 +877,12 @@ struct Args {
   void* out;
   const void* pre;
   long long M;
-  int d_in, nbc, rpc, br, col_chunk, stages, cluster, stream_only, epilogue, device;
+  int d_in, nbc, rpc, br;
+  int stages, stream_only, epilogue, device;
+  int col_chunk, cluster;  // kernel 4's
+  int warp_m, grid;        // kernel 3's
   cudaStream_t stream;
 };
-
-// Kernel 3.
-template <typename T, int K>
-int launch_stream(const Args& a) {
-  const long long panels = a.M / a.br;
-  const size_t tile_bytes = (size_t)K * (K + pad_elems<T>()) * sizeof(T);
-  const size_t smem = (size_t)a.br * (K + pad_elems<T>()) * sizeof(T) + tile_bytes;
-  const long long blocks = panels * a.nbc;
-  if (smem > (size_t)kSmemBytes || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(bsmm_kernel<T, K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  bsmm_kernel<T, K><<<(unsigned)blocks, kThreads, smem, a.stream>>>(
-      (const T*)a.x, (const int32_t*)a.rows, (const T*)a.tiles, (T*)a.out, (const T*)a.pre,
-      a.d_in, a.nbc, a.rpc, a.br, a.epilogue);
-  return (int)cudaGetLastError();
-}
-
-// Kernel 4's shared memory, mirrored by cuda_bsmm.resident_layout: the
-// padded panel, the ring from the first multiple of the swizzle's 8-row
-// pattern (1024 bytes wherever rows are 128 bytes or more), then 2 mbarriers
-// a stage.
-struct Layout {
-  size_t ring_off, bytes;
-};
-
-template <typename T, int K>
-Layout resident_layout(int br, int d_in, int stages) {
-  const size_t panel = (size_t)br * (d_in + pad_elems<T>()) * sizeof(T);
-  const size_t align = 8 * SwizzledTile<T, K>::kSpan;
-  const size_t ring_off = (panel + align - 1) / align * align;
-  return {ring_off, ring_off + (size_t)stages * (K * K * sizeof(T) + 2 * sizeof(uint64_t))};
-}
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // does not link libcuda.
@@ -633,36 +908,136 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Returned as kErrEncode + cuTensorMapEncodeTiled's CUresult when the map cannot
+// Returned as kErrEncode + cuTensorMapEncodeTiled's CUresult when a map cannot
 // be encoded (the wrapper names it).
 constexpr int kErrEncode = 100000;
 
-// The map of kernel 4's tiles: a 2-D view of nbc * rpc * K rows by K
-// columns, boxes of kSpan bytes by K / cluster rows, swizzled by kSpan.
+// The map of a row-major (n_rows, n_cols) array of T at base: boxes of kSpan
+// bytes by box_rows rows, swizzled by kSpan (Swizzled<T, K>'s layout).
 template <typename T, int K>
-int encode_tiles(CUtensorMap* map, const Args& a) {
-  using Tile = SwizzledTile<T, K>;
+int encode_rows(CUtensorMap* map, const void* base, long long n_cols, long long n_rows,
+                int box_rows) {
+  using Sw = Swizzled<T, K>;
   const EncodeTiled fn = encode_tiled();
   if (!fn) return kErrEncode + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)a.nbc * a.rpc * K};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(T)};
-  const cuuint32_t box[2] = {(cuuint32_t)(Tile::kSpan / sizeof(T)), (cuuint32_t)(K / a.cluster)};
+  const cuuint64_t dims[2] = {(cuuint64_t)n_cols, (cuuint64_t)n_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)n_cols * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(Sw::kSpan / sizeof(T)), (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  const CUtensorMapSwizzle swizzle = Tile::kSpan == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : Tile::kSpan == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = Sw::kSpan == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : Sw::kSpan == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r =
       fn(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-         2, const_cast<void*>(a.tiles), dims, strides, box, elem_strides,
+         2, const_cast<void*>(base), dims, strides, box, elem_strides,
          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
 }
 
-// The n-tiles a consumer warp of kernel 4 owns at br rows a block
-// (warp_tile's per; every warp owns that many or none).
-constexpr int warp_ntiles(int k, int br) {
-  return (k / 8 + 128 / br - 1) / (128 / br);
+// The tiles as a 2-D view of nbc * rpc * K rows by K columns, boxes K /
+// cluster rows deep (both kernels).
+template <typename T, int K>
+int encode_tiles(CUtensorMap* map, const Args& a) {
+  return encode_rows<T, K>(map, a.tiles, K, (long long)a.nbc * a.rpc * K, K / a.cluster);
+}
+
+template <typename T>
+using StreamKernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                              const CUtensorMap, const int32_t*, int, int, int, int, int, int,
+                              int);
+
+// Kernel 3's instance for warps of mt x 16 rows and nt n-tiles and the
+// gelu_grad epilogue or not (nullptr for none it has).
+template <typename T, int K, int MT, int NT>
+StreamKernel<T> stream_kernel_nt(int nt, bool grad) {
+  if constexpr (NT * 8 < K / 8) {  // fewer than any br gives
+    return nullptr;
+  } else {
+    if (nt == NT) return grad ? bsmm_kernel<T, K, MT, NT, true> : bsmm_kernel<T, K, MT, NT, false>;
+    if constexpr (NT > 1) return stream_kernel_nt<T, K, MT, NT / 2>(nt, grad);
+    return nullptr;
+  }
+}
+
+// Kernel 3's warps own warp_m rows: 16, or 32 for bf16 at br >= 32; 64: bf16
+// warpgroups on wgmma at k 128 and br 128.
+template <typename T, int K>
+StreamKernel<T> stream_kernel(int warp_m, int br, bool grad) {
+  if (warp_m == 16) return stream_kernel_nt<T, K, 1, K / 8>(warp_ntiles(K, br, 1), grad);
+  if constexpr (sizeof(T) == 2) {
+    if (warp_m == 32 && br >= 32)
+      return stream_kernel_nt<T, K, 2, K / 16>(warp_ntiles(K, br, 2), grad);
+    if constexpr (K == 128) {
+      if (warp_m == 64 && br == 128)
+        return grad ? bsmm_kernel<T, K, 1, 16, true, true> : bsmm_kernel<T, K, 1, 16, false, true>;
+    }
+  }
+  return nullptr;
+}
+
+// Kernel 3's shared memory, mirrored by cuda_bsmm.stream_layout: `stages`
+// stages of the br x K x block and the K x K tile, the br x K staged tile
+// (pre, then the output), then 2 mbarriers a stage and 2 for the staged tile.
+template <typename T, int K>
+size_t stream_bytes(int br, int stages) {
+  return (size_t)stages * ((size_t)(br + K) * K * sizeof(T) + 2 * sizeof(uint64_t)) +
+         (size_t)br * K * sizeof(T) + 2 * sizeof(uint64_t);
+}
+
+// Kernel 3 on a.grid blocks, or (blocks_per_sm != nullptr) how many of its
+// blocks an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// launching nothing.
+template <typename T, int K>
+int launch_stream(const Args& a, int* blocks_per_sm) {
+  const long long items = a.M / a.br * a.nbc;
+  const size_t bytes = stream_bytes<T, K>(a.br, a.stages);
+  const StreamKernel<T> kernel =
+      stream_kernel<T, K>(a.warp_m, a.br, a.epilogue == kEpilogueGeluGrad);
+  if (a.stages < 1 || a.stages > kMaxStages || bytes > (size_t)kSmemBytes || !kernel ||
+      a.M > kIntMax || items * a.rpc > kIntMax || (long long)a.nbc * a.rpc * K > kIntMax)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks_per_sm)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                              kPipeThreads, bytes);
+  if (a.grid < 1 || a.grid > items) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, tmap, omap, pmap;
+  int enc = encode_rows<T, K>(&xmap, a.x, a.d_in, a.M, a.br);
+  if (enc == 0) enc = encode_tiles<T, K>(&tmap, a);
+  if (enc == 0) enc = encode_rows<T, K>(&omap, a.out, (long long)a.nbc * K, a.M, a.br);
+  if (enc == 0) {  // pre has the output's shape; without gelu_grad the map is not read
+    enc = a.pre ? encode_rows<T, K>(&pmap, a.pre, (long long)a.nbc * K, a.M, a.br) : 0;
+    if (!a.pre) pmap = omap;
+  }
+  if (enc != 0) return enc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.grid, 1, 1);
+  cfg.blockDim = dim3(kPipeThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = a.stream;
+  err = cudaLaunchKernelEx(&cfg, kernel, xmap, tmap, omap, pmap, (const int32_t*)a.rows, a.nbc,
+                           a.rpc, a.br, (int)items, a.stages, a.stream_only, a.epilogue);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Kernel 4's shared memory, mirrored by cuda_bsmm.resident_layout: the
+// padded panel, the ring from the first multiple of the swizzle's 8-row
+// pattern (1024 bytes wherever rows are 128 bytes or more), then 2 mbarriers
+// a stage.
+struct Layout {
+  size_t ring_off, bytes;
+};
+
+template <typename T, int K>
+Layout resident_layout(int br, int d_in, int stages) {
+  const size_t panel = (size_t)br * (d_in + pad_elems<T>()) * sizeof(T);
+  const size_t align = 8 * Swizzled<T, K>::kSpan;
+  const size_t ring_off = (panel + align - 1) / align * align;
+  return {ring_off, ring_off + (size_t)stages * (K * K * sizeof(T) + 2 * sizeof(uint64_t))};
 }
 
 template <typename T>
@@ -696,7 +1071,7 @@ int launch_resident(const Args& a, int* clusters) {
   const int col_blocks = (a.nbc + a.col_chunk - 1) / a.col_chunk;
   const ResidentKernel<T> kernel =
       resident_kernel_nt<T, K, K / 8>(warp_ntiles(K, a.br), a.epilogue == kEpilogueGeluGrad);
-  if (lay.bytes > (size_t)kSmemBytes || panels > 0x7fffffffLL || col_blocks > 65535 || !kernel)
+  if (lay.bytes > (size_t)kSmemBytes || panels > kIntMax || col_blocks > 65535 || !kernel)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -709,7 +1084,7 @@ int launch_resident(const Args& a, int* clusters) {
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)panels, (unsigned)col_blocks, 1);
-  cfg.blockDim = dim3(kResidentThreads, 1, 1);
+  cfg.blockDim = dim3(kPipeThreads, 1, 1);
   cfg.dynamicSmemBytes = lay.bytes;
   cfg.stream = a.stream;
   cfg.attrs = attr;
@@ -730,32 +1105,35 @@ int launch_resident(const Args& a, int* clusters) {
 }
 
 template <typename T, int K>
-int launch(const Args& a, bool resident, int* clusters) {
-  return resident ? launch_resident<T, K>(a, clusters) : launch_stream<T, K>(a);
+int launch(const Args& a, bool resident, int* query) {
+  return resident ? launch_resident<T, K>(a, query) : launch_stream<T, K>(a, query);
 }
 
 template <typename T>
-int launch_k(const Args& a, int k, bool resident, int* clusters) {
+int launch_k(const Args& a, int k, bool resident, int* query) {
   switch (k) {
-    case 16: return launch<T, 16>(a, resident, clusters);
-    case 32: return launch<T, 32>(a, resident, clusters);
-    case 64: return launch<T, 64>(a, resident, clusters);
-    case 128: return launch<T, 128>(a, resident, clusters);
+    case 16: return launch<T, 16>(a, resident, query);
+    case 32: return launch<T, 32>(a, resident, query);
+    case 64: return launch<T, 64>(a, resident, query);
+    case 128: return launch<T, 128>(a, resident, query);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int launch_any(const Args& a, int k, int dtype, bool resident, int* clusters = nullptr) {
+// A launch, or (query != nullptr) kernel 4's clusters or kernel 3's blocks an
+// SM at these shapes; a query takes no operands, so pre is not checked.
+int launch_any(const Args& a, int k, int dtype, bool resident, int* query = nullptr) {
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
   if (a.M <= 0 || a.nbc <= 0) return (int)cudaSuccess;
   if ((a.br != 16 && a.br != 32 && a.br != 64 && a.br != 128) || a.M % a.br || a.rpc < 1 ||
       k < 1 || a.d_in < k || a.d_in % k || a.epilogue < kEpilogueNone ||
-      a.epilogue > kEpilogueGeluGrad || (a.epilogue == kEpilogueGeluGrad) != (a.pre != nullptr))
+      a.epilogue > kEpilogueGeluGrad ||
+      (!query && (a.epilogue == kEpilogueGeluGrad) != (a.pre != nullptr)))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return launch_k<float>(a, k, resident, clusters);
-    case 1: return launch_k<bf16>(a, k, resident, clusters);
+    case 0: return launch_k<float>(a, k, resident, query);
+    case 1: return launch_k<bf16>(a, k, resident, query);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -763,31 +1141,48 @@ int launch_any(const Args& a, int k, int dtype, bool resident, int* clusters = n
 }  // namespace
 
 // Kernel 3 on `stream` (a cudaStream_t) of device `device`.
-//   x        : (M, d_in) float32 (dtype 0) or bfloat16 (dtype 1), 16-byte aligned;
-//   rows     : (nbc, rpc) int32, every entry below d_in / k;
-//   tiles    : (nbc, rpc, k, k) in x's dtype, 16-byte aligned;
-//   out      : (M, nbc * k) in x's dtype, written whole;
-//   pre      : (M, nbc * k) in x's dtype, 16-byte aligned, for epilogue 2
-//              only (nullptr otherwise);
-//   epilogue : 0 none, 1 gelu, 2 gelu_grad (times gelu'(pre));
+//   x           : (M, d_in) float32 (dtype 0) or bfloat16 (dtype 1), 16-byte aligned;
+//   rows        : (nbc, rpc) int32, every entry below d_in / k;
+//   tiles       : (nbc, rpc, k, k) in x's dtype, 16-byte aligned;
+//   out         : (M, nbc * k) in x's dtype, written whole;
+//   pre         : (M, nbc * k) in x's dtype, 16-byte aligned, for epilogue 2
+//                 only (nullptr otherwise);
+//   epilogue    : 0 none, 1 gelu, 2 gelu_grad (times gelu'(pre));
 //   k in {16, 32, 64, 128}; br, the rows a block owns, in {16, 32, 64, 128}
-//   and dividing M.
-// Returns cudaGetLastError() after the launch (0 = launched).
+//   and dividing M;
+//   warp_m      : the rows a consumer warp owns, 16, or 32 for bf16 at br >= 32;
+//   stages      : the ring's depth, 1 to 4, within a block's shared memory;
+//   grid        : the blocks, 1 to (M / br) * nbc (every block walks the items
+//                 from its index in steps of grid);
+//   stream_only : 1 skips the products, 2 the epilogue too (the output is then
+//                 not the product: diagnostics of the pair stream alone).
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for shapes it does not take, or kErrEncode + a
+// CUresult when a tensor map cannot be encoded.
 extern "C" int spgemm_bsmm(const void* x, const void* rows, const void* tiles, void* out,
                            const void* pre, long long M, int d_in, int nbc, int rpc, int k,
-                           int br, int dtype, int epilogue, int device, void* stream) {
-  const Args a{x, rows, tiles, out, pre, M, d_in, nbc, rpc, br, 1, 0, 1, 0, epilogue, device,
-               (cudaStream_t)stream};
+                           int br, int warp_m, int stages, int grid, int stream_only, int dtype,
+                           int epilogue, int device, void* stream) {
+  const Args a{x,      rows,        tiles,    out,    pre, M, d_in, nbc, rpc, br,
+               stages, stream_only, epilogue, device, 1,   1, warp_m, grid, (cudaStream_t)stream};
   return launch_any(a, k, dtype, false);
 }
 
-// Kernel 4, the same arguments and
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of kernel 3 at these shapes
+// (the instance of epilogue's, gelu_grad or not), into *blocks.
+extern "C" int spgemm_bsmm_blocks_per_sm(int k, int br, int warp_m, int stages, int dtype,
+                                         int epilogue, int device, int* blocks) {
+  const Args a{nullptr, nullptr, nullptr,  nullptr, nullptr, br, k, 1, 1, br,
+               stages,  0,       epilogue, device,  1,       1,  warp_m, 1, (cudaStream_t)0};
+  *blocks = 0;
+  return launch_any(a, k, dtype, false, blocks);
+}
+
+// Kernel 4, the same arguments as kernel 3 but warp_m and grid, and
 //   col_chunk >= 1 : the output block-columns one block sweeps;
 //   stages         : the tile ring's depth, 2 to 4;
 //   cluster        : 1, 2 or 4 blocks sharing each tile, dividing M / br and
-//                    k / 8;
-//   stream_only    : 1 skips the products (the output is then not the
-//                    product: a diagnostic of the tile stream alone).
+//                    k / 8.
 // The br x d_in panel, the ring and its barriers must fit a block's shared
 // memory, or it returns cudaErrorInvalidValue; kErrEncode + a CUresult when
 // the tensor map of the tiles cannot be encoded.
@@ -796,8 +1191,9 @@ extern "C" int spgemm_bsmm_resident(const void* x, const void* rows, const void*
                                     int rpc, int k, int br, int col_chunk, int stages,
                                     int cluster, int stream_only, int dtype, int epilogue,
                                     int device, void* stream) {
-  const Args a{x, rows, tiles, out, pre, M, d_in, nbc, rpc, br, col_chunk, stages, cluster,
-               stream_only, epilogue, device, (cudaStream_t)stream};
+  const Args a{x,      rows,        tiles,    out,    pre,       M,       d_in, nbc, rpc, br,
+               stages, stream_only, epilogue, device, col_chunk, cluster, 16,   1,
+               (cudaStream_t)stream};
   return launch_any(a, k, dtype, true);
 }
 
@@ -805,8 +1201,9 @@ extern "C" int spgemm_bsmm_resident(const void* x, const void* rows, const void*
 // (the most clusters of `cluster` blocks the card holds at once).
 extern "C" int spgemm_bsmm_resident_clusters(int d_in, int k, int br, int stages, int cluster,
                                              int dtype, int device, int* clusters) {
-  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, (long long)br * cluster, d_in, 1,
-               1, br, 1, stages, cluster, 0, 0, device, (cudaStream_t)0};
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, (long long)br * cluster, d_in, 1, 1,
+               br,      stages,  0,       0,       device,  1,       cluster, 16, 1,
+               (cudaStream_t)0};
   *clusters = 0;
   return launch_any(a, k, dtype, true, clusters);
 }

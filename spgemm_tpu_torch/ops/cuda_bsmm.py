@@ -13,23 +13,42 @@ rows = W2's cols and tiles = W2's tiles transposed (models/ffn.py).
 
 Both kernels run one device body (bf16 on the tensor cores with
 mma.sync m16n8k16, float32 on plain FMA), so at the same inputs they give
-identical bits, whatever the block_m, the ring depth or the cluster.  What
-bounds kernel 3 at the FFN's full width is operations and bytes about
-equally (PERF.md).
+identical bits, whatever the block_m, the row tile, the warp tile, the ring
+depth, the grid or the cluster.  Both are fed by a producer warp that keeps
+TMA loads in flight into a ring of swizzled stages (a full and an empty
+mbarrier a stage, no __syncthreads in the pair loop), and every consumer
+warp owns a compile-time count of n-tiles or none, so the products run
+unguarded.  What bounds kernel 3 at the FFN's full width is operations and
+bytes about equally (PERF.md).
+
+Kernel 3 (redesigned for Hopper) streams each pair's x block (gathered by a
+2-D tensor map of x at column rows[c, r] * k) and its tile through a ring
+of stream_layout's stages, on a persistent grid (stream_grid: min(items,
+SMs x blocks an SM) blocks, each walking the items (row panel, column)
+column fastest in steps of the grid, stream_walk), so the next item's
+loads are in flight during an item's epilogue.  The epilogue writes the
+item's output into a staged tile in shared memory, which one thread stores
+by TMA; for gelu_grad the producer first loads the item's pre into that
+tile by TMA.  Its consumers are two warpgroups on wgmma m64n128k16 at k
+128 and row tile 128 (64 rows x 128 columns each, which gives mma.sync's
+bits), else 8 warps on mma.sync (warp_rows).  At full width it takes
+0.224, 0.385 and 0.412 ms on matmul 1, matmul 2 and the dgrad, where its
+earlier body (one block per item, cp.async then __syncthreads around each
+pair, the products guarded per n-tile) took 0.671, 1.017 and 0.838 ms in
+the same call (NVIDIA H100 80GB HBM3, 700.00 W; tools/bsmm_bits_ab.py,
+PERF.md).
 
 Kernel 4 (redesigned for Hopper) holds a block's x panel in shared memory
-and streams the tiles through a ring of `stages` swizzled stages after it,
-fed by a tensor map (TMA) from a producer warp, with a full and an empty
-mbarrier a stage; a cluster of `cluster` blocks on consecutive panels
-shares each tile by TMA multicast.  resident_layout mirrors its shared
-memory and picks the ring's depth (3 at full width); cluster_size picks the
-cluster.  At block_m 16 every block sweeps every tile of its column chunk,
-so the tile stream from L2 (6.44 / cluster GB for matmul 1 at full width)
-bounds it once each warp's products run unguarded over its compile-time
-n-tiles.  The earlier body (two padded buffers filled by every thread, the
-products guarded per n-tile) took 5.48 ms; the redesign 1.06 ms, the
-stream alone 0.69 ms, torch.matmul 1.30 ms, clusters of 2 and 4 1.15 and
-1.43 ms, so FASTEST_CLUSTER is 1 (NVIDIA H100 80GB HBM3, 700.00 W;
+and streams only the tiles through a ring of `stages` swizzled stages after
+it; a cluster of `cluster` blocks on consecutive panels shares each tile by
+TMA multicast.  resident_layout mirrors its shared memory and picks the
+ring's depth (3 at full width); cluster_size picks the cluster.  At block_m
+16 every block sweeps every tile of its column chunk, so the tile stream
+from L2 (6.44 / cluster GB for matmul 1 at full width) bounds it.  The
+earlier body (two padded buffers filled by every thread, the products
+guarded per n-tile) took 5.48 ms; the redesign 1.06 ms, the stream alone
+0.69 ms, torch.matmul 1.30 ms, clusters of 2 and 4 1.15 and 1.43 ms, so
+FASTEST_CLUSTER is 1 (NVIDIA H100 80GB HBM3, 700.00 W;
 tools/bsmm_resident_ab.py, PERF.md).
 
 block_m is the TPU's row tile (the BlockSpec's); here it says what M is a
@@ -68,6 +87,12 @@ SMEM_BYTES = 232_448               # shared memory a Hopper block can use
 _ROW_PAD_BYTES = 16                # each shared row is padded by this much
 _MBARRIER_BYTES = 8
 RESIDENT_STAGES = (2, 3, 4)        # depths of kernel 4's tile ring
+STREAM_STAGES = (1, 2, 3, 4)       # depths of kernel 3's ring (1 only where 2 do not fit)
+# Rows of kernel 3's consumer tile: 16 or 32, a warp's on mma.sync; 64, a
+# warpgroup's on wgmma.  Measured on the H100 at the FFN's full width, 64 was
+# fastest, then 32, then 16 (PERF.md), so warp_rows takes the widest a launch
+# allows.
+WARP_ROWS = (16, 32, 64)
 CLUSTER_SIZES = (1, 2, 4)          # blocks of kernel 4 that share each tile
 # The cluster that measured fastest for kernel 4 at the FFN's full width on
 # the H100 (PERF.md, kernel table); cluster_size takes the largest size up
@@ -167,6 +192,100 @@ def cluster_size(panels: int, k: int, fastest: int = FASTEST_CLUSTER) -> int:
     return max(c for c in cluster_sizes(panels, k) if c <= fastest)
 
 
+@dataclass(frozen=True)
+class StreamLayout:
+    """Kernel 3's shared memory, in bytes (csrc/bsmm.cu:stream_bytes):
+    `stages` stages of stage_bytes from 0, each the pair's br x k x block
+    (x_bytes) then its k x k tile (tile_bytes), both as the tensor maps'
+    swizzled boxes; then the item's br x k staged tile (out_bytes, swizzled
+    the same way: gelu_grad's pre loaded by TMA, then the output, which a
+    TMA store writes out); then barrier_bytes of mbarriers (a full and an
+    empty one a stage, and two for the staged tile).  `total` is what the
+    launch asks for."""
+    x_bytes: int
+    tile_bytes: int
+    stage_bytes: int
+    stages: int
+    out_bytes: int
+    barrier_bytes: int
+    total: int
+
+
+def stream_layout(br: int, k: int, dtype_bytes: int = 2,
+                  stages: int | None = None) -> StreamLayout:
+    """Kernel 3's shared memory at a row tile of br.  Every stage and the
+    staged tile are whole numbers of the swizzle's 8-row patterns, so each
+    box starts on one.  stages=None takes the deepest ring of STREAM_STAGES
+    that fits a block's SMEM_BYTES (3 at bf16, k 128, br 128); a given depth
+    that does not fit raises ValueError."""
+    x, tile = br * k * dtype_bytes, k * k * dtype_bytes
+
+    def layout(s: int) -> StreamLayout:
+        barriers = 2 * _MBARRIER_BYTES * (s + 1)
+        return StreamLayout(x, tile, x + tile, s, x, barriers, s * (x + tile) + x + barriers)
+
+    if stages is None:
+        return [layout(s) for s in STREAM_STAGES if layout(s).total <= SMEM_BYTES][-1]
+    if stages not in STREAM_STAGES or layout(stages).total > SMEM_BYTES:
+        raise ValueError(f"kernel 3 takes a ring of {STREAM_STAGES} stages within "
+                         f"{SMEM_BYTES} bytes of shared memory; {stages} stages of "
+                         f"{x + tile} bytes and a {x}-byte staged tile need "
+                         f"{layout(stages).total}")
+    return layout(stages)
+
+
+def warp_row_options(br: int, k: int, dtype_bytes: int) -> tuple[int, ...]:
+    """The WARP_ROWS kernel 3 takes at a row tile of br: 16 always; 32, a
+    warp's 32 x (k / 8 over the warps across) on mma.sync, for bf16 where
+    br >= 32; 64, a warpgroup's 64 x 128 on wgmma (two warpgroups a block),
+    for bf16 at k 128 and br 128."""
+    out = (16,)
+    if dtype_bytes == 2 and br >= 32:
+        out += (32,)
+    if dtype_bytes == 2 and br == 128 and k == 128:
+        out += (64,)
+    return out
+
+
+def warp_rows(br: int, k: int, dtype_bytes: int, rows: int | None = None) -> int:
+    """Rows of kernel 3's consumer tile: rows=None takes the widest of
+    warp_row_options (the fastest measured); a given count the launch
+    cannot take raises ValueError."""
+    allowed = warp_row_options(br, k, dtype_bytes)
+    if rows is None:
+        return allowed[-1]
+    if rows not in allowed:
+        raise ValueError(f"kernel 3 takes consumer tiles of {allowed} rows at br {br}, k {k} "
+                         f"and {dtype_bytes}-byte elements, not {rows}")
+    return rows
+
+
+def warp_ntiles(k: int, br: int, rows: int = 16) -> int:
+    """The 8-wide n-tiles each consumer warp owns (or none) with tiles of
+    `rows` rows in a block of br rows: k / 8 over the warps across, 8 /
+    (br / rows), rounded up (csrc/bsmm.cu:warp_ntiles); with wgmma (rows
+    64) each warp owns 16 rows of all k / 8."""
+    if rows == 64:
+        return k // 8
+    across = 8 * rows // br
+    return -(-(k // 8) // across)
+
+
+def stream_grid(items: int, sms: int, blocks_per_sm: int, persistent: bool = True) -> int:
+    """Kernel 3's blocks: as many as the card holds at once (sms x
+    blocks_per_sm) and at most one an item; persistent=False gives one
+    block an item."""
+    return min(items, sms * blocks_per_sm) if persistent else items
+
+
+def stream_walk(block: int, grid: int, panels: int, nbc: int) -> list[tuple[int, int]]:
+    """The (row panel, output block-column) items block `block` of a grid
+    of `grid` computes, in its order: item = panel * nbc + column (column
+    fastest) from the block's index in steps of the grid, so the blocks in
+    flight at once hold neighbouring items and share their x rows in L2."""
+    return [divmod(item, nbc) for item in range(block, panels * nbc, grid)]
+
+
 def row_tile(M: int, nbc: int, sms: int) -> int:
     """Rows of x one block of kernel 3 owns: the largest of 128, 64, 32 and
     16 that divides M and still gives every SM a block ((M / br) * nbc >=
@@ -189,8 +308,9 @@ class Geometry:
 
 
 def launch_geometry(M: int, nbc: int, block_m: int, resident: bool, sms: int) -> Geometry:
-    """The grid each kernel launches on a card with `sms` SMs.  Kernel 3:
-    br = row_tile, one block per (panel, column).  Kernel 4: br =
+    """The row panels and columns each kernel covers on a card with `sms`
+    SMs.  Kernel 3: br = row_tile, items (panel, column), walked by
+    stream_grid's blocks (stream_walk).  Kernel 4: br =
     block_rows(block_m) (the panel must fit shared memory), the columns
     split only as far as about 2 blocks per SM need (each extra chunk loads
     the panel once more)."""
@@ -276,19 +396,25 @@ def bsmm_ref(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, *,
 def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: int,
             fuse_gelu: bool, resident: bool, br: int | None = None,
             cluster: int | None = None, stages: int | None = None,
-            stream_only: bool = False, gelu_grad: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch kernel 3 or 4 on launch_geometry's grid.  br, for kernel 3
-    only, replaces row_tile's rows per block; cluster, stages and
-    stream_only, for kernel 4 only, replace cluster_size's cluster and
-    resident_layout's ring depth, and skip the products (a diagnostic: the
-    output is then not the product).  The checks that no bit depends on
-    these give them.  gelu_grad (pre) takes the gelu_grad epilogue."""
+            stream_only: int = 0, gelu_grad: torch.Tensor | None = None,
+            warp_m: int | None = None, persistent: bool = True) -> torch.Tensor:
+    """Launch kernel 3 or 4.  stages replaces the ring depth of
+    stream_layout (kernel 3) or resident_layout (kernel 4); stream_only 1
+    skips the products, and 2 (kernel 3) the epilogue too (diagnostics: the
+    output is then not the product).  For kernel 3 only: br replaces
+    row_tile's rows per block, warp_m warp_rows' consumer tile, and
+    persistent=False launches one block an item in place of stream_grid's
+    persistent grid.  For kernel 4 only:
+    cluster replaces cluster_size's cluster.  The checks that no bit
+    depends on these give them.  gelu_grad (pre) takes the gelu_grad
+    epilogue."""
     M, d_in, nbc, rpc, k = check_operands(x, rows, tiles, block_m)
     check_pre(gelu_grad, x, nbc, k, fuse_gelu)
-    if not resident and (cluster is not None or stages is not None or stream_only):
-        raise ValueError("cluster, stages and stream_only are kernel 4's")
-    if resident and br is not None:
-        raise ValueError("kernel 4's row tile is block_rows(block_m)")
+    if not resident and cluster is not None:
+        raise ValueError("cluster is kernel 4's")
+    if resident and (br is not None or warp_m is not None or not persistent):
+        raise ValueError("br, warp_m and persistent are kernel 3's; kernel 4's row tile is "
+                         "block_rows(block_m)")
     if x.device.type == "cpu":
         return bsmm_ref(x, rows, tiles, fuse_gelu=fuse_gelu, gelu_grad=gelu_grad)
     if x.device.type != "cuda":
@@ -311,36 +437,65 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
     geo = launch_geometry(M, nbc, block_m, resident, sm_count(x.device.index))
     if br is not None:
         geo = Geometry(br, M // br, 1, nbc)
-    extra = []  # kernel 4's: column chunk, ring depth, cluster, stream_only
-    if resident:
+    epilogue = (_EPILOGUE_GELU if fuse_gelu else
+                _EPILOGUE_GELU_GRAD if gelu_grad is not None else 0)
+    if resident:  # column chunk, ring depth, cluster, stream_only
         layout = resident_layout(d_in, block_m, x.element_size(), k, stages)
         if cluster is None:
             cluster = cluster_size(geo.panels, k)
         elif cluster not in cluster_sizes(geo.panels, k):
             raise ValueError(f"kernel 4 takes a cluster of {cluster_sizes(geo.panels, k)} "
                              f"blocks at {geo.panels} panels and k={k}, not {cluster}")
-        extra = [geo.col_chunk, layout.stages, cluster, int(stream_only)]
+        extra = {"col_chunk": geo.col_chunk, "stages": layout.stages, "cluster": cluster,
+                 "stream_only": int(stream_only)}
+    else:  # warp rows, ring depth, grid, stream_only
+        layout = stream_layout(geo.br, k, x.element_size(), stages)
+        rows_per_warp = warp_rows(geo.br, k, x.element_size(), warp_m)
+        blocks = stream_blocks_per_sm(k, geo.br, rows_per_warp, layout.stages, x.dtype,
+                                      epilogue, x.device.index)
+        extra = {"warp_m": rows_per_warp, "stages": layout.stages,
+                 "grid": stream_grid(geo.panels * nbc, sm_count(x.device.index), blocks,
+                                     persistent),
+                 "stream_only": int(stream_only)}
     lib = _build.load(_KERNEL)
     fn = lib.spgemm_bsmm_resident if resident else lib.spgemm_bsmm
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
         + [ctypes.c_int] * (8 + len(extra)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    epilogue = (_EPILOGUE_GELU if fuse_gelu else
-                _EPILOGUE_GELU_GRAD if gelu_grad is not None else 0)
     err = fn(x.data_ptr(), rows.data_ptr(), tiles.data_ptr(), out.data_ptr(),
              None if gelu_grad is None else gelu_grad.data_ptr(), M, d_in, nbc, rpc, k,
-             geo.br, *extra, _DTYPE_CODES[x.dtype], epilogue, x.device.index, stream)
+             geo.br, *extra.values(), _DTYPE_CODES[x.dtype], epilogue, x.device.index, stream)
     if err != 0:
-        what = (f"the tiles' tensor map could not be encoded: CUresult {err - _ERR_ENCODE}"
+        what = (f"a tensor map could not be encoded: CUresult {err - _ERR_ENCODE}"
                 if err >= _ERR_ENCODE else f"CUDA error {err}")
         raise RuntimeError(f"bsmm kernel launch failed: {what} (M={M}, d_in={d_in}, "
                            f"nbc={nbc}, rpc={rpc}, k={k}, block_m={block_m}, {x.dtype}, "
-                           f"resident={resident}, epilogue {epilogue}, {geo}, ring/cluster "
-                           f"{extra[1:3]})")
+                           f"resident={resident}, epilogue {epilogue}, {geo}, {extra})")
     # the launch counters, bumped here and nowhere else
     ENGINE.incr("launches_bsmm_resident" if resident else "launches_bsmm")
     return out
+
+
+@functools.cache
+def stream_blocks_per_sm(k: int, br: int, rows_per_warp: int, stages: int, dtype: torch.dtype,
+                         epilogue: int, device: int) -> int:
+    """cudaOccupancyMaxActiveBlocksPerMultiprocessor of kernel 3's instance
+    for these shapes and epilogue (0, 1 or 2; the gelu_grad instance is
+    another) on CUDA device `device`: how many of its blocks an SM holds at
+    once (card only; raises where the runtime refuses or none fits)."""
+    fn = _build.load(_KERNEL).spgemm_bsmm_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(k, br, rows_per_warp, stages, _DTYPE_CODES[dtype], epilogue, device,
+             ctypes.byref(n))
+    if err != 0 or n.value < 1:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor of kernel 3 "
+                           f"failed or gave {n.value}: CUDA error {err} (k={k}, br={br}, "
+                           f"warp rows {rows_per_warp}, stages={stages}, {dtype}, "
+                           f"epilogue {epilogue})")
+    return n.value
 
 
 def max_active_clusters(d_in: int, k: int, block_m: int, dtype: torch.dtype, cluster: int,

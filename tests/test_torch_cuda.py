@@ -2,10 +2,11 @@
 both variants, the limb kernel, the two bsmm kernels) against their plain
 PyTorch versions on the card (the limb kernel also on sentinel slots, every
 limb count, the deepest rounds at full range, ragged k and unaligned
-slabs), the hybrid chain against the exact one, out-of-core and --ranks on
-the card against the resident and CPU results, failover with a failing
-fold (falling back when the probe reports a lost card, raising when the
-real probe finds the card working), the FFN forward against its plain
+slabs; kernel 3 at every ring depth, warp tile, row tile and grid), the
+hybrid chain against the exact one, out-of-core and --ranks on the card
+against the resident and CPU results, failover with a failing fold
+(falling back when the probe reports a lost card, raising when the real
+probe finds the card working), the FFN forward against its plain
 version, the delta splice against splice_ref and a delta chain against
 the full one, the port's daemon (`cli serve` without --device) serving a
 chain on the card, and the segmented fold of the dense route against its plain
@@ -536,6 +537,96 @@ def test_bsmm_gelu_grad_epilogue_matches_plain_version(cuda, dtype, k, M):
     # the other epilogues keep their bits beside it
     assert torch.equal(cuda_bsmm.bsmm(x, rows, tiles, block_m=16),
                        cuda_bsmm.bsmm_resident(x, rows, tiles, block_m=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "gelu_grad"])
+@pytest.mark.parametrize("M", [16, 208, 256, 1024])
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bsmm_stream_at_every_ring_warp_tile_and_grid(cuda, dtype, k, M, epilogue):
+    """Kernel 3 forced to every ring depth stream_layout takes, every
+    consumer tile warp_row_options gives (mma.sync warps, and wgmma's
+    warpgroups at k 128 and row tile 128) and one block an item in place of
+    the persistent grid, at every row tile dividing M, gives the default
+    launch's bits; the default is within tolerance of bsmm_ref."""
+    x, rows, tiles = _bsmm_case(5 * k + M, M, 4, 6, 3, k, dtype, cuda)
+    pre = None if epilogue != "gelu_grad" else (2 * torch.randn(
+        (M, 6 * k), generator=torch.Generator().manual_seed(M))).to(cuda, dtype)
+    gelu = epilogue == "gelu"
+    want = cuda_bsmm.bsmm(x, rows, tiles, block_m=16, fuse_gelu=gelu, gelu_grad=pre)
+    rtol, atol = BSMM_TOL[dtype]
+    torch.testing.assert_close(want.float(), cuda_bsmm.bsmm_ref(
+        x, rows, tiles, fuse_gelu=gelu, gelu_grad=pre).float(), rtol=rtol, atol=atol)
+    es = x.element_size()
+    before, n = _launches("bsmm"), 0
+    for br in (16, 32, 64, 128):
+        if M % br:
+            continue
+        for stages in range(1, cuda_bsmm.stream_layout(br, k, es).stages + 1):
+            for warp_m in cuda_bsmm.warp_row_options(br, k, es):
+                for persistent in (True, False):
+                    got = cuda_bsmm._launch(x, rows, tiles, 16, gelu, resident=False, br=br,
+                                            stages=stages, warp_m=warp_m,
+                                            persistent=persistent, gelu_grad=pre)
+                    torch.cuda.synchronize()
+                    n += 1
+                    assert torch.equal(got, want), (br, stages, warp_m, persistent)
+    assert _launches("bsmm") == before + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "gelu_grad"])
+@pytest.mark.parametrize("spread", [0, 8, 40])
+def test_bsmm_stream_wgmma_gives_mma_sync_bits(cuda, epilogue, spread):
+    """Kernel 3's wgmma warpgroups (bf16, k 128, row tile 128) against its
+    mma.sync warps of 32 and 16 rows, bit for bit, on x and tiles whose
+    entries are scaled by 2^e, e uniform in [-spread, spread], so each
+    16-deep step adds terms of very different sizes and some cancel."""
+    M, k = 1024, 128
+    x, rows, tiles = _bsmm_case(spread + 11, M, 8, 6, 3, k, torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(spread)
+    x, tiles = ((t.float() * torch.exp2(torch.randint(-spread, spread + 1, t.shape,
+                                                      generator=gen).float()).to(cuda))
+                .to(torch.bfloat16) for t in (x, tiles))
+    pre = None if epilogue != "gelu_grad" else torch.randn(
+        (M, 6 * k), generator=gen).to(cuda, torch.bfloat16)
+    gelu = epilogue == "gelu"
+    got = {warp_m: cuda_bsmm._launch(x, rows, tiles, 128, gelu, resident=False, br=128,
+                                     warp_m=warp_m, gelu_grad=pre) for warp_m in (64, 32, 16)}
+    torch.cuda.synchronize()
+    assert cuda_bsmm.warp_rows(128, k, 2) == 64
+    assert torch.equal(got[64], got[32]) and torch.equal(got[64], got[16])
+
+
+@pytest.mark.cuda
+def test_bsmm_stream_refuses_what_it_cannot_take(cuda):
+    x, rows, tiles = _bsmm_case(7, 256, 4, 2, 3, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="stages"):  # 4 x 64 KB at row tile 128
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, br=128, stages=4)
+    with pytest.raises(ValueError, match="rows"):  # a 16-row block holds no 32-row warp
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, br=16, warp_m=32)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_bsmm._launch(x.float(), rows, tiles.float(), 16, False, resident=False,
+                          warp_m=32)
+    with pytest.raises(ValueError, match="rows"):  # wgmma's warpgroups want row tile 128
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, br=64, warp_m=64)
+    with pytest.raises(ValueError, match="kernel 4"):
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, cluster=1)
+
+
+@pytest.mark.cuda
+def test_bsmm_stream_blocks_per_sm_fit_the_card(cuda):
+    """At the FFN's full width (bf16, k 128, row tile 128, 3 stages: 196,656
+    bytes) one block of kernel 3 fits an SM, and its persistent grid is the
+    SMs."""
+    sms = cuda_bsmm.sm_count(cuda.index or 0)
+    lay = cuda_bsmm.stream_layout(128, 128, 2)
+    for epilogue in (0, 1, 2):
+        n = cuda_bsmm.stream_blocks_per_sm(128, 128, cuda_bsmm.warp_rows(128, 128, 2), lay.stages,
+                                           torch.bfloat16, epilogue, cuda.index or 0)
+        assert n == 1
+        assert cuda_bsmm.stream_grid(64 * 128, sms, n) == sms
 
 
 # kernel 5 against bsmm_wgrad_ref, (rtol, atol): the operands are scaled by

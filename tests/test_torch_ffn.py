@@ -215,6 +215,142 @@ def test_launch_geometry_covers_the_output(M, nbc, resident):
         assert g.col_chunk == 1
 
 
+def test_stream_layout_at_full_width():
+    """Kernel 3 at the FFN's full width (bf16, k 128, row tile 128): three
+    stages of a 32 KB x block and a 32 KB tile, the 32 KB staged tile and
+    eight mbarriers; at row tile 64 four stages of 16 KB and 32 KB."""
+    lay = cuda_bsmm.stream_layout(128, 128, 2)
+    assert lay == cuda_bsmm.StreamLayout(x_bytes=32_768, tile_bytes=32_768, stage_bytes=65_536,
+                                         stages=3, out_bytes=32_768, barrier_bytes=64,
+                                         total=229_440)
+    assert lay.total <= cuda_bsmm.SMEM_BYTES
+    assert cuda_bsmm.stream_layout(64, 128, 2).total == 4 * 49_152 + 16_384 + 80
+
+
+@pytest.mark.parametrize("stages,total", [(1, 98_336), (2, 163_888), (3, 229_440)])
+def test_stream_layout_at_a_given_depth(stages, total):
+    lay = cuda_bsmm.stream_layout(128, 128, 2, stages=stages)
+    assert (lay.stages, lay.total, lay.barrier_bytes) == (stages, total, 16 * stages + 16)
+
+
+@pytest.mark.parametrize("br,k,dtype_bytes,stages", [
+    (128, 128, 2, 4),   # 4 x 64 KB
+    (128, 128, 2, 0),
+    (128, 128, 2, 5),
+    (128, 128, 4, 2),   # float32: 128 KB a stage
+    (16, 16, 2, 8),
+])
+def test_stream_layout_refuses_a_depth_it_cannot_take(br, k, dtype_bytes, stages):
+    with pytest.raises(ValueError, match="stages"):
+        cuda_bsmm.stream_layout(br, k, dtype_bytes, stages=stages)
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", cuda_bsmm.KERNEL_KS)
+@pytest.mark.parametrize("br", [16, 32, 64, 128])
+def test_stream_layout_fits_every_row_tile(dtype_bytes, k, br):
+    """Kernel 3's ring and staged tile fit a block's shared memory at every
+    k, dtype and row tile: the deepest ring of STREAM_STAGES that fits, at
+    least 2 deep for bf16, and every box starts on the swizzle's 8-row
+    pattern."""
+    lay = cuda_bsmm.stream_layout(br, k, dtype_bytes)
+    span = cuda_bsmm.swizzle_span(k, dtype_bytes)
+    assert lay.total <= cuda_bsmm.SMEM_BYTES
+    assert lay.stages >= (2 if dtype_bytes == 2 else 1)
+    assert (lay.x_bytes, lay.tile_bytes) == (br * k * dtype_bytes, k * k * dtype_bytes)
+    assert lay.out_bytes == lay.x_bytes
+    assert lay.total == lay.stages * lay.stage_bytes + lay.out_bytes + lay.barrier_bytes
+    assert lay.x_bytes % (8 * span) == 0 and lay.stage_bytes % (8 * span) == 0
+    if lay.stages < max(cuda_bsmm.STREAM_STAGES):  # the deepest ring that fits
+        assert lay.total + lay.stage_bytes + 16 > cuda_bsmm.SMEM_BYTES
+    for stages in cuda_bsmm.STREAM_STAGES:
+        if stages <= lay.stages:
+            assert cuda_bsmm.stream_layout(br, k, dtype_bytes, stages=stages).stages == stages
+
+
+@pytest.mark.parametrize("br,k,dtype_bytes,given,want", [
+    (128, 128, 2, None, 64),   # the FFN's full width: wgmma's warpgroups
+    (128, 64, 2, None, 32),    # wgmma only at k 128
+    (64, 128, 2, None, 32),    # and row tile 128
+    (32, 128, 2, None, 32),
+    (16, 128, 2, None, 16),    # a 16-row block holds no 32-row warp
+    (128, 128, 4, None, 16),   # float32 runs 16-row warps on FMA
+    (128, 128, 2, 16, 16),
+    (128, 128, 2, 32, 32),
+    (32, 16, 2, 32, 32),
+])
+def test_warp_rows(br, k, dtype_bytes, given, want):
+    assert cuda_bsmm.warp_rows(br, k, dtype_bytes, given) == want
+    assert want in cuda_bsmm.warp_row_options(br, k, dtype_bytes)
+    assert set(cuda_bsmm.warp_row_options(br, k, dtype_bytes)) <= set(cuda_bsmm.WARP_ROWS)
+
+
+@pytest.mark.parametrize("br,k,dtype_bytes,given", [(16, 128, 2, 32), (128, 128, 4, 32),
+                                                    (128, 64, 2, 64), (64, 128, 2, 64),
+                                                    (128, 128, 4, 64), (64, 128, 2, 8)])
+def test_warp_rows_refuses_what_the_launch_cannot_take(br, k, dtype_bytes, given):
+    with pytest.raises(ValueError, match="rows"):
+        cuda_bsmm.warp_rows(br, k, dtype_bytes, given)
+
+
+@pytest.mark.parametrize("k,br,rows,want", [
+    (128, 128, 64, 16),   # wgmma: each warp of a warpgroup 16 rows x 128
+    (128, 128, 16, 16),   # 16 x 128 warp tiles
+    (128, 128, 32, 8),    # 32 x 64
+    (128, 64, 32, 4),
+    (128, 32, 32, 2),
+    (128, 16, 16, 2),     # kernel 4 at block_m 16
+    (16, 16, 16, 1),      # 2 n-tiles over 8 warps across: 2 warps own one
+    (16, 128, 32, 1),
+    (64, 64, 16, 4),
+])
+def test_warp_ntiles(k, br, rows, want):
+    """Each consumer warp owns this many n-tiles or none, and the warps that
+    own them cover the k / 8 n-tiles of the column exactly (on wgmma every
+    warp owns 16 rows of all of them)."""
+    nt = cuda_bsmm.warp_ntiles(k, br, rows)
+    assert nt == want
+    across = 1 if rows == 64 else 8 * rows // br
+    assert min(across, k // 8 // nt) * nt == k // 8
+
+
+@pytest.mark.parametrize("items,sms,per_sm,persistent,want", [
+    (8192, 132, 1, True, 132),    # matmul 1 at full width
+    (2048, 132, 1, True, 132),    # matmul 2
+    (8192, 132, 1, False, 8192),  # one block an item
+    (100, 132, 2, True, 100),     # fewer items than the card holds
+    (1000, 132, 3, True, 396),
+])
+def test_stream_grid(items, sms, per_sm, persistent, want):
+    assert cuda_bsmm.stream_grid(items, sms, per_sm, persistent) == want
+
+
+@pytest.mark.parametrize("M", [16, 32, 64, 128, 208, 256, 1024, 8192])
+@pytest.mark.parametrize("nbc", [1, 5, 32, 128])
+@pytest.mark.parametrize("per_sm,persistent", [(1, True), (2, True), (1, False)],
+                         ids=["persistent", "persistent2", "per_item"])
+def test_stream_walk_covers_every_item(M, nbc, per_sm, persistent):
+    """Kernel 3's blocks, on launch_geometry's row tile and stream_grid's
+    grid, walk every (row panel, column) exactly once; each block's walk is
+    column fastest, its items ascending in steps of the grid, so the blocks
+    in flight at once hold neighbouring items."""
+    g = cuda_bsmm.launch_geometry(M, nbc, 16, False, sms=132)
+    items = g.panels * nbc
+    grid = cuda_bsmm.stream_grid(items, 132, per_sm, persistent)
+    assert 1 <= grid <= items
+    seen = []
+    for block in range(grid):
+        walk = cuda_bsmm.stream_walk(block, grid, g.panels, nbc)
+        flat = [p * nbc + c for p, c in walk]
+        assert flat == list(range(block, items, grid))
+        assert all(0 <= c < nbc and 0 <= p < g.panels for p, c in walk)
+        seen += walk
+    assert sorted(seen) == [(p, c) for p in range(g.panels) for c in range(nbc)]
+    # the first wave: blocks 0..grid-1 take items 0..grid-1, column fastest
+    assert [cuda_bsmm.stream_walk(b, grid, g.panels, nbc)[0] for b in range(min(grid, 3))] == \
+        [divmod(i, nbc) for i in range(min(grid, 3))]
+
+
 def test_resident_layout_at_full_width():
     """Kernel 4 on W1 at full width (d_in 4096, bf16, k 128, block_m 16): the
     panel, the ring at the next 1024 bytes, three 32 KB stages and six
@@ -304,18 +440,25 @@ def test_cluster_size_divides_the_panels(M):
 
 
 def test_kernel_4_options_on_the_cpu():
-    """On CPU tensors the kernel-4 options change nothing (bsmm_ref runs);
-    kernel 3 refuses them and kernel 4 refuses a row tile."""
+    """On CPU tensors the kernels' options change nothing (bsmm_ref runs):
+    kernel 4's cluster and ring, kernel 3's ring, row tile, warp tile, grid
+    and stream_only; kernel 3 refuses a cluster and kernel 4 refuses a row
+    tile, a warp tile and kernel 3's grid."""
     x, rows, tiles = map(torch.from_numpy, _bsmm_case(11, 32, nb_in=4, nbc=3, rpc=2, k=8))
     want = cuda_bsmm.bsmm_ref(x, rows, tiles)
     got = cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, cluster=2, stages=2)
     assert torch.equal(got, want)
+    got = cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, stages=3, br=32,
+                            warp_m=32, persistent=False, stream_only=True)
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="kernel 4"):
         cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, cluster=2)
-    with pytest.raises(ValueError, match="kernel 4"):
-        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=False, stages=3)
     with pytest.raises(ValueError, match="row tile"):
         cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, br=32)
+    with pytest.raises(ValueError, match="kernel 3"):
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, warp_m=16)
+    with pytest.raises(ValueError, match="kernel 3"):
+        cuda_bsmm._launch(x, rows, tiles, 16, False, resident=True, persistent=False)
 
 
 def test_full_width_config_matches_jax():
