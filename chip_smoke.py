@@ -1010,15 +1010,18 @@ def _ptxas_report() -> dict:
             # warps, the forward's instance and the gelu_grad one (the dgrad)
             ("bsmm", rf"bsmm_kernelI13__nv_bfloat16Li128ELi{k3_mt}ELi{k3_nt}ELb([01])ELb{k3_wg}E",
              lambda m: "bsmm" + ("_gelu_grad" if m.group(1) == "1" else "")),
-            # kernel 5 on the FFN training step's path: bf16, k 128
-            ("bsmm_grad", r"bsmm_wgrad_kernelI13__nv_bfloat16Li128E", lambda m: "bsmm_wgrad")):
+            # kernel 5 on the FFN training step's path: the wgmma body (bf16, k 128),
+            # and its mma.sync body's instance there (a variant)
+            ("bsmm_grad", r"bsmm_wgrad_wg_kernel", lambda m: "bsmm_wgrad"),
+            ("bsmm_grad", r"bsmm_wgrad_kernelI13__nv_bfloat16Li128E",
+             lambda m: "bsmm_wgrad_mma_sync")):
         log = _build.build(lib).with_suffix(".log").read_text()
         for entry, stats in obs_profile.parse_ptxas(log).items():
             m = re.search(pattern, entry)
             if m:
                 out[name(m)] = {k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
     want = {"mod", "no_mod", "mxu 8x8", "mxu 3x3", "dense", "bsmm", "bsmm_gelu_grad",
-            "bsmm_resident", "bsmm_resident_gelu_grad", "bsmm_wgrad"}
+            "bsmm_resident", "bsmm_resident_gelu_grad", "bsmm_wgrad", "bsmm_wgrad_mma_sync"}
     if not want <= set(out):
         raise RuntimeError(f"no ptxas report for {sorted(want - set(out))}: {out}")
     return {name: out[name] for name in sorted(want)}
@@ -2440,6 +2443,57 @@ def _strips(t: torch.Tensor, idx: torch.Tensor, k: int, transpose: bool) -> torc
     return (g.permute(1, 2, 0) if transpose else g.permute(1, 0, 2)).contiguous()
 
 
+def _k5_plan(a: torch.Tensor, ia: torch.Tensor, k: int, runs: dict) -> dict:
+    """Kernel 5's launch on one full-width gradient with its run options:
+    body, form, run length, rows a stage, ring depth, shared memory, grid
+    (cuda_bsmm_grad.launch_plan with the card's occupancy), and the strip
+    bytes it streams into shared memory against one tile a block's."""
+    dev = torch.cuda.current_device()
+    M, P = a.shape[0], ia.shape[0]
+    shared_b = int(runs["shared"] == "b")
+    plan = cuda_bsmm_grad.launch_plan(M, P, k, a.dtype, runs["run"], resident=lambda f, bm, s, g: (
+        cuda_bsmm_grad.wgrad_resident(f, bm, s, g, shared_b, dev)))
+    es = a.element_size()
+    return {**plan, "strip_bytes": cuda_bsmm_grad.strip_bytes(
+                M, P, k, plan.get("form", "tile"), plan.get("group", 1), es),
+            "strip_bytes_one_tile": cuda_bsmm_grad.strip_bytes(M, P, k, "tile", 1, es)}
+
+
+def _k5_variants(run: int) -> dict:
+    """name -> cuda_bsmm_grad._launch keywords of kernel 5's variants on one
+    gradient with runs of `run`: the mma.sync body (the first body), the
+    wgmma body one tile a block (also at bm 64 and a block a tile) and over
+    half a run (also at 3 stages), and the strip stream alone (stream_only)
+    of each form and of the mma.sync body."""
+    out = {"mma_sync": {"body": "mma_sync"}, "tile": {"form": "tile"},
+           "tile_bm64": {"form": "tile", "bm": 64}, "tile_per_tile": {"form": "tile",
+                                                                    "persistent": False}}
+    forms = ["tile"]
+    if run in cuda_bsmm_grad.WGRAD_GROUPS:
+        forms.append("half")
+        out["half"] = {"form": "half"}
+        out["half_s3"] = {"form": "half", "stages": 3}
+    for form in forms:
+        out[f"stream_{form}"] = {"form": form, "stream_only": True}
+    out["stream_mma_sync"] = {"body": "mma_sync", "stream_only": True}
+    return out
+
+
+def _k5_variant_times(what: str, args: tuple, k: int, runs: dict, want: torch.Tensor,
+                      flush: torch.Tensor) -> dict:
+    """Each of _k5_variants' launches of kernel 5 on args (a, b, ia, ib) with
+    its run options timed (median ms, _median_ms), each but the streams
+    bit-equal to want, the default launch's output."""
+    out = {}
+    for name, kw in _k5_variants(runs["run"]).items():
+        ms, _, got = _median_ms(lambda kw=kw: cuda_bsmm_grad._launch(*args, k, **runs, **kw),
+                                flush)
+        if not kw.get("stream_only") and not torch.equal(got, want):
+            raise RuntimeError(f"{what}: kernel 5 {kw} gives other bits than its default launch")
+        out[name] = ms
+    return out
+
+
 def phase_ffn_train() -> list[dict]:
     t0 = time.perf_counter()
     cfg = FFN_CFG
@@ -2530,10 +2584,12 @@ def phase_ffn_train() -> list[dict]:
            f"{vs_f32}; the step's forward equals ffn_forward_kernels' bits at block_m 128 "
            f"and 16")
 
-    # the backward's kernels alone, on the step's own operands
+    # the backward's kernels alone, on the step's own operands; zeroing 8 x L2
+    # before each launch outlasts the launch's host work, so no idle gap
+    # before the kernel falls inside the timed window
     t0 = time.perf_counter()
     k, M = cfg.k, xf.shape[0]
-    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    flush = torch.empty(8 * L2_BYTES // 4, dtype=torch.float32, device=DEVICE)
     pre = cuda_bsmm.bsmm(xf, index.rows1, w1t)
     h = cuda_bsmm.gelu(pre)
     y_pred = cuda_bsmm.bsmm(h, index.rows2, cuda_bsmm.gather_column_major(w2t_rm,
@@ -2560,8 +2616,20 @@ def phase_ffn_train() -> list[dict]:
     err_dgrad = _check_scaled("ffn-train dgrad (kernel 3, gelu_grad)", dpre, t["dgrad_plain"][2])
     dw1 = (xf, dpre, index.ia1, index.ib1)
     dw2 = (h, dy, index.ia2, index.ib2)
-    t["dw1"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad(*dw1, k=k), flush)
-    t["dw2"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad(*dw2, k=k), flush)
+    # the step's own calls: with the run options StepIndex gives
+    runs = {"dw1": {"run": index.run1, "shared": index.shared1},
+            "dw2": {"run": index.run2, "shared": index.shared2}}
+    t["dw1"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad(*dw1, k=k, **runs["dw1"]), flush)
+    t["dw2"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad(*dw2, k=k, **runs["dw2"]), flush)
+    k5_plan = {name: _k5_plan(args[0], args[2], k, runs[name])
+               for name, args in (("dw1", dw1), ("dw2", dw2))}
+    k5_variants = {name: _k5_variant_times(f"ffn-train {name}", args, k, runs[name],
+                                           t[name][2], flush)
+                   for name, args in (("dw1", dw1), ("dw2", dw2))}
+    k5_ptxas = {body: _ptxas_report()[name] for body, name in (
+        ("wgmma", "bsmm_wgrad"), ("mma_sync", "bsmm_wgrad_mma_sync"))}
+    print(f"[ffn-train] kernel 5: plans {k5_plan}; ptxas {k5_ptxas}; variants (ms, each but "
+          f"the streams bit-equal to its default) {k5_variants}", flush=True)
     t["dw1_plain"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad_ref(*dw1, k=k), flush)
     t["dw2_plain"] = _median_ms(lambda: cuda_bsmm_grad.bsmm_wgrad_ref(*dw2, k=k), flush)
     err_wgrad = max(_check_scaled("ffn-train dW1 (kernel 5)", t["dw1"][2], t["dw1_plain"][2]),
@@ -2638,11 +2706,16 @@ def phase_ffn_train() -> list[dict]:
         "library_ms": ms["dw1_lib"] + ms["dw2_lib"],
         "library_call": "torch.bmm in bf16 of the pre-gathered strips (the product alone)",
         "timed_on": f"both weight gradients of one full-width step: dW1 (x against dpre) and "
-                    f"dW2 (h against dy), {index.ia1.numel()} tiles each, M {M}",
+                    f"dW2 (h against dy), {index.ia1.numel()} tiles each, M {M}, with the "
+                    f"step's run options (runs of {index.run1} sharing dpre's strip, of "
+                    f"{index.run2} sharing h's)",
         "ms_by_call": {"dw1": ms["dw1"], "dw2": ms["dw2"]},
         "bound_by_call": {"dw1": b_dw1, "dw2": b_dw2},
         "library_ms_by_call": {"dw1": ms["dw1_lib"], "dw2": ms["dw2_lib"]},
-        "ptxas": _ptxas_report()["bsmm_wgrad"], "train": train}
+        "plan": k5_plan, "variants_ms": k5_variants,
+        "stream_ms": {name: v[f"stream_{k5_plan[name].get('form', 'tile')}"]
+                      for name, v in k5_variants.items()},
+        "ptxas": k5_ptxas["wgmma"], "ptxas_mma_sync": k5_ptxas["mma_sync"], "train": train}
     dgrad_row = {
         "name": "bsmm_dgrad", "route": "cuda", "source": "spgemm_tpu_torch/csrc/bsmm.cu",
         "replaces": "spgemm_tpu/models/ffn.py:204",

@@ -124,9 +124,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -138,10 +138,6 @@ constexpr long long kIntMax = 0x7fffffffLL;
 
 template <typename T>
 __host__ __device__ constexpr int pad_elems() { return kPadBytes / (int)sizeof(T); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
@@ -180,167 +176,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// mbarriers, TMA and clusters, in the forms CUTLASS's sm90 pipelines use.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_mbarrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// This thread's arrival, announcing `bytes` more to come from TMA.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Arrive on the barrier at bar's offset in the shared memory of cluster block cta.
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(cta)
-      : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// The box at (c0 columns, c1 rows) of the map's view, into dst; its bytes
-// count on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// The same box into dst and bar's offsets in every cluster block of mask.
-__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, int c0,
-                                                   int c1, uint64_t* bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar)), "h"(mask)
-      : "memory");
-}
-
-// The box of the map's view at (c0 columns, c1 rows) from src in shared
-// memory, as one bulk group of this thread; then commit it.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
-                                          int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_addr(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// This thread's writes to shared memory, seen by the TMA unit (the async proxy).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma (kernel 3's bf16 warpgroups at k 128, row tile 128): a shared-memory
-// matrix descriptor of the 128-byte swizzle (start, leading and stride byte
-// offsets in 16-byte units), and one m64n128k16 step, d += A (64 x 16, K-major,
-// from desc a) * B (16 x 128, N-major: transposed, from desc b), accumulating
-// (scale-d 1) into d, whose [i][0..3] are n-tile i's C fragment as mma's.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
-                   "memory");
-}
-
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[16][4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(a), "l"(b), "r"(1)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-  return rank;
-}
-
-// Every thread of every block of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // The 8 consumer warps (named barrier 1; the producer is not in it).
@@ -392,28 +227,6 @@ struct PaddedRows {
   const T* base;
   int ld;
   __device__ __forceinline__ const T* at(int i, int j) const { return base + i * ld + j; }
-};
-
-// Rows of K elements as a tensor map writes them, swizzled by kSpan = min(128,
-// K * element bytes): kBoxes column boxes of kSpan bytes a row, each
-// box_bytes / kSpan rows deep and stored whole one after the other; inside a
-// box, row i's 16-byte chunk q lies at chunk q ^ ((i * kSpan / 128) % (kSpan
-// / 16)) (CU_TENSOR_MAP_SWIZZLE_32B/64B/128B; the pattern repeats every 8
-// rows, so a box starts on a multiple of 8 * kSpan bytes).  Kernel 3's x
-// blocks (br rows) and both kernels' tiles (K rows).
-template <typename T, int K>
-struct Swizzled {
-  static constexpr int kRowBytes = K * (int)sizeof(T);
-  static constexpr int kSpan = kRowBytes < 128 ? kRowBytes : 128;
-  static constexpr int kBoxes = kRowBytes / kSpan;
-  const unsigned char* base;
-  int box_bytes;
-  __device__ __forceinline__ const T* at(int i, int j) const {
-    const int cb = j * (int)sizeof(T);
-    int off = i * kSpan + cb % kSpan;
-    off ^= ((off >> 7) & (kSpan / 16 - 1)) << 4;
-    return reinterpret_cast<const T*>(base + (cb / kSpan) * box_bytes + off);
-  }
 };
 
 // acc[m][t] += x slice (the warp's MT x 16 rows, K columns) times the tile's
@@ -883,57 +696,6 @@ struct Args {
   int warp_m, grid;        // kernel 3's
   cudaStream_t stream;
 };
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// does not link libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p
-                                                                      : (EncodeTiled) nullptr;
-  }();
-  return fn;
-}
-
-// Returned as kErrEncode + cuTensorMapEncodeTiled's CUresult when a map cannot
-// be encoded (the wrapper names it).
-constexpr int kErrEncode = 100000;
-
-// The map of a row-major (n_rows, n_cols) array of T at base: boxes of kSpan
-// bytes by box_rows rows, swizzled by kSpan (Swizzled<T, K>'s layout).
-template <typename T, int K>
-int encode_rows(CUtensorMap* map, const void* base, long long n_cols, long long n_rows,
-                int box_rows) {
-  using Sw = Swizzled<T, K>;
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return kErrEncode + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)n_cols, (cuuint64_t)n_rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)n_cols * sizeof(T)};
-  const cuuint32_t box[2] = {(cuuint32_t)(Sw::kSpan / sizeof(T)), (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUtensorMapSwizzle swizzle = Sw::kSpan == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : Sw::kSpan == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r =
-      fn(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-         2, const_cast<void*>(base), dims, strides, box, elem_strides,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
-}
 
 // The tiles as a 2-D view of nbc * rpc * K rows by K columns, boxes K /
 // cluster rows deep (both kernels).

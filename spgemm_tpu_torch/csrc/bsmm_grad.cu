@@ -15,37 +15,72 @@
 //
 // What bounds it: at the FFN's full width (BlockSparseFFNConfig(), M = 8192,
 // bf16, k = 128, P = 384 tiles) each call does 2 M P k^2 = 103.1 GFLOP, 0.104
-// ms against 989 TFLOP/s bf16, and must move about 333 MB (one operand's
-// referenced strips, the other's whole width, the tiles once), 0.100 ms
+// ms against 989 TFLOP/s bf16, and must move about 348 MB (the strips its
+// pairs name, each read once, and the tiles written once), 0.104 ms
 // against 3.35 TB/s: operations and bytes about equally, as for kernels 3
 // and 4 (csrc/bsmm.cu).
 //
-// Design (simple first; wgmma, TMA and splitting M across blocks are later
-// work):
-//   * one block per output tile p, 8 warps; the k x k output is cut into a
-//     grid of warps, kWarpsI down (i) by kWarpsJ across (j), each warp owning
-//     kMI 16-row i-tiles by kNJ 8-wide j-tiles whose sums stay in registers
-//     for the whole of M;
-//   * M streams through shared memory in chunks of kBM rows of both strips,
-//     double-buffered with cp.async (16 bytes a thread); the rows past M of
-//     a ragged last chunk are zero-filled by the copy, so they add nothing;
-//   * bf16 on the tensor cores with mma.sync m16n8k16 into f32: the A^T
-//     fragment comes from the m-major strip through ldmatrix.trans, the B
-//     fragment through ldmatrix.trans as in kernels 3 and 4; float32 on plain
-//     FMA (not TF32), m ascending, with the same element ownership.  Each
-//     element is owned by one thread, which adds the 16-deep steps (or, in
-//     float32, the rows) in ascending m, so its bits depend on neither the
-//     chunk nor the grid;
-//   * shared rows are padded by 16 bytes, so ldmatrix's 8 row addresses hit
-//     distinct banks.
+// What holds it back in practice is the stream of strips from L2 into
+// shared memory: each tile reads both of its strips over all M rows, 1.61 GB
+// a call at full width, although dW1's pairs come in runs of rpc = 3 that
+// share one dpre strip and dW2's in runs of cpc = 3 that share one h strip.
+//
+// Two bodies, one element ownership: each output element is owned by one
+// thread, which adds the 16-deep steps (float32: the rows) of M in
+// ascending order, so the bits depend on neither the body, the chunk, the
+// ring, the form nor the grid.  Rows past M of a ragged last chunk are
+// zero-filled by the copy, so they add nothing.
+//
+//   * The wgmma body (redesigned for Hopper; bf16 at k 128): a persistent
+//     grid of min(units, blocks the card holds) walks the units; a producer
+//     warp's one lane keeps a ring of `stages` stages full by TMA (a full
+//     and an empty mbarrier a stage, no __syncthreads in the M loop), each
+//     stage bm rows of the strips gathered by 2-D tensor maps of a and b at
+//     the pair's columns, as 64-column boxes in the 128-byte swizzle.
+//     Consumer warpgroups run wgmma with A the a-strip chunk, stored m by i
+//     (M-major: the transposed A operand) and B the b-strip chunk (N-major),
+//     both by descriptor; a chunk's group stays in flight while the next
+//     chunk's is issued, and its stage is released once it completes.  The
+//     epilogue casts into a staged tile in shared memory, which one thread
+//     stores by TMA while the producer already streams the next unit.
+//     Two forms:
+//       - tile: one tile a block, two warpgroups of 64 rows i x 128 j
+//         (m64n128k16); 2 strips a tile;
+//       - half, for runs of G pairs that share a strip (bsmm_wgrad's run
+//         options): one block of G warpgroups over the 64-wide half h of
+//         the non-shared dimension of a run's G tiles: rows i in 64h..
+//         where b is shared (m64n128k16), columns j in 64h.. where a is
+//         (2 x m64n64k16); (G + 2) / G strips a tile.
+//     Measured on an NVIDIA H100 80GB HBM3, 700.00 W at full width, in
+//     rounds (tools/wgrad_bits_ab.py, PERF.md), dW1 / dW2: half 0.209 /
+//     0.223 ms (its strip stream alone 0.218 / 0.213), tile 0.233 / 0.230
+//     (0.267 / 0.265), the mma.sync body 0.386 / 0.386 (0.345 / 0.351); so
+//     runs take the half form, at bm 64 and 4 stages (bm 48 at 4: 0.240 /
+//     0.260; 3 stages 0.240 / 0.248), and the tile form bm 128 at 3 stages
+//     (bm 64 at 5: 0.253 / 0.252).  Not kept: a cluster of G blocks over a
+//     run, each loading 1/G of the shared strip's chunks and multicasting
+//     them (kernel 4's tma_load_multicast): 0.304 / 0.304, its stream alone
+//     0.238 / 0.232, since each stage waits for the cluster's slowest
+//     block.  96 registers, no spills;
+//   * The mma.sync body (the first; float32, k 16 to 64, and a variant): one
+//     block per output tile, 8 warps, each owning kMI 16-row i-tiles by kNJ
+//     8-wide j-tiles whose sums stay in registers for the whole of M; M
+//     streams through shared memory in double-buffered cp.async chunks of
+//     kBM rows (16 bytes a thread, rows padded by 16 bytes so ldmatrix's 8
+//     row addresses hit distinct banks); mma.sync m16n8k16 into f32 with
+//     the A^T fragment through ldmatrix.trans; float32 on plain FMA (not
+//     TF32).
+//
+// Not done: splitting M across blocks (no SM idles at full width, and a
+// split would change the bits).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -57,10 +92,6 @@ __host__ __device__ constexpr int pad_elems() { return kPadBytes / (int)sizeof(T
 // Rows of M one chunk stages: 4 KB-ish of each strip row-block either way.
 template <typename T>
 __host__ __device__ constexpr int chunk_rows() { return sizeof(T) == 2 ? 64 : 32; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // 16 bytes from src to dst; src_bytes 0 writes 16 zero bytes and reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -203,12 +234,15 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Kernel 5: block p -> out[p] = A[:, ia[p]*K ..]^T . B[:, ib[p]*K ..].
+// Kernel 5's mma.sync body: block p -> out[p] = A[:, ia[p]*K ..]^T .
+// B[:, ib[p]*K ..].  stream_only skips the products (a diagnostic of the
+// strip stream alone; the output is then zero).
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 bsmm_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b,
                   const int32_t* __restrict__ ia, const int32_t* __restrict__ ib,
-                  T* __restrict__ out, long long M, long long lda, long long ldb) {
+                  T* __restrict__ out, long long M, long long lda, long long ldb,
+                  int stream_only) {
   using G = WarpGrid<K>;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kLd = K + pad_elems<T>();
@@ -246,7 +280,7 @@ bsmm_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b,
       cp_async_wait<0>();
     }
     __syncthreads();  // chunk ch has landed for every thread
-    if (owns) accumulate<K>(acc, cur, cur + kStrip, i0, j0);
+    if (owns && !stream_only) accumulate<K>(acc, cur, cur + kStrip, i0, j0);
     __syncthreads();  // chunk ch's stage is no longer read
   }
 
@@ -264,6 +298,309 @@ bsmm_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+// The wgmma body (bf16, k 128).
+constexpr int kWgK = 128;                       // its tile edge
+constexpr int kBoxCols = 64;                    // bf16 columns of a 128-byte swizzled box row
+constexpr int kWgThreads = 2 * 128 + 32;        // two consumer warpgroups and a producer warp
+constexpr int kOutBytes = kWgK * kWgK * 2;      // the staged output tile
+constexpr int kMaxWgStages = 8;
+constexpr int kSmemBytes = 232448;              // shared memory a Hopper block can use
+
+// The wgmma body's shared memory, mirrored by cuda_bsmm_grad.wgrad_layout:
+// `stages` stages of 4 boxes of bm rows x 128 bytes (a's two column boxes,
+// then b's), the 128 x 128 staged output tile (two boxes of 128 rows), then
+// a full and an empty mbarrier a stage.
+__host__ __device__ constexpr size_t wg_stage_bytes(int bm) { return (size_t)4 * bm * 128; }
+
+size_t wg_smem_bytes(int bm, int stages) {
+  return (size_t)stages * (wg_stage_bytes(bm) + 2 * sizeof(uint64_t)) + kOutBytes;
+}
+
+// The 8 consumer warps (named barrier 1; the producer is not in it).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// Kernel 5's wgmma body, one tile a block (the "tile" form): a persistent
+// grid walks the tiles p = blockIdx.x, + gridDim.x, ...  Each output tile is
+// 2 warpgroups x 64 rows i of all 128 columns j; every 16 rows of M are one
+// wgmma.m64n128k16 with A the a-strip chunk (m by i: M-major, transposed)
+// and B the b-strip chunk (m by j: N-major), both read by descriptor from the
+// 128-byte-swizzled stage.  The chunk's wgmma group stays in flight while
+// the next chunk's is issued; a stage is released once its group has
+// completed.  stream_only skips the products (the output is then zero).
+__global__ void __launch_bounds__(kWgThreads, 1)
+bsmm_wgrad_wg_kernel(const __grid_constant__ CUtensorMap amap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     const __grid_constant__ CUtensorMap omap, const int32_t* __restrict__ ia,
+                     const int32_t* __restrict__ ib, int M, int P, int bm, int stages,
+                     int stream_only) {
+  extern __shared__ __align__(1024) unsigned char shm[];
+  using Out = Swizzled<bf16, kWgK>;
+  const int box = bm * 128;                     // bytes of one 64-column box of bm rows
+  const int stage_bytes = 4 * box;
+  unsigned char* staged = shm + stages * stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + kOutBytes);
+  uint64_t* empty = full + stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_chunks = (M + bm - 1) / bm;
+
+  if (threadIdx.x == 0) {
+    if (smem_addr(shm) & 1023) __trap();  // the swizzle needs the stages where the host put them
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {  // the producer: one lane issues every load
+    if (lane == 0) {
+      prefetch_tmap(&amap);
+      prefetch_tmap(&bmap);
+      prefetch_tmap(&omap);
+      int n = 0;  // the block's chunk stream
+      for (int p = blockIdx.x; p < P; p += gridDim.x) {
+        const int col_a = ia[p] * kWgK, col_b = ib[p] * kWgK;
+        for (int ch = 0; ch < n_chunks; ++ch, ++n) {
+          const int s = n % stages;
+          if (n >= stages) mbar_wait(&empty[s], ((n / stages) - 1) & 1);
+          mbar_expect_tx(&full[s], (uint32_t)stage_bytes);
+          unsigned char* st = shm + s * stage_bytes;
+#pragma unroll
+          for (int bx = 0; bx < 2; ++bx) {  // a's two column boxes, then b's
+            tma_load(st + bx * box, &amap, col_a + bx * kBoxCols, ch * bm, &full[s]);
+            tma_load(st + (2 + bx) * box, &bmap, col_b + bx * kBoxCols, ch * bm, &full[s]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {  // the two consumer warpgroups
+    const int wg = warp >> 2;
+    // warp w owns rows i = 64 (w / 4) + 16 (w % 4) + g (+ 8) of all 128
+    // columns, as the m64 step lays out its accumulators
+    const int row0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    const Out tile_out{staged, kWgK * Out::kSpan};
+    float acc[16][4];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+    int n = 0;
+    for (int p = blockIdx.x; p < P; p += gridDim.x) {
+      for (int ch = 0; ch < n_chunks; ++ch, ++n) {
+        const int s = n % stages;
+        mbar_wait(&full[s], (n / stages) & 1);
+        if (!stream_only) {
+          // A: this warpgroup's 64-column box of the a chunk, rows m; B: the
+          // b chunk's two boxes, `box` bytes apart along j; each 16 rows of
+          // m lie 16 * 128 bytes on, each 8-row group 1024 bytes on
+          const unsigned char* a = shm + s * stage_bytes + wg * box;
+          const unsigned char* b = shm + s * stage_bytes + 2 * box;
+          wgmma_fence();
+          for (int ks = 0; ks < bm / 16; ++ks) {
+            const uint64_t da = gmma_desc(a + ks * 16 * 128, box, 1024);
+            const uint64_t db = gmma_desc(b + ks * 16 * 128, box, 1024);
+            wgmma_m64n128<1>(acc, da, db);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous chunk's group has completed
+        }
+        // release the stage whose products have completed: the previous
+        // chunk's (this one's with stream_only)
+        const int done = stream_only ? n : n - 1;
+        if (done >= 0 && (stream_only || ch > 0)) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[done % stages]);
+        }
+      }
+      wgmma_wait<0>();
+      if (!stream_only && n_chunks > 0) {  // the tile's last stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(n - 1) % stages]);
+      }
+      // the epilogue: the staged tile is free once the previous tile's store
+      // has read it; cast into it, then one thread stores it by TMA and no
+      // consumer waits for the store
+      if (threadIdx.x == 0) bulk_wait_read();
+      consumer_sync();
+      const int c0 = 2 * (lane & 3);
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        store2(const_cast<bf16*>(tile_out.at(row0, 8 * t + c0)), acc[t][0], acc[t][1]);
+        store2(const_cast<bf16*>(tile_out.at(row0 + 8, 8 * t + c0)), acc[t][2], acc[t][3]);
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+      }
+      fence_async_shared();
+      consumer_sync();
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int bx = 0; bx < 2; ++bx)
+          tma_store(&omap, staged + bx * kWgK * Out::kSpan, bx * kBoxCols, p * kWgK);
+        bulk_commit();
+      }
+    }
+    if (threadIdx.x == 0) bulk_wait_read();  // the last store has read the staged tile
+  }
+}
+
+// Kernel 5's run form "half": unit u = 2 r + h owns the 64-wide half h of
+// the non-shared dimension of run r's `G` tiles p = r G + g, one warpgroup a
+// tile.  Where b is shared (dW1) warpgroup g computes tile p's rows i in
+// 64h.. of all 128 columns, one m64n128k16 a 16-row step (A its own
+// a-strip's half, B the shared b chunk); where a is shared (dW2) its
+// columns j in 64h.. of all 128 rows, two m64n64k16 a step (A the shared a
+// chunk's two i-halves, B its own b-strip's half).  A stage holds the G own
+// half-strip boxes, then the shared strip's two, bm rows each, so a run's
+// shared strip is read twice (once a half) and each own strip once: G + 2
+// strips a run where one tile a block reads 2 G.  A persistent grid walks
+// the units; each warpgroup stages its 64 x 128 share of the tile and one
+// of its threads stores it by TMA.  stream_only skips the products.
+template <int G, bool kSharedB>
+__global__ void __launch_bounds__(128 * G + 32, 1)
+bsmm_wgrad_half_kernel(const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ CUtensorMap bmap,
+                       const __grid_constant__ CUtensorMap omap, const int32_t* __restrict__ ia,
+                       const int32_t* __restrict__ ib, int M, int P, int bm, int stages,
+                       int stream_only) {
+  extern __shared__ __align__(1024) unsigned char shm[];
+  constexpr int kPiece = 64 * kWgK * 2;  // a warpgroup's staged 64 x 128 share of its tile
+  const int box = bm * 128;
+  const int stage_bytes = (G + 2) * box;
+  unsigned char* staged = shm + stages * stage_bytes;  // G pieces
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + G * kPiece);
+  uint64_t* empty = full + stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = 2 * (P / G);
+  const int n_chunks = (M + bm - 1) / bm;
+
+  if (threadIdx.x == 0) {
+    if (smem_addr(shm) & 1023) __trap();  // the swizzle needs the stages where the host put them
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * G);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * G) {  // the producer: one lane issues every load
+    if (lane == 0) {
+      prefetch_tmap(&amap);
+      prefetch_tmap(&bmap);
+      prefetch_tmap(&omap);
+      const CUtensorMap* own_map = kSharedB ? &amap : &bmap;
+      const CUtensorMap* shared_map = kSharedB ? &bmap : &amap;
+      const int32_t* own_idx = kSharedB ? ia : ib;
+      const int32_t* shared_idx = kSharedB ? ib : ia;
+      int n = 0;  // the block's chunk stream
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int r = u >> 1, h = u & 1;
+        int own_col[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) own_col[g] = own_idx[r * G + g] * kWgK + h * kBoxCols;
+        const int shared_col = shared_idx[r * G] * kWgK;
+        for (int ch = 0; ch < n_chunks; ++ch, ++n) {
+          const int s = n % stages;
+          if (n >= stages) mbar_wait(&empty[s], ((n / stages) - 1) & 1);
+          mbar_expect_tx(&full[s], (uint32_t)stage_bytes);
+          unsigned char* st = shm + s * stage_bytes;
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            tma_load(st + g * box, own_map, own_col[g], ch * bm, &full[s]);
+#pragma unroll
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load(st + (G + bx) * box, shared_map, shared_col + bx * kBoxCols, ch * bm,
+                     &full[s]);
+        }
+      }
+    }
+    __syncwarp();
+  } else {  // G consumer warpgroups, one a tile of the run
+    const int g = warp >> 2, wq = warp & 3;
+    const bool leader = wq == 0 && lane == 0;  // stores the warpgroup's piece
+    const int row0 = 16 * wq + (lane >> 2), c0 = 2 * (lane & 3);
+    unsigned char* piece = staged + g * kPiece;
+    float acc[16][4];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+    int n = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int r = u >> 1, h = u & 1, p = r * G + g;
+      for (int ch = 0; ch < n_chunks; ++ch, ++n) {
+        const int s = n % stages;
+        mbar_wait(&full[s], (n / stages) & 1);
+        if (!stream_only) {
+          const unsigned char* own = shm + s * stage_bytes + g * box;
+          const unsigned char* sh = shm + s * stage_bytes + G * box;
+          wgmma_fence();
+          for (int ks = 0; ks < bm / 16; ++ks) {
+            if constexpr (kSharedB) {
+              wgmma_m64n128<1>(acc, gmma_desc(own + ks * 16 * 128, box, 1024),
+                               gmma_desc(sh + ks * 16 * 128, box, 1024));
+            } else {
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                wgmma_m64n64<1>(*reinterpret_cast<float(*)[8][4]>(&acc[8 * q][0]),
+                                gmma_desc(sh + q * box + ks * 16 * 128, box, 1024),
+                                gmma_desc(own + ks * 16 * 128, box, 1024));
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous chunk's group has completed
+        }
+        const int done = stream_only ? n : n - 1;  // the stage whose products completed
+        if (done >= 0 && (stream_only || ch > 0)) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[done % stages]);
+        }
+      }
+      wgmma_wait<0>();
+      if (!stream_only && n_chunks > 0) {  // the tile's last stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(n - 1) % stages]);
+      }
+      // the epilogue: the piece is free once its previous store has read it
+      if (leader) bulk_wait_read();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
+      if constexpr (kSharedB) {  // rows 64h.. of the tile: two 64 x 64 boxes side by side
+        const Swizzled<bf16, kWgK> out{piece, 64 * 128};
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          store2(const_cast<bf16*>(out.at(row0, 8 * t + c0)), acc[t][0], acc[t][1]);
+          store2(const_cast<bf16*>(out.at(row0 + 8, 8 * t + c0)), acc[t][2], acc[t][3]);
+        }
+      } else {  // columns 64h.. of the tile: 128 rows of one 64-column box
+        const Swizzled<bf16, kBoxCols> out{piece, 0};
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const float* v = acc[8 * q + t];
+            store2(const_cast<bf16*>(out.at(64 * q + row0, 8 * t + c0)), v[0], v[1]);
+            store2(const_cast<bf16*>(out.at(64 * q + row0 + 8, 8 * t + c0)), v[2], v[3]);
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < 16; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+      fence_async_shared();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
+      if (leader) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if constexpr (kSharedB) {
+            tma_store(&omap, piece + q * 8192, q * kBoxCols, p * kWgK + 64 * h);
+          } else {
+            tma_store(&omap, piece + q * 8192, h * kBoxCols, p * kWgK + 64 * q);
+          }
+        }
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait_read();  // the last store has read the piece
+  }
+}
+
 struct Args {
   const void* a;
   const void* b;
@@ -271,8 +608,33 @@ struct Args {
   const void* ib;
   void* out;
   long long M, lda, ldb, P;
+  int form, bm, stages, group, shared_b, grid, stream_only;
   cudaStream_t stream;
 };
+
+// The wgmma body's forms (the C entry's `form`).
+constexpr int kFormTile = 0;  // one tile a block (group 1)
+constexpr int kFormHalf = 1;  // one block over half of each run's `group` tiles
+
+size_t half_smem_bytes(int group, int bm, int stages) {
+  return (size_t)stages * ((size_t)(group + 2) * bm * 128 + 2 * sizeof(uint64_t)) +
+         (size_t)group * 64 * kWgK * 2;
+}
+
+typedef void (*WgKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                           const int32_t*, const int32_t*, int, int, int, int, int);
+
+WgKernel half_kernel(int group, int shared_b) {
+  switch (group * 2 + (shared_b ? 1 : 0)) {
+    case 4: return bsmm_wgrad_half_kernel<2, false>;
+    case 5: return bsmm_wgrad_half_kernel<2, true>;
+    case 6: return bsmm_wgrad_half_kernel<3, false>;
+    case 7: return bsmm_wgrad_half_kernel<3, true>;
+    case 8: return bsmm_wgrad_half_kernel<4, false>;
+    case 9: return bsmm_wgrad_half_kernel<4, true>;
+    default: return nullptr;
+  }
+}
 
 template <typename T, int K>
 int launch(const Args& a) {
@@ -283,7 +645,7 @@ int launch(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   bsmm_wgrad_kernel<T, K><<<(unsigned)a.P, kThreads, smem, a.stream>>>(
       (const T*)a.a, (const T*)a.b, (const int32_t*)a.ia, (const int32_t*)a.ib, (T*)a.out, a.M,
-      a.lda, a.ldb);
+      a.lda, a.ldb, a.stream_only);
   return (int)cudaGetLastError();
 }
 
@@ -298,6 +660,59 @@ int launch_k(const Args& a, int k) {
   }
 }
 
+// The wgmma body's shapes: the tile form at group 1, the half form at groups
+// 2..4; bm a multiple of 16 in 16..256 (a TMA box is at most 256 rows),
+// stages 2..kMaxWgStages within a block's shared memory.
+size_t wg_bytes(int form, int bm, int stages, int group) {
+  return form == kFormHalf ? half_smem_bytes(group, bm, stages) : wg_smem_bytes(bm, stages);
+}
+
+bool wg_takes(int form, int bm, int stages, int group, int shared_b) {
+  const bool forms = form == kFormTile ? group == 1
+                                       : form == kFormHalf && half_kernel(group, shared_b);
+  return forms && bm >= 16 && bm <= 256 && bm % 16 == 0 && stages >= 2 &&
+         stages <= kMaxWgStages && wg_bytes(form, bm, stages, group) <= (size_t)kSmemBytes;
+}
+
+int wg_threads(const Args& a) { return a.form == kFormHalf ? 128 * a.group + 32 : kWgThreads; }
+
+// The kernel of a's form, with its dynamic shared memory allowed (*err).
+const void* wg_kernel(const Args& a, cudaError_t* err) {
+  const void* k = a.form == kFormHalf ? (const void*)half_kernel(a.group, a.shared_b)
+                                      : (const void*)bsmm_wgrad_wg_kernel;
+  *err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)wg_bytes(a.form, a.bm, a.stages, a.group));
+  return k;
+}
+
+int launch_wg(const Args& a) {
+  const long long units = a.form == kFormHalf ? 2 * (a.P / a.group) : a.P;
+  if (!wg_takes(a.form, a.bm, a.stages, a.group, a.shared_b) || a.P % a.group || a.M < 1 ||
+      a.M > 0x7fffffffLL || a.P * kWgK > 0x7fffffffLL || a.grid < 1 || a.grid > units)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  wg_kernel(a, &err);
+  if (err != cudaSuccess) return (int)err;
+  // the half form stores a warpgroup's 64 x 128 share in 64-row boxes
+  CUtensorMap amap, bmap, omap;
+  int enc = encode_rows<bf16, kWgK>(&amap, a.a, a.lda, a.M, a.bm);
+  if (enc == 0) enc = encode_rows<bf16, kWgK>(&bmap, a.b, a.ldb, a.M, a.bm);
+  if (enc == 0)
+    enc = encode_rows<bf16, kWgK>(&omap, a.out, kWgK, a.P * kWgK, a.form == kFormHalf ? 64 : kWgK);
+  if (enc != 0) return enc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.grid, 1, 1);
+  cfg.blockDim = dim3((unsigned)wg_threads(a), 1, 1);
+  cfg.dynamicSmemBytes = wg_bytes(a.form, a.bm, a.stages, a.group);
+  cfg.stream = a.stream;
+  err = cudaLaunchKernelEx(&cfg, a.form == kFormHalf ? half_kernel(a.group, a.shared_b)
+                                                     : bsmm_wgrad_wg_kernel,
+                           amap, bmap, omap, (const int32_t*)a.ia, (const int32_t*)a.ib,
+                           (int)a.M, (int)a.P, a.bm, a.stages, a.stream_only);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Kernel 5 on `stream` (a cudaStream_t) of device `device`.
@@ -306,19 +721,58 @@ int launch_k(const Args& a, int k) {
 //   ia  : (P,) int32, every entry below lda / k;  ib : (P,) int32, below ldb / k;
 //   out : (P, k, k) in a's dtype, written whole;
 //   k in {16, 32, 64, 128}, lda and ldb multiples of k; M >= 0 (out is zero
-//   where M is 0).
-// Returns cudaGetLastError() after the launch (0 = launched).
+//   where M is 0);
+//   body: 0 the mma.sync body (any of those shapes), 1 the wgmma body (bf16,
+//   k 128, M >= 1, out 16-byte aligned), which reads
+//     form        : 0 one tile a block (group 1); 1 one block over a
+//                   64-wide half of the tiles of each run of `group`
+//                   consecutive pairs, which share b's strip (shared_b 1) or
+//                   a's (shared_b 0); group 2..4 dividing P;
+//     bm          : rows of M a ring stage holds, a multiple of 16;
+//     stages      : the ring's depth, 2 to 8, within a block's shared memory;
+//     grid        : the blocks, 1 to the units (tiles, or halves of runs);
+//   stream_only: 1 skips the products (the output is then zero: a diagnostic
+//   of the strip stream alone).
+// Returns cudaGetLastError() after the launch (0 = launched),
+// cudaErrorInvalidValue for shapes it does not take, or kErrEncode + a
+// CUresult when a tensor map cannot be encoded.
 extern "C" int spgemm_bsmm_wgrad(const void* a, const void* b, const void* ia, const void* ib,
                                  void* out, long long M, long long lda, long long ldb,
-                                 long long P, int k, int dtype, int device, void* stream) {
+                                 long long P, int k, int dtype, int body, int form, int bm,
+                                 int stages, int group, int shared_b, int grid, int stream_only,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (P <= 0) return (int)cudaSuccess;
   if (M < 0 || k < 1 || lda < k || ldb < k || lda % k || ldb % k) return (int)cudaErrorInvalidValue;
-  const Args args{a, b, ia, ib, out, M, lda, ldb, P, (cudaStream_t)stream};
+  const Args args{a,    b,  ia,     ib,    out,      M,    lda,         ldb,
+                  P,    form, bm,   stages, group,   shared_b, grid, stream_only,
+                  (cudaStream_t)stream};
+  if (body == 1) {
+    if (dtype != 1 || k != kWgK) return (int)cudaErrorInvalidValue;
+    return launch_wg(args);
+  }
+  if (body != 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0: return launch_k<float>(args, k);
     case 1: return launch_k<bf16>(args, k);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// How many blocks of the wgmma body's form an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *n; launches nothing.
+extern "C" int spgemm_bsmm_wgrad_occupancy(int form, int bm, int stages, int group,
+                                           int shared_b, int device, int* n) {
+  *n = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wg_takes(form, bm, stages, group, shared_b)) return (int)cudaErrorInvalidValue;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, 1,        kWgK, kWgK,
+               group,   form,    bm,      stages,  group,   shared_b, 1,    0,
+               (cudaStream_t)0};
+  const void* kernel = wg_kernel(a, &err);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, kernel, wg_threads(a), wg_bytes(form, bm, stages, group));
 }

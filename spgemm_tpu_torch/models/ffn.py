@@ -45,7 +45,7 @@ from torch import nn
 from spgemm_tpu_torch.ops.cuda_bsmm import (
     bsmm, bsmm_resident, gather_column_major, gelu, resident_panel_fits,
     w2_column_major_index, w2_to_column_major)
-from spgemm_tpu_torch.ops.cuda_bsmm_grad import bsmm_wgrad
+from spgemm_tpu_torch.ops.cuda_bsmm_grad import bsmm_wgrad, check_run_side
 from spgemm_tpu_torch.ops.device import resolve_device
 from spgemm_tpu_torch.parallel.mesh import TrainMesh
 
@@ -243,7 +243,10 @@ class StepIndex:
     rows1, cols2    : W1's rows and W2's cols as given (the cache key);
     rows2, tile_idx2: W2 column-major (cuda_bsmm.w2_column_major_index);
     ia1, ib1        : kernel 5's pairs for dW1, (x-strip rows1[c, r], dpre-strip c);
-    ia2, ib2        : kernel 5's pairs for dW2, (h-strip r, dy-strip cols2[r, c])."""
+    ia2, ib2        : kernel 5's pairs for dW2, (h-strip r, dy-strip cols2[r, c]);
+    run1, shared1   : dW1's pairs come in runs of rpc sharing their b (dpre) strip;
+    run2, shared2   : dW2's in runs of cpc sharing their a (h) strip (kernel 5's
+                      run options, so it reads each shared strip fewer times)."""
 
     rows1: torch.Tensor
     cols2: torch.Tensor
@@ -253,23 +256,29 @@ class StepIndex:
     ib1: torch.Tensor
     ia2: torch.Tensor
     ib2: torch.Tensor
+    run1: int
+    shared1: str
+    run2: int
+    shared2: str
 
 
 def step_index(rows1: torch.Tensor, cols2: torch.Tensor, nb_model: int) -> StepIndex:
     """StepIndex of W1's rows and W2's cols (one host round trip, for W2's
-    column-major bookkeeping)."""
+    column-major bookkeeping).  The shared sides of kernel 5's runs are
+    built here on the host and checked there once (check_run_side), so the
+    card never checks them."""
     dev = rows1.device
     rows2, tile_idx2 = w2_column_major_index(cols2, nb_model)
     nbf1, rpc = rows1.shape
     nbf2, cpc = cols2.shape
-
-    def owners(n: int, per: int) -> torch.Tensor:
-        return torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(per)
-
+    ib1 = torch.arange(nbf1, dtype=torch.int32).repeat_interleave(rpc)
+    ia2 = torch.arange(nbf2, dtype=torch.int32).repeat_interleave(cpc)
+    check_run_side(ib1, rpc, "b")
+    check_run_side(ia2, cpc, "a")
     return StepIndex(rows1, cols2, torch.from_numpy(rows2).to(dev),
                      torch.from_numpy(tile_idx2).to(dev),
-                     rows1.reshape(-1).contiguous(), owners(nbf1, rpc),
-                     owners(nbf2, cpc), cols2.reshape(-1).contiguous())
+                     rows1.reshape(-1).contiguous(), ib1.to(dev), ia2.to(dev),
+                     cols2.reshape(-1).contiguous(), rpc, "b", cpc, "a")
 
 
 class _KernelFFN(torch.autograd.Function):
@@ -296,8 +305,10 @@ class _KernelFFN(torch.autograd.Function):
         # of the tiles once a step; the kernel reads them as given)
         w2t = w2_tiles.transpose(-1, -2).contiguous()
         dpre = _matmul(dy, index.cols2, w2t, ctx.block_m, ctx.resident, gelu_grad=pre)
-        dw2 = bsmm_wgrad(h, dy, index.ia2, index.ib2, k=k).view(w2_tiles.shape)
-        dw1 = bsmm_wgrad(xf, dpre, index.ia1, index.ib1, k=k)
+        dw2 = bsmm_wgrad(h, dy, index.ia2, index.ib2, k=k, run=index.run2,
+                         shared=index.shared2).view(w2_tiles.shape)
+        dw1 = bsmm_wgrad(xf, dpre, index.ia1, index.ib1, k=k, run=index.run1,
+                         shared=index.shared1)
         return None, dw1.view(index.rows1.shape + (k, k)), dw2, None, None, None
 
 

@@ -551,8 +551,7 @@ class Daemon:
                 if job.finish("failed",
                               error={"code": code,
                                      "message": f"{e} while re-queueing from journal"},
-                              on_commit=lambda j=job: self._journal_append(
-                                  {"event": "failed", "id": j.id})):
+                              on_commit=self._commit_terminal(job, "failed", "error")):
                     self._observe_terminal(job, "error")
             tail = ev["id"].rsplit("-", 1)[-1]
             with self._lock:
@@ -654,8 +653,7 @@ class Daemon:
                     "message": f"daemon shut down before the job finished (drained "
                                f"{self.DRAIN_GRACE_S:g}s); resubmit to the next daemon"},
                     detail=self._reap_detail(job),
-                    on_commit=lambda j=job: self._journal_append(
-                        {"event": "failed", "id": j.id})):
+                    on_commit=self._commit_terminal(job, "failed", "drained")):
                 self._observe_terminal(job, "drained")
         for t in self._threads:
             t.join(timeout=5.0)
@@ -885,9 +883,10 @@ class Daemon:
         """The executor's terminal transition of a job, with its detail, its
         journal record and its event; bookkeeping only if this transition
         won."""
+        outcome = "done" if state == "done" else "error"
         if job.finish(state, error=error, detail=self._job_detail(scope, on_oracle, job),
-                      on_commit=lambda: self._journal_append({"event": state, "id": job.id})):
-            self._observe_terminal(job, "done" if state == "done" else "error")
+                      on_commit=self._commit_terminal(job, state, outcome)):
+            self._observe_terminal(job, outcome)
             if state == "done":
                 obs_events.emit("job_done", job_id=job.id, trace_id=job.trace_id,
                                 batch_id=job.batch_id)
@@ -955,10 +954,9 @@ class Daemon:
         """Bookkeeping of a terminal transition this daemon committed: the
         tenant's in-flight slot, the outcome totals, the job-wall histogram
         (pickup, or submit for a job never picked up, to the end) and one
-        record into the SLO engine's (tenant, slice) window, and the
-        autotuner's feed: the class sighting and its folder, a tuned
-        canary's outcome, and the estimator's mean relative error over the
-        job (obs/profile's account against the pickup's)."""
+        record into the SLO engine's (tenant, slice) window.  The
+        autotuner's feed ran earlier, in the transition's commit hook
+        (_commit_terminal)."""
         self.queue.release(job)
         snap = job.snapshot()
         started = snap["started_at"] or snap["submitted_at"]
@@ -974,8 +972,28 @@ class Daemon:
         obs_slo.SLO.observe(tenant=job.tenant, slice_name=job.slice or "unplaced",
                             wall_s=wall, queue_wait_s=queue_wait, error=outcome != "done",
                             trace_id=job.trace_id)
-        # outside self._lock too: the tuner has its own.  None for a
-        # first-contact or never-picked-up job, and for a batch's mates
+
+    def _commit_terminal(self, job: Job, state: str, outcome: str):
+        """The commit hook of a terminal transition (Job.finish's on_commit):
+        the journal record, then the autotuner's feed, both before any
+        waiter wakes, so a client that saw a tuned canary fail reads the
+        class reverted, in the tuner and in its warm-store record.  The hook
+        runs under the job's lock, which so nests over the tuner's, the
+        placement book's and obs/profile's: none of those is held while a
+        job's lock is taken anywhere, so the nesting cannot deadlock.  The
+        JAX daemon feeds its tuner after the wake (its locks never nest);
+        this order is a deliberate difference (ROADMAP.md section 3)."""
+        def commit() -> None:
+            self._journal_append({"event": state, "id": job.id})
+            self._tune_terminal(job, outcome)
+        return commit
+
+    def _tune_terminal(self, job: Job, outcome: str) -> None:
+        """The autotuner's feed of a terminal job: the class sighting and
+        its folder, a tuned canary's outcome, and the estimator's mean
+        relative error over the job (obs/profile's account against the
+        pickup's).  Nothing for a first-contact or never-picked-up job, nor
+        for a batch's mates (no class)."""
         ck = job.tune_class
         if ck is None:
             return
@@ -1096,8 +1114,8 @@ class Daemon:
                 if orphan.finish("failed", error={"code": protocol.E_EXECUTOR_DIED,
                                                   "message": "executor thread died mid-job"},
                                  detail=self._reap_detail(orphan),
-                                 on_commit=lambda o=orphan: self._journal_append(
-                                     {"event": "failed", "id": o.id})):
+                                 on_commit=self._commit_terminal(orphan, "failed",
+                                                                 "abandoned")):
                     reason += f" during job {orphan.id}"
                     self._observe_terminal(orphan, "abandoned")
                     obs_events.emit("job_failed", job_id=orphan.id, trace_id=orphan.trace_id,
@@ -1110,8 +1128,7 @@ class Daemon:
                                            "message": f"job exceeded its {job.timeout_s:g}s "
                                                       "deadline and was reaped"},
                           detail=self._reap_detail(job),
-                          on_commit=lambda: self._journal_append(
-                              {"event": "failed", "id": job.id})):
+                          on_commit=self._commit_terminal(job, "failed", "timeout")):
                 sl.reaped, sl.reaped_at = job, time.time()
                 ENGINE.incr("serve_reaps")
                 obs_trace.RECORDER.instant("serve_reap", job_id=job.id, trace_id=job.trace_id,

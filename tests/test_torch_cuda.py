@@ -13,8 +13,11 @@ chain on the card, and the segmented fold of the dense route against its plain
 version (any seg, sentinel and pad slots, no rows), against kernel 1 on a
 planner's round, raising on what it does not take, and a hub multiply on
 every route; the FFN training step's kernels (the gelu_grad epilogue of
-kernels 3 and 4, kernel 5 of csrc/bsmm_grad.cu at any M) against their plain
-versions and one step against the plain autograd step.  Tolerance: exact (torch.equal)
+kernels 3 and 4, kernel 5 of csrc/bsmm_grad.cu at any M; its wgmma body
+bit-equal to its mma.sync body in both forms (one tile a block, a block
+over half a run) and at every ring depth, stage depth and grid, over runs
+of 1 to 4 pairs sharing a strip) against their
+plain versions and one step against the plain autograd step.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -680,6 +683,105 @@ def test_wgrad_kernel_edges(cuda):
         cuda_bsmm_grad.bsmm_wgrad(a, b, ia, ib, k=8)
     with pytest.raises(TypeError):
         cuda_bsmm_grad.bsmm_wgrad(a.half(), b.half(), ia, ib, k=16)
+
+
+def _wgrad_runs(seed, M, G, shared, runs, device, spread=0):
+    """bf16 operands at k 128 whose pairs come in `runs` runs of G sharing
+    their `shared` strip; spread > 0 scales each entry by 2^e, e uniform in
+    -spread..spread, so each 16-deep step adds terms of very different
+    sizes."""
+    rng = np.random.default_rng(seed)
+    k, n_shared, n_own = 128, runs + 1, 5
+    nA, nB = (n_own, n_shared) if shared == "b" else (n_shared, n_own)
+    scale = max(M, 1) ** -0.25
+    a = rng.standard_normal((M, nA * k)) * scale
+    b = rng.standard_normal((M, nB * k)) * scale
+    if spread:
+        a = a * np.exp2(rng.integers(-spread, spread + 1, a.shape))
+        b = b * np.exp2(rng.integers(-spread, spread + 1, b.shape))
+    own = rng.integers(0, n_own, runs * G).astype(np.int32)
+    common = np.repeat(rng.permutation(n_shared)[:runs], G).astype(np.int32)
+    ia, ib = (own, common) if shared == "b" else (common, own)
+    return (torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16),
+            torch.from_numpy(b.astype(np.float32)).to(device, torch.bfloat16),
+            torch.from_numpy(ia).to(device), torch.from_numpy(ib).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 17, 64, 100, 1000])
+@pytest.mark.parametrize("form,shared", [("tile", "b"), ("half", "b"), ("half", "a")])
+def test_wgrad_wgmma_gives_the_mma_sync_bits(cuda, M, form, shared):
+    """Kernel 5's wgmma body (bf16, k 128) gives the bits of its mma.sync
+    body at every M, one tile a block and one block over half of each run
+    of 3 pairs that share their a or b strip, on operands whose exponents
+    spread over 2^-40..2^40."""
+    a, b, ia, ib = _wgrad_runs(M, M, 3, shared, 4, cuda, spread=40)
+    kw = {"form": "tile"} if form == "tile" else {"run": 3, "shared": shared, "form": form}
+    got = cuda_bsmm_grad._launch(a, b, ia, ib, 128, **kw)
+    old = cuda_bsmm_grad._launch(a, b, ia, ib, 128, body="mma_sync")
+    torch.cuda.synchronize()
+    assert torch.equal(got, old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,shared", [(2, "a"), (3, "b"), (4, "a"), (4, "b")])
+def test_wgrad_wgmma_variants_give_the_default_bits(cuda, G, shared):
+    """Every form, ring depth, rows a stage and grid gives the default's
+    bits; stream_only (products skipped) gives zeros and counts its
+    launch."""
+    a, b, ia, ib = _wgrad_runs(G, 300, G, shared, 5, cuda)
+    kw = {"run": G, "shared": shared}
+    want = cuda_bsmm_grad._launch(a, b, ia, ib, 128, **kw)
+    variants = []
+    for form in ("tile", "half"):
+        group = 1 if form == "tile" else G
+        for bm in (16, 32, 48, 64, 128):
+            try:
+                depth = cuda_bsmm_grad.wgrad_layout(bm, None, form, group).stages
+            except ValueError:  # not even 2 stages fit
+                continue
+            variants += [{"form": form, "bm": bm, "stages": s} for s in range(2, depth + 1)]
+        variants.append({"form": form, "persistent": False})
+    for v in variants:
+        got = cuda_bsmm_grad._launch(a, b, ia, ib, 128, **kw, **v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), v
+    for form in ("tile", "half"):
+        before = _launches("bsmm_wgrad")
+        zero = cuda_bsmm_grad._launch(a, b, ia, ib, 128, **kw, form=form, stream_only=True)
+        torch.cuda.synchronize()
+        assert _launches("bsmm_wgrad") == before + 1
+        assert torch.equal(zero, torch.zeros_like(zero))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 3, 4])
+@pytest.mark.parametrize("shared", ["a", "b"])
+def test_wgrad_runs_match_plain_version(cuda, G, shared):
+    """Runs of G = 1..4 through bsmm_wgrad's run options against
+    bsmm_wgrad_ref at WGRAD_TOL (the ungrouped random lists:
+    test_wgrad_kernel_matches_plain_version)."""
+    a, b, ia, ib = _wgrad_runs(10 * G, 1000, G, shared, 6, cuda)
+    got = cuda_bsmm_grad.bsmm_wgrad(a, b, ia, ib, k=128, run=G, shared=shared)
+    want = cuda_bsmm_grad.bsmm_wgrad_ref(a, b, ia, ib, k=128)
+    torch.cuda.synchronize()
+    rtol, atol = WGRAD_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_wgrad_wgmma_refuses_what_it_cannot_take(cuda):
+    a, b, ia, ib = _wgrad_runs(5, 64, 3, "b", 2, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cuda_bsmm_grad._launch(a, b, ia, ib, 128, run=3, shared="b", bm=40)
+    with pytest.raises(ValueError, match="runs"):
+        cuda_bsmm_grad._launch(a, b, ia, ib, 128, form="half")
+    with pytest.raises(ValueError, match="stages"):
+        cuda_bsmm_grad._launch(a, b, ia, ib, 128, bm=128, stages=4)
+    with pytest.raises(ValueError, match="wgmma"):
+        cuda_bsmm_grad._launch(a.float(), b.float(), ia, ib, 128, body="wgmma")
+    with pytest.raises(ValueError, match="divide"):
+        cuda_bsmm_grad.bsmm_wgrad(a, b, ia, ib, k=128, run=4, shared="b")
 
 
 @pytest.mark.cuda

@@ -627,6 +627,61 @@ def test_a_failed_tuned_canary_reverts(tmp_path, make_daemon):
     assert knobs.tuned_overlay() == {}
 
 
+
+class _Scope:
+    """The executor's PhaseScope, as far as a job's detail reads it."""
+
+    def counter_snapshot(self) -> dict:
+        return {}
+
+    def snapshot(self) -> dict:
+        return {}
+
+
+@pytest.mark.parametrize("path", ["done", "failed", "timeout", "abandoned", "drained"])
+def test_the_tuner_hears_of_a_terminal_job_before_its_waiters_wake(tmp_path, monkeypatch,
+                                                                    path):
+    """Every terminal path that feeds the autotuner (the executor's finish,
+    done or failed; the watchdog's reap; a dead executor's orphan; the
+    shutdown drain) gives the tuner the job's outcome inside the committed
+    transition, before the job's waiters wake, so a client that saw a tuned
+    canary fail never reads the class still in canary."""
+    d = Daemon(str(tmp_path / "race.sock"), device="cpu")
+    sl = d.slices[0]
+    job = Job("job-1", str(tmp_path / "in"), str(tmp_path / "out"), {})
+    job.slice, job.tune_class = sl.name, "race@cpu"
+    d.queue.submit(job)
+    assert d.queue.next(timeout=0) is job
+    job.start()
+    heard = []
+    note = TUNER.note_terminal
+
+    def spy(class_key, ok):
+        heard.append((class_key, ok, job.state, job._terminal.is_set()))
+        note(class_key, ok)
+
+    monkeypatch.setattr(TUNER, "note_terminal", spy)
+    if path in ("done", "failed"):
+        d._finish(job, _Scope(), False, path)
+    elif path == "timeout":
+        job.timeout_s, job.started_at = 1.0, time.time() - 60.0
+        sl.current = job
+        d._watch_slice(sl)
+    elif path == "abandoned":
+        dead = threading.Thread(target=lambda: None)
+        dead.start()
+        dead.join()
+        sl.thread = dead
+        d._stop.set()  # no probe of the card after the degrade
+        d._watch_slice(sl)
+    else:
+        d.DRAIN_GRACE_S = 0.0
+        d.stop()
+    state = "done" if path == "done" else "failed"
+    assert heard == [("race@cpu", path == "done", state, False)]
+    assert job.wait(0) and job.snapshot()["state"] == state
+
+
 # ---------------------------------------------------- parity with the JAX package --
 def _script_rows(t, vectors_of, knobs_mod):
     """Drive one tuner through the shared script; its row after each step,

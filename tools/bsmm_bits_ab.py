@@ -20,7 +20,8 @@ M, d_in, nbc, rpc, k, br, col_chunk, stages, cluster, stream_only, dtype,
 epilogue, device, stream), as at commit ac9528f; or kernel 3's entry with
 warp_m, stages, grid and stream_only after br, and
 spgemm_bsmm_blocks_per_sm, as in this tree.  E.g. `git archive <commit>
-spgemm_tpu_torch/csrc/bsmm.cu | tar -x -C build/parent`.  It is built with
+spgemm_tpu_torch/csrc/bsmm.cu | tar -x -C build/parent`, with
+spgemm_tpu_torch/csrc/hopper.cuh too where that bsmm.cu includes it.  It is built with
 nvcc into build/bsmm_bits_ab/ and launched at this tree's row tile
 (launch_geometry), and in the second form also at this tree's consumer
 tile, ring depth and persistent grid.  --check-only stops after the bits;
