@@ -22,7 +22,7 @@ MEMFLAG = $(MEMFLAG_$(MEM))
 NATIVE_SRC = spgemm_tpu/native/smmio.cpp spgemm_tpu/native/symbolic.cpp
 NATIVE_SO  = spgemm_tpu/native/libsmmio.so
 
-.PHONY: all native run test lint lint-fast lint-sarif lint-cache-clean bench bench-large warm serve-smoke obs-smoke chaos-smoke fleet-smoke clean
+.PHONY: all native run test lint lint-fast lint-sarif lint-cache-clean bench bench-large warm serve-smoke obs-smoke chaos-smoke chaos-smoke-torch fleet-smoke clean
 
 all: native
 
@@ -123,6 +123,12 @@ obs-smoke:
 chaos-smoke:
 	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
 		$(PY) -m spgemm_tpu.serve.chaos_smoke
+
+# the same chaos proof on the PyTorch/CUDA port (spgemm_tpu_torch): the
+# one-card form on an NVIDIA GPU by default; TORCH_DEVICE=cpu runs a 2-slice
+# pool of the port's daemon on the CPU
+chaos-smoke-torch:
+	$(PY) -m spgemm_tpu_torch.serve.chaos_smoke --device $(or $(TORCH_DEVICE),cuda)
 
 # fleet end-to-end proof on CPU: two spgemmd backends each on a TCP
 # front-end (SPGEMM_TPU_SERVE_ADDR / --addr) plus one spgemm-router

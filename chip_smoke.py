@@ -55,9 +55,9 @@ the script exits non-zero without printing a result:
                execute over one chain, which must be 0), `[medium-cli]` (the
                chain written as text by the native writer, `python -m
                spgemm_tpu_torch.cli <dir> -v` with the default loader
-               threads and with --threads 1 (the default's load must be
-               faster), each ./matrix read back equal to the in-memory result
-               after prune_zeros; then, cut in depth to Medium's first 3
+               threads (the --threads 1 run was cut to make room for
+               [rowshard] and [chaos]), its ./matrix read back equal to the
+               in-memory result after prune_zeros; then, cut in depth to Medium's first 3
                matrices (links to the same files), natively and with
                SPGEMM_TPU_NO_NATIVE=1, the two ./matrix files byte-equal;
                about 4 GB under TMPDIR, deleted after) and `[medium] parity
@@ -236,7 +236,26 @@ the script exits non-zero without printing a result:
                from the kill to Medium's done; a later submit lands on the
                survivor; (f6) SIGTERM to the router and the survivor, both
                exit 0; kernel 1's row in the kernels line gains
-               `fleet_launches`, the launches the phase's jobs report;
+               `fleet_launches`, the launches the phase's jobs report; then
+               `[chaos]`, serve/chaos_smoke.py --device cuda (one slice on
+               the card, a seeded failpoint schedule with the executor wedge
+               and a torn journal record always armed, 3 jobs with a 30 s
+               deadline) over [serve]'s Medium and distinct-structure
+               directories, and at the same time its CPU form (a pool of 2
+               slices), each exiting 0 with its OK line: every job bit-exact
+               or failed with a structured error, the wedged slice
+               reinstated, the torn journal counted by a second daemon,
+               SIGTERM drained; beside it [serve]'s pool rows (width 1,
+               steals 0); then `[rowshard]`, the Medium chain from its host
+               leaves through parallel/rowshard.spgemm_sharded over [cuda:0]
+               * 1, 2 and 4, each a main path byte-equal to the main path's
+               result, kernel 1 launched once a shard of a round (n times the
+               main path's launches), its wall beside the main path's in this
+               call, kernel 1's ms by CUDA events in the same run, the
+               rounds a multiply, and the wall split into plan, upload,
+               dispatch, assembly and the rest beside the plan cache's hits
+               and misses; `--shard keys` once through the CLI on
+               golden_chain; kernel 1's row gains `rowshard_launches`;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -1350,9 +1369,8 @@ MEDIUM_CLI_NUMPY_N = 3  # [medium-cli]: the numpy leg runs on Medium's first 3 m
 def phase_medium_cli(medium) -> dict:
     """The port's CLI on the Medium chain's text directory (written by the
     native writer), run as `python -m spgemm_tpu_torch.cli <dir> -v` with
-    the default loader threads and with --threads 1 (the default's load must
-    be faster), each ./matrix, read back with the native parser, equal to
-    the in-memory result after prune_zeros; then on a directory of Medium's
+    the default loader threads, its ./matrix, read back with the native
+    parser, equal to the in-memory result after prune_zeros; then on a directory of Medium's
     first MEDIUM_CLI_NUMPY_N matrices (links to the same files) natively and
     with SPGEMM_TPU_NO_NATIVE=1 (the numpy paths), the two ./matrix files
     byte-equal.  Needs about 4 GB of disk under TMPDIR and deletes it."""
@@ -1381,7 +1399,6 @@ def phase_medium_cli(medium) -> dict:
         env = {**os.environ, "PYTHONPATH": REPO}
         for name, src, n, extra, knob in (
                 ("default", folder, len(medium.mats), [], {}),
-                ("threads_1", folder, len(medium.mats), ["--threads", "1"], {}),
                 ("native_head", folder_n, MEDIUM_CLI_NUMPY_N, [], {}),
                 ("no_native", folder_n, MEDIUM_CLI_NUMPY_N, [], {"SPGEMM_TPU_NO_NATIVE": "1"})):
             proc = subprocess.run(
@@ -1420,17 +1437,13 @@ def phase_medium_cli(medium) -> dict:
                                    "from the in-memory chain result after prune_zeros")
             os.remove(matrix)
         out["ranks_8"] = _medium_cli_ranks(medium, folder, tmp, env, want)
-    d, t, h, n = out["default"], out["threads_1"], out["native_head"], out["no_native"]
-    if not d["phases"]["load"] < t["phases"]["load"]:
-        raise RuntimeError(f"the CLI's load with the default threads ({d['phases']['load']} s) "
-                           f"is not faster than with --threads 1 ({t['phases']['load']} s)")
+    d, h, n = out["default"], out["native_head"], out["no_native"]
     _phase("medium-cli", t0, f"wrote {len(medium.mats)} files, {out['text_bytes'] / 1e9:.3f} "
            f"GB of text in {out['write_dir_s']:.3f} s (native writer, a thread per file); "
            f"cli -v: time taken {d['time_taken_s']:.6f} s: load {d['phases'].get('load')}, "
            f"chain {d['phases'].get('chain')}, prune+write {d['phases'].get('prune+write')} s "
            f"(plan {d['phases'].get('plan')}, plan_wait {d['phases'].get('plan_wait')}, "
-           f"upload {d['phases'].get('upload')} s); --threads 1: time taken "
-           f"{t['time_taken_s']:.6f} s, load {t['phases'].get('load')} s; "
+           f"upload {d['phases'].get('upload')} s); "
            f"on Medium's first {MEDIUM_CLI_NUMPY_N} matrices, SPGEMM_TPU_NO_NATIVE=1 (numpy "
            f"text I/O and join): time taken {n['time_taken_s']:.6f} s, load "
            f"{n['phases'].get('load')}, chain {n['phases'].get('chain')}, prune+write "
@@ -1438,7 +1451,7 @@ def phase_medium_cli(medium) -> dict:
            f"{h['phases'].get('load')}, prune+write {h['phases'].get('prune+write')} s), "
            f"./matrix ({n['matrix_bytes'] / 1e9:.3f} GB) byte-equal; "
            f"./matrix ({d['matrix_bytes'] / 1e9:.3f} GB) read back in {d['read_back_s']:.3f} s "
-           "equals the in-memory result after prune_zeros (both full runs); --ranks 8: time "
+           "equals the in-memory result after prune_zeros; --ranks 8: time "
            f"taken {out['ranks_8']['time_taken_s']:.6f} s (chain "
            f"{out['ranks_8']['phases'].get('chain')} s), "
            f"{out['ranks_8']['tiles_differing_from_p1']} of {out['ranks_8']['tiles']} tiles "
@@ -4245,6 +4258,14 @@ def phase_serve(medium, cli: dict, tmp: str) -> dict:
             raise RuntimeError(f"[serve] stats: {st['device']}, degraded {st['degraded']}, "
                                f"{st['serve']}")
         out["warm_disk"] = {k: st["warm"][k] for k in ("plans", "deltas", "bytes")}
+        # the pool's rows: one card, one single-device slice, nothing stolen
+        rows = st["slices"]
+        if [(r["name"], r["width"], r["devices"], r["device"], r["steals"]) for r in rows] \
+                != [("s0w1", 1, [0], "cuda:0", 0)]:
+            raise RuntimeError(f"[serve] stats' pool rows: {rows}")
+        out["pool_rows"] = [{k: r[k] for k in ("name", "width", "devices", "device", "default",
+                                               "steals", "jobs_total", "recoveries")}
+                            for r in rows]
         # (a), (b), (c0), (c): every multiply of the four jobs took the delta path
         out["obs_c"] = _obs_delta(client, sock, obs_base, 4 * (MEDIUM["n"] - 1), "c", smi)
         _serve_stop(proc, sock, client, log_path)
@@ -4870,6 +4891,177 @@ def phase_fleet(medium, tmp: str, serve_out: dict, medium_launches: int) -> dict
 KERNELS_FILE = os.path.join(REPO, "build", "chip_smoke_kernels.json")
 
 
+ROWSHARD_SHARDS = (1, 2, 4)  # [rowshard]: shards a round is cut into, all on cuda:0
+# [rowshard]: spgemm_sharded's ENGINE phases, the split of each run's wall
+ROWSHARD_SPLIT = ("plan", "upload", "numeric_dispatch", "assembly")
+
+
+class EventFold:
+    """A numeric-round function wrapped in CUDA events only: no work count,
+    so no synchronisation inside the timed chain."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.events = []
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def phase_rowshard(medium) -> dict:
+    """[rowshard]: the Medium chain through parallel/rowshard.spgemm_sharded
+    over [cuda:0] * n for n in ROWSHARD_SHARDS, from the host leaves to a
+    host result, each run a main path (counts zeroed just before, read just
+    after), its result byte-equal to the main path's; kernel 1 launches
+    once a shard of a round, so its launches are the shard dispatches
+    (ENGINE rowshard_round), n times the main path's rounds; kernel 1 timed
+    by CUDA events in the same run (EventFold); the wall split by
+    spgemm_sharded's ENGINE phases (ROWSHARD_SPLIT; `other` is the rest:
+    the chain's own work) beside the plan cache's hits and misses (the
+    first run plans the ladder plans cold, the later ones find them in the
+    cache).  Beside them, in this call,
+    the main path's chain with warm plans from the device leaves and from
+    the host leaves to a host result.  Then `--shard keys` once through the
+    CLI on the golden data."""
+    from spgemm_tpu_torch.parallel.rowshard import spgemm_sharded  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    want = medium.res_host
+    multiplies = MEDIUM["n"] - 1
+    out = {"shards": {}}
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, out["main_device_wall_s"], main_counts, _ = _main_path(medium.dev_mats, "exact")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = chain_product(medium.mats, device=DEVICE)
+        out["main_host_wall_s"] = time.perf_counter() - t1
+        if not _host_equal(res, want):
+            raise RuntimeError("[rowshard] the main path from host leaves differs")
+        for n in ROWSHARD_SHARDS:
+            mult = partial(spgemm_sharded, devices=[torch.device(DEVICE, 0)] * n)
+            kern = EventFold(cuda_spgemm.numeric_round)
+            torch.cuda.synchronize()
+            _zero_counts()
+            ENGINE.zero("rowshard_round")
+            ph0, c0 = ENGINE.snapshot(), ENGINE.counter_snapshot()
+            t1 = time.perf_counter()
+            res = chain_product(medium.mats, device=DEVICE, multiply=mult, folds=Folds(exact=kern))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = _read_counts()
+            ph1, c1 = ENGINE.snapshot(), ENGINE.counter_snapshot()
+            shards = c1.get("rowshard_round", 0)
+            split = {name: ph1.get(name, 0.0) - ph0.get(name, 0.0) for name in ROWSHARD_SPLIT}
+            split["other"] = wall - sum(split.values())
+            cache = {name: c1.get(name, 0) - c0.get(name, 0)
+                     for name in ("plan_cache_hits", "plan_cache_misses")}
+            if not _host_equal(res, want):
+                raise RuntimeError(f"[rowshard] {n} shard(s): the result differs from the main "
+                                   "path's")
+            if counts["mod"] != shards or counts["mod"] != n * main_counts["mod"] \
+                    or counts["no_mod"] or counts["mxu"] or counts["dense"]:
+                raise RuntimeError(f"[rowshard] {n} shard(s): launches {counts}, shards {shards}, "
+                                   f"the main path's kernel 1 {main_counts['mod']}")
+            out["shards"][n] = {"wall_s": wall, "launches": counts["mod"],
+                                "rounds_per_multiply": shards / n / multiplies,
+                                "kernel_ms": kern.ms(), "split_s": split, "plan_cache": cache}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rowshard_") as tmp:
+        env = {**os.environ, "PYTHONPATH": REPO}
+        got = os.path.join(tmp, "golden_chain.matrix")
+        _cli(os.path.join(REPO, "tests", "data", "golden_chain"), got, tmp, env, "--shard", "keys")
+        if not _same_bytes(got, os.path.join(REPO, "tests", "data",
+                                             "golden_chain_expected_matrix")):
+            raise RuntimeError("[rowshard] cli --shard keys on golden_chain differs from the "
+                               "expected bytes")
+    line = "; ".join(
+        f"{n} shard(s): wall {r['wall_s']:.6f} s, kernel 1 {r['launches']} launches "
+        f"({r['rounds_per_multiply']:.3f} rounds a multiply), {r['kernel_ms']:.3f} ms, split "
+        + ", ".join(f"{name} {t:.6f} s" for name, t in r["split_s"].items())
+        + f", plan cache {r['plan_cache']['plan_cache_hits']} hits "
+        f"{r['plan_cache']['plan_cache_misses']} misses"
+        for n, r in out["shards"].items())
+    _phase("rowshard", t0, f"Medium through spgemm_sharded over [cuda:0] * n, host leaves to a "
+           f"host result, each byte-equal to the main path's: {line}; the main path in this "
+           f"call, warm plans: {out['main_device_wall_s']:.6f} s from device leaves "
+           f"(kernel 1 {main_counts['mod']} launches), {out['main_host_wall_s']:.6f} s from "
+           "host leaves to a host result; cli --shard keys on golden_chain byte-equal to the "
+           "expected file")
+    return out
+
+
+CHAOS_JOBS = 3               # [chaos]: the card's chaos-leg submits
+CHAOS_JOB_TIMEOUT_S = 30.0   # [chaos]: the card daemon's job deadline (the wedged job's wait)
+CHAOS_LIMIT_S = 900.0        # [chaos]: each smoke's time limit
+
+
+def phase_chaos(tmp: str, serve_out: dict) -> dict:
+    """[chaos]: `python -m spgemm_tpu_torch.serve.chaos_smoke --device cuda`
+    over [serve]'s Medium and distinct-structure text directories under
+    tmp (their expected bytes [serve]'s result_a and result_c), and at the
+    same time its CPU form (--device cpu: a pool of 2 slices over its
+    generated chains) as a second subprocess.  Each must exit 0 with its OK
+    line; a failure of either fails the phase.  The daemons run at the
+    default SPGEMM_TPU_DELTA.  Prints beside them [serve]'s pool rows."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "SPGEMM_TPU_DELTA"}
+    env["PYTHONPATH"] = REPO
+    base = [sys.executable, "-m", "spgemm_tpu_torch.serve.chaos_smoke"]
+    runs = {
+        "card": base + ["--device", DEVICE, "--jobs", str(CHAOS_JOBS), "--job-timeout",
+                        f"{CHAOS_JOB_TIMEOUT_S:g}", "--chain",
+                        f"{os.path.join(tmp, 'medium')}={os.path.join(tmp, 'result_a')}",
+                        "--chain",
+                        f"{os.path.join(tmp, 'distinct')}={os.path.join(tmp, 'result_c')}"],
+        "cpu_pool": base + ["--device", "cpu", "--jobs", "4", "--job-timeout", "15"],
+    }
+    procs, logs, started = {}, {}, {}
+    for name, cmd in runs.items():
+        logs[name] = os.path.join(tmp, f"chaos_{name}.log")
+        with open(logs[name], "w") as f:
+            started[name] = time.perf_counter()
+            procs[name] = subprocess.Popen(cmd, env=env, cwd=tmp, stdout=f,
+                                           stderr=subprocess.STDOUT)
+    out = {}
+    try:
+        ended = {}
+        while len(ended) < len(procs):
+            if time.perf_counter() - t0 > CHAOS_LIMIT_S:
+                raise RuntimeError(f"[chaos] {sorted(set(procs) - set(ended))} still running "
+                                   f"after {CHAOS_LIMIT_S:g} s")
+            for name, proc in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter()
+            time.sleep(0.2)
+        for name, proc in procs.items():
+            text = open(logs[name], errors="replace").read()
+            ok = [ln for ln in text.splitlines() if ln.startswith("chaos-smoke: OK")]
+            if proc.returncode != 0 or not ok:
+                raise RuntimeError(f"[chaos] chaos_smoke ({name}) exited {proc.returncode}:\n"
+                                   f"{text[-6000:]}")
+            out[name] = {"wall_s": ended[name] - started[name], "ok": ok[-1],
+                         "schedule": text.splitlines()[0]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    _phase("chaos", t0, f"card: {out['card']['schedule']}; {out['card']['ok']} (subprocess "
+           f"wall {out['card']['wall_s']:.3f} s); CPU pool of 2 slices at the same time: "
+           f"{out['cpu_pool']['ok']} ({out['cpu_pool']['wall_s']:.3f} s); [serve]'s pool rows "
+           f"{serve_out['pool_rows']}")
+    return out
+
+
 def _kernels_so_far(rows: list) -> None:
     """The kernels line as far as the run has come, printed (not as the
     bare JSON object the last lines carry) and written to KERNELS_FILE, so
@@ -4948,6 +5140,10 @@ def main() -> int:
         row["serve"] = phase_serve(medium, row["cli"], tmp)
         row["tune"] = phase_tune(medium, tmp)
         row["fleet"] = phase_fleet(medium, tmp, row["serve"], row["launches"])
+        row["chaos"] = phase_chaos(tmp, row["serve"])
+    row["rowshard"] = phase_rowshard(medium)
+    # the [rowshard] path's own counts: kernel 1's launches at each shard count
+    row["rowshard_launches"] = {n: r["launches"] for n, r in row["rowshard"]["shards"].items()}
     # the [fleet] path's own count: the kernel-1 launches its jobs report
     row["fleet_launches"] = row["fleet"]["launches"]
     # the [tune] path's own counts: the trial legs' launches

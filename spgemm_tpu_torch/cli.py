@@ -2,8 +2,8 @@
 
     python -m spgemm_tpu_torch.cli <folder> [--device cuda|cpu]
         [--backend exact|mxu|hybrid|oracle] [--output matrix] [--threads N]
-        [--round-size N] [--stream | --out-of-core] [--ranks P]
-        [--checkpoint-dir DIR] [--failover] [--profile DIR] [-v]
+        [--round-size N] [--stream | --out-of-core] [--shard none|keys]
+        [--ranks P] [--checkpoint-dir DIR] [--failover] [--profile DIR] [-v]
 
 reads `<folder>/size` (N, k) and `<folder>/matrix1..matrixN`, computes the
 chain product, prunes all-zero tiles, writes `./matrix` byte-identically to
@@ -26,6 +26,13 @@ seconds` (sparse_matrix_mult.cu:402-682).  The flags are the JAX package's
   --out-of-core   partials in host memory and each round uploads only the
                   tiles it references (ops/spgemm.spgemm_outofcore), so no
                   operand slab is ever on the card; implies --stream.
+  --shard keys    each multiply's output keys sharded over the visible cards
+                  (parallel/rowshard.py; on --device cpu one shard), kernel 1
+                  folding each shard: the reference's bytes, partials in host
+                  memory (so --stream and --out-of-core do not apply), the
+                  exact fold, which exact and hybrid give too; with
+                  --backend mxu, whose field-mode bytes differ, it is
+                  refused.  `none` is the default.
   --ranks P       `mpirun -np P`'s partition and combine
                   (parallel/chainpart.py): the reference's bytes at P, one
                   set of `multiplying` lines per sub-chain and the combine.
@@ -107,6 +114,7 @@ import logging
 import os
 import sys
 import time
+from functools import partial
 
 from spgemm_tpu_torch.utils import knobs
 
@@ -150,6 +158,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host-resident partials (implies --stream) and each round "
                         "uploads only the tiles it references, SPGEMM_TPU_OOC_DEPTH "
                         "rounds in flight (default 2)")
+    p.add_argument("--shard", choices=["none", "keys"], default="none",
+                   help="keys = output-tile sharding of each multiply over the visible "
+                        "cards (bit-exact; partials in host memory)")
     p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                    help="snapshot chain partials after each reduction pass and "
                         "resume from the newest snapshot on restart")
@@ -170,18 +181,24 @@ def _chain(args, matrices: list, k: int, device):
     from spgemm_tpu_torch.chain import chain_product  # noqa: PLC0415
     from spgemm_tpu_torch.ops.spgemm import spgemm, spgemm_outofcore  # noqa: PLC0415
     from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.mesh import default_devices  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.rowshard import spgemm_sharded  # noqa: PLC0415
     from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix  # noqa: PLC0415
     from spgemm_tpu_torch.utils.semantics import chain_oracle  # noqa: PLC0415
 
     if args.backend == "oracle":
         blocks = chain_oracle([m.to_dict() for m in matrices], k)
         return BlockSparseMatrix.from_dict(matrices[0].rows, matrices[-1].cols, k, blocks)
-    multiply = None
-    if args.out_of_core:
+    multiply, backend = None, args.backend
+    if args.shard == "keys":
+        # the sharded fold is the exact one (mxu is refused in run())
+        multiply = partial(spgemm_sharded, devices=default_devices(device_type=device.type))
+        backend = "exact"
+    elif args.out_of_core:
         multiply = spgemm_outofcore
     elif args.stream:
         multiply = spgemm
-    kwargs = {"multiply": multiply, "device": device, "backend": args.backend,
+    kwargs = {"multiply": multiply, "device": device, "backend": backend,
               "round_size": args.round_size, "checkpoint_dir": args.checkpoint_dir,
               "failover": args.failover}
     if args.ranks > 1:
@@ -504,7 +521,11 @@ def run(argv: list[str] | None = None) -> int:
     # meaning as the folder
     if argv and argv[0] in _SUBCOMMANDS and not os.path.exists(os.path.join(argv[0], "size")):
         return _SUBCOMMANDS[argv[0]](argv[1:])
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.shard == "keys" and args.backend == "mxu":
+        parser.error("--shard keys runs the exact fold; --backend mxu's field-mode bytes "
+                     "differ from it")
     restore = knobs.pin_unless_exported("SPGEMM_TPU_DELTA", "0")
     try:
         return _run_chain(args)
@@ -520,6 +541,10 @@ def _run_chain(args) -> int:
 
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(name)s %(message)s")
+    if (args.stream or args.out_of_core) and args.shard == "keys":
+        print("--shard keys already keeps chain partials host-resident; --out-of-core "
+              "per-round staging does not apply to the sharded multiply", file=sys.stderr,
+              flush=True)
     device = None
     if args.backend == "oracle":
         if args.stream or args.out_of_core:

@@ -78,6 +78,8 @@ ENGINE_COUNTERS: dict[str, str] = {
     "launches_bsmm_resident": "kernel 4 launches (csrc/bsmm.cu, resident weights)",
     "launches_bsmm_wgrad": "kernel 5 launches (csrc/bsmm_grad.cu, the FFN weight gradient)",
     "route_dense": "rounds dispatched on the dense accumulator route",
+    "rowshard_round": "shards of a round dispatched by the output-sharded multiply "
+                      "(parallel/rowshard.py): one kernel-1 fold each",
     "plan_cache_hits": "structure-keyed plan cache hits",
     "plan_cache_misses": "structure-keyed plan cache misses",
     "plan_cache_evictions": "structure-keyed plan cache LRU evictions",
@@ -98,6 +100,9 @@ ENGINE_COUNTERS: dict[str, str] = {
     "serve_reaps": "spgemmd watchdog reaps (deadline exceeded)",
     "serve_degrades": "spgemmd slice degrades (executor wedged or dead)",
     "serve_recoveries": "spgemmd slices reinstated after a live card probe",
+    "serve_steals": "spgemmd pool work steals: jobs taken by an idle slice outside "
+                    "their preferred slice class (every preferred slice was busy or "
+                    "degraded)",
     "serve_batches": "spgemmd cross-job batches run (two or more jobs)",
     "serve_batched_jobs": "jobs that rode a cross-job batch",
     "compiles": "kernel and host library builds or reuses recorded at first load "

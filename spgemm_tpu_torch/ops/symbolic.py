@@ -346,6 +346,8 @@ class SpgemmPlan:
     _exact_builder: object | None = field(default=None, repr=False)
     _frozen: bool = field(default=False, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    # rowshard_rounds' schedules, by round size
+    _rowshard: dict = field(default_factory=dict, repr=False)
 
     def _arrays(self) -> list:
         arrays = [self.a_coords, self.b_coords]
@@ -394,6 +396,35 @@ class SpgemmPlan:
         events.emit("plan_exact_landed", thread=threading.current_thread().name,
                     fingerprint=(self.fingerprint or "")[:16] or None)
         return self
+
+    def rowshard_rounds(self, round_size: int | None = None) -> list[Round]:
+        """The ladder rounds of this plan's join for parallel/rowshard,
+        memoized per round size: at most round_size keys a round, within
+        the card's launch cap (ops/spgemm.launch_key_cap, also the default:
+        the JAX package's 512 is its own TPU budget).  Always ladder, since
+        kernel 1 takes (K, P) index arrays; no bit depends on the chunking.
+        A ladder plan with no proof split, at the same cap, has these rounds
+        already (ops/spgemm.plan(route="ladder"), parallel/rowshard's
+        default plan): they are reused.  A frozen plan's schedule is frozen
+        too."""
+        from spgemm_tpu_torch.ops.spgemm import launch_key_cap  # noqa: PLC0415 -- a cycle
+
+        cap = launch_key_cap(self.k)
+        rs = cap if round_size is None else min(round_size, cap)
+        join = self.ensure_exact().join
+        with self._lock:
+            if rs not in self._rowshard and self.route == "ladder" \
+                    and self.split_fanout is None and rs == self.key_cap:
+                self._rowshard[rs] = self.rounds
+            if rs not in self._rowshard:
+                rounds = plan_rounds(join, a_sentinel=len(self.a_coords),
+                                     b_sentinel=len(self.b_coords), key_cap=rs, route="ladder")
+                if self._frozen:
+                    for r in rounds:
+                        for x in r.arrays():
+                            x.flags.writeable = False
+                self._rowshard[rs] = rounds
+            return self._rowshard[rs]
 
     def check_operands(self, a, b) -> None:
         """Refuse to drive a mismatched operand pair: the pa/pb indices

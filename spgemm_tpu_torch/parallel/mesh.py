@@ -1,5 +1,6 @@
-"""The device-pool slice table of spgemmd (the port's copy of the slice half
-of the JAX package's `parallel/mesh.py`), for single-device slices.
+"""The device-pool slice table of spgemmd and the device lists of the
+output-sharded multiply (the port's copy of the JAX package's
+`parallel/mesh.py`).
 
 Slice-spec grammar (`SPGEMM_TPU_SERVE_SLICES`), the JAX package's:
 
@@ -8,15 +9,21 @@ Slice-spec grammar (`SPGEMM_TPU_SERVE_SLICES`), the JAX package's:
 
 `COUNTxWIDTH` is COUNT slices of WIDTH devices each, a bare `COUNT` is
 COUNT single-device slices, and a trailing `*` marks the default slices.
-`auto` is one single-device slice per visible device plus, with more than
-one device, one full-mesh slice.
+Devices are assigned to terms in declaration order (`1x4+4` on 8 devices:
+one slice of devices 0-3, then singles on 4-7).  `auto` is one
+single-device slice per visible device plus, with more than one device,
+one full-mesh slice that overlaps the singles (spgemmd never dispatches to
+two slices that share a device at once).  Without a `*`, the narrowest
+width is the default.  A slice wider than one device runs the
+output-sharded multiply (parallel/rowshard.py) over its devices.
 
-A slice wider than one device runs the output-sharded multiply
-(parallel/rowshard in the JAX package), which the port does not have yet:
-slice_pool raises SliceSpecError for one, naming that port, and never
-serves a narrower slice in its place.  So with one visible card `1` and
-`auto` give the one slice on cuda:0.  Pure Python: device positions, not
-live devices.
+Spec parsing is pure Python over device positions; slice_devices and
+default_devices resolve positions into torch devices: `cuda:<i>` on cards,
+and on the CPU every position is `cpu` (a CPU pool's width is how many
+shards a multiply is cut into, not how many devices run them).  An
+explicit spec is checked against the device count when it is known, and a
+card position past the visible cards raises, as in the JAX package: with
+one card, a spec that needs two devices is refused, never time-sliced.
 
 Beside the slice table, the (dp, tp) training mesh of the block-sparse FFN
 (TrainMesh, train_mesh): the port's counterpart of the
@@ -33,12 +40,12 @@ from dataclasses import dataclass
 
 
 class SliceSpecError(ValueError):
-    """An unparsable, overcommitted or not yet served slice spec."""
+    """An unparsable or overcommitted slice spec; names the spec."""
 
 
 @dataclass(frozen=True)
 class DeviceSlice:
-    """One named slice: device_ids are positions among the visible cards."""
+    """One named slice: device_ids are positions among the visible devices."""
 
     name: str
     index: int
@@ -48,6 +55,9 @@ class DeviceSlice:
     @property
     def width(self) -> int:
         return len(self.device_ids)
+
+    def overlaps(self, other: "DeviceSlice") -> bool:
+        return bool(set(self.device_ids) & set(other.device_ids))
 
 
 _TERM_RE = re.compile(r"^(?:(\d+)x)?(\d+)(\*)?$")
@@ -94,34 +104,73 @@ def parse_slice_spec(spec: str, n_devices: int | None = None) -> list[tuple[int,
 
 
 def slice_pool(spec: str | None = None, n_devices: int | None = None) -> list[DeviceSlice]:
-    """The slice table of a spec (default: SPGEMM_TPU_SERVE_SLICES), devices
-    assigned to terms in order; the default slices are the `*` term's, else
-    the narrowest.  SliceSpecError for a slice wider than one device."""
+    """The slice table of a spec (default: SPGEMM_TPU_SERVE_SLICES): names
+    `s{i}w{width}`, devices assigned to terms in declaration order; `auto`
+    is the singles plus one overlapping full-mesh slice.  The default
+    slices are the `*` term's, else the narrowest."""
     from spgemm_tpu_torch.utils import knobs  # noqa: PLC0415
 
     spec = (knobs.get("SPGEMM_TPU_SERVE_SLICES") if spec is None else spec).strip()
-    # the width first, so a wide slice is named as such whatever the count
-    wide = max(w for w, _ in parse_slice_spec(spec, n_devices if spec == "auto" else None))
-    if wide > 1:
-        raise SliceSpecError(
-            f"slice spec {spec!r} asks for a {wide}-device slice; a slice wider "
-            "than one device runs the output-sharded multiply, which waits for the port "
-            "of parallel/rowshard.py")
-    widths = parse_slice_spec(spec, n_devices)
     if spec == "auto":
-        return [DeviceSlice(f"s{i}w1", i, (i,), default=True) for i in range(n_devices)]
+        if n_devices is None:
+            raise SliceSpecError("slice spec 'auto' needs the visible device count")
+        slices = [DeviceSlice(f"s{i}w1", i, (i,), default=True) for i in range(n_devices)]
+        if n_devices > 1:
+            slices.append(DeviceSlice(f"s{n_devices}w{n_devices}", n_devices,
+                                      tuple(range(n_devices))))
+        return slices
+    widths = parse_slice_spec(spec, n_devices)
     any_default = any(d for _, d in widths)
-    return [DeviceSlice(f"s{i}w1", i, (i,), default=is_default if any_default else True)
-            for i, (_, is_default) in enumerate(widths)]
+    min_width = min(w for w, _ in widths)
+    slices: list[DeviceSlice] = []
+    pos = 0
+    for i, (width, is_default) in enumerate(widths):
+        slices.append(DeviceSlice(f"s{i}w{width}", i, tuple(range(pos, pos + width)),
+                                  default=is_default if any_default else width == min_width))
+        pos += width
+    return slices
 
 
-def slice_device(sl: DeviceSlice, device_type: str) -> str:
-    """The torch device a single-device slice runs on: `cuda:<position>`,
-    or `cpu` for a daemon on the CPU."""
-    if sl.width != 1:
-        raise SliceSpecError(f"slice {sl.name} has {sl.width} devices; the port serves "
-                             "single-device slices only")
-    return "cpu" if device_type == "cpu" else f"{device_type}:{sl.device_ids[0]}"
+def slice_device_names(sl: DeviceSlice, device_type: str) -> list[str]:
+    """The torch device names of a slice's positions, without importing
+    torch: `cuda:<i>`, or `cpu` for every position on the CPU."""
+    if device_type == "cpu":
+        return ["cpu"] * sl.width
+    return [f"{device_type}:{i}" for i in sl.device_ids]
+
+
+def slice_devices(sl: DeviceSlice, device_type: str = "cuda") -> list:
+    """The torch devices of a slice (positions -> devices).  On cards a
+    position past the visible ones raises SliceSpecError, as the JAX
+    package's does: a spec is never served on fewer devices than it
+    names."""
+    import torch  # noqa: PLC0415
+
+    if device_type != "cpu":
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if sl.device_ids and max(sl.device_ids) >= visible:
+            raise SliceSpecError(
+                f"slice {sl.name} needs device position {max(sl.device_ids)} "
+                f"but only {visible} devices are visible")
+    return [torch.device(name) for name in slice_device_names(sl, device_type)]
+
+
+def default_devices(n: int | None = None, device_type: str = "cuda") -> list:
+    """The first n visible devices (the port's default_mesh): all cards by
+    default; on the CPU n entries of `cpu` (one by default)."""
+    if device_type == "cpu":
+        width = 1 if n is None else n
+    else:
+        import torch  # noqa: PLC0415
+
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible == 0:
+            raise RuntimeError("no CUDA device is visible; pass device_type='cpu' "
+                               "(CLI: --device cpu) to run on the CPU")
+        width = visible if n is None else n
+    if width < 1:
+        raise ValueError(f"a device list needs n >= 1, got {width}")
+    return slice_devices(DeviceSlice("default", 0, tuple(range(width))), device_type)
 
 
 @dataclass(frozen=True)

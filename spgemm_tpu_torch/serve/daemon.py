@@ -1,8 +1,9 @@
-"""spgemmd on the port: the resident daemon that owns the card (the port's
-copy of the JAX package's `serve/daemon.py`, on one single-device slice).
+"""spgemmd on the port: the resident daemon that owns the cards (the port's
+copy of the JAX package's `serve/daemon.py`).
 
 One long-lived process runs every submitted chain job through the port's
-engine (chain.chain_product on the slice's device), so what is expensive
+engine on a pool of device slices (parallel/mesh.slice_pool, the spec in
+SPGEMM_TPU_SERVE_SLICES), so what is expensive
 stays warm across jobs: the built nvcc and g++ libraries, the plan cache
 (ops/plancache), the delta store (ops/delta, SPGEMM_TPU_DELTA at its
 default 1: an edited resubmit re-folds only the rows its edit reaches) and
@@ -10,8 +11,27 @@ the crossover caches; the warm store (ops/warmstore, <socket>.warm unless
 SPGEMM_TPU_WARM_DIR says otherwise) keeps plans and delta entries across a
 restart.  The run-once CLI pays CUDA start-up and cold planning per call.
 
-Reliability, as in the JAX package but for who decides where a degraded
-slice's jobs run (the probe):
+The pool, as in the JAX package: one executor per slice.  A single-device
+slice runs chain.chain_product on its device (`cuda:<i>`); a wider slice
+runs each multiply as the output-sharded multiply over its devices
+(parallel/rowshard.spgemm_sharded, the exact fold, partials on the host).
+Placement (_accepts, under the queue's lock) prefers the slices of the
+job's class (serve/placement.route: `small` the narrowest healthy slices,
+`large` the widest, `default` the spec's default slices) and steals: an
+idle slice takes a job whose preferred slices are all busy (ENGINE
+`serve_steals`, the slice's `steals`).  A job under mxu, whose field-mode
+bytes differ from the exact fold's, runs on a single-device slice whenever
+one is healthy, and is never stolen onto a wide one; where every healthy
+slice is wide it runs unsharded on the wide slice's first device, so its
+bytes never depend on where it ran (the JAX daemon drops the backend on a
+wide slice).
+Two slices that share a device never run at once.  On the card the spec is
+checked against the visible cards (one H100: `1` or `auto`); on the CPU
+every slice position is `cpu` and the spec's device count is taken as
+given, so tests and chaos_smoke run pools of several slices there.
+
+Reliability, per slice, as in the JAX package but for who decides where a
+degraded slice's jobs run (the probe):
 
   * A card can fail by hanging, never raising.  The watchdog reaps a job
     past its deadline with a structured job-timeout error; when the
@@ -97,9 +117,10 @@ deadline and no batching.  The terminal path registers the class and its
 folder, settles a canary and scores the estimator for the class.  Under
 SPGEMM_TPU_TUNE=0 none of this runs.
 
-Pools of more than one slice are not ported.  This module imports no torch
-and no numpy at import time: the engine is imported inside the runners, the
-executor and main().
+The daemon is degraded (`degraded`, a non-null `degrade_reason`) only
+while every slice is; a degraded slice serves only then, on the host oracle.
+This module imports no torch and no numpy at import time: the engine is
+imported inside the runners, the executor and main().
 """
 
 from __future__ import annotations
@@ -116,6 +137,7 @@ import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 from spgemm_tpu_torch import tune as tune_mod
 from spgemm_tpu_torch.obs import events as obs_events
@@ -136,8 +158,8 @@ log = logging.getLogger("spgemm_tpu_torch.serve")
 SUBMIT_OPTIONS = ("backend", "round_size", "checkpoint_dir", "output", "timeout_s", "failover")
 
 # ENGINE counters the daemon bumps, reported by `stats`
-SERVE_COUNTERS = ("serve_reaps", "serve_degrades", "serve_recoveries", "serve_batches",
-                  "serve_batched_jobs")
+SERVE_COUNTERS = ("serve_reaps", "serve_degrades", "serve_recoveries", "serve_steals",
+                  "serve_batches", "serve_batched_jobs")
 
 
 # -------------------------------------------------------- journal framing --
@@ -226,7 +248,11 @@ def run_chain_job(job: Job, degraded: bool = False) -> None:
     """The default runner: read the job's folder, reduce the chain on the
     job's device (set at pickup; `cuda` when unset), write the output in
     the reference's text format.  ENGINE phases serve_load, serve_chain and
-    serve_write.
+    serve_write.  A job on a wide slice (job.devices, set at pickup, holds
+    more than one device) runs each multiply sharded over them
+    (parallel/rowshard), the exact fold; the delta store is not consulted
+    there.  Under mxu, whose field-mode bytes the sharded fold does not
+    give, it runs unsharded on the slice's first device instead.
 
     degraded=True runs the chain on the host oracle in the job's
     arithmetic: the field-mode oracle under mxu, the reference's fold
@@ -253,9 +279,14 @@ def run_chain_job(job: Job, degraded: bool = False) -> None:
                   else chain.oracle_multiply}
     else:
         rs = job.options.get("round_size")
-        kwargs = {"device": job.device or "cuda",
+        devices = job.devices or ("cuda",)
+        kwargs = {"device": devices[0],
                   "round_size": int(rs) if rs is not None else None,
                   "failover": bool(job.options.get("failover"))}
+        if len(devices) > 1 and backend != "mxu":
+            from spgemm_tpu_torch.parallel.rowshard import spgemm_sharded  # noqa: PLC0415
+
+            kwargs["multiply"] = partial(spgemm_sharded, devices=list(devices))
     with ENGINE.phase("serve_chain"):
         result = chain.chain_product(mats, backend=backend,
                                      checkpoint_dir=job.options.get("checkpoint_dir"),
@@ -269,7 +300,8 @@ def run_chain_job(job: Job, degraded: bool = False) -> None:
 
 def run_chain_jobs(jobs: list[Job], degraded: bool = False) -> None:
     """The batch runner: the chains of jobs of one recorded structure,
-    reduced in lockstep on the jobs' device (the slice's) by
+    reduced in lockstep on the jobs' device (a single-device slice's: the
+    batch gate excludes wide slices) by
     chain.chain_products_batched: each multiply planned once and each round
     one launch for all of them.  Every member's heartbeat after each
     multiply; a reaped head (the watchdog's job) raises JobAbandoned.
@@ -316,7 +348,7 @@ def run_chain_jobs(jobs: list[Job], degraded: bool = False) -> None:
 
     rs = jobs[0].options.get("round_size")
     with ENGINE.phase("serve_chain"):
-        device = jobs[0].device or "cuda"
+        device = (jobs[0].devices or ("cuda",))[0]
         results = chain.chain_products_batched(
             [[DeviceBlockMatrix.from_host(m, device=device) for m in mats] for mats in chains],
             backend=engine_backend(jobs[0].options.get("backend")),
@@ -328,19 +360,32 @@ def run_chain_jobs(jobs: list[Job], degraded: bool = False) -> None:
             io_text.write_matrix(job.output, result.to_host().prune_zeros())
 
 
-class _Slice:
-    """The slice's serving state: its executor thread and the watchdog's
-    handoff slots (thread, gen, current, reaped, reaped_at: one writer each,
-    read without a lock), and the degrade and recovery state, written under
-    the daemon's _lock."""
+def _pool(spec: str, n_devices: int | None, device: str) -> list:
+    """The slice table the daemon serves: the spec checked against
+    n_devices when it is known; on the CPU, where it is not, `auto` takes
+    one device and an explicit spec is taken as given."""
+    if n_devices is None and device == "cpu" and spec.strip() == "auto":
+        n_devices = 1
+    return mesh_mod.slice_pool(spec, n_devices)
 
-    def __init__(self, spec: mesh_mod.DeviceSlice, device: str):
+
+class _Slice:
+    """One pool slice's serving state: its devices, its executor thread and
+    the watchdog's handoff slots (thread, gen, current, reaped, reaped_at:
+    one writer each, read without a lock), and the degrade, recovery and
+    steal state, written under the daemon's _lock (the accept predicate
+    reads `degraded` without it, and a stale value costs at most one more
+    job for a replacement executor).  devices: the torch device names of
+    its positions."""
+
+    def __init__(self, spec: mesh_mod.DeviceSlice, devices: list[str]):
         self.spec = spec
         self.name = spec.name
-        self.device = device
+        self.devices = tuple(devices)
         self.degraded = False
         self.degrade_reason: str | None = None
         self.jobs_total = 0
+        self.steals = 0
         self.oracle_jobs = 0   # jobs a degraded executor ran on the host oracle
         self.recoveries = 0
         self.recovered_at: float | None = None
@@ -356,18 +401,29 @@ class _Slice:
         self.reaped: Job | None = None    # a reaped job in its wedge grace
         self.reaped_at = 0.0
 
+    @property
+    def width(self) -> int:
+        return self.spec.width
+
+    @property
+    def device(self) -> str:
+        """The slice's devices as logs and `stats` show them: one device's
+        name, a wide slice's names joined by commas."""
+        return ",".join(self.devices)
+
 
 class Daemon:
-    """The spgemmd server: accept loops, the executor, the watchdog, the
-    journal.
+    """The spgemmd server: accept loops, one executor per slice, the
+    watchdog, the journal.
 
-    device: `cuda` (the default; the slice runs on cuda:<position>) or
-    `cpu` (the kernels' plain versions; tests).  runner(job, degraded=) does
-    a job's work (default run_chain_job) and probe() is the card's liveness
+    device: `cuda` (the default; slices run on cuda:<position>) or `cpu`
+    (the kernels' plain versions; tests).  runner(job, degraded=) does a
+    job's work (default run_chain_job) and probe() is the card's liveness
     check (default utils/backend_probe.probe_default_backend, a subprocess
     with a time limit); both are injectable for tests.  slices: the slice
     spec (default SPGEMM_TPU_SERVE_SLICES), checked against n_devices, the
-    visible cards, when given; it must come to one single-device slice.
+    visible devices, when given (main() counts the cards; on the CPU tests
+    inject it, and `auto` takes 1 when it is not given).
     device_name is reported by `stats` and is the device half of the
     autotuner's class keys (`cpu` on the CPU).  batch_runner(jobs, degraded=)
     runs a batch of two or more jobs (default run_chain_jobs), injectable
@@ -448,13 +504,8 @@ class Daemon:
         self.queue = JobQueue(self._cap, tenant_inflight=tenant_inflight)
         self._slice_spec = slices if slices is not None \
             else knobs.get("SPGEMM_TPU_SERVE_SLICES")
-        pool = mesh_mod.slice_pool(self._slice_spec, 1 if device == "cpu" else n_devices)
-        if len(pool) != 1:
-            raise mesh_mod.SliceSpecError(
-                f"slice spec {self._slice_spec!r} gives {len(pool)} slices; the port's "
-                "daemon serves one slice (the multi-slice pool waits for the port of "
-                "parallel/rowshard.py and of the JAX daemon's slice pool)")
-        self.slices = [_Slice(pool[0], mesh_mod.slice_device(pool[0], device))]
+        self.slices = [_Slice(spec, mesh_mod.slice_device_names(spec, device))
+                       for spec in _pool(self._slice_spec, n_devices, device)]
         self.degraded = False                    # guarded by _lock
         self.degrade_reason: str | None = None   # guarded by _lock
         # the autotuner's class keys carry the card's name, so a vector tuned
@@ -612,10 +663,10 @@ class Daemon:
         t = threading.Thread(target=self._watchdog_loop, name="spgemmd-watchdog", daemon=True)
         t.start()
         self._threads.append(t)
-        log.info("spgemmd serving on %s%s (slice %s on %s; queue cap %d, job timeout %s)",
+        log.info("spgemmd serving on %s%s (slices %s; queue cap %d, job timeout %s)",
                  self.socket_path,
                  f" + tcp:{self._tcp_bind[0]}:{self.tcp_port}" if self.tcp_port else "",
-                 self.slices[0].name, self.slices[0].device, self._cap,
+                 ", ".join(f"{sl.name} on {sl.device}" for sl in self.slices), self._cap,
                  self._job_timeout_s or "none")
 
     def serve_forever(self) -> None:
@@ -670,9 +721,9 @@ class Daemon:
             pass
 
     def degrade_at_start(self, reason: str, probe_outcome: str | None = None) -> None:
-        """Mark the slice degraded before serving (main() when the startup
+        """Mark every slice degraded before serving (main() when the startup
         probe finds the card dead): jobs run on the host oracle until a
-        re-probe (SPGEMM_TPU_SERVE_RECOVER_S > 0) finds the card."""
+        slice's re-probe (SPGEMM_TPU_SERVE_RECOVER_S > 0) finds its card."""
         with self._lock:
             self._probe_outcome = probe_outcome
             for sl in self.slices:
@@ -684,8 +735,8 @@ class Daemon:
                     self._spawn_executor(sl)  # already serving: the oracle's turn
             self.degraded = True
             self.degrade_reason = reason
-        obs_events.emit("daemon_degrade", reason=reason, slice=self.slices[0].name,
-                        probe=probe_outcome)
+        for sl in self.slices:
+            obs_events.emit("daemon_degrade", reason=reason, slice=sl.name, probe=probe_outcome)
 
     @staticmethod
     def _route(job: Job) -> None:
@@ -698,17 +749,75 @@ class Daemon:
         job.placement = placement.route(job.folder)
         job.group_key = plancache.chain_structure(placement.signature(job.folder))
 
+    def _eligible(self, job: Job) -> list[_Slice]:
+        """The healthy slices the job may run on: all of them, but for a job
+        under mxu only the single-device ones while any is healthy (a wide
+        slice's sharded fold is the exact one, not the field mode's)."""
+        healthy = [s for s in self.slices if not s.degraded]
+        if engine_backend(job.options.get("backend")) == "mxu":
+            return [s for s in healthy if s.width == 1] or healthy
+        return healthy
+
+    def _preferred_names(self, job: Job) -> set[str]:
+        """The eligible slices (_eligible) the job's placement class
+        targets: `small` the narrowest width, `large` the widest, `default`
+        (and a job with no record) the spec's default slices, else the
+        narrowest.  Empty when no slice is healthy."""
+        healthy = self._eligible(job)
+        if not healthy:
+            return set()
+        cls = (job.placement or {}).get("class", "default")
+        if cls == "large":
+            pick = max(s.width for s in healthy)
+            return {s.name for s in healthy if s.width == pick}
+        if cls != "small":
+            defaults = {s.name for s in healthy if s.spec.default}
+            if defaults:
+                return defaults
+        pick = min(s.width for s in healthy)
+        return {s.name for s in healthy if s.width == pick}
+
+    def _devices_held(self, sl: _Slice) -> bool:
+        """Whether another slice that holds a job shares a device with sl
+        (`auto`'s full-mesh slice overlaps the singles)."""
+        return any(other is not sl and other.current is not None
+                   and other.spec.overlaps(sl.spec) for other in self.slices)
+
     def _accepts(self, sl: _Slice, job: Job) -> bool:
-        """The executor's dispatch predicate (under the queue lock): refuse
-        while another executor generation holds a live job on the slice (a
-        recovery's reinstatement overlaps the retiring degraded executor for
-        one poll), else claim the slice for the job.  A terminal leftover
-        claim is an abandoned executor's and is overwritten.  (The JAX
-        package's placement classes and work stealing choose among slices;
-        with one slice there is no choice.)"""
+        """The executor's dispatch predicate, run under the queue's lock
+        (never the daemon's: it reads the slices' handoff slots as they
+        are).  Refused while another executor generation holds a live job
+        on the slice (a reinstatement overlaps the retiring degraded
+        executor for one poll; a terminal leftover claim is an abandoned
+        executor's and is overwritten).  A degraded slice serves only while
+        every slice is degraded.  Otherwise the job is taken where the
+        slice is one of its preferred slices, and stolen (job.stolen) when
+        every preferred slice is busy, degraded or has a device held, by a
+        slice the job is eligible for (_eligible: never a wide one for a
+        job under mxu while a single-device slice is healthy).
+        True claims the slice (sl.current = job) under the queue's lock, so
+        an overlapping slice deciding in the same round sees its devices
+        held: the claim is the point of mutual exclusion."""
         cur = sl.current
         if cur is not None and cur.state not in TERMINAL:
             return False
+        if sl.degraded:
+            if any(not s.degraded for s in self.slices):
+                return False
+            job.stolen = False
+            sl.current = job
+            return True
+        if self._devices_held(sl):
+            return False
+        preferred = self._preferred_names(job)
+        if sl.name not in preferred:
+            if sl not in self._eligible(job):
+                return False
+            for other in self.slices:
+                if other.name in preferred and other.current is None \
+                        and not self._devices_held(other):
+                    return False  # a preferred slice is free: leave it the job
+        job.stolen = sl.name not in preferred
         sl.current = job
         return True
 
@@ -736,7 +845,7 @@ class Daemon:
                 if sl.current is job:
                     sl.current = None
                 continue
-            job.slice, job.device = sl.name, sl.device
+            job.slice, job.devices = sl.name, sl.devices
             tcanary = self._tune_activate(job)
             with self._lock:
                 # an oracle executor whose slice a live probe reinstated while
@@ -750,6 +859,7 @@ class Daemon:
                     sl.canary_job = job
                 sl.jobs_total += 1
                 sl.oracle_jobs += on_oracle
+                sl.steals += job.stolen
             if canary:
                 # a tightened deadline: a card still wedged costs one short job
                 tight = job.timeout_s / 2 if job.timeout_s > 0 else self._wedge_grace_s
@@ -804,7 +914,7 @@ class Daemon:
         jobs = [head] + [m for m in mates if m.state == "queued"]
         batched = len(jobs) > 1
         for m in jobs[1:]:
-            m.slice, m.device = sl.name, sl.device
+            m.slice, m.devices = sl.name, sl.devices
         if batched:
             with self._lock:
                 sl.jobs_total += len(jobs) - 1  # the head was counted at pickup
@@ -816,6 +926,8 @@ class Daemon:
             job.start()
         # a hang here is where a dead card hangs a job: after pickup
         failpoints.check("serve.executor")
+        if head.stolen:
+            ENGINE.incr("serve_steals")
         scopes = [ENGINE.scope() for _ in jobs]
         cache_base = plancache.baseline()
         # set before the head is sl.current's work: the watchdog reads them
@@ -899,7 +1011,8 @@ class Daemon:
         """With the window armed (SPGEMM_TPU_SERVE_BATCH_WINDOW_S > 0), up
         to SPGEMM_TPU_SERVE_BATCH_K - 1 queued jobs of the head's group key,
         deadline, backend and round_size, through the queue's fair pass.
-        No batch for a head without a group key (first contact), under
+        No batch on a wide slice (the sharded multiply has no batched
+        form), for a head without a group key (first contact), under
         SPGEMM_TPU_DELTA (retained results would splice across jobs), or
         with checkpoint_dir or failover (state of the job's own chain).  A
         window of 0 returns at once: the executor of one job at a time."""
@@ -907,7 +1020,8 @@ class Daemon:
         if window_s <= 0:
             return []
         batch_k = knobs.get("SPGEMM_TPU_SERVE_BATCH_K")
-        if batch_k <= 1 or head.group_key is None or knobs.get("SPGEMM_TPU_DELTA") \
+        if batch_k <= 1 or sl.width > 1 or head.group_key is None \
+                or knobs.get("SPGEMM_TPU_DELTA") \
                 or head.options.get("checkpoint_dir") or head.options.get("failover"):
             return []
 
@@ -1072,11 +1186,13 @@ class Daemon:
 
     def _tune_run_fn(self, sl: _Slice, gen: int):
         """A trial leg's runner: read the class's folder, reduce its chain
-        on the slice's device as a solo `exact` job would, and return a
-        digest of the result's coords and tiles (the tuner's parity
-        spot-check).  The heartbeat it plants before the read and between
-        multiplies raises TrialPreempted once a job is queued, the daemon
-        stops or this executor generation retired."""
+        on the slice's (first) device as a solo `exact` job on a
+        single-device slice would, and return a digest of the result's
+        coords and tiles (the tuner's parity spot-check; every slice's
+        devices are of one kind, so the ranking holds for any slice).  The
+        heartbeat it plants before the read and between multiplies raises
+        TrialPreempted once a job is queued, the daemon stops or this
+        executor generation retired."""
         def run(folder: str) -> str:
             from spgemm_tpu_torch import chain  # noqa: PLC0415 -- the engine loads lazily
             from spgemm_tpu_torch.utils import io_text  # noqa: PLC0415
@@ -1088,7 +1204,7 @@ class Daemon:
             beat()  # a job may have landed between the claim and here
             n, k = io_text.read_size(folder)
             mats = io_text.read_chain(folder, 0, n - 1, k)
-            return result_digest(chain.chain_product(mats, device=sl.device, heartbeat=beat))
+            return result_digest(chain.chain_product(mats, device=sl.devices[0], heartbeat=beat))
 
         return run
 
@@ -1464,7 +1580,8 @@ class Daemon:
                              "default": sl.spec.default, "degraded": sl.degraded,
                              "degrade_reason": sl.degrade_reason, "busy": cur is not None,
                              "current": cur.id if cur is not None else None,
-                             "jobs_total": sl.jobs_total, "oracle_jobs": sl.oracle_jobs,
+                             "jobs_total": sl.jobs_total, "steals": sl.steals,
+                             "oracle_jobs": sl.oracle_jobs,
                              "probing": sl.probing, "recoveries": sl.recoveries,
                              "recovered_at": sl.recovered_at,
                              "canary": sl.canary or sl.canary_job is not None,
@@ -1566,7 +1683,7 @@ class Daemon:
                 ("spgemm_slice_busy", labels, int(row["busy"])),
                 ("spgemm_slice_degraded", labels, int(row["degraded"])),
                 ("spgemm_slice_jobs_total", labels, row["jobs_total"]),
-                ("spgemm_slice_steals_total", labels, 0),  # one slice: nothing to steal
+                ("spgemm_slice_steals_total", labels, row["steals"]),
                 ("spgemm_slice_recoveries_total", labels, row["recoveries"]),
             ]
         # the SLO engine's tenant cap: the newest TENANT_RETAIN tenants keep
@@ -1698,8 +1815,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="where jobs run (default cuda; cpu runs the kernels' plain "
                         "versions)")
     p.add_argument("--slices", default=None, metavar="SPEC",
-                   help="slice spec (SPGEMM_TPU_SERVE_SLICES; the port serves one "
-                        "single-device slice: 1, or auto on one card)")
+                   help="slice spec (SPGEMM_TPU_SERVE_SLICES): [COUNTx]WIDTH[*] terms "
+                        "joined by '+', or auto; on cards it needs no more devices than "
+                        "are visible (one H100: 1 or auto), on the CPU any spec runs")
     p.add_argument("--queue-cap", type=int, default=None,
                    help="override SPGEMM_TPU_SERVE_QUEUE_CAP")
     p.add_argument("--no-journal", action="store_true",
@@ -1718,6 +1836,11 @@ def main(argv: list[str] | None = None) -> int:
                   file=sys.stderr)
             return 1
         n_devices = torch.cuda.device_count()
+        try:  # a spec the cards cannot serve fails before the probe
+            _pool(args.slices or knobs.get("SPGEMM_TPU_SERVE_SLICES"), n_devices, args.device)
+        except mesh_mod.SliceSpecError as e:
+            print(f"spgemmd: {e}", file=sys.stderr)
+            return 1
         # the probe's subprocess runs while this process loads the engine
         with ThreadPoolExecutor(1) as pool:
             probe = pool.submit(_startup_probe)

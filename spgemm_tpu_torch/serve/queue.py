@@ -86,10 +86,11 @@ class Job:
         # tolerates staleness
         self.heartbeat_at: float | None = None
         # the placement record (serve/placement.route, set at admission) and
-        # what the executor sets at pickup: the slice's name and its device
+        # what the executor sets at pickup: the slice's name, its torch
+        # devices, and whether an idle slice outside the job's class took it
         self.placement: dict | None = None
         self.slice: str | None = None
-        self.device: str | None = None
+        self.devices: tuple[str, ...] | None = None
         self.stolen = False
         # the batching group key (ops/plancache.chain_structure, set at
         # admission): jobs that share it walk one plan sequence and may run
@@ -111,6 +112,17 @@ class Job:
         self.est_base = None
         self._lock = threading.Lock()
         self._terminal = threading.Event()
+
+    @property
+    def device(self) -> str | None:
+        """The job's devices as its detail shows them: one device's name, a
+        wide slice's names joined by commas; None before pickup.  Setting
+        it gives the job that one device."""
+        return None if self.devices is None else ",".join(self.devices)
+
+    @device.setter
+    def device(self, name: str | None) -> None:
+        self.devices = None if name is None else (name,)
 
     def touch(self) -> None:
         """Progress heartbeat (after every multiply): the watchdog's

@@ -159,10 +159,11 @@ _KNOBS = (
          default="2", minimum=0.1),
     Knob("SPGEMM_TPU_SERVE_SLICES", "str",
          "spgemmd device-pool slice spec (parallel/mesh.slice_pool): terms "
-         "[COUNTx]WIDTH[*] joined by '+', or 'auto'.  The port serves one "
-         "single-device slice: '1', or 'auto' with one visible card.  A wide "
-         "slice, more slices, or more devices than are visible fail daemon "
-         "startup.  Read by serve/daemon.py.",
+         "[COUNTx]WIDTH[*] joined by '+', or 'auto'.  One executor per slice; a "
+         "slice wider than one device runs the output-sharded multiply "
+         "(parallel/rowshard.py).  On cards a spec needing more devices than are "
+         "visible fails daemon startup (one card: '1' or 'auto'); on the CPU "
+         "every slice position is the CPU.  Read by serve/daemon.py.",
          default="1"),
     Knob("SPGEMM_TPU_SERVE_TENANT_INFLIGHT", "int",
          "spgemmd per-tenant in-flight cap (queued + running jobs per tenant): a "

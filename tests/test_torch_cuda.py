@@ -17,7 +17,9 @@ kernels 3 and 4, kernel 5 of csrc/bsmm_grad.cu at any M; its wgmma body
 bit-equal to its mma.sync body in both forms (one tile a block, a block
 over half a run) and at every ring depth, stage depth and grid, over runs
 of 1 to 4 pairs sharing a strip) against their
-plain versions and one step against the plain autograd step.  Tolerance: exact (torch.equal)
+plain versions and one step against the plain autograd step; the output-sharded
+multiply (parallel/rowshard) over [cuda:0] * n against spgemm_device on
+banded and random chains, and `--shard keys` on the golden data.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -28,6 +30,11 @@ There, the shared tests/conftest.py (which imports jax) is skipped:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a card each test skips."""
+
+import os
+import subprocess
+import sys
+from functools import partial
 
 import numpy as np
 import pytest
@@ -41,7 +48,8 @@ from spgemm_tpu_torch.ops import delta, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.parallel.mesh import train_mesh
-from spgemm_tpu_torch.utils.gen import random_chain, random_values
+from spgemm_tpu_torch.parallel.rowshard import spgemm_sharded
+from spgemm_tpu_torch.utils.gen import banded_block_sparse, random_chain, random_values
 from spgemm_tpu_torch.utils.timers import ENGINE
 
 
@@ -1154,3 +1162,46 @@ def test_execute_batched_on_card_equals_solo_executes(cuda, backend, monkeypatch
     for g, s in zip(got, solo):
         assert torch.equal(g.slab, s.slab) and np.array_equal(g.coords, s.coords)
         assert g.val_bound == s.val_bound
+
+
+def _rowshard_chain(kind: str, k: int) -> list:
+    rng = np.random.default_rng(70 + k)
+    if kind == "banded":
+        return [banded_block_sparse(40, k, 3, rng, "adversarial") for _ in range(4)]
+    return random_chain(4, 24, k, 0.3, rng, "adversarial")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("kind,k", [("banded", 8), ("banded", 32), ("random", 8), ("random", 32)])
+def test_sharded_multiply_on_card_equals_spgemm_device(cuda, kind, k, n):
+    """Each shard is one kernel-1 launch on cuda:0; the bytes are
+    spgemm_device's, multiply by multiply and over the chain."""
+    mats = _rowshard_chain(kind, k)
+    devices = [torch.device("cuda:0")] * n
+    for a, b in zip(mats[:-1], mats[1:]):
+        launches, shards = _launches("numeric_round"), ENGINE.counter_snapshot().get(
+            "rowshard_round", 0)
+        got = spgemm_sharded(a, b, devices=devices)
+        want = engine.spgemm_device(a, b, device=cuda).to_host()
+        assert np.array_equal(got.coords, want.coords) and np.array_equal(got.tiles, want.tiles)
+        sharded = ENGINE.counter_snapshot().get("rowshard_round", 0) - shards
+        assert sharded > 0 and sharded % n == 0
+        assert _launches("numeric_round") - launches >= sharded  # spgemm_device's launch too
+    got = chain_product(mats, device=cuda, multiply=partial(spgemm_sharded, devices=devices))
+    assert got == chain_product(mats, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["golden_chain", "golden_wrap"])
+def test_cli_shard_keys_on_card_writes_the_golden_bytes(cuda, name, tmp_path):
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = os.path.join(repo, "tests", "data")
+    proc = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", os.path.join(data, name),
+                           "--shard", "keys", "-v"], cwd=tmp_path,
+                          env={**os.environ, "PYTHONPATH": repo}, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    with open(os.path.join(data, f"{name}_expected_matrix"), "rb") as f:
+        assert (tmp_path / "matrix").read_bytes() == f.read()
+    assert "launches_numeric_round" in proc.stderr and "rowshard_round" in proc.stderr

@@ -2,7 +2,7 @@
 jax nor anything of the JAX package spgemm_tpu, checked in a fresh
 interpreter that imports every port module; and the CLI module, the
 daemon's client side (serve/client, protocol, queue, placement, and
-serve/daemon before it runs, serve/obs_smoke), the obs layer (obs/trace,
+serve/daemon before it runs, serve/obs_smoke, serve/chaos_smoke), the obs layer (obs/trace,
 events, metrics, profile, slo, also in use), the autotuner (tune/, also
 running a leg) and the fleet router (fleet/router, pricebook) import neither
 torch nor numpy; the `knobs` and `tune` subcommands load no torch, and
@@ -33,7 +33,8 @@ for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
              "serve", "serve.protocol", "serve.queue", "serve.placement", "serve.client",
              "serve.daemon", "serve.smoke", "serve.obs_smoke", "obs", "obs.trace", "obs.events",
              "obs.metrics", "obs.profile", "obs.slo", "tune", "tune.tuner", "fleet",
-             "fleet.router", "fleet.pricebook", "fleet.fleet_smoke"):
+             "fleet.router", "fleet.pricebook", "fleet.fleet_smoke", "parallel.rowshard",
+             "serve.chaos_smoke"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
@@ -78,7 +79,8 @@ print("light")
                                     "spgemm_tpu_torch.fleet",
                                     "spgemm_tpu_torch.fleet.router",
                                     "spgemm_tpu_torch.fleet.pricebook",
-                                    "spgemm_tpu_torch.fleet.fleet_smoke"])
+                                    "spgemm_tpu_torch.fleet.fleet_smoke",
+                                    "spgemm_tpu_torch.serve.chaos_smoke"])
 def test_the_serve_front_loads_neither_torch_nor_numpy(module):
     """A submitting process must not pay the cold torch import the daemon
     exists to amortize; the daemon module loads the engine lazily."""
@@ -357,3 +359,41 @@ def test_the_training_step_imports_neither_jax_nor_spgemm_tpu():
     proc = subprocess.run([sys.executable, "-c", _TRAIN_CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "trained", proc.stderr
+
+
+_ROWSHARD_CHILD = """
+import os, sys, tempfile
+import numpy as np
+from spgemm_tpu_torch.parallel.rowshard import spgemm_sharded
+from spgemm_tpu_torch.serve import client
+from spgemm_tpu_torch.serve.daemon import Daemon
+from spgemm_tpu_torch.utils import io_text
+from spgemm_tpu_torch.utils.gen import random_chain
+
+mats = random_chain(3, 8, 2, 0.5, np.random.default_rng(1), "full")
+spgemm_sharded(mats[0], mats[1], devices=["cpu"] * 3)
+d = tempfile.mkdtemp()
+io_text.write_chain_dir(os.path.join(d, "c"), mats, 2)
+daemon = Daemon(os.path.join(d, "s.sock"), slices="1x2", device="cpu")
+daemon.start()
+try:
+    j = client.submit(os.path.join(d, "c"), daemon.socket_path, {"output": os.path.join(d, "o")})
+    job = client.wait(j["id"], daemon.socket_path, timeout=120)["job"]
+    assert job["state"] == "done" and job["detail"]["rowshard_round"] > 0, job
+finally:
+    daemon.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
+assert not bad, bad
+print("sharded")
+"""
+
+
+def test_the_sharded_multiply_and_a_wide_slice_import_neither_jax_nor_spgemm_tpu():
+    """parallel/rowshard and a daemon's wide slice running it on the CPU
+    import no jax and nothing of the JAX package."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    env.pop("SPGEMM_TPU_WARM_DIR", None)
+    proc = subprocess.run([sys.executable, "-c", _ROWSHARD_CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "sharded", proc.stderr

@@ -371,22 +371,36 @@ def test_single_device_pools_are_the_jax_pools(spec, n):
         for s in jax_mesh.slice_pool(spec, n)]
 
 
-@pytest.mark.parametrize("spec,n,fragment", [("1x4", 4, "rowshard"), ("auto", 4, "rowshard"),
-                                             ("1+1x2", 3, "rowshard"), ("1x4", 1, "rowshard"),
+@pytest.mark.parametrize("spec,n,fragment", [("1x4", 4, None), ("auto", 4, None),
+                                             ("1+1x2", 3, None),
+                                             ("1x4", 1, "needs 4 devices but only 1 are visible"),
                                              ("2", 1, "only 1 are visible")])
 def test_wide_or_overcommitted_slices_raise(spec, n, fragment):
+    """Wide slices are served (parallel/rowshard.py): their table is the
+    JAX module's.  Only a spec needing more devices than are visible
+    raises, as in the JAX module."""
+    if fragment is None:
+        assert mesh.slice_pool(spec, n) == [
+            mesh.DeviceSlice(s.name, s.index, s.device_ids, s.default)
+            for s in jax_mesh.slice_pool(spec, n)]
+        return
     with pytest.raises(mesh.SliceSpecError, match=fragment):
         mesh.slice_pool(spec, n)
+    with pytest.raises(jax_mesh.SliceSpecError, match=fragment):
+        jax_mesh.slice_pool(spec, n)
 
 
 def test_the_daemon_serves_one_slice(tmp_path):
+    """On one visible card the pool is one slice on cuda:0, and a spec
+    needing a second device raises, as in the JAX package (no slice
+    time-slices the card); on the CPU the default spec is one slice."""
     d = Daemon(str(tmp_path / "a.sock"), slices="auto", n_devices=1)
     assert [(s.name, s.device) for s in d.slices] == [("s0w1", "cuda:0")]
     assert [s.device for s in Daemon(str(tmp_path / "b.sock"), device="cpu").slices] == ["cpu"]
-    with pytest.raises(mesh.SliceSpecError, match="one slice"):
-        Daemon(str(tmp_path / "c.sock"), slices="2", n_devices=2)
-    with pytest.raises(mesh.SliceSpecError, match="rowshard"):
-        Daemon(str(tmp_path / "d.sock"), slices="1x2", n_devices=2)
+    with pytest.raises(mesh.SliceSpecError, match="needs 2 devices but only 1 are visible"):
+        Daemon(str(tmp_path / "c.sock"), slices="2", n_devices=1)
+    with pytest.raises(mesh.SliceSpecError, match="needs 2 devices but only 1 are visible"):
+        Daemon(str(tmp_path / "d.sock"), slices="1x2", n_devices=1)
     with pytest.raises(ValueError, match="device"):
         Daemon(str(tmp_path / "e.sock"), device="tpu")
 
@@ -960,10 +974,20 @@ def test_serve_on_a_dead_card_starts_degraded_and_says_so(tmp_path, monkeypatch,
         "(degraded)"]
 
 
-def test_serve_refuses_a_wide_slice(tmp_path, capsys):
-    assert daemon_mod.main(["--socket", str(tmp_path / "s.sock"), "--device", "cpu",
-                            "--slices", "1x2"]) == 1
-    assert "rowshard" in capsys.readouterr().err
+def test_serve_refuses_a_wide_slice(tmp_path, capsys, monkeypatch):
+    """With one visible card, `serve --slices 1x2` exits 1 before its probe,
+    naming the overcommit (the JAX rule); nothing runs on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+    def no_probe():
+        raise AssertionError("a spec the cards cannot serve is refused before the probe")
+
+    monkeypatch.setattr(daemon_mod, "_startup_probe", no_probe)
+    assert daemon_mod.main(["--socket", str(tmp_path / "s.sock"), "--slices", "1x2"]) == 1
+    assert "needs 2 devices but only 1 are visible" in capsys.readouterr().err
 
 
 def test_the_cli_serves_submits_and_shuts_down(tmp_path):
