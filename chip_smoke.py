@@ -32,7 +32,11 @@ the script exits non-zero without printing a result:
                fused and not), equal to each other and across block_m and
                the streaming kernel's row tile (16, 32, 64, 128), and
                two shapes that must raise (a resident panel that does not
-               fit, k = 8);
+               fit, k = 8); and the field-mode kernels of inner and ring
+               sharding (csrc/field_fold.cu): F1 in its full and SMALL
+               instances, F3 and F2 on EDGE values, k 1..64, sentinel-heavy
+               lists, P = 0, K = 0, scatter trips whose cells are mostly
+               padding on the dummy row, and sums of 2^64 - 1 (read 0);
   4. cli     -- `python -m spgemm_tpu_torch.cli` on the golden inputs, byte
                equality with the expected files, one small multiply against
                the numpy oracle, and a small-valued chain under each
@@ -256,6 +260,19 @@ the script exits non-zero without printing a result:
                dispatch, assembly and the rest beside the plan cache's hits
                and misses; `--shard keys` once through the CLI on
                golden_chain; kernel 1's row gains `rowshard_launches`;
+               then `[inner-ring]`: the Medium chain from its host leaves
+               through parallel/innershard.spgemm_inner and
+               parallel/ring.spgemm_ring over [cuda:0] * 1, 2 and 4 (the ring
+               with SPGEMM_TPU_RING_OVERLAP 1, and 0 at 4), each a main path
+               launching F1 (and F2 at n > 1) or F3 and no other kernel,
+               every result byte-equal to the mxu backend's chain on the same
+               leaves, with walls, ENGINE splits, launches and CUDA-event ms;
+               the plain versions against the kernels on Medium's first 3
+               matrices at 2 positions, timed; the webbase-ring pair
+               (benchmarks/run.py's powerlaw_block_sparse(256, 32, 3.0),
+               seed 3) through the ring at 4 positions equal to the exact
+               path, with its deep-tail cells; chain_product_on_devices at
+               P = 8 on [cuda:0] equal to [medium-cli]'s --ranks 8;
   6. medium-small -- the same chain with values below 2^16, where the hybrid
                router's proof holds on every level-1 multiply: (a) exact once,
                the reference bytes; (b) hybrid under the proof gate and
@@ -322,7 +339,8 @@ the script exits non-zero without printing a result:
                result line).
 
 Then one JSON line describing every ported kernel (kernel 5 and the dgrad
-after kernels 3 and 4, the splice and the dense fold last) and, last, the
+after kernels 3 and 4, the splice and the dense fold, then F1, F2 and F3 of
+csrc/field_fold.cu last) and, last, the
 device line `{"ok": true, "device": {...}}`.  The rows known so far are also
 printed as `[kernels so far]` lines after the Medium, dense, medium-small
 and ffn phases and written to build/chip_smoke_kernels.json, so that a cut
@@ -357,7 +375,7 @@ from spgemm_tpu_torch.chain import chain_product, chain_products_batched
 from spgemm_tpu_torch.models import ffn
 from spgemm_tpu_torch.obs import profile as obs_profile
 from spgemm_tpu_torch.ops import _build, crossover, cuda_bsmm, cuda_dense, cuda_mxu, cuda_splice
-from spgemm_tpu_torch.ops import cuda_bsmm_grad, cuda_spgemm
+from spgemm_tpu_torch.ops import cuda_bsmm_grad, cuda_field, cuda_spgemm, u64
 from spgemm_tpu_torch.ops import delta, estimate, mxu_spgemm, plancache, symbolic, warmstore
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
@@ -572,6 +590,100 @@ def _check_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
+def _field_slab(rng, n_tiles: int, k: int, small: bool) -> torch.Tensor:
+    """n_tiles tiles and the zero sentinel last, on the card: half EDGE
+    values, half uniform; all below 2^32 when small (the SMALL instance's
+    proof)."""
+    pool = np.array([v for v in EDGE if not small or v < 1 << 32], np.uint64)
+    shape = (n_tiles + 1, k, k)
+    tiles = np.where(rng.random(shape) < 0.5, pool[rng.integers(0, len(pool), shape)],
+                     rng.integers(0, 1 << 32 if small else 1 << 64, shape, dtype=np.uint64))
+    tiles[-1] = 0
+    return torch.from_numpy(tiles.view(np.int64)).to(DEVICE)
+
+
+def _field_pairs(rng, n_tiles: int, K: int, P: int, pattern: str) -> list:
+    """(pa, pb) on the card with sentinel slots laid out as _sentinel_round
+    lays them ("pad_keys", "one_sided", "between"; "none": no sentinel)."""
+    pa, pb = (rng.integers(0, n_tiles, size=(K, P)).astype(np.int32) for _ in range(2))
+    hole = rng.random((K, P)) < 0.4
+    if pattern == "pad_keys":
+        pa[::3] = pb[::3] = n_tiles
+    elif pattern == "one_sided":
+        pa[hole] = n_tiles
+        pb[~hole & (rng.random((K, P)) < 0.4)] = n_tiles
+    elif pattern == "between":
+        pa[hole] = pb[hole] = n_tiles
+    return [torch.from_numpy(x).to(DEVICE) for x in (pa, pb)]
+
+
+def _field_cases(rng) -> dict:
+    """The field-mode kernels of inner and ring sharding (csrc/field_fold.cu)
+    against their plain versions on the card, exact equality: F1
+    (field_fold, full and SMALL instances) on EDGE values at k 1, 2, 8, 32,
+    64 with sentinel-heavy lists, P = 0, K = 0 and a pair sum of 2^64 - 1
+    (which reads 0); F3 (field_fold_scatter) on rank lists and tail trips
+    where most cells are padding on the dummy row; F2 (addmod_field_) on
+    EDGE values with a sum of 2^64 - 1.  Returns the max abs error by
+    kernel and the number of cases."""
+    worst = {"field_fold": 0, "field_fold_scatter": 0, "field_add": 0}
+    cases = 0
+    fold_cases = [(k, K, P, pattern) for k, K, P in ((1, 300, 9), (2, 300, 9), (8, 60, 7),
+                                                     (32, 40, 8), (64, 8, 5))
+                  for pattern in ("none", "pad_keys", "one_sided", "between")]
+    fold_cases += [(32, 4, 384, "between"), (8, 20, 384, "one_sided"), (16, 0, 4, "between"),
+                   (16, 3, 0, "between")]
+    for k, K, P, pattern in fold_cases:
+        for small in (False, True):
+            a, b = _field_slab(rng, 30, k, small), _field_slab(rng, 30, k, small)
+            pa, pb = _field_pairs(rng, 30, K, P, pattern)
+            want = cuda_field.field_fold_ref(a, b, pa, pb, small=small)
+            what = f"k={k} K={K} P={P} {pattern} small={small}"
+            worst["field_fold"] = max(worst["field_fold"], _check_equal(
+                f"field_fold {what}", cuda_field.field_fold(a, b, pa, pb, small=small), want))
+            if small:  # the full instance is legal on small values too: the same bits
+                _check_equal(f"field_fold (full) {what}", cuda_field.field_fold(a, b, pa, pb),
+                             want)
+            cases += 1
+    # (2^32 - 1)^2 + (2^33 - 2) = 2^64 - 1, which reads 0
+    a = torch.tensor([[[(1 << 32) - 1]], [[(1 << 33) - 2]], [[0]]], dtype=torch.int64,
+                     device=DEVICE)
+    b = torch.tensor([[[(1 << 32) - 1]], [[1]], [[0]]], dtype=torch.int64, device=DEVICE)
+    pa = torch.tensor([[0, 1]], dtype=torch.int32, device=DEVICE)
+    for small in (False, True):
+        got = cuda_field.field_fold(a, b, pa, pa.clone(), small=small)
+        _check_equal(f"field_fold 2^64 - 1 collapse small={small}", got, torch.zeros_like(got))
+    for k, C, P in ((1, 500, 1), (2, 400, 1), (8, 300, 1), (32, 200, 1), (64, 60, 1),
+                    (32, 40, 6), (64, 30, 3), (8, 0, 1)):
+        a, b = _field_slab(rng, 25, k, False), _field_slab(rng, 25, k, False)
+        rows_acc = max(1, C // 3) + 1  # two in three cells are padding on the dummy row
+        rows = np.full(C, rows_acc - 1, np.int32)
+        rows[rng.permutation(C)[: rows_acc - 1]] = rng.permutation(rows_acc - 1)
+        pa, pb = _field_pairs(rng, 25, C, P, "between")
+        if P == 1:  # a rank list's (C,) form
+            pa, pb = pa[:, 0].contiguous(), pb[:, 0].contiguous()
+        rows_t = torch.from_numpy(rows).to(DEVICE)
+        start = _field_slab(rng, rows_acc - 1, k, False)
+        start[-1] = -7  # the dummy row's stale value, which no cell may write
+        got = cuda_field.field_fold_scatter(start.clone(), a, b, rows_t, pa, pb)
+        want = cuda_field.field_fold_scatter_ref(start.clone(), a, b, rows_t, pa, pb)
+        worst["field_fold_scatter"] = max(worst["field_fold_scatter"], _check_equal(
+            f"field_fold_scatter k={k} C={C} P={P}", got, want))
+        if not got[-1].eq(-7).all():
+            raise RuntimeError(f"field_fold_scatter k={k} C={C} P={P} wrote the dummy row")
+        cases += 1
+    for k, K in ((1, 1000), (8, 300), (32, 50), (64, 9)):
+        x, y = _field_slab(rng, K, k, False), _field_slab(rng, K, k, False)
+        x[0, 0, 0], y[0, 0, 0] = -2, 1  # (2^64 - 2) + 1 reads 0
+        got = cuda_field.addmod_field_(x.clone(), y)
+        worst["field_add"] = max(worst["field_add"], _check_equal(
+            f"addmod_field_ k={k} K={K}", got, cuda_field.addmod_field_ref_(x.clone(), y)))
+        if int(got[0, 0, 0]) != 0:
+            raise RuntimeError("addmod_field_: (2^64 - 2) + 1 did not read 0")
+        cases += 1
+    return {"worst": worst, "cases": cases}
+
+
 def phase_kernel(rng) -> dict:
     """Each kernel against its plain version on the card; returns the max
     abs error by kernel."""
@@ -634,6 +746,13 @@ def phase_kernel(rng) -> dict:
            f"jobs' round stacked by stack_round_indices (sentinels in every job's copy), each "
            f"job's rows == its solo round; P*k > 2^17 raises; "
            f"max_abs_err {worst}")
+    t1 = time.perf_counter()
+    field = _field_cases(np.random.default_rng(SEED + 25))
+    worst.update(field["worst"])
+    _phase("kernel", t1, f"field_fold (F1, full and SMALL), field_fold_scatter (F3) and "
+           f"addmod_field_ (F2) == plain versions on {field['cases']} cases (EDGE values, k "
+           f"1..64, sentinel-heavy lists, P = 0, K = 0, two in three scatter cells on the "
+           f"dummy row, sums of 2^64 - 1 read 0); max_abs_err {field['worst']}")
     worst.update(_bsmm_cases(rng))
     return worst
 
@@ -1051,7 +1170,9 @@ LAUNCH_COUNTERS = {"mod": "launches_numeric_round", "no_mod": "launches_numeric_
                    "mxu": "launches_numeric_round_mxu", "splice": "launches_splice",
                    "dense": "launches_dense_fold", "bsmm": "launches_bsmm",
                    "bsmm_resident": "launches_bsmm_resident",
-                   "bsmm_wgrad": "launches_bsmm_wgrad"}
+                   "bsmm_wgrad": "launches_bsmm_wgrad", "field_fold": "launches_field_fold",
+                   "field_fold_scatter": "launches_field_fold_scatter",
+                   "field_add": "launches_field_add"}
 
 
 def _zero_counts() -> None:
@@ -1220,6 +1341,7 @@ def phase_medium() -> tuple[dict, SimpleNamespace]:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "equal": True, "variant": "mod",
             "ms_runs": runs_ms, "chain_wall_s": wall, "plan_s": t_plan, "macs": kern.macs,
+            "bytes": kern.bytes,
             "peak_bytes": peak, "peak_above_inputs_bytes": peak - base,
             "plan_cache_main_path": cache, "pairs": kern.pairs, "slots": kern.slots, "ptxas": ptxas,
             "geometry": geometry}, SimpleNamespace(mats=mats, dev_mats=dev_mats, res=res)
@@ -1488,11 +1610,20 @@ def _medium_cli_ranks(medium, folder: str, tmp: str, env: dict, p1) -> dict:
     if not _host_equal(got, mem):
         raise RuntimeError("cli --ranks 8 ./matrix differs from chain_product_partitioned "
                            "with spgemm_outofcore in memory")
+    medium.ranks8_digest = _digest(got)  # [inner-ring] holds --shard chain's P = 8 to it
     phases = {m.group(1): float(m.group(2))
               for m in re.finditer(r"phase (\S+): ([0-9.]+)s", proc.stderr)}
     return {"time_taken_s": float(taken.group(1)), "phases": phases,
             "tiles": got.nnzb, "tiles_differing_from_p1": _differing_tiles(got, p1),
             "in_memory_ooc_s": mem_s}
+
+
+def _digest(m: BlockSparseMatrix) -> str:
+    """sha256 of a host matrix's dims, coords and tiles."""
+    h = hashlib.sha256(np.array([m.rows, m.cols, m.k], np.int64).tobytes())
+    h.update(np.ascontiguousarray(m.coords, np.int64).tobytes())
+    h.update(np.ascontiguousarray(m.tiles, np.uint64).tobytes())
+    return h.hexdigest()
 
 
 def phase_medium_parity(medium) -> dict:
@@ -4999,6 +5130,279 @@ def phase_rowshard(medium) -> dict:
     return out
 
 
+INNER_RING_N = (1, 2, 4)  # [inner-ring]: positions of spgemm_inner and spgemm_ring, on cuda:0
+INNER_RING_PLAIN = (3, 2)  # [inner-ring]: the plain versions on Medium's first 3, 2 positions
+# [inner-ring]: spgemm_inner's and spgemm_ring's ENGINE phases, each run's wall split
+INNER_SPLIT = ("plan", "upload", "numeric_dispatch", "assembly")
+RING_SPLIT = ("ring_plan", "ring_hop", "upload", "ring_fold", "assembly")
+# the webbase-ring pair of benchmarks/run.py:340-342: powerlaw_block_sparse(256, 32, 3.0,
+# rng, "small") twice from default_rng(3), through the ring at 4 positions
+WEBBASE_RING = {"block_dim": 256, "k": 32, "avg_per_row": 3.0, "seed": 3, "n": 4}
+# csrc/field_fold.cu's field-arithmetic instructions per u64 MAC on the pipe that bounds
+# each instance, keyed (SMALL, SCATTER), as tools/field_sass_count.py counts them in the
+# sm_90a SASS of the built library (nvcc's unrolled j loop; loads, address strides,
+# register copies and loop control left out, as in INT_OPS_PER_MAC).  Full: 4 MACs a
+# trip; F1 41 on the FMA pipe (the 128-bit product's partial products and carries) and
+# 41 on the integer pipe (carry adds, compares, selects), F3 40 and 42.  SMALL: 16 MACs a
+# trip; F1 65 and 81, F3 66 and 80 (the low product stays 64 x 64: nvcc does not know
+# the values are below 2^32).  [inner-ring] recounts them from this run's build where
+# cuobjdump runs, and uses those counts.
+FIELD_OPS_PER_MAC = {(False, False): 41 / 4, (False, True): 42 / 4,
+                     (True, False): 81 / 16, (True, True): 80 / 16}
+
+
+@contextlib.contextmanager
+def _patched(obj, **attrs):
+    """Set attributes of a module for the duration, then restore them."""
+    old = {name: getattr(obj, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(obj, name, value)
+
+
+class FieldTimer:
+    """The three field-mode wrappers (or their plain versions) wrapped in
+    CUDA events where inner and ring sharding call them; F2 also counts its
+    bytes (x and y read, x written).  No synchronisation inside a run."""
+
+    def __init__(self, plain: bool = False):
+        self.fold = EventFold(cuda_field.field_fold_ref if plain else cuda_field.field_fold)
+        self.scatter = EventFold(cuda_field.field_fold_scatter_ref if plain
+                                 else cuda_field.field_fold_scatter)
+        self.add = EventFold(cuda_field.addmod_field_ref_ if plain else cuda_field.addmod_field_)
+        self.add_bytes = 0
+
+    def _add(self, x, y):
+        self.add_bytes += 3 * x.numel() * 8
+        return self.add(x, y)
+
+    @contextlib.contextmanager
+    def installed(self):
+        from spgemm_tpu_torch.parallel import innershard  # noqa: PLC0415
+
+        with _patched(innershard, fold_pairs_field=self.fold), \
+                _patched(cuda_field, field_fold_scatter=self.scatter, addmod_field_=self._add):
+            yield self
+
+    def ms(self) -> dict:
+        return {"field_fold": self.fold.ms(), "field_fold_scatter": self.scatter.ms(),
+                "field_add": self.add.ms()}
+
+
+def _field_chain(mats, strategy: str, n: int, overlap: str = "1", plain: bool = False) -> tuple:
+    """The chain of host leaves through spgemm_inner or spgemm_ring over
+    [cuda:0] * n (SPGEMM_TPU_RING_OVERLAP=overlap), as a main path: counts
+    zeroed just before and read just after; the field kernels timed by
+    CUDA events (their plain versions when plain).  Returns (host result,
+    run dict)."""
+    from spgemm_tpu_torch.parallel.innershard import spgemm_inner  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.ring import spgemm_ring  # noqa: PLC0415
+
+    fn = spgemm_inner if strategy == "inner" else spgemm_ring
+    timer = FieldTimer(plain)
+    mult = partial(fn, devices=[torch.device(DEVICE, 0)] * n)
+    with _env(SPGEMM_TPU_RING_OVERLAP=overlap), timer.installed(), \
+            contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        _zero_counts()
+        ph0, c0 = ENGINE.snapshot(), ENGINE.counter_snapshot()
+        t1 = time.perf_counter()
+        res = chain_product(mats, device=DEVICE, multiply=mult, backend="mxu")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = _read_counts()
+        ph1, c1 = ENGINE.snapshot(), ENGINE.counter_snapshot()
+    split = {name: ph1.get(name, 0.0) - ph0.get(name, 0.0)
+             for name in (INNER_SPLIT if strategy == "inner" else RING_SPLIT)}
+    split["other"] = wall - sum(v for name, v in split.items() if name != "ring_hop")
+    launches = {name: counts[name] for name in ("field_fold", "field_fold_scatter", "field_add")}
+    others = {name: counts[name] for name in ("mod", "no_mod", "mxu", "dense")}
+    want = ({"field_fold_scatter"} if strategy == "ring"
+            else {"field_fold", "field_add"} if n > 1 else {"field_fold"})
+    if not plain and ({name for name, v in launches.items() if v > 0} != want
+                      or any(others.values())):
+        raise RuntimeError(f"[inner-ring] {strategy} at {n} position(s): launches {launches}, "
+                           f"other kernels {others}; expected launches of {sorted(want)} only")
+    return res, {"wall_s": wall, "launches": launches, "ms": timer.ms(), "split_s": split,
+                 "f2_bytes": timer.add_bytes,
+                 "ring_steps": c1.get("ring_steps", 0) - c0.get("ring_steps", 0)}
+
+
+def _field_ops_per_mac() -> tuple[dict, str]:
+    """FIELD_OPS_PER_MAC recounted by tools/field_sass_count.py from the SASS of this
+    run's libfield_fold (cuobjdump -sass), with where the counts came from; the
+    constants where cuobjdump or the count fails."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.build("field_fold"))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        counted = subprocess.run([sys.executable, os.path.join(REPO, "tools",
+                                                               "field_sass_count.py")],
+                                 input=sass, capture_output=True, text=True, timeout=60,
+                                 check=True).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+        return FIELD_OPS_PER_MAC, f"from the constants ({type(exc).__name__})"
+    got = {}
+    for m in re.finditer(r"SMALL=([01]) SCATTER=([01]): .*?\((\S+) a MAC\).*?\((\S+) a MAC\)",
+                         counted):
+        got[(m.group(1) == "1", m.group(2) == "1")] = max(float(m.group(3)), float(m.group(4)))
+    if set(got) != set(FIELD_OPS_PER_MAC):
+        return FIELD_OPS_PER_MAC, "from the constants (the SASS count found " \
+            f"{sorted(got)})"
+    return got, "from this build's SASS (" + ", ".join(
+        f"{'small' if sm else 'full'} {'F3' if sc else 'F1'} {v:.4f}"
+        for (sm, sc), v in sorted(got.items())) + ")"
+
+
+def phase_inner_ring(medium, kernel1: dict) -> list[dict]:
+    """[inner-ring]: the Medium chain from its host leaves through
+    parallel/innershard.spgemm_inner and parallel/ring.spgemm_ring over
+    [cuda:0] * n for n in INNER_RING_N (the ring with SPGEMM_TPU_RING_OVERLAP
+    1, and at the last n with 0 too), each a main path (counts zeroed just
+    before, read just after: F1 and, at n > 1, F2 under inner, F3 under
+    ring, no other kernel), every result byte-equal to the others and to
+    the mxu backend's chain (kernel 2, exact field mode: Medium's deepest
+    class has P * k = 96 * 32 <= 2^17) on the same leaves; each run's wall,
+    its ENGINE split and the field kernels' launches and CUDA-event ms.
+    Then the plain versions against the kernels on Medium's first 3
+    matrices at 2 positions (a cut in depth, as [medium-cli]'s), timed;
+    the webbase-ring pair through the ring at 4 positions, a main path,
+    equal to the exact main path's result (bounded values: field mode is
+    exact there), with its deep-tail cells and the small route; and
+    chain_product_on_devices(Medium, [cuda:0], num_parts=8) byte-equal to
+    [medium-cli]'s `--ranks 8` result.  Returns the F1, F2 and F3 rows of
+    the kernels line."""
+    from spgemm_tpu_torch.parallel.chainpart import chain_product_on_devices  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.ring import plan_ring  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    want, mxu_wall, mxu_counts, _ = _main_path(medium.dev_mats, "mxu")
+    if mxu_counts["mxu"] <= 0:
+        raise RuntimeError(f"[inner-ring] the mxu chain launched {mxu_counts}")
+    want = want.to_host()
+    small = u64.operands_below_2_32(*medium.mats)
+    runs = {}
+    legs = [("inner", n, "1") for n in INNER_RING_N] + [("ring", n, "1") for n in INNER_RING_N]
+    legs.append(("ring", INNER_RING_N[-1], "0"))
+    for strategy, n, overlap in legs:
+        res, run = _field_chain(medium.mats, strategy, n, overlap)
+        if not _host_equal(res, want):
+            raise RuntimeError(f"[inner-ring] {strategy} at {n} position(s), overlap {overlap}: "
+                               "the result differs from the mxu chain's")
+        runs[f"{strategy} n={n}" + (" overlap=0" if overlap == "0" else "")] = run
+        del res
+    line = "; ".join(
+        f"{name}: wall {r['wall_s']:.6f} s, launches {r['launches']}, ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r["ms"].items() if r["launches"][k])
+        + ", split " + ", ".join(f"{k} {v:.6f} s" for k, v in r["split_s"].items())
+        for name, r in runs.items())
+    _phase("inner-ring", t0, f"Medium from host leaves through spgemm_inner and spgemm_ring "
+           f"over [cuda:0] * n, each byte-equal to the mxu chain's ({mxu_wall:.6f} s from "
+           f"device leaves, kernel 2 {mxu_counts['mxu']} launches); small route "
+           f"{'taken' if small else 'not taken (values reach 2^32)'}: {line}")
+
+    # the plain versions against the kernels on a cut in depth
+    t0 = time.perf_counter()
+    depth, n_plain = INNER_RING_PLAIN
+    plain = {}
+    for strategy in ("inner", "ring"):
+        got_k, run_k = _field_chain(medium.mats[:depth], strategy, n_plain)
+        got_p, run_p = _field_chain(medium.mats[:depth], strategy, n_plain, plain=True)
+        if not _host_equal(got_k, got_p):
+            raise RuntimeError(f"[inner-ring] {strategy} on Medium's first {depth}: the kernels' "
+                               "result != the plain versions'")
+        plain[strategy] = {"kernel_ms": run_k["ms"], "plain_ms": run_p["ms"],
+                           "kernel_wall_s": run_k["wall_s"], "plain_wall_s": run_p["wall_s"]}
+    _phase("inner-ring", t0, f"Medium's first {depth} matrices at {n_plain} positions, kernels "
+           f"== plain versions: " + "; ".join(
+               f"{s}: kernels " + ", ".join(f"{k} {v:.3f}" for k, v in p["kernel_ms"].items())
+               + " ms, plain " + ", ".join(f"{k} {v:.3f}" for k, v in p["plain_ms"].items())
+               + " ms" for s, p in plain.items()))
+
+    # the webbase-ring pair at 4 positions against the exact main path
+    t0 = time.perf_counter()
+    cfg = WEBBASE_RING
+    rng = np.random.default_rng(cfg["seed"])
+    a, b = (powerlaw_block_sparse(cfg["block_dim"], cfg["k"], cfg["avg_per_row"], rng, "small")
+            for _ in range(2))
+    exact, _, exact_counts, _ = _main_path([a, b], "exact")
+    exact = exact.to_host()
+    got, web = _field_chain([a, b], "ring", cfg["n"])
+    if not _host_equal(got, exact):
+        raise RuntimeError("[inner-ring] webbase-ring: the ring's result != the exact path's")
+    sched = plan_ring(symbolic.symbolic_join(a.coords, b.coords), b.nnzb, cfg["n"],
+                      mass_balance=False)
+    tail_cells = 0 if sched[3] is None else int((sched[3][0] != sched[5]).sum())
+    web.update({"tail_cells": tail_cells, "small": u64.operands_below_2_32(a, b),
+                "rank_lists": len(sched[2]), "tiles": (a.nnzb, b.nnzb),
+                "exact_launches": exact_counts["mod"] + exact_counts["no_mod"]
+                + exact_counts["dense"]})
+    _phase("inner-ring", t0, f"webbase-ring ({a.nnzb} x {b.nnzb} tiles, k {cfg['k']}) through "
+           f"the ring at {cfg['n']} positions == the exact path: wall {web['wall_s']:.6f} s, "
+           f"F3 {web['launches']['field_fold_scatter']} launches, "
+           f"{web['ms']['field_fold_scatter']:.3f} ms, small route {'taken' if web['small'] else 'not taken'}, "
+           f"{web['rank_lists']} rank lists, {tail_cells} deep-tail cells")
+
+    # --shard chain at P = 8 against [medium-cli]'s --ranks 8
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t1 = time.perf_counter()
+        chained = chain_product_on_devices(medium.mats, [torch.device(DEVICE, 0)], num_parts=8)
+        chain_wall = time.perf_counter() - t1
+    if _digest(chained.prune_zeros()) != medium.ranks8_digest:
+        raise RuntimeError("[inner-ring] chain_product_on_devices at P = 8 != --ranks 8")
+    _phase("inner-ring", t0, f"chain_product_on_devices(Medium, [cuda:0], num_parts=8) == "
+           f"[medium-cli]'s --ranks 8 result: wall {chain_wall:.6f} s")
+
+    # the rows: launches and ms of the main path at the widest n, bounds from the chain's
+    # real MACs (every pair folded once, as by kernel 1) and its bytes
+    wide = INNER_RING_N[-1]
+    inner, ring = runs[f"inner n={wide}"], runs[f"ring n={wide}"]
+    per_mac, per_mac_from = _field_ops_per_mac()
+    bytes_ms = kernel1["bytes"] / HBM_BYTES_PER_S * 1e3
+    fold_bound, fold_by = _bound(kernel1["macs"] * per_mac[(small, False)]
+                                 / INT32_OPS_PER_S * 1e3, bytes_ms)
+    scatter_bound, scatter_by = _bound(kernel1["macs"] * per_mac[(small, True)]
+                                       / INT32_OPS_PER_S * 1e3, bytes_ms)
+    add_bound, add_by = _bound(0.0, inner["f2_bytes"] / HBM_BYTES_PER_S * 1e3)
+    common = {"route": "cuda", "source": "spgemm_tpu_torch/csrc/field_fold.cu",
+              "max_abs_err": 0, "library_ms": None, "plain_scope":
+              f"Medium's first {depth} matrices, {n_plain} positions", "small": small}
+    by_run = {name: {k: {"launches": r["launches"][k], "ms": r["ms"][k]}
+                     for k in r["launches"] if r["launches"][k]} for name, r in runs.items()}
+    rows = []
+    for name, replaces, run, strategy, bound, by in (
+            ("field_fold", "spgemm_tpu/parallel/innershard.py:35", inner, "inner",
+             fold_bound, fold_by),
+            ("field_add", "spgemm_tpu/parallel/innershard.py:79", inner, "inner",
+             add_bound, add_by),
+            ("field_fold_scatter", "spgemm_tpu/parallel/ring.py:368", ring, "ring",
+             scatter_bound, scatter_by)):
+        rows.append({**common, "name": name, "replaces": replaces,
+                     "launches": run["launches"][name], "ms": run["ms"][name],
+                     "plain_ms": plain[strategy]["plain_ms"][name],
+                     "ms_plain_scope": plain[strategy]["kernel_ms"][name],
+                     "bound_ms": bound, "bound_by": by, "main_path": f"{strategy} n={wide}",
+                     "ops_per_mac": per_mac[(small, name == "field_fold_scatter")]
+                     if name != "field_add" else None, "ops_per_mac_from": per_mac_from,
+                     "by_run": {r: v[name] for r, v in by_run.items() if name in v}})
+    rows[2]["webbase_ring"] = {"launches": web["launches"]["field_fold_scatter"],
+                               "ms": web["ms"]["field_fold_scatter"],
+                               "tail_cells": tail_cells, "small": web["small"]}
+    print(f"[inner-ring] rows: F1 {rows[0]['ms']:.3f} ms ({rows[0]['launches']} launches), "
+          f"F2 {rows[1]['ms']:.3f} ms ({rows[1]['launches']}), F3 {rows[2]['ms']:.3f} ms "
+          f"({rows[2]['launches']}); bounds F1 {fold_bound:.3f} ms ({fold_by}, "
+          f"{kernel1['macs'] / 1e9:.3f} G MACs x {per_mac[(small, False)]:.4f}), F3 "
+          f"{scatter_bound:.3f} ms ({scatter_by}, x {per_mac[(small, True)]:.4f}), "
+          f"instructions a MAC {per_mac_from}; F2 {add_bound:.3f} ms ({add_by}, "
+          f"{inner['f2_bytes'] / 1e9:.3f} GB)", flush=True)
+    return rows
+
+
 CHAOS_JOBS = 3               # [chaos]: the card's chaos-leg submits
 CHAOS_JOB_TIMEOUT_S = 30.0   # [chaos]: the card daemon's job deadline (the wedged job's wait)
 CHAOS_LIMIT_S = 900.0        # [chaos]: each smoke's time limit
@@ -5142,6 +5546,9 @@ def main() -> int:
         row["fleet"] = phase_fleet(medium, tmp, row["serve"], row["launches"])
         row["chaos"] = phase_chaos(tmp, row["serve"])
     row["rowshard"] = phase_rowshard(medium)
+    field_rows = phase_inner_ring(medium, row)
+    for r in field_rows:
+        r["max_abs_err"] = max(r["max_abs_err"], kernel_err[r["name"]])
     # the [rowshard] path's own counts: kernel 1's launches at each shard count
     row["rowshard_launches"] = {n: r["launches"] for n, r in row["rowshard"]["shards"].items()}
     # the [fleet] path's own count: the kernel-1 launches its jobs report
@@ -5156,18 +5563,20 @@ def main() -> int:
     no_mod_row["ptxas"] = row["ptxas"]["no_mod"]
     no_mod_row["geometry"] = row["geometry"]["no_mod"]
     mxu_row["max_abs_err"] = max(mxu_row["max_abs_err"], kernel_err["mxu"])
-    _kernels_so_far([row, no_mod_row, mxu_row, splice_row, dense_row])
+    _kernels_so_far([row, no_mod_row, mxu_row, splice_row, dense_row, *field_rows])
     row["cli_modes"] = phase_cli_modes(rng)
     torch.cuda.empty_cache()
     ffn_rows = phase_ffn()
     for r in ffn_rows:
         r["max_abs_err"] = max(r["max_abs_err"], kernel_err[r["name"]])
-    _kernels_so_far([row, no_mod_row, mxu_row, *ffn_rows, splice_row, dense_row])
+    _kernels_so_far([row, no_mod_row, mxu_row, *ffn_rows, splice_row, dense_row,
+                     *field_rows])
     torch.cuda.empty_cache()
     train_rows = phase_ffn_train()
     for r in ffn_rows:  # the forward launches of [ffn-train]'s main path
         r["train_launches"] = train_rows[1]["forward_launches"][r["name"]]
-    kernels = [row, no_mod_row, mxu_row, *ffn_rows, *train_rows, splice_row, dense_row]
+    kernels = [row, no_mod_row, mxu_row, *ffn_rows, *train_rows, splice_row, dense_row,
+               *field_rows]
     _kernels_so_far(kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

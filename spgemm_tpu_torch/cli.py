@@ -2,7 +2,8 @@
 
     python -m spgemm_tpu_torch.cli <folder> [--device cuda|cpu]
         [--backend exact|mxu|hybrid|oracle] [--output matrix] [--threads N]
-        [--round-size N] [--stream | --out-of-core] [--shard none|keys]
+        [--round-size N] [--stream | --out-of-core]
+        [--shard none|keys|inner|ring|chain]
         [--ranks P] [--checkpoint-dir DIR] [--failover] [--profile DIR] [-v]
 
 reads `<folder>/size` (N, k) and `<folder>/matrix1..matrixN`, computes the
@@ -33,6 +34,19 @@ seconds` (sparse_matrix_mult.cu:402-682).  The flags are the JAX package's
                   exact fold, which exact and hybrid give too; with
                   --backend mxu, whose field-mode bytes differ, it is
                   refused.  `none` is the default.
+  --shard inner   each multiply's pair lists cut over the visible cards, the
+                  partial tiles all-reduced (parallel/innershard.py); on
+                  --device cpu one position.  Clean arithmetic mod 2^64 - 1,
+                  --backend mxu's bytes, whatever --backend says (one stderr
+                  line under exact and hybrid); partials in host memory.
+  --shard ring    B's slabs rotating around the visible cards, each folding
+                  its range of output keys (parallel/ring.py): the same
+                  bytes as inner; SPGEMM_TPU_RING_OVERLAP=0 copies each slab
+                  after its fold instead of beside it.
+  --shard chain   rank r of --ranks P (default: one rank a card) reducing its
+                  sub-chain on card r mod the cards, the combine on the
+                  first (parallel/chainpart.chain_product_on_devices): the
+                  bytes of --ranks P; ignores --stream and --out-of-core.
   --ranks P       `mpirun -np P`'s partition and combine
                   (parallel/chainpart.py): the reference's bytes at P, one
                   set of `multiplying` lines per sub-chain and the combine.
@@ -158,9 +172,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host-resident partials (implies --stream) and each round "
                         "uploads only the tiles it references, SPGEMM_TPU_OOC_DEPTH "
                         "rounds in flight (default 2)")
-    p.add_argument("--shard", choices=["none", "keys"], default="none",
-                   help="keys = output-tile sharding of each multiply over the visible "
-                        "cards (bit-exact; partials in host memory)")
+    p.add_argument("--shard", choices=["none", "keys", "inner", "ring", "chain"],
+                   default="none",
+                   help="shard over the visible cards: keys = output-tile sharding of "
+                        "each multiply (bit-exact), inner = contraction sharding with "
+                        "an all-reduce, ring = B's slabs rotating around the cards, "
+                        "the copy double-buffered beside the fold "
+                        "(SPGEMM_TPU_RING_OVERLAP=0 serializes it, bit-identical) "
+                        "(inner and ring fold in clean mod-(2^64-1) arithmetic; all "
+                        "three keep partials in host memory), chain = one chain rank "
+                        "a card (the bytes of --ranks P)")
     p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                    help="snapshot chain partials after each reduction pass and "
                         "resume from the newest snapshot on restart")
@@ -180,8 +201,11 @@ def _chain(args, matrices: list, k: int, device):
     """The chain product as the flags ask for it."""
     from spgemm_tpu_torch.chain import chain_product  # noqa: PLC0415
     from spgemm_tpu_torch.ops.spgemm import spgemm, spgemm_outofcore  # noqa: PLC0415
-    from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.chainpart import (  # noqa: PLC0415
+        chain_product_on_devices, chain_product_partitioned)
+    from spgemm_tpu_torch.parallel.innershard import spgemm_inner  # noqa: PLC0415
     from spgemm_tpu_torch.parallel.mesh import default_devices  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.ring import spgemm_ring  # noqa: PLC0415
     from spgemm_tpu_torch.parallel.rowshard import spgemm_sharded  # noqa: PLC0415
     from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix  # noqa: PLC0415
     from spgemm_tpu_torch.utils.semantics import chain_oracle  # noqa: PLC0415
@@ -189,11 +213,21 @@ def _chain(args, matrices: list, k: int, device):
     if args.backend == "oracle":
         blocks = chain_oracle([m.to_dict() for m in matrices], k)
         return BlockSparseMatrix.from_dict(matrices[0].rows, matrices[-1].cols, k, blocks)
+    devices = default_devices(device_type=device.type) if args.shard != "none" else None
+    if args.shard == "chain":
+        return chain_product_on_devices(
+            matrices, devices, num_parts=args.ranks if args.ranks > 1 else None,
+            backend=args.backend, round_size=args.round_size,
+            checkpoint_dir=args.checkpoint_dir, failover=args.failover)
     multiply, backend = None, args.backend
     if args.shard == "keys":
         # the sharded fold is the exact one (mxu is refused in run())
-        multiply = partial(spgemm_sharded, devices=default_devices(device_type=device.type))
-        backend = "exact"
+        multiply, backend = partial(spgemm_sharded, devices=devices), "exact"
+    elif args.shard in ("inner", "ring"):
+        # field mode whatever --backend says: mxu's arithmetic, which also
+        # tags checkpoints and picks failover's field-mode oracle
+        fn = spgemm_inner if args.shard == "inner" else spgemm_ring
+        multiply, backend = partial(fn, devices=devices), "mxu"
     elif args.out_of_core:
         multiply = spgemm_outofcore
     elif args.stream:
@@ -541,10 +575,17 @@ def _run_chain(args) -> int:
 
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(name)s %(message)s")
-    if (args.stream or args.out_of_core) and args.shard == "keys":
-        print("--shard keys already keeps chain partials host-resident; --out-of-core "
-              "per-round staging does not apply to the sharded multiply", file=sys.stderr,
-              flush=True)
+    if (args.stream or args.out_of_core) and args.shard in ("keys", "inner", "ring"):
+        print(f"--shard {args.shard} already keeps chain partials host-resident; "
+              "--out-of-core per-round staging does not apply to the sharded multiply",
+              file=sys.stderr, flush=True)
+    if (args.stream or args.out_of_core) and args.shard == "chain":
+        print("--stream/--out-of-core ignored with --shard chain (per-rank partials are "
+              "device-resident by design)", file=sys.stderr, flush=True)
+    if args.shard in ("inner", "ring") and args.backend in ("exact", "hybrid"):
+        print(f"--shard {args.shard} folds in clean arithmetic mod 2^64 - 1 whatever "
+              f"--backend says: --backend {args.backend}'s bytes differ where a product or "
+              "sum reaches 2^64 - 1", file=sys.stderr, flush=True)
     device = None
     if args.backend == "oracle":
         if args.stream or args.out_of_core:

@@ -60,6 +60,10 @@ ENGINE_PHASES: dict[str, str] = {
                    "job's content",
     "serve_chain": "spgemmd: a job's (or a batch's) chain reduction",
     "serve_write": "spgemmd: writing a job's result in the reference's text format",
+    "ring_plan": "ring multiply: the rank-compacted schedule (parallel/ring.plan_ring)",
+    "ring_hop": "ring multiply: one hop of every position's B slab, timed alone once "
+                "per device list and slab shape, recorded on every call",
+    "ring_fold": "ring multiply: the n steps' field-fold launches and hops queued",
     "tune_trial": "autotuner: one timed trial leg (one knob vector of the per-class "
                   "enumeration) run on an idle slice (tune/)",
     "tune_apply": "autotuner: activating a class's tuned override at job pickup, and "
@@ -77,6 +81,11 @@ ENGINE_COUNTERS: dict[str, str] = {
     "launches_bsmm": "kernel 3 launches (csrc/bsmm.cu)",
     "launches_bsmm_resident": "kernel 4 launches (csrc/bsmm.cu, resident weights)",
     "launches_bsmm_wgrad": "kernel 5 launches (csrc/bsmm_grad.cu, the FFN weight gradient)",
+    "launches_field_fold": "field-mode fold launches (csrc/field_fold.cu, F1: inner sharding)",
+    "launches_field_fold_scatter": "field-mode fold-and-scatter launches (csrc/field_fold.cu, "
+                                   "F3: a ring trip)",
+    "launches_field_add": "field-mode add launches (csrc/field_fold.cu, F2: the all-reduce)",
+    "ring_steps": "ring multiply steps (n a multiply over n positions)",
     "route_dense": "rounds dispatched on the dense accumulator route",
     "rowshard_round": "shards of a round dispatched by the output-sharded multiply "
                       "(parallel/rowshard.py): one kernel-1 fold each",

@@ -348,6 +348,8 @@ class SpgemmPlan:
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     # rowshard_rounds' schedules, by round size
     _rowshard: dict = field(default_factory=dict, repr=False)
+    # ring_schedule's schedules, by (B's nnzb, positions, mass balance)
+    _ring: dict = field(default_factory=dict, repr=False)
 
     def _arrays(self) -> list:
         arrays = [self.a_coords, self.b_coords]
@@ -425,6 +427,27 @@ class SpgemmPlan:
                             x.flags.writeable = False
                 self._rowshard[rs] = rounds
             return self._rowshard[rs]
+
+    def ring_schedule(self, nnzb_b: int, n_dev: int):
+        """parallel/ring.plan_ring over this plan's join, memoized.  The
+        resolved mass-balance flag (SPGEMM_TPU_PLAN_ESTIMATE) is part of the
+        key, so an in-process A/B that flips it is never served the other
+        leg's schedule.  A frozen plan's schedule is frozen too."""
+        from spgemm_tpu_torch.parallel.ring import plan_ring  # noqa: PLC0415 -- a cycle
+
+        mb = bool(knobs.get("SPGEMM_TPU_PLAN_ESTIMATE"))
+        key = (nnzb_b, n_dev, mb)
+        join = self.ensure_exact().join
+        with self._lock:
+            if key not in self._ring:
+                sched = plan_ring(join, nnzb_b, n_dev, mass_balance=mb)
+                if self._frozen:
+                    key_chunks, slab_bounds, ranks, tail = sched[:4]
+                    for x in [*key_chunks, slab_bounds, *(y for trip in ranks for y in trip),
+                              *(tail or ())]:
+                        x.flags.writeable = False
+                self._ring[key] = sched
+            return self._ring[key]
 
     def check_operands(self, a, b) -> None:
         """Refuse to drive a mismatched operand pair: the pa/pb indices

@@ -59,7 +59,10 @@ def mac_nomod(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 
 # Clean arithmetic mod (2^64 - 1), "field mode": associative, since
-# 2^64 == 1 (mod 2^64 - 1).  Values are representatives in [0, 2^64 - 1].
+# 2^64 == 1 (mod 2^64 - 1).  addmod_field's values are representatives in
+# [0, 2^64 - 1]; mulmod_field, mac_field and mac_field_b32 end in
+# collapse_max (the JAX package's mod_max), so theirs are the canonical
+# residues in [0, 2^64 - 2], the JAX package's bytes.
 
 _SIGN = torch.iinfo(torch.int64).min  # xor with it orders int64 bit-views as unsigned
 
@@ -71,6 +74,61 @@ def addmod_field(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     s = x + y
     carry = (s ^ _SIGN) < (y ^ _SIGN)  # s < y read as uint64
     return s + carry.to(torch.int64)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _hi32(x: torch.Tensor) -> torch.Tensor:
+    """The high 32 bits of int64 bit-views, as a logical shift would give."""
+    return (x >> 32) & _M32
+
+
+def mul64_full(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact 128-bit product a * b as (high, low) 64-bit words.  torch has
+    no high-word multiply, so the high word is put together from 32-bit
+    halves (the JAX package's u64.mul64_full, on 64-bit lanes): each partial
+    sum below stays under 2^64, so wrapping int64 arithmetic keeps its bits."""
+    al, ah, bl, bh = a & _M32, _hi32(a), b & _M32, _hi32(b)
+    mid1 = ah * bl + _hi32(al * bl)   # <= (2^32 - 1)^2 + 2^32 - 1 < 2^64
+    mid2 = al * bh + (mid1 & _M32)    # the same bound
+    return ah * bh + _hi32(mid1) + _hi32(mid2), a * b
+
+
+def mulmod_field(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod (2^64 - 1), canonical: the high word of the 128-bit
+    product is worth 2^64 == 1, so it is added to the low word."""
+    hi, lo = mul64_full(a, b)
+    return collapse_max(addmod_field(hi, lo))
+
+
+def mac_field(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """acc = (acc + a*b) mod (2^64 - 1), canonical."""
+    return collapse_max(addmod_field(acc, mulmod_field(a, b)))
+
+
+def mac_field_b32(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """mac_field for operands below 2^32: their product is at most
+    (2^32 - 1)^2 < 2^64 - 1, so it is its own canonical residue and the
+    high word is 0; only the accumulate needs the field fold."""
+    return collapse_max(addmod_field(acc, a * b))
+
+
+def operands_below_2_32(*mats) -> bool:
+    """True when every operand's values are below 2^32, the proof that
+    licenses mac_field_b32 (the JAX package's u64.operands_below_2_32).  A
+    matrix that carries a value bound (DeviceBlockMatrix.val_bound, set on a
+    multiply's result) is judged by it, with no reduction on the card; a
+    host matrix by its tile max; a device matrix without one by bound()."""
+    for m in mats:
+        if m.nnzb == 0:
+            continue
+        bound = getattr(m, "val_bound", None)
+        if bound is None:
+            bound = int(m.tiles.max()) if hasattr(m, "tiles") else m.bound()
+        if bound >= 1 << 32:
+            return False
+    return True
 
 
 def mul_pow2_field(x: torch.Tensor, s: int) -> torch.Tensor:

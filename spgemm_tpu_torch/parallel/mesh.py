@@ -173,6 +173,19 @@ def default_devices(n: int | None = None, device_type: str = "cuda") -> list:
     return slice_devices(DeviceSlice("default", 0, tuple(range(width))), device_type)
 
 
+def resolve_devices(devices=None) -> list:
+    """torch devices for a sharded multiply's device list (names or
+    devices; a device may repeat), default_devices() when None: every
+    visible card.  A CUDA entry without a usable card raises, as does an
+    empty list."""
+    from spgemm_tpu_torch.ops.device import resolve_device  # noqa: PLC0415 -- imports torch
+
+    devs = [resolve_device(d) for d in (default_devices() if devices is None else devices)]
+    if not devs:
+        raise ValueError("a sharded multiply needs at least one device")
+    return devs
+
+
 @dataclass(frozen=True)
 class TrainMesh:
     """One rank's view of a (dp, tp) training mesh.  Ranks are laid out as

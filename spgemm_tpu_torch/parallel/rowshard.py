@@ -36,10 +36,9 @@ import numpy as np
 
 from spgemm_tpu_torch.chain import _to_host
 from spgemm_tpu_torch.ops import u64
-from spgemm_tpu_torch.ops.device import resolve_device
 from spgemm_tpu_torch.ops.spgemm import KERNELS, Folds, _upload, pack_tiles
 from spgemm_tpu_torch.ops.spgemm import plan as _plan
-from spgemm_tpu_torch.parallel.mesh import default_devices
+from spgemm_tpu_torch.parallel.mesh import resolve_devices
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.timers import ENGINE
 
@@ -65,9 +64,7 @@ def spgemm_sharded(a, b, *, round_size: int | None = None, devices=None, plan=No
     if a.k != b.k:
         raise ValueError(f"tile size mismatch: {a.k} vs {b.k}")
     k = a.k
-    devs = [resolve_device(d) for d in (default_devices() if devices is None else devices)]
-    if not devs:
-        raise ValueError("spgemm_sharded needs at least one device")
+    devs = resolve_devices(devices)
     n = len(devs)
     if plan is None:
         plan = _plan(a, b, round_size=round_size, route="ladder")

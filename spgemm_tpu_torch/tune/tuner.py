@@ -14,10 +14,11 @@ The search set is the port's own (trial_vectors):
 and these stay out: SPGEMM_TPU_HYBRID_GATE (legs run `exact`, as the JAX
 daemon's trial runner does), SPGEMM_TPU_OOC_DEPTH (daemon jobs do not run
 out-of-core), SPGEMM_TPU_SERVE_BATCH_WINDOW_S (a solo leg cannot time a
-batch) and SPGEMM_TPU_PLAN_ESTIMATE (the estimator's budget is adapted by the
-class's `est` override, not by a trial leg).  The JAX package's set
-(ACCUM_ROUTE, ROUND_BATCH, MXU_R, RING_OVERLAP) names three knobs the port
-does not have.
+batch), SPGEMM_TPU_PLAN_ESTIMATE (the estimator's budget is adapted by the
+class's `est` override, not by a trial leg) and SPGEMM_TPU_RING_OVERLAP (a
+trial leg runs the unsharded main path, where the knob moves nothing).  The
+JAX package's set (ACCUM_ROUTE, ROUND_BATCH, MXU_R, RING_OVERLAP) also names
+two knobs the port does not have.
 
 Every leg's result digest must equal the baseline leg's (the parity
 spot-check); a mismatch would be an engine bug and parks the class.

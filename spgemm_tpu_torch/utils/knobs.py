@@ -131,6 +131,18 @@ _KNOBS = (
          "backend and out-of-core always plan ladder.  Read by ops/symbolic.py "
          "and ops/spgemm.py.",
          default="auto", choices=("auto", "ladder", "dense"), tuned=True),
+    Knob("SPGEMM_TPU_RING_OVERLAP", "bool01",
+         "Double-buffered ring rotation: 1 = the copy of slab t+1 to the next "
+         "position is issued before the fold over slab t, 0 = serialized "
+         "fold-then-copy; bit-identical (the fold order never changes).  Read by "
+         "parallel/ring.py.",
+         default="1"),
+    Knob("SPGEMM_TPU_RING_HOP_PROBE", "bool01",
+         "One-hop copy probe before the ring fold, timed once per device list, "
+         "route and slab shape and recorded as ENGINE ring_hop; 0 skips the "
+         "probe when the phase registry is not consumed.  Read by "
+         "parallel/ring.py.",
+         default="1"),
     Knob("SPGEMM_TPU_CROSSOVER_CACHE", "path",
          "Crossover-measurement cache directory (unset: "
          "~/.cache/spgemm_tpu_torch).  Read by ops/crossover.py."),

@@ -1,7 +1,10 @@
 """`--ranks P` in the port (spgemm_tpu_torch/parallel/chainpart.py and the
 CLI) against the JAX package's chainpart and CLI on the CPU, with the JAX
-delta store off (SPGEMM_TPU_DELTA=0, ROADMAP.md faults).  Tolerance: byte
-equality of ./matrix and equality of the `multiplying` lines."""
+delta store off (SPGEMM_TPU_DELTA=0, ROADMAP.md faults); the ranks over a
+device list (chain_product_on_devices, `--shard chain`) against the JAX
+package's on the conftest's virtual devices and against
+chain_product_partitioned.  Tolerance: byte equality of ./matrix and
+equality of the `multiplying` lines."""
 
 import io
 import os
@@ -10,13 +13,19 @@ import contextlib
 import numpy as np
 import pytest
 
+import jax
+
 from spgemm_tpu import cli as jax_cli
+from spgemm_tpu.parallel.chainpart import chain_product_on_devices as jax_on_devices
 from spgemm_tpu.parallel.chainpart import partition_chain as jax_partition_chain
+from spgemm_tpu.utils.blockcsr import BlockSparseMatrix as JaxMatrix
 from spgemm_tpu_torch import cli
-from spgemm_tpu_torch.chain import chain_product
+from spgemm_tpu_torch.chain import chain_product, oracle_multiply
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.ops.spgemm import spgemm_outofcore
-from spgemm_tpu_torch.parallel.chainpart import chain_product_partitioned, partition_chain
+from spgemm_tpu_torch.parallel import chainpart
+from spgemm_tpu_torch.parallel.chainpart import (chain_product_on_devices,
+                                                 chain_product_partitioned, partition_chain)
 from spgemm_tpu_torch.utils import io_text
 from spgemm_tpu_torch.utils.gen import random_chain
 
@@ -93,3 +102,70 @@ def test_partitioned_in_memory_and_checkpoint_dirs(multiply, tmp_path, capsys):
         chain_product(mats, multiply=multiply, device="cpu")
     with pytest.raises(ValueError, match="num_parts"):
         chain_product_partitioned(mats, 0, device="cpu")
+
+
+def _jax(m):
+    return JaxMatrix(rows=m.rows, cols=m.cols, k=m.k, coords=m.coords, tiles=m.tiles)
+
+
+@pytest.mark.parametrize("n, p, n_dev", [(9, 8, 3), (9, 3, 3), (5, 3, 2), (3, 8, 4), (2, 5, 2),
+                                         (7, None, 4), (1, None, 2)])
+def test_on_devices_is_the_jax_one_and_partitioned_at_the_same_p(n, p, n_dev, capsys):
+    """Adversarial values (the partition changes the bytes), P explicit and
+    by default the device count, N < P (rank 0 alone) and one matrix."""
+    mats = _chain(n)
+    got = chain_product_on_devices(mats, ["cpu"] * n_dev, num_parts=p)
+    lines = capsys.readouterr().out
+    want = chain_product_partitioned(mats, p or n_dev, device="cpu")
+    assert capsys.readouterr().out == lines
+    assert got == want
+    theirs = jax_on_devices([_jax(m) for m in mats], jax.devices()[:n_dev], num_parts=p)
+    assert np.array_equal(got.coords, theirs.coords) and np.array_equal(got.tiles, theirs.tiles)
+
+
+def test_on_devices_checkpoints_each_rank_and_the_combine(tmp_path, capsys):
+    mats = _chain(9)
+    want = chain_product_partitioned(mats, 8, device="cpu")
+    ck = str(tmp_path / "ck")
+    assert chain_product_on_devices(mats, ["cpu"] * 3, num_parts=8, checkpoint_dir=ck) == want
+    assert sorted(os.listdir(ck)) == ["combine", "rank7"]
+    assert sorted(os.listdir(os.path.join(ck, "combine"))) == ["pass_1.npz", "pass_2.npz",
+                                                               "pass_3.npz"]
+    # a second run resumes from the snapshots and gives the same bytes
+    assert chain_product_on_devices(mats, ["cpu"] * 3, num_parts=8, checkpoint_dir=ck) == want
+
+
+def test_a_rank_on_the_host_oracle_sends_the_combine_there(monkeypatch, capsys):
+    """A rank that failed over returns a host partial: the combine then runs
+    on the host oracle, with the reference's bytes."""
+    mats = _chain(9)
+    want = chain_product_partitioned(mats, 3, device="cpu")
+    calls = []
+    real = chainpart.chain_product
+
+    def fake(matrices, **kw):
+        calls.append(kw.get("multiply"))
+        out = real(matrices, **kw)
+        return out.to_host() if len(calls) == 2 else out  # rank 1 "failed over"
+
+    monkeypatch.setattr(chainpart, "chain_product", fake)
+    assert chain_product_on_devices(mats, ["cpu"] * 3, num_parts=3, failover=True) == want
+    assert calls[-1] is oracle_multiply and len(calls) == 4
+
+
+def test_partitioned_sends_the_combine_to_the_host_after_a_failover(monkeypatch, capsys):
+    """`--ranks P` and `--shard chain` share one failover rule: a rank that
+    failed over on one device also sends the combine to the host oracle."""
+    mats = _chain(9)
+    want = chain_product_partitioned(mats, 3, device="cpu")
+    calls = []
+    real = chainpart.chain_product
+
+    def fake(matrices, **kw):
+        calls.append(kw.get("multiply"))
+        out = real(matrices, **kw)
+        return out.to_host() if len(calls) == 1 else out  # rank 0 "failed over"
+
+    monkeypatch.setattr(chainpart, "chain_product", fake)
+    assert chain_product_partitioned(mats, 3, device="cpu", failover=True) == want
+    assert calls[-1] is oracle_multiply and len(calls) == 4

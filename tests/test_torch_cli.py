@@ -117,3 +117,58 @@ def test_profile_writes_a_trace_on_the_cpu(tmp_path):
     (trace,) = prof.iterdir()
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def _run_with_stderr(fn, folder, out, *extra) -> tuple[bytes, list[str], str]:
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        got, lines = _run_in_process(fn, folder, out, *extra)
+    return got, lines, err.getvalue()
+
+
+@pytest.mark.parametrize("extra", [["--shard", "inner"], ["--shard", "ring"],
+                                   ["--shard", "chain"], ["--shard", "chain", "--ranks", "3"],
+                                   ["--shard", "inner", "--ranks", "2"]],
+                         ids=["inner", "ring", "chain", "chain_ranks3", "inner_ranks2"])
+@pytest.mark.parametrize("name", ["golden_chain", "golden_wrap"])
+def test_shard_inner_ring_chain_write_the_jax_cli_bytes(name, extra, tmp_path, monkeypatch):
+    """`--shard inner|ring|chain --device cpu` against the JAX CLI in this
+    process (a mesh of the conftest's 8 devices; the port's list holds one
+    `cpu`: field-mode bytes do not depend on the positions, and chain takes
+    the same P from --ranks, or is P = 1 on golden's three matrices where
+    the JAX CLI's P = 8 leaves rank 0 alone)."""
+    monkeypatch.setenv("SPGEMM_TPU_DELTA", "0")
+    folder = os.path.join(DATA, name)
+    got, lines, err = _run_with_stderr(port_cli.run, folder, tmp_path / "port", *extra)
+    want, want_lines = _run_in_process(jax_cli.run, folder, tmp_path / "jax", *extra)
+    assert got == want
+    assert lines[:-1] == want_lines[:-1]
+    field = extra[1] in ("inner", "ring")
+    assert (f"--shard {extra[1]} folds in clean arithmetic mod 2^64 - 1" in err) == field
+    # inner and ring give --backend mxu's bytes, chain those of --ranks P
+    same = ["--backend", "mxu"] if field else ["--ranks", extra[3] if len(extra) > 2 else "1"]
+    mine, _ = _run_in_process(port_cli.run, folder, tmp_path / "same", *same)
+    assert got == mine
+
+
+@pytest.mark.parametrize("shard", ["inner", "ring"])
+def test_shard_inner_ring_under_mxu_is_the_mxu_chain_with_no_note(shard, tmp_path):
+    folder = os.path.join(DATA, "golden_wrap")
+    want, _ = _run_in_process(port_cli.run, folder, tmp_path / "mxu", "--backend", "mxu")
+    got, _, err = _run_with_stderr(port_cli.run, folder, tmp_path / "s", "--backend", "mxu",
+                                   "--shard", shard)
+    assert got == want and "folds in clean arithmetic" not in err
+
+
+@pytest.mark.parametrize("shard, note", [
+    ("inner", "--shard inner already keeps chain partials host-resident"),
+    ("ring", "--shard ring already keeps chain partials host-resident"),
+    ("chain", "--stream/--out-of-core ignored with --shard chain"),
+])
+def test_shard_modes_note_stream_and_out_of_core(shard, note, tmp_path):
+    folder = os.path.join(DATA, "golden_chain")
+    want, _ = _run_in_process(port_cli.run, folder, tmp_path / "plain", "--shard", shard)
+    for flag in ("--stream", "--out-of-core"):
+        got, _, err = _run_with_stderr(port_cli.run, folder, tmp_path / "s", "--shard", shard,
+                                       flag)
+        assert got == want and note in err

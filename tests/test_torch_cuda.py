@@ -19,7 +19,14 @@ over half a run) and at every ring depth, stage depth and grid, over runs
 of 1 to 4 pairs sharing a strip) against their
 plain versions and one step against the plain autograd step; the output-sharded
 multiply (parallel/rowshard) over [cuda:0] * n against spgemm_device on
-banded and random chains, and `--shard keys` on the golden data.  Tolerance: exact (torch.equal)
+banded and random chains, and `--shard keys` on the golden data; the
+field-mode kernels of inner and ring sharding (csrc/field_fold.cu: F1 in
+both instances, F3, F2) against their plain versions on edge values,
+sentinel-heavy lists, P = 0, K = 0 and a scatter with many padding cells on
+the dummy row, spgemm_inner and spgemm_ring over [cuda:0] * n (overlap on
+and off) against the same on ["cpu"] * n, chain_product_on_devices against
+chain_product_partitioned, and `--shard inner|ring|chain` on the golden
+data.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -42,12 +49,16 @@ import torch
 
 from spgemm_tpu_torch.chain import chain_product
 from spgemm_tpu_torch.models import ffn
-from spgemm_tpu_torch.ops import (cuda_bsmm, cuda_bsmm_grad, cuda_dense, cuda_mxu, cuda_splice,
-                                  cuda_spgemm)
+from spgemm_tpu_torch.ops import (cuda_bsmm, cuda_bsmm_grad, cuda_dense, cuda_field, cuda_mxu,
+                                  cuda_splice, cuda_spgemm)
 from spgemm_tpu_torch.ops import delta, mxu_spgemm
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.device import DeviceBlockMatrix
 from spgemm_tpu_torch.parallel.mesh import train_mesh
+from spgemm_tpu_torch.parallel.chainpart import (chain_product_on_devices,
+                                                 chain_product_partitioned)
+from spgemm_tpu_torch.parallel.innershard import spgemm_inner
+from spgemm_tpu_torch.parallel.ring import spgemm_ring
 from spgemm_tpu_torch.parallel.rowshard import spgemm_sharded
 from spgemm_tpu_torch.utils.gen import banded_block_sparse, random_chain, random_values
 from spgemm_tpu_torch.utils.timers import ENGINE
@@ -1205,3 +1216,138 @@ def test_cli_shard_keys_on_card_writes_the_golden_bytes(cuda, name, tmp_path):
     with open(os.path.join(data, f"{name}_expected_matrix"), "rb") as f:
         assert (tmp_path / "matrix").read_bytes() == f.read()
     assert "launches_numeric_round" in proc.stderr and "rowshard_round" in proc.stderr
+
+
+FIELD_EDGE = [0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, (1 << 63) - 1, 1 << 63,
+              (1 << 64) - 3, (1 << 64) - 2, (1 << 64) - 1]
+
+
+def _field_tiles(rng, n: int, k: int, small: bool) -> np.ndarray:
+    """n + 1 tiles (the zero sentinel last): edge values and uniform ones,
+    all below 2^32 when small."""
+    pool = np.array([v for v in FIELD_EDGE if not small or v < 1 << 32], np.uint64)
+    hi = 1 << 32 if small else 1 << 64
+    tiles = np.where(rng.random((n + 1, k, k)) < 0.5,
+                     pool[rng.integers(0, len(pool), (n + 1, k, k))],
+                     rng.integers(0, hi, (n + 1, k, k), dtype=np.uint64))
+    tiles[-1] = 0
+    return tiles
+
+
+def _field_indices(rng, n: int, K: int, P: int) -> np.ndarray:
+    x = rng.integers(0, n + 1, (K, P)).astype(np.int32)  # n: the sentinel
+    x[::3] = n                                            # all-sentinel keys
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [False, True])
+@pytest.mark.parametrize("k,K,P", [(1, 300, 9), (2, 300, 9), (8, 60, 7), (32, 40, 8),
+                                   (64, 8, 5), (32, 4, 384), (16, 0, 4), (16, 3, 0)])
+def test_field_fold_on_card_equals_plain_version(cuda, k, K, P, small):
+    rng = np.random.default_rng(900 + k + P)
+    a, b = (torch.from_numpy(_field_tiles(rng, 30, k, small).view(np.int64)).to(cuda)
+            for _ in range(2))
+    pa, pb = (torch.from_numpy(_field_indices(rng, 30, K, P)).to(cuda) for _ in range(2))
+    launches = _launches("field_fold")
+    got = cuda_field.field_fold(a, b, pa, pb, small=small)
+    assert _launches("field_fold") - launches == int(K > 0)
+    want = cuda_field.field_fold_ref(a, b, pa, pb, small=small)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if small:  # the full instance gives the same bits where SMALL is legal
+        assert torch.equal(cuda_field.field_fold(a, b, pa, pb), want)
+
+
+@pytest.mark.cuda
+def test_field_fold_on_card_collapses_a_sum_of_2_64_minus_1(cuda):
+    a = torch.tensor([[[(1 << 32) - 1]], [[(1 << 33) - 2]], [[0]]], dtype=torch.int64,
+                     device=cuda)
+    b = torch.tensor([[[(1 << 32) - 1]], [[1]], [[0]]], dtype=torch.int64, device=cuda)
+    pa = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    for small in (False, True):
+        assert cuda_field.field_fold(a, b, pa, pa.clone(), small=small).tolist() == [[[0]]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,C,P", [(1, 500, 1), (8, 300, 1), (32, 200, 1), (32, 40, 6),
+                                   (64, 30, 3), (16, 0, 1)])
+def test_field_fold_scatter_on_card_equals_plain_version(cuda, k, C, P):
+    """Most cells padding on the dummy row, the rest on unique rows."""
+    rng = np.random.default_rng(950 + k + C)
+    a, b = (torch.from_numpy(_field_tiles(rng, 25, k, False).view(np.int64)).to(cuda)
+            for _ in range(2))
+    rows_acc = max(1, C // 3) + 1
+    rows = np.full(C, rows_acc - 1, np.int32)
+    real = rng.permutation(C)[: rows_acc - 1]
+    rows[real] = rng.permutation(rows_acc - 1).astype(np.int32)
+    rows, pa, pb = (torch.from_numpy(x).to(cuda) for x in
+                    (rows, *(_field_indices(rng, 25, C, P) for _ in range(2))))
+    if P == 1:
+        pa, pb = pa[:, 0].contiguous(), pb[:, 0].contiguous()
+    start = torch.from_numpy(_field_tiles(rng, rows_acc - 1, k, False).view(np.int64)).to(cuda)
+    start[-1] = -7  # the dummy row's stale value must survive
+    got = cuda_field.field_fold_scatter(start.clone(), a, b, rows, pa, pb)
+    want = cuda_field.field_fold_scatter_ref(start.clone(), a, b, rows, pa, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and got[-1].eq(-7).all()
+
+
+@pytest.mark.cuda
+def test_field_add_on_card_equals_plain_version(cuda):
+    rng = np.random.default_rng(960)
+    x, y = (torch.from_numpy(_field_tiles(rng, 99, 8, False).view(np.int64)).to(cuda)
+            for _ in range(2))
+    x[0, 0, 0], y[0, 0, 0] = -2, 1  # 2^64 - 2 + 1 reads 0
+    got = cuda_field.addmod_field_(x.clone(), y)
+    want = cuda_field.addmod_field_ref_(x.clone(), y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got[0, 0, 0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", ["0", "1"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("dist", ["small", "adversarial"])
+def test_inner_and_ring_on_card_equal_the_cpu(cuda, n, overlap, dist, monkeypatch):
+    monkeypatch.setenv("SPGEMM_TPU_RING_OVERLAP", overlap)
+    rng = np.random.default_rng(970 + n)
+    mats = [banded_block_sparse(40, 8, 3, rng, dist) for _ in range(2)] \
+        + random_chain(2, 40, 8, 0.3, rng, dist)
+    devices = [torch.device("cuda:0")] * n
+    for fn, kernel in ((spgemm_inner, "field_fold"), (spgemm_ring, "field_fold_scatter")):
+        for a, b in ((mats[0], mats[1]), (mats[2], mats[3])):
+            launches = _launches(kernel)
+            got = fn(a, b, devices=devices)
+            assert _launches(kernel) > launches
+            want = fn(a, b, devices=["cpu"] * n)
+            assert np.array_equal(got.coords, want.coords) and np.array_equal(got.tiles, want.tiles)
+
+
+@pytest.mark.cuda
+def test_chain_on_devices_on_card_equals_partitioned(cuda):
+    mats = random_chain(9, 24, 8, 0.3, np.random.default_rng(980), "adversarial")
+    want = chain_product_partitioned(mats, 8, device=cuda)
+    assert chain_product_on_devices(mats, [cuda], num_parts=8) == want
+    assert chain_product_on_devices(mats, ["cpu"], num_parts=8) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", ["inner", "ring", "chain"])
+@pytest.mark.parametrize("name", ["golden_chain", "golden_wrap"])
+def test_cli_shard_inner_ring_chain_on_card(cuda, shard, name, tmp_path):
+    """The card's bytes are the CPU's: field mode's for inner and ring (the
+    mxu chain's), the reference's for chain at one card (P = 1)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    folder = os.path.join(repo, "tests", "data", name)
+    env = {**os.environ, "PYTHONPATH": repo}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        extra = ["--shard", shard] if dev == "cuda" else \
+            (["--backend", "mxu"] if shard != "chain" else [])
+        proc = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", folder,
+                               "--device", dev, "--output", dev, *extra], cwd=tmp_path, env=env,
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr
+        outs[dev] = (tmp_path / dev).read_bytes()
+    assert outs["cuda"] == outs["cpu"]
