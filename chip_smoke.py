@@ -33,10 +33,12 @@ the script exits non-zero without printing a result:
                the streaming kernel's row tile (16, 32, 64, 128), and
                two shapes that must raise (a resident panel that does not
                fit, k = 8); and the field-mode kernels of inner and ring
-               sharding (csrc/field_fold.cu): F1 in its full and SMALL
-               instances, F3 and F2 on EDGE values, k 1..64, sentinel-heavy
-               lists, P = 0, K = 0, scatter trips whose cells are mostly
-               padding on the dummy row, and sums of 2^64 - 1 (read 0);
+               sharding (csrc/field_fold.cu, F1 and F3 on kernel 2's body):
+               F1 in its full (8 x 8 bytes) and SMALL (4 x 4) instances, F3
+               and F2 on EDGE values, k 1..64 with 31 and 33, sentinel-heavy
+               lists, keys and cells of sentinel slots only, P = 0, K = 0, a
+               key of P*k > 2^17, F3 cells of 1 to 300 pairs with every other
+               accumulator row left as it was, and sums of 2^64 - 1 (read 0);
   4. cli     -- `python -m spgemm_tpu_torch.cli` on the golden inputs, byte
                equality with the expected files, one small multiply against
                the numpy oracle, and a small-valued chain under each
@@ -204,9 +206,8 @@ the script exits non-zero without printing a result:
                (t4) a second daemon on the same warm directory: the persisted
                records adopted, `cli tune --status --json` and `cli knobs
                --json`, and Medium twice, the second under the adopted
-               vector; (t5) a third daemon under SPGEMM_TPU_TUNE=0: Medium
-               twice with the golden bytes, no class, no leg, no
-               spgemm_tune_* family in the scrape; then `[fleet]`, the fleet
+               vector (SPGEMM_TPU_TUNE=0's inert daemon is held by the CPU
+               tests, tests/test_torch_tune.py); then `[fleet]`, the fleet
                layer (fleet/) on the card, in the same temporary directory:
                two of the port's daemons started at once, each its own
                process, CUDA context, socket, TCP port (`serve --addr`) and
@@ -264,9 +265,12 @@ the script exits non-zero without printing a result:
                through parallel/innershard.spgemm_inner and
                parallel/ring.spgemm_ring over [cuda:0] * 1, 2 and 4 (the ring
                with SPGEMM_TPU_RING_OVERLAP 1, and 0 at 4), each a main path
-               launching F1 (and F2 at n > 1) or F3 and no other kernel,
-               every result byte-equal to the mxu backend's chain on the same
-               leaves, with walls, ENGINE splits, launches and CUDA-event ms;
+               launching F1 (and F2 at n > 1) or F3 (at most n^2 a
+               multiply) and no other kernel, every result byte-equal to the
+               mxu backend's chain on the same leaves (kernel 2 timed by CUDA
+               events there, the yardstick of F1 and F3), with walls, ENGINE
+               splits, launches and CUDA-event ms; F1 and F3 bound by their
+               int8 byte products on the tensor cores, as kernel 2 is;
                the plain versions against the kernels on Medium's first 3
                matrices at 2 positions, timed; the webbase-ring pair
                (benchmarks/run.py's powerlaw_block_sparse(256, 32, 3.0),
@@ -617,22 +621,39 @@ def _field_pairs(rng, n_tiles: int, K: int, P: int, pattern: str) -> list:
     return [torch.from_numpy(x).to(DEVICE) for x in (pa, pb)]
 
 
+def _field_cells(rng, n_tiles: int, counts: np.ndarray, rows_acc: int) -> list:
+    """F3's CSR on the card: cells of counts[c] pairs (about one slot in five
+    a sentinel, on either side), on distinct rows of an accumulator of
+    rows_acc; returns [rows, cell_ptr, pa, pb]."""
+    cell_ptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
+    pa, pb = (rng.integers(0, n_tiles, size=int(cell_ptr[-1])).astype(np.int32)
+              for _ in range(2))
+    pa[rng.random(pa.shape) < 0.1] = n_tiles
+    pb[rng.random(pb.shape) < 0.1] = n_tiles
+    rows = rng.permutation(rows_acc)[: len(counts)].astype(np.int32)
+    return [torch.from_numpy(x).to(DEVICE) for x in (rows, cell_ptr, pa, pb)]
+
+
 def _field_cases(rng) -> dict:
     """The field-mode kernels of inner and ring sharding (csrc/field_fold.cu)
     against their plain versions on the card, exact equality: F1
-    (field_fold, full and SMALL instances) on EDGE values at k 1, 2, 8, 32,
-    64 with sentinel-heavy lists, P = 0, K = 0 and a pair sum of 2^64 - 1
-    (which reads 0); F3 (field_fold_scatter) on rank lists and tail trips
-    where most cells are padding on the dummy row; F2 (addmod_field_) on
-    EDGE values with a sum of 2^64 - 1.  Returns the max abs error by
-    kernel and the number of cases."""
+    (field_fold, full 8 x 8 and SMALL 4 x 4 bytes, the full instance also on
+    the SMALL cases' values) on EDGE values at k 1, 2, 8, 31, 32, 33, 64 with
+    sentinel-heavy lists (keys of sentinel slots only among them), P = 0,
+    K = 0, a key of P * k > 2^17 and a pair sum of 2^64 - 1 (which reads 0);
+    F3 (field_fold_scatter) on CSR cells of 1 to 300 pairs at the same k,
+    SMALL too, a cell of sentinel slots only and zero cells, every other
+    accumulator row left as it was; F2 (addmod_field_) on EDGE values with
+    a sum of 2^64 - 1.  Returns the max abs error by kernel and the number
+    of cases."""
     worst = {"field_fold": 0, "field_fold_scatter": 0, "field_add": 0}
     cases = 0
     fold_cases = [(k, K, P, pattern) for k, K, P in ((1, 300, 9), (2, 300, 9), (8, 60, 7),
-                                                     (32, 40, 8), (64, 8, 5))
+                                                     (31, 40, 8), (32, 40, 8), (33, 30, 5),
+                                                     (64, 8, 5))
                   for pattern in ("none", "pad_keys", "one_sided", "between")]
     fold_cases += [(32, 4, 384, "between"), (8, 20, 384, "one_sided"), (16, 0, 4, "between"),
-                   (16, 3, 0, "between")]
+                   (16, 3, 0, "between"), (32, 3, 4100, "between")]  # the last: P*k > 2^17
     for k, K, P, pattern in fold_cases:
         for small in (False, True):
             a, b = _field_slab(rng, 30, k, small), _field_slab(rng, 30, k, small)
@@ -645,33 +666,50 @@ def _field_cases(rng) -> dict:
                 _check_equal(f"field_fold (full) {what}", cuda_field.field_fold(a, b, pa, pb),
                              want)
             cases += 1
-    # (2^32 - 1)^2 + (2^33 - 2) = 2^64 - 1, which reads 0
-    a = torch.tensor([[[(1 << 32) - 1]], [[(1 << 33) - 2]], [[0]]], dtype=torch.int64,
+    # (2^32 - 1)^2 + (2^32 - 1) * 2 = 2^64 - 1, which reads 0 (every operand below 2^32,
+    # as the SMALL route requires)
+    a = torch.tensor([[[(1 << 32) - 1]], [[(1 << 32) - 1]], [[0]]], dtype=torch.int64,
                      device=DEVICE)
-    b = torch.tensor([[[(1 << 32) - 1]], [[1]], [[0]]], dtype=torch.int64, device=DEVICE)
+    b = torch.tensor([[[(1 << 32) - 1]], [[2]], [[0]]], dtype=torch.int64, device=DEVICE)
     pa = torch.tensor([[0, 1]], dtype=torch.int32, device=DEVICE)
     for small in (False, True):
         got = cuda_field.field_fold(a, b, pa, pa.clone(), small=small)
         _check_equal(f"field_fold 2^64 - 1 collapse small={small}", got, torch.zeros_like(got))
-    for k, C, P in ((1, 500, 1), (2, 400, 1), (8, 300, 1), (32, 200, 1), (64, 60, 1),
-                    (32, 40, 6), (64, 30, 3), (8, 0, 1)):
-        a, b = _field_slab(rng, 25, k, False), _field_slab(rng, 25, k, False)
-        rows_acc = max(1, C // 3) + 1  # two in three cells are padding on the dummy row
-        rows = np.full(C, rows_acc - 1, np.int32)
-        rows[rng.permutation(C)[: rows_acc - 1]] = rng.permutation(rows_acc - 1)
-        pa, pb = _field_pairs(rng, 25, C, P, "between")
-        if P == 1:  # a rank list's (C,) form
-            pa, pb = pa[:, 0].contiguous(), pb[:, 0].contiguous()
-        rows_t = torch.from_numpy(rows).to(DEVICE)
-        start = _field_slab(rng, rows_acc - 1, k, False)
-        start[-1] = -7  # the dummy row's stale value, which no cell may write
-        got = cuda_field.field_fold_scatter(start.clone(), a, b, rows_t, pa, pb)
-        want = cuda_field.field_fold_scatter_ref(start.clone(), a, b, rows_t, pa, pb)
-        worst["field_fold_scatter"] = max(worst["field_fold_scatter"], _check_equal(
-            f"field_fold_scatter k={k} C={C} P={P}", got, want))
-        if not got[-1].eq(-7).all():
-            raise RuntimeError(f"field_fold_scatter k={k} C={C} P={P} wrote the dummy row")
-        cases += 1
+        acc = torch.zeros((2, 1, 1), dtype=torch.int64, device=DEVICE)
+        cell = [torch.tensor(x, device=DEVICE) for x in (np.array([1], np.int32),
+                                                          np.array([0, 2], np.int64))]
+        got = cuda_field.field_fold_scatter(acc, a, b, *cell, pa[0], pa[0].clone(), small=small)
+        _check_equal(f"field_fold_scatter 2^64 - 1 collapse small={small}", got,
+                     torch.zeros_like(got))
+    scatter_cases = [(k, counts) for k in (1, 2, 8, 31, 32, 33, 64)
+                     for counts in ("ones", "mixed")]
+    scatter_cases += [(32, "deep"), (8, "deep"), (8, "none")]
+    for k, kind in scatter_cases:
+        C = {"ones": 200, "mixed": 60, "deep": 12, "none": 0}[kind] if k < 64 else 20
+        counts = {"ones": np.ones(C, np.int64), "none": np.zeros(0, np.int64),
+                  "mixed": rng.integers(1, 40, C), "deep": rng.integers(1, 301, C)}[kind]
+        if kind == "deep":
+            counts[:2] = (1, 300)
+        for small in (False, True):
+            a, b = _field_slab(rng, 25, k, small), _field_slab(rng, 25, k, small)
+            rows_acc = C + 7
+            cells = _field_cells(rng, 25, counts, rows_acc)
+            if C:  # a cell of sentinel slots only, which adds nothing
+                cells[2][cells[1][0]: cells[1][1]] = 25
+            start = _field_slab(rng, rows_acc - 1, k, False)
+            start[start == -1] = 0  # an accumulator holds canonical residues
+            got = cuda_field.field_fold_scatter(start.clone(), a, b, *cells, small=small)
+            want = cuda_field.field_fold_scatter_ref(start.clone(), a, b, *cells, small=small)
+            what = f"k={k} C={C} {kind} small={small}"
+            worst["field_fold_scatter"] = max(worst["field_fold_scatter"], _check_equal(
+                f"field_fold_scatter {what}", got, want))
+            untouched = torch.ones(rows_acc, dtype=torch.bool, device=DEVICE)
+            untouched[cells[0].long()] = False
+            if C:
+                untouched[cells[0][0].long()] = True  # its cell holds sentinels only
+            if not torch.equal(got[untouched], start[untouched]):
+                raise RuntimeError(f"field_fold_scatter {what} wrote a row of no cell")
+            cases += 1
     for k, K in ((1, 1000), (8, 300), (32, 50), (64, 9)):
         x, y = _field_slab(rng, K, k, False), _field_slab(rng, K, k, False)
         x[0, 0, 0], y[0, 0, 0] = -2, 1  # (2^64 - 2) + 1 reads 0
@@ -751,8 +789,9 @@ def phase_kernel(rng) -> dict:
     worst.update(field["worst"])
     _phase("kernel", t1, f"field_fold (F1, full and SMALL), field_fold_scatter (F3) and "
            f"addmod_field_ (F2) == plain versions on {field['cases']} cases (EDGE values, k "
-           f"1..64, sentinel-heavy lists, P = 0, K = 0, two in three scatter cells on the "
-           f"dummy row, sums of 2^64 - 1 read 0); max_abs_err {field['worst']}")
+           f"1..64 with 31 and 33, sentinel-heavy lists, P = 0, K = 0, P*k > 2^17, F3 cells "
+           f"of 1 to 300 pairs with every other row untouched, sums of 2^64 - 1 read 0); "
+           f"max_abs_err {field['worst']}")
     worst.update(_bsmm_cases(rng))
     return worst
 
@@ -1137,7 +1176,7 @@ def _ptxas_report() -> dict:
     for lib, pattern, name in (
             ("numeric_round", r"numeric_round_kernelILb([01])E",
              lambda m: "no_mod" if m.group(1) == "1" else "mod"),
-            ("numeric_round_mxu", r"numeric_round_mxu_kernelILi(\d)ELi(\d)E",
+            ("numeric_round_mxu", r"limb_fold_kernelILi(\d)ELi(\d)E",
              lambda m: f"mxu {m.group(1)}x{m.group(2)}"),
             ("numeric_round_dense", r"numeric_round_kernelILb0ELb1E", lambda m: "dense"),
             # kernel 4 on the FFN's main path: bf16, k 128, 2 n-tiles a warp (block_m 16),
@@ -1214,9 +1253,10 @@ class _HybridLog(logging.Handler):
             self.multiplies.append(record.args)
 
 
-def _main_path(dev_mats, backend: str, **env):
+def _main_path(dev_mats, backend: str, folds=None, **env):
     """Drive chain_product once as a main path: counts zeroed just before,
-    read just after.  Returns (result, wall s, counts, hybrid records)."""
+    read just after; folds (default the kernels) may wrap the kernels in
+    CUDA events.  Returns (result, wall s, counts, hybrid records)."""
     logger = logging.getLogger("spgemm_tpu_torch.spgemm")
     handler = _HybridLog()
     logger.addHandler(handler)
@@ -1226,7 +1266,8 @@ def _main_path(dev_mats, backend: str, **env):
             torch.cuda.synchronize()
             _zero_counts()
             t0 = time.perf_counter()
-            res = chain_product(dev_mats, device=DEVICE, keep_device=True, backend=backend)
+            res = chain_product(dev_mats, device=DEVICE, keep_device=True, backend=backend,
+                                folds=folds or engine.KERNELS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _read_counts()
@@ -4537,7 +4578,7 @@ def _tune_legs(legs: list, want_digest: str, smi: str) -> dict:
 def phase_tune(medium, tmp: str) -> dict:
     """[tune]: the autotuner in the port's daemon on the card, over [serve]'s
     Medium and distinct-structure text directories under tmp (see the module
-    docstring, (t1)-(t5)).  Every job's bytes equal the golden file ((a)'s
+    docstring, (t1)-(t4)).  Every job's bytes equal the golden file ((a)'s
     and (c)'s results of [serve]), every leg's digest the in-memory Medium
     result's."""
     from spgemm_tpu_torch.serve import client  # noqa: PLC0415
@@ -4654,19 +4695,6 @@ def phase_tune(medium, tmp: str) -> dict:
         out["t4"]["launches"] = {k: job["detail"].get(k, 0) for k in TUNE_KERNELS}
         count_legs()
         _serve_stop(proc, sock, client, log_path)
-        # (t5): SPGEMM_TPU_TUNE=0
-        proc, out["off_start"] = _serve_start(sock, {**env, "SPGEMM_TPU_TUNE": "0"}, log_path)
-        medium_job("t5.0", timeout_s=0)
-        medium_job("t5.1", timeout_s=0)
-        time.sleep(4 * TUNE_TRIAL_S)  # idle ticks pass
-        tstats = client.stats(sock)["tune"]
-        scrape = client.metrics(sock)
-        if tstats["enabled"] or tstats["classes"] or tstats["trials"] \
-                or "spgemm_tune" in scrape or _tune_events(client, sock, "tune_trial"):
-            raise RuntimeError(f"[tune] (t5) SPGEMM_TPU_TUNE=0 is not inert: {tstats}")
-        print("[tune] (t5) SPGEMM_TPU_TUNE=0: two Medium jobs with the golden bytes, no class, "
-              "no leg, no spgemm_tune_* family in the scrape", flush=True)
-        _serve_stop(proc, sock, client, log_path)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4674,7 +4702,7 @@ def phase_tune(medium, tmp: str) -> dict:
                              or out["legs_launches"]["launches_dense_fold"] < 1):
         raise RuntimeError(f"[tune] the legs launched {out['legs_launches']}")
     _phase("tune", t0, f"on {smi}: daemon starts {out['start']['start_s']:.3f}, "
-           f"{out['restart']['start_s']:.3f}, {out['off_start']['start_s']:.3f} s; the trial "
+           f"{out['restart']['start_s']:.3f} s; the trial "
            f"legs' launches {out['legs_launches']}; class {out['t1']['state']} at win "
            f"{out['t1']['win']:.4f}; (t2) {'ran' if out['t2'] else 'skipped'}; (t3) queue wait "
            f"{out['t3']['queue_wait_s']:.4f} s")
@@ -5138,17 +5166,9 @@ RING_SPLIT = ("ring_plan", "ring_hop", "upload", "ring_fold", "assembly")
 # the webbase-ring pair of benchmarks/run.py:340-342: powerlaw_block_sparse(256, 32, 3.0,
 # rng, "small") twice from default_rng(3), through the ring at 4 positions
 WEBBASE_RING = {"block_dim": 256, "k": 32, "avg_per_row": 3.0, "seed": 3, "n": 4}
-# csrc/field_fold.cu's field-arithmetic instructions per u64 MAC on the pipe that bounds
-# each instance, keyed (SMALL, SCATTER), as tools/field_sass_count.py counts them in the
-# sm_90a SASS of the built library (nvcc's unrolled j loop; loads, address strides,
-# register copies and loop control left out, as in INT_OPS_PER_MAC).  Full: 4 MACs a
-# trip; F1 41 on the FMA pipe (the 128-bit product's partial products and carries) and
-# 41 on the integer pipe (carry adds, compares, selects), F3 40 and 42.  SMALL: 16 MACs a
-# trip; F1 65 and 81, F3 66 and 80 (the low product stays 64 x 64: nvcc does not know
-# the values are below 2^32).  [inner-ring] recounts them from this run's build where
-# cuobjdump runs, and uses those counts.
-FIELD_OPS_PER_MAC = {(False, False): 41 / 4, (False, True): 42 / 4,
-                     (True, False): 81 / 16, (True, True): 80 / 16}
+# int8 byte products a u64 MAC of F1 and F3 runs on the tensor cores: 8 x 8 bytes, or 4 x 4
+# on the SMALL route (every value below 2^32)
+FIELD_BYTE_PRODUCTS = {False: 64, True: 16}
 
 
 @contextlib.contextmanager
@@ -5227,35 +5247,14 @@ def _field_chain(mats, strategy: str, n: int, overlap: str = "1", plain: bool = 
                       or any(others.values())):
         raise RuntimeError(f"[inner-ring] {strategy} at {n} position(s): launches {launches}, "
                            f"other kernels {others}; expected launches of {sorted(want)} only")
+    # F3: one launch a (step, position) of a multiply at most
+    if not plain and launches["field_fold_scatter"] > (len(mats) - 1) * n * n:
+        raise RuntimeError(f"[inner-ring] ring at {n} position(s): "
+                           f"{launches['field_fold_scatter']} F3 launches over "
+                           f"{len(mats) - 1} multiplies, more than n^2 each")
     return res, {"wall_s": wall, "launches": launches, "ms": timer.ms(), "split_s": split,
                  "f2_bytes": timer.add_bytes,
                  "ring_steps": c1.get("ring_steps", 0) - c0.get("ring_steps", 0)}
-
-
-def _field_ops_per_mac() -> tuple[dict, str]:
-    """FIELD_OPS_PER_MAC recounted by tools/field_sass_count.py from the SASS of this
-    run's libfield_fold (cuobjdump -sass), with where the counts came from; the
-    constants where cuobjdump or the count fails."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    try:
-        sass = subprocess.run([cuobjdump, "-sass", str(_build.build("field_fold"))],
-                              capture_output=True, text=True, timeout=120, check=True).stdout
-        counted = subprocess.run([sys.executable, os.path.join(REPO, "tools",
-                                                               "field_sass_count.py")],
-                                 input=sass, capture_output=True, text=True, timeout=60,
-                                 check=True).stdout
-    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
-        return FIELD_OPS_PER_MAC, f"from the constants ({type(exc).__name__})"
-    got = {}
-    for m in re.finditer(r"SMALL=([01]) SCATTER=([01]): .*?\((\S+) a MAC\).*?\((\S+) a MAC\)",
-                         counted):
-        got[(m.group(1) == "1", m.group(2) == "1")] = max(float(m.group(3)), float(m.group(4)))
-    if set(got) != set(FIELD_OPS_PER_MAC):
-        return FIELD_OPS_PER_MAC, "from the constants (the SASS count found " \
-            f"{sorted(got)})"
-    return got, "from this build's SASS (" + ", ".join(
-        f"{'small' if sm else 'full'} {'F3' if sc else 'F1'} {v:.4f}"
-        for (sm, sc), v in sorted(got.items())) + ")"
 
 
 def phase_inner_ring(medium, kernel1: dict) -> list[dict]:
@@ -5277,12 +5276,14 @@ def phase_inner_ring(medium, kernel1: dict) -> list[dict]:
     [medium-cli]'s `--ranks 8` result.  Returns the F1, F2 and F3 rows of
     the kernels line."""
     from spgemm_tpu_torch.parallel.chainpart import chain_product_on_devices  # noqa: PLC0415
-    from spgemm_tpu_torch.parallel.ring import plan_ring  # noqa: PLC0415
+    from spgemm_tpu_torch.parallel.ring import plan_ring, ring_cells  # noqa: PLC0415
 
     t0 = time.perf_counter()
-    want, mxu_wall, mxu_counts, _ = _main_path(medium.dev_mats, "mxu")
+    k2 = EventFold(cuda_mxu.numeric_round_mxu)  # kernel 2, the yardstick of F1 and F3
+    want, mxu_wall, mxu_counts, _ = _main_path(medium.dev_mats, "mxu", folds=Folds(mxu=k2))
     if mxu_counts["mxu"] <= 0:
         raise RuntimeError(f"[inner-ring] the mxu chain launched {mxu_counts}")
+    k2_ms = k2.ms()
     want = want.to_host()
     small = u64.operands_below_2_32(*medium.mats)
     runs = {}
@@ -5302,7 +5303,8 @@ def phase_inner_ring(medium, kernel1: dict) -> list[dict]:
         for name, r in runs.items())
     _phase("inner-ring", t0, f"Medium from host leaves through spgemm_inner and spgemm_ring "
            f"over [cuda:0] * n, each byte-equal to the mxu chain's ({mxu_wall:.6f} s from "
-           f"device leaves, kernel 2 {mxu_counts['mxu']} launches); small route "
+           f"device leaves, kernel 2 {mxu_counts['mxu']} launches, {k2_ms:.3f} ms by CUDA "
+           f"events: the yardstick of F1 and F3); F3 at most n^2 launches a multiply; small route "
            f"{'taken' if small else 'not taken (values reach 2^32)'}: {line}")
 
     # the plain versions against the kernels on a cut in depth
@@ -5337,15 +5339,18 @@ def phase_inner_ring(medium, kernel1: dict) -> list[dict]:
     sched = plan_ring(symbolic.symbolic_join(a.coords, b.coords), b.nnzb, cfg["n"],
                       mass_balance=False)
     tail_cells = 0 if sched[3] is None else int((sched[3][0] != sched[5]).sum())
+    cells = ring_cells(sched[2], sched[3], cfg["n"], sched[5])
     web.update({"tail_cells": tail_cells, "small": u64.operands_below_2_32(a, b),
                 "rank_lists": len(sched[2]), "tiles": (a.nnzb, b.nnzb),
+                "cells": len(cells.rows), "max_cell_pairs": int(np.diff(cells.cell_ptr).max()),
                 "exact_launches": exact_counts["mod"] + exact_counts["no_mod"]
                 + exact_counts["dense"]})
     _phase("inner-ring", t0, f"webbase-ring ({a.nnzb} x {b.nnzb} tiles, k {cfg['k']}) through "
            f"the ring at {cfg['n']} positions == the exact path: wall {web['wall_s']:.6f} s, "
            f"F3 {web['launches']['field_fold_scatter']} launches, "
            f"{web['ms']['field_fold_scatter']:.3f} ms, small route {'taken' if web['small'] else 'not taken'}, "
-           f"{web['rank_lists']} rank lists, {tail_cells} deep-tail cells")
+           f"{web['rank_lists']} rank lists, {tail_cells} deep-tail cells; the CSR holds "
+           f"{web['cells']} cells of up to {web['max_cell_pairs']} pairs")
 
     # --shard chain at P = 8 against [medium-cli]'s --ranks 8
     t0 = time.perf_counter()
@@ -5359,19 +5364,20 @@ def phase_inner_ring(medium, kernel1: dict) -> list[dict]:
            f"[medium-cli]'s --ranks 8 result: wall {chain_wall:.6f} s")
 
     # the rows: launches and ms of the main path at the widest n, bounds from the chain's
-    # real MACs (every pair folded once, as by kernel 1) and its bytes
+    # real MACs (every pair folded once, as by kernel 1) and its bytes; F1 and F3 run
+    # FIELD_BYTE_PRODUCTS int8 products a MAC on the tensor cores, as kernel 2's row counts
     wide = INNER_RING_N[-1]
     inner, ring = runs[f"inner n={wide}"], runs[f"ring n={wide}"]
-    per_mac, per_mac_from = _field_ops_per_mac()
+    products = FIELD_BYTE_PRODUCTS[small]
     bytes_ms = kernel1["bytes"] / HBM_BYTES_PER_S * 1e3
-    fold_bound, fold_by = _bound(kernel1["macs"] * per_mac[(small, False)]
-                                 / INT32_OPS_PER_S * 1e3, bytes_ms)
-    scatter_bound, scatter_by = _bound(kernel1["macs"] * per_mac[(small, True)]
-                                       / INT32_OPS_PER_S * 1e3, bytes_ms)
+    fold_bound, fold_by = _bound(2 * kernel1["macs"] * products / INT8_TENSOR_OPS_PER_S * 1e3,
+                                 bytes_ms)
     add_bound, add_by = _bound(0.0, inner["f2_bytes"] / HBM_BYTES_PER_S * 1e3)
+    ptxas = _field_ptxas()
     common = {"route": "cuda", "source": "spgemm_tpu_torch/csrc/field_fold.cu",
               "max_abs_err": 0, "library_ms": None, "plain_scope":
-              f"Medium's first {depth} matrices, {n_plain} positions", "small": small}
+              f"Medium's first {depth} matrices, {n_plain} positions", "small": small,
+              "kernel2_ms_same_chain": k2_ms, "kernel2_launches": mxu_counts["mxu"]}
     by_run = {name: {k: {"launches": r["launches"][k], "ms": r["ms"][k]}
                      for k in r["launches"] if r["launches"][k]} for name, r in runs.items()}
     rows = []
@@ -5381,26 +5387,43 @@ def phase_inner_ring(medium, kernel1: dict) -> list[dict]:
             ("field_add", "spgemm_tpu/parallel/innershard.py:79", inner, "inner",
              add_bound, add_by),
             ("field_fold_scatter", "spgemm_tpu/parallel/ring.py:368", ring, "ring",
-             scatter_bound, scatter_by)):
+             fold_bound, fold_by)):
         rows.append({**common, "name": name, "replaces": replaces,
                      "launches": run["launches"][name], "ms": run["ms"][name],
                      "plain_ms": plain[strategy]["plain_ms"][name],
                      "ms_plain_scope": plain[strategy]["kernel_ms"][name],
                      "bound_ms": bound, "bound_by": by, "main_path": f"{strategy} n={wide}",
-                     "ops_per_mac": per_mac[(small, name == "field_fold_scatter")]
-                     if name != "field_add" else None, "ops_per_mac_from": per_mac_from,
+                     "byte_products_per_mac": products if name != "field_add" else None,
+                     "ptxas": ptxas.get(name),
                      "by_run": {r: v[name] for r, v in by_run.items() if name in v}})
     rows[2]["webbase_ring"] = {"launches": web["launches"]["field_fold_scatter"],
                                "ms": web["ms"]["field_fold_scatter"],
-                               "tail_cells": tail_cells, "small": web["small"]}
+                               "tail_cells": tail_cells, "small": web["small"],
+                               "cells": web["cells"], "max_cell_pairs": web["max_cell_pairs"]}
     print(f"[inner-ring] rows: F1 {rows[0]['ms']:.3f} ms ({rows[0]['launches']} launches), "
           f"F2 {rows[1]['ms']:.3f} ms ({rows[1]['launches']}), F3 {rows[2]['ms']:.3f} ms "
-          f"({rows[2]['launches']}); bounds F1 {fold_bound:.3f} ms ({fold_by}, "
-          f"{kernel1['macs'] / 1e9:.3f} G MACs x {per_mac[(small, False)]:.4f}), F3 "
-          f"{scatter_bound:.3f} ms ({scatter_by}, x {per_mac[(small, True)]:.4f}), "
-          f"instructions a MAC {per_mac_from}; F2 {add_bound:.3f} ms ({add_by}, "
-          f"{inner['f2_bytes'] / 1e9:.3f} GB)", flush=True)
+          f"({rows[2]['launches']}), kernel 2 over the same chain {k2_ms:.3f} ms "
+          f"({mxu_counts['mxu']}); bound of F1 and F3 {fold_bound:.3f} ms ({fold_by}, "
+          f"{kernel1['macs'] / 1e9:.3f} G MACs x {products} int8 byte products x 2 ops / "
+          f"{INT8_TENSOR_OPS_PER_S:.4g} ops/s; bytes {bytes_ms:.3f} ms); F2 {add_bound:.3f} ms "
+          f"({add_by}, {inner['f2_bytes'] / 1e9:.3f} GB); ptxas (registers, spill bytes) "
+          f"{ptxas}", flush=True)
     return rows
+
+
+def _field_ptxas() -> dict:
+    """Registers and spill bytes of F1's and F3's instances (full 8 x 8 and
+    SMALL 4 x 4 bytes), from the ptxas report _build keeps beside
+    libfield_fold."""
+    log = _build.build("field_fold").with_suffix(".log").read_text()
+    out = {}
+    for entry, stats in obs_profile.parse_ptxas(log).items():
+        m = re.search(r"limb_fold_kernelILi(\d)ELi(\d)E\w*?(RowWalk|CellWalk)", entry)
+        if m:
+            name = "field_fold" if m.group(3) == "RowWalk" else "field_fold_scatter"
+            out.setdefault(name, {})[f"{m.group(1)}x{m.group(2)}"] = {
+                k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
+    return out
 
 
 CHAOS_JOBS = 3               # [chaos]: the card's chaos-leg submits

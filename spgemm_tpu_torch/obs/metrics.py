@@ -60,7 +60,8 @@ ENGINE_PHASES: dict[str, str] = {
                    "job's content",
     "serve_chain": "spgemmd: a job's (or a batch's) chain reduction",
     "serve_write": "spgemmd: writing a job's result in the reference's text format",
-    "ring_plan": "ring multiply: the rank-compacted schedule (parallel/ring.plan_ring)",
+    "ring_plan": "ring multiply: the rank-compacted schedule and its CSR lists "
+                 "(parallel/ring.plan_ring, ring_cells)",
     "ring_hop": "ring multiply: one hop of every position's B slab, timed alone once "
                 "per device list and slab shape, recorded on every call",
     "ring_fold": "ring multiply: the n steps' field-fold launches and hops queued",
@@ -83,7 +84,7 @@ ENGINE_COUNTERS: dict[str, str] = {
     "launches_bsmm_wgrad": "kernel 5 launches (csrc/bsmm_grad.cu, the FFN weight gradient)",
     "launches_field_fold": "field-mode fold launches (csrc/field_fold.cu, F1: inner sharding)",
     "launches_field_fold_scatter": "field-mode fold-and-scatter launches (csrc/field_fold.cu, "
-                                   "F3: a ring trip)",
+                                   "F3: a ring step's list at one position)",
     "launches_field_add": "field-mode add launches (csrc/field_fold.cu, F2: the all-reduce)",
     "ring_steps": "ring multiply steps (n a multiply over n positions)",
     "route_dense": "rounds dispatched on the dense accumulator route",

@@ -348,7 +348,8 @@ class SpgemmPlan:
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     # rowshard_rounds' schedules, by round size
     _rowshard: dict = field(default_factory=dict, repr=False)
-    # ring_schedule's schedules, by (B's nnzb, positions, mass balance)
+    # ring_schedule's schedules and their ring_cells, by (B's nnzb, positions,
+    # mass balance)
     _ring: dict = field(default_factory=dict, repr=False)
 
     def _arrays(self) -> list:
@@ -433,7 +434,15 @@ class SpgemmPlan:
         resolved mass-balance flag (SPGEMM_TPU_PLAN_ESTIMATE) is part of the
         key, so an in-process A/B that flips it is never served the other
         leg's schedule.  A frozen plan's schedule is frozen too."""
-        from spgemm_tpu_torch.parallel.ring import plan_ring  # noqa: PLC0415 -- a cycle
+        return self._ring_entry(nnzb_b, n_dev)[0]
+
+    def ring_cells(self, nnzb_b: int, n_dev: int):
+        """parallel/ring.ring_cells of ring_schedule(nnzb_b, n_dev): the F3
+        kernel's CSR, memoized with the schedule (and frozen with it)."""
+        return self._ring_entry(nnzb_b, n_dev)[1]
+
+    def _ring_entry(self, nnzb_b: int, n_dev: int) -> tuple:
+        from spgemm_tpu_torch.parallel.ring import plan_ring, ring_cells  # noqa: PLC0415 -- a cycle
 
         mb = bool(knobs.get("SPGEMM_TPU_PLAN_ESTIMATE"))
         key = (nnzb_b, n_dev, mb)
@@ -441,12 +450,13 @@ class SpgemmPlan:
         with self._lock:
             if key not in self._ring:
                 sched = plan_ring(join, nnzb_b, n_dev, mass_balance=mb)
+                key_chunks, slab_bounds, ranks, tail, _, k_max = sched
+                cells = ring_cells(ranks, tail, n_dev, k_max)
                 if self._frozen:
-                    key_chunks, slab_bounds, ranks, tail = sched[:4]
                     for x in [*key_chunks, slab_bounds, *(y for trip in ranks for y in trip),
-                              *(tail or ())]:
+                              *(tail or ()), *cells.arrays()]:
                         x.flags.writeable = False
-                self._ring[key] = sched
+                self._ring[key] = (sched, cells)
             return self._ring[key]
 
     def check_operands(self, a, b) -> None:

@@ -15,10 +15,13 @@ It runs in one process over a list of torch devices, as parallel/rowshard.py
 does: position d holds devices[d], and a device may repeat (`["cpu"] * n` in
 the tests, `[cuda:0] * n` on one card).  The schedule (plan_ring,
 RANK_UNROLL_MAX) is the JAX package's, copied in numpy with the same
-arrays.  Each step, each position folds every trip of its (position, slab)
-cell lists (the rank lists, then the deep-cell tail) with one launch of the
-F3 kernel (ops/cuda_field.field_fold_scatter) into its accumulator; on the
-CPU the wrapper runs its plain version.
+arrays.  The kernel does not take those arrays as they are: ring_cells
+gathers each (position, slab) list's pairs from the rank lists and the
+deep-cell tail into one CSR (RingCells), every pair of a cell together and
+no padding.  Each step, each position folds its (position, slab) list with
+one launch of the F3 kernel (ops/cuda_field.field_fold_scatter) into its
+accumulator, so a multiply launches F3 at most n^2 times; a list without
+cells launches nothing.  On the CPU the wrapper runs its plain version.
 
 The hop is a tensor copy of the slab into the next position's spare buffer
 (the JAX package's ppermute).  Each position holds its slab in two buffers,
@@ -34,6 +37,7 @@ the copy's issue point moves.  The last step has no hop: nothing reads it.
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -54,11 +58,10 @@ def overlap_enabled() -> bool:
     return knobs.get("SPGEMM_TPU_RING_OVERLAP")
 
 
-# each rank list is one F3 launch a (step, position), so their count must stay
-# O(1): cells deeper than this many pairs spill their remainder into ONE
-# dense (cell, pair) tail trip -- an adversarial key with thousands of
-# same-slab pairs costs tail padding, never thousands of launches (the JAX
-# package's bound on its unrolled step body)
+# the JAX package's bound on its unrolled step body: cells deeper than this
+# many pairs spill their remainder into ONE dense (cell, pair) tail trip.
+# plan_ring keeps it so that its arrays stay the JAX ones; the port's fold
+# takes the CSR that ring_cells builds from them, whatever the depth
 RANK_UNROLL_MAX = 8
 
 
@@ -224,6 +227,68 @@ def plan_ring(join: JoinResult, nnzb_b: int, n_dev: int,
     return key_chunks, slab_bounds, ranks, tail, s_max, k_max
 
 
+@dataclass(frozen=True)
+class RingCells:
+    """The ring's (position, slab) lists of cells in CSR form, for the F3
+    kernel: one list a (position d, slab s) group g = d * n + s.
+
+      group_ptr : (n * n + 1,) int64; group g's cells are
+                  group_ptr[g] : group_ptr[g + 1]
+      rows      : (C,) int32, each cell's local accumulator row; unique
+                  within a group, never the dummy row
+      cell_ptr  : (C + 1,) int64; cell c's pairs are cell_ptr[c] :
+                  cell_ptr[c + 1] of pa and pb, in plan_ring's pair order
+      pa, pb    : (N,) int32 A tile indices and within-slab B indices,
+                  every pair real (no sentinel)
+    """
+
+    n: int
+    group_ptr: np.ndarray
+    rows: np.ndarray
+    cell_ptr: np.ndarray
+    pa: np.ndarray
+    pb: np.ndarray
+
+    def arrays(self) -> list:
+        return [self.group_ptr, self.rows, self.cell_ptr, self.pa, self.pb]
+
+    def position(self, d: int):
+        """Position d's lists: (rows, cell_ptr, pa, pb) with cell_ptr
+        rebased to the position's own pa and pb, and the (n + 1,) bounds of
+        its slabs' cells within them."""
+        g0 = self.group_ptr[d * self.n: (d + 1) * self.n + 1]
+        c0, c1 = int(g0[0]), int(g0[-1])
+        p0, p1 = int(self.cell_ptr[c0]), int(self.cell_ptr[c1])
+        return (self.rows[c0:c1], self.cell_ptr[c0: c1 + 1] - p0, self.pa[p0:p1],
+                self.pb[p0:p1], g0 - c0)
+
+
+def ring_cells(ranks: list, tail, n_dev: int, k_max: int) -> RingCells:
+    """plan_ring's rank lists and tail as RingCells: every real pair, sorted
+    by (position, slab, row) and within a cell by rank (rank list r gives
+    rank r of each cell it holds, the tail ranks RANK_UNROLL_MAX and up, in
+    slot order).  A padding cell (row k_max) or slot (pa < 0) is dropped."""
+    parts = []
+    for row_idx, pa, pb in ranks:
+        d, s, c = np.nonzero(row_idx != k_max)
+        parts.append((d * n_dev + s, row_idx[d, s, c], pa[d, s, c], pb[d, s, c]))
+    if tail is not None:
+        row_idx, pa, pb = tail
+        d, s, c, p = np.nonzero(pa >= 0)
+        parts.append((d * n_dev + s, row_idx[d, s, c], pa[d, s, c, p], pb[d, s, c, p]))
+    grp, rows, pa, pb = (np.concatenate(x) for x in zip(*parts))  # plan_ring gives a rank list
+    # the parts come in rank order, so a stable sort on the cell keeps it
+    cell = grp * (k_max + 1) + rows
+    order = np.argsort(cell, kind="stable")
+    cell, rows, pa, pb = cell[order], rows[order], pa[order], pb[order]
+    first = np.flatnonzero(np.diff(cell, prepend=-1))
+    cell_ptr = np.append(first, len(cell)).astype(np.int64)
+    group_ptr = np.searchsorted(cell[first] // (k_max + 1),
+                                np.arange(n_dev * n_dev + 1)).astype(np.int64)
+    return RingCells(n=n_dev, group_ptr=group_ptr, rows=rows[first].astype(np.int32),
+                     cell_ptr=cell_ptr, pa=pa.astype(np.int32), pb=pb.astype(np.int32))
+
+
 # one-hop probe times, keyed by (devices, small, slab buffer shape): the first
 # spgemm_ring call of a key pays the probe, later ones record its figure
 _HOP_PROBE_CACHE: dict = {}
@@ -280,7 +345,7 @@ def spgemm_ring(a, b, *, devices=None, plan=None, **_ignored) -> BlockSparseMatr
     tiles.
 
     ENGINE: `ring_plan` (the schedule), `upload` (A to each distinct device,
-    each position's B slab and trips), `ring_fold` (the n steps' launches
+    each position's B slab and cell lists), `ring_fold` (the n steps' launches
     and hops queued), `assembly` (the accumulators fetched to the host
     result, which waits for the kernels), `ring_hop` (one hop timed alone,
     once per device list, small and slab shape in this process, then
@@ -303,27 +368,30 @@ def spgemm_ring(a, b, *, devices=None, plan=None, **_ignored) -> BlockSparseMatr
         return BlockSparseMatrix(rows=a.rows, cols=b.cols, k=k)
 
     with ENGINE.phase("ring_plan"):
-        key_chunks, slab_bounds, ranks, tail, s_max, k_max = \
-            plan.ring_schedule(b.nnzb, n) if plan is not None \
-            else plan_ring(join, b.nnzb, n)
-    # A's sentinel -> its zero tile at index nnzb (rank lists and tail alike)
-    trips = [(rows, np.where(pa < 0, a.nnzb, pa).astype(np.int32), pb)
-             for rows, pa, pb in ranks + ([tail] if tail is not None else [])]
+        if plan is not None:
+            key_chunks, slab_bounds, _, _, s_max, k_max = plan.ring_schedule(b.nnzb, n)
+            cells = plan.ring_cells(b.nnzb, n)
+        else:
+            key_chunks, slab_bounds, ranks, tail, s_max, k_max = plan_ring(join, b.nnzb, n)
+            cells = ring_cells(ranks, tail, n, k_max)
 
     with ENGINE.phase("upload"):
         a_host = pack_tiles(a, "cpu")
         a_slabs = {d: a_host.to(d) for d in dict.fromkeys(devs)}
         # position d starts with slab d: (s_max + 1, k, k), zero tile at s_max
         b_host = pack_tiles(b, "cpu")
-        bufs, pos_trips, accs = [], [], []
+        bufs, pos_lists, accs = [], [], []
         for d, dev in enumerate(devs):
             lo, hi = slab_bounds[d], slab_bounds[d + 1]
             slab = torch.zeros((s_max + 1, k, k), dtype=torch.int64)
             slab[: hi - lo] = b_host[lo:hi]
             slab = slab.to(dev)
             bufs.append([slab, torch.empty_like(slab)])
-            pos_trips.append([tuple(_upload(np.ascontiguousarray(x[d]), dev) for x in trip)
-                              for trip in trips])
+            *arrays, bounds = cells.position(d)
+            rows, cell_ptr, pa, pb = (_upload(np.ascontiguousarray(x), dev) for x in arrays)
+            # slab s's list: its cells' rows and cell_ptr, the position's pairs
+            pos_lists.append([(rows[c0:c1], cell_ptr[c0: c1 + 1], pa, pb) if c1 > c0 else None
+                              for c0, c1 in zip(bounds[:-1].tolist(), bounds[1:].tolist())])
             accs.append(torch.zeros((k_max + 1, k, k), dtype=torch.int64, device=dev))
 
     if knobs.get("SPGEMM_TPU_RING_HOP_PROBE"):
@@ -347,10 +415,10 @@ def spgemm_ring(a, b, *, devices=None, plan=None, **_ignored) -> BlockSparseMatr
             if overlap and hop:
                 events = _hop(bufs, cur, devs, side)
             for d in range(n):
-                s = (d - t) % n  # the slab position d holds at step t
-                for rows, pa, pb in pos_trips[d]:
+                lists = pos_lists[d][(d - t) % n]  # the slab position d holds at step t
+                if lists is not None:
                     cuda_field.field_fold_scatter(accs[d], a_slabs[devs[d]], bufs[d][cur],
-                                                  rows[s], pa[s], pb[s], small=small)
+                                                  *lists, small=small)
             if hop and not overlap:
                 events = _hop(bufs, cur, devs, side)
             if hop:

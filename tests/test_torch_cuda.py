@@ -21,10 +21,11 @@ plain versions and one step against the plain autograd step; the output-sharded
 multiply (parallel/rowshard) over [cuda:0] * n against spgemm_device on
 banded and random chains, and `--shard keys` on the golden data; the
 field-mode kernels of inner and ring sharding (csrc/field_fold.cu: F1 in
-both instances, F3, F2) against their plain versions on edge values,
-sentinel-heavy lists, P = 0, K = 0 and a scatter with many padding cells on
-the dummy row, spgemm_inner and spgemm_ring over [cuda:0] * n (overlap on
-and off) against the same on ["cpu"] * n, chain_product_on_devices against
+both instances, F3, F2) against their plain versions on edge values at k 1
+to 64 with 31 and 33, sentinel-heavy lists, P = 0, K = 0, P * k > 2^17 and
+F3 cells of 1 to 300 pairs with every other row untouched, spgemm_inner and
+spgemm_ring over [cuda:0] * n (overlap on and off; F3 at most n^2 launches
+a multiply) against the same on ["cpu"] * n, chain_product_on_devices against
 chain_product_partitioned, and `--shard inner|ring|chain` on the golden
 data.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
@@ -1242,9 +1243,12 @@ def _field_indices(rng, n: int, K: int, P: int) -> np.ndarray:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("small", [False, True])
-@pytest.mark.parametrize("k,K,P", [(1, 300, 9), (2, 300, 9), (8, 60, 7), (32, 40, 8),
-                                   (64, 8, 5), (32, 4, 384), (16, 0, 4), (16, 3, 0)])
+@pytest.mark.parametrize("k,K,P", [(1, 300, 9), (2, 300, 9), (8, 60, 7), (31, 40, 8),
+                                   (32, 40, 8), (33, 30, 5), (64, 8, 5), (32, 4, 384),
+                                   (32, 3, 4100), (16, 0, 4), (16, 3, 0)])
 def test_field_fold_on_card_equals_plain_version(cuda, k, K, P, small):
+    """EDGE values, every third key of sentinel slots only; (32, 3, 4100)
+    has P * k > 2^17, which kernel 2's wrapper refuses and F1 takes."""
     rng = np.random.default_rng(900 + k + P)
     a, b = (torch.from_numpy(_field_tiles(rng, 30, k, small).view(np.int64)).to(cuda)
             for _ in range(2))
@@ -1261,36 +1265,48 @@ def test_field_fold_on_card_equals_plain_version(cuda, k, K, P, small):
 
 @pytest.mark.cuda
 def test_field_fold_on_card_collapses_a_sum_of_2_64_minus_1(cuda):
-    a = torch.tensor([[[(1 << 32) - 1]], [[(1 << 33) - 2]], [[0]]], dtype=torch.int64,
+    """(2^32 - 1)^2 + (2^32 - 1) * 2 = 2^64 - 1, which reads 0; every
+    operand below 2^32, so the SMALL route may take it too."""
+    a = torch.tensor([[[(1 << 32) - 1]], [[(1 << 32) - 1]], [[0]]], dtype=torch.int64,
                      device=cuda)
-    b = torch.tensor([[[(1 << 32) - 1]], [[1]], [[0]]], dtype=torch.int64, device=cuda)
+    b = torch.tensor([[[(1 << 32) - 1]], [[2]], [[0]]], dtype=torch.int64, device=cuda)
     pa = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
     for small in (False, True):
         assert cuda_field.field_fold(a, b, pa, pa.clone(), small=small).tolist() == [[[0]]]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,C,P", [(1, 500, 1), (8, 300, 1), (32, 200, 1), (32, 40, 6),
-                                   (64, 30, 3), (16, 0, 1)])
-def test_field_fold_scatter_on_card_equals_plain_version(cuda, k, C, P):
-    """Most cells padding on the dummy row, the rest on unique rows."""
+@pytest.mark.parametrize("small", [False, True])
+@pytest.mark.parametrize("k,C,most", [(1, 500, 1), (8, 300, 1), (31, 60, 40), (32, 200, 1),
+                                      (32, 12, 300), (33, 40, 6), (64, 30, 3), (16, 0, 1)])
+def test_field_fold_scatter_on_card_equals_plain_version(cuda, k, C, most, small):
+    """CSR cells of 1 to `most` pairs (one of them `most`, the first of
+    sentinel slots only) on distinct rows; every other accumulator row is
+    left as it was."""
     rng = np.random.default_rng(950 + k + C)
-    a, b = (torch.from_numpy(_field_tiles(rng, 25, k, False).view(np.int64)).to(cuda)
+    a, b = (torch.from_numpy(_field_tiles(rng, 25, k, small).view(np.int64)).to(cuda)
             for _ in range(2))
-    rows_acc = max(1, C // 3) + 1
-    rows = np.full(C, rows_acc - 1, np.int32)
-    real = rng.permutation(C)[: rows_acc - 1]
-    rows[real] = rng.permutation(rows_acc - 1).astype(np.int32)
-    rows, pa, pb = (torch.from_numpy(x).to(cuda) for x in
-                    (rows, *(_field_indices(rng, 25, C, P) for _ in range(2))))
-    if P == 1:
-        pa, pb = pa[:, 0].contiguous(), pb[:, 0].contiguous()
+    counts = rng.integers(1, most + 1, C)
+    counts[-1:] = most
+    cell_ptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
+    pa, pb = (_field_indices(rng, 25, int(cell_ptr[-1]), 1)[:, 0].copy() for _ in range(2))
+    if C:
+        pa[: counts[0]] = 25
+    rows_acc = C + 5
+    rows = rng.permutation(rows_acc)[:C].astype(np.int32)
+    rows, cell_ptr, pa, pb = (torch.from_numpy(x).to(cuda) for x in (rows, cell_ptr, pa, pb))
     start = torch.from_numpy(_field_tiles(rng, rows_acc - 1, k, False).view(np.int64)).to(cuda)
-    start[-1] = -7  # the dummy row's stale value must survive
-    got = cuda_field.field_fold_scatter(start.clone(), a, b, rows, pa, pb)
-    want = cuda_field.field_fold_scatter_ref(start.clone(), a, b, rows, pa, pb)
+    start[start == -1] = 0  # an accumulator holds canonical residues
+    launches = _launches("field_fold_scatter")
+    got = cuda_field.field_fold_scatter(start.clone(), a, b, rows, cell_ptr, pa, pb, small=small)
+    assert _launches("field_fold_scatter") - launches == int(C > 0)
+    want = cuda_field.field_fold_scatter_ref(start.clone(), a, b, rows, cell_ptr, pa, pb,
+                                             small=small)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and got[-1].eq(-7).all()
+    assert torch.equal(got, want)
+    untouched = torch.ones(rows_acc, dtype=torch.bool, device=cuda)
+    untouched[rows[1:].long()] = False
+    assert torch.equal(got[untouched], start[untouched])
 
 
 @pytest.mark.cuda
@@ -1320,6 +1336,8 @@ def test_inner_and_ring_on_card_equal_the_cpu(cuda, n, overlap, dist, monkeypatc
             launches = _launches(kernel)
             got = fn(a, b, devices=devices)
             assert _launches(kernel) > launches
+            if kernel == "field_fold_scatter":  # one launch a step and position at most
+                assert _launches(kernel) - launches <= n * n
             want = fn(a, b, devices=["cpu"] * n)
             assert np.array_equal(got.coords, want.coords) and np.array_equal(got.tiles, want.tiles)
 

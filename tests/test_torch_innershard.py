@@ -280,31 +280,58 @@ def test_field_fold_with_no_pairs_or_no_keys():
     assert got.shape == (0, k, k)
 
 
+@pytest.mark.parametrize("k,small", [(1, False), (1, True), (2, False), (4, True)])
+def test_field_fold_plain_version_past_the_pair_depth_limit(k, small):
+    """A key of J pairs with J * k > 2^17 (kernel 2's wrapper refuses such a
+    round; F1 takes it) and sentinel slots among them, beside a key of
+    sentinels only: the field oracle's tile, and zeros."""
+    rng = np.random.default_rng(745 + k)
+    J = (1 << 17) // k + 9
+    hi = 1 << 32 if small else 1 << 64
+    a_t, b_t = (rng.integers(0, hi, (J, k, k), dtype=np.uint64) for _ in range(2))
+    a_t[0], b_t[0] = (1 << 32) - 1 if small else MAX - 1, (1 << 32) - 1 if small else MAX
+    slots = rng.permutation(J).astype(np.int32)
+    pa = np.concatenate([slots, np.full(5, J, np.int32)])  # J: the sentinel
+    pb = np.concatenate([slots, rng.integers(0, J, 5).astype(np.int32)])
+    pa, pb = (np.stack([x, np.full_like(x, J)]) for x in (pa, pb))  # key 1: sentinels only
+    assert pa.shape[1] * k > 1 << 17
+    a = BlockSparseMatrix(rows=k, cols=J * k, k=k, tiles=a_t,
+                          coords=np.stack([np.zeros(J, np.int64), np.arange(J)], 1))
+    b = BlockSparseMatrix(rows=J * k, cols=k, k=k, tiles=b_t,
+                          coords=np.stack([np.arange(J), np.zeros(J, np.int64)], 1))
+    want = field_spgemm_oracle(a.to_dict(), b.to_dict(), k)[(0, 0)]
+    got = cuda_field.field_fold(_slab(a_t), _slab(b_t), torch.from_numpy(pa),
+                                torch.from_numpy(pb), small=small)
+    assert np.array_equal(u64.t_to_u64(got), np.stack([want, np.zeros((k, k), np.uint64)]))
+
+
 @pytest.mark.parametrize("tail", [False, True])
 def test_field_fold_scatter_plain_version_skips_the_dummy_row(tail):
-    """Cells added into their rows, several padding cells on the dummy row
-    (the accumulator's last), which is never written."""
+    """Cells in CSR form added into their rows; the dummy row (the
+    accumulator's last, which the ring keeps and no cell names) is never
+    written.  With `tail`, cells of 1 to 4 pairs with sentinel slots among
+    them, and a cell of sentinels only."""
     rng = np.random.default_rng(740)
     k, n_a, n_b, rows_acc = 4, 6, 5, 7
     a_t, b_t = _edge_tiles(rng, n_a, k), _edge_tiles(rng, n_b, k)
-    P = 3 if tail else 1
-    rows = np.array([2, 6, 0, 6, 5, 6, 6], np.int32)   # 6: the dummy row
-    C = len(rows)
-    pa = rng.integers(0, n_a + 1, (C, P)).astype(np.int32)
-    pb = rng.integers(0, n_b + 1, (C, P)).astype(np.int32)
+    rows = np.array([2, 0, 5, 3], np.int32)
+    counts = np.array([3, 1, 4, 2]) if tail else np.ones(4, np.int64)
+    cell_ptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
+    pa = rng.integers(0, n_a + 1, cell_ptr[-1]).astype(np.int32)  # n_a: the sentinel
+    pb = rng.integers(0, n_b + 1, cell_ptr[-1]).astype(np.int32)
+    if tail:
+        pa[cell_ptr[3]: cell_ptr[4]] = n_a  # a cell of sentinel slots only
     start = _edge_tiles(rng, rows_acc, k)
     start[-1] = MAX - 5  # the dummy row's stale value must survive
     acc = _t(start).clone()  # _t shares start's memory
-    ta, tb = torch.from_numpy(pa), torch.from_numpy(pb)
-    if not tail:
-        ta, tb = ta[:, 0], tb[:, 0]  # a rank list's (C,) form
-    cuda_field.field_fold_scatter(acc, _slab(a_t), _slab(b_t), torch.from_numpy(rows), ta, tb)
-    folded = _fold_oracle(a_t, b_t, pa, pb, n_a, n_b)
+    cuda_field.field_fold_scatter(acc, _slab(a_t), _slab(b_t), torch.from_numpy(rows),
+                                  torch.from_numpy(cell_ptr), torch.from_numpy(pa),
+                                  torch.from_numpy(pb))
     want = start.copy()
     for c, r in enumerate(rows):
-        if r != rows_acc - 1:
-            want[r] = ((start[r].astype(object) + folded[c].astype(object)) % MAX).astype(
-                np.uint64)
+        cut = slice(cell_ptr[c], cell_ptr[c + 1])
+        folded = _fold_oracle(a_t, b_t, pa[None, cut], pb[None, cut], n_a, n_b)[0]
+        want[r] = ((start[r].astype(object) + folded.astype(object)) % MAX).astype(np.uint64)
     assert np.array_equal(u64.t_to_u64(acc), want)
 
 

@@ -4,8 +4,18 @@ io_text.py, ops/symbolic.py, utils/semantics.py) and the port's own numpy
 paths, on the same seeded inputs: the text reader and writer, the symbolic
 join and the parity fold.  Tolerance: exact (byte-equal files, equal
 arrays).  Also: SPGEMM_TPU_NO_NATIVE=1 selects the numpy paths, and a
-failed build or load raises instead of falling back."""
+failed build or load raises instead of falling back.
 
+The JAX package's native library runs here from a private build: the
+module's fixture compiles the JAX package's sources with its own flags into
+build/jax_native/, under a name hashed from them, and points
+spgemm_tpu.utils.native at that file for the module.  The package builds its
+library straight onto its final path and remembers a failed load for the
+rest of the process, so test workers that start at once on a fresh tree
+could otherwise load a half-written file and fall back to its numpy reader.
+The fixture fails if the library does not load; it never skips."""
+
+import hashlib
 import os
 import shutil
 import subprocess
@@ -26,9 +36,62 @@ from spgemm_tpu_torch.utils import io_text, native
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the JAX package's g++ flags (spgemm_tpu/utils/native.py, _build), before -o
+JAX_NATIVE_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
+JAX_NATIVE_DIR = os.path.join(REPO, "build", "jax_native")
 MAX = (1 << 64) - 1
 EDGE = np.array([0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
                  MAX - 2, MAX - 1, MAX], dtype=np.uint64)
+
+
+def _private_jax_lib() -> str:
+    """The JAX package's native sources built with its flags into a file of
+    this module's own, named by a hash of the sources, the flags and the
+    compiler's version line: compiled to a temp file and moved into place,
+    so workers that build at once each load a whole library."""
+    srcs = [jax_native._SRC, jax_native._SYM_SRC, jax_native._FOLD_SRC]
+    digest = hashlib.sha256()
+    for src in srcs:
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + b"\0" + f.read() + b"\0")
+    digest.update(" ".join(JAX_NATIVE_FLAGS).encode())
+    version = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
+    digest.update(version.stdout.split("\n")[0].encode())
+    lib = os.path.join(JAX_NATIVE_DIR, f"libsmmio-{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(lib):
+        os.makedirs(JAX_NATIVE_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.run(["g++", *JAX_NATIVE_FLAGS, "-o", tmp, *srcs],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on the JAX package's native sources:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    os.utime(lib)  # newer than the sources, so get_lib never rebuilds it in place
+    return lib
+
+
+def _load_private_jax_lib(lib: str) -> None:
+    """Point the JAX package's loader at lib, forget whatever it remembered
+    (a failed load included), and load: raises if the library is missing."""
+    with jax_native._lock:
+        jax_native._SO = lib
+        jax_native._tried = False
+        jax_native._lib = None
+    if jax_native.get_lib() is None:
+        raise RuntimeError(f"the JAX package's native library did not load from {lib}")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_lib():
+    """The JAX package's native library from this module's private build,
+    for the module; the loader's state is restored after it."""
+    with jax_native._lock:
+        saved = (jax_native._SO, jax_native._tried, jax_native._lib)
+    lib = _private_jax_lib()
+    _load_private_jax_lib(lib)
+    yield lib
+    with jax_native._lock:
+        jax_native._SO, jax_native._tried, jax_native._lib = saved
 
 
 def _matrix(case: str) -> BlockSparseMatrix:
@@ -53,8 +116,7 @@ def _same(m, w) -> bool:
         and np.array_equal(m.coords, w.coords) and np.array_equal(m.tiles, w.tiles)
 
 
-@pytest.mark.parametrize("case", ["extremes", "edge", "k1", "empty", "banded"])
-def test_text_io_matches_jax_and_plain(case, tmp_path):
+def _text_io_check(case: str, tmp_path) -> None:
     m = _matrix(case)
     jm = JaxMatrix(rows=m.rows, cols=m.cols, k=m.k, coords=m.coords, tiles=m.tiles)
     io_text.write_matrix(str(tmp_path / "port"), m)
@@ -67,6 +129,25 @@ def test_text_io_matches_jax_and_plain(case, tmp_path):
     assert _same(got, m)
     assert _same(got, io_text.read_matrix_plain(str(tmp_path / "jax"), m.k))
     assert _same(got, jax_io.read_matrix(str(tmp_path / "port"), m.k))
+
+
+@pytest.mark.parametrize("case", ["extremes", "edge", "k1", "empty", "banded"])
+def test_text_io_matches_jax_and_plain(case, tmp_path):
+    _text_io_check(case, tmp_path)
+
+
+@pytest.mark.parametrize("case", ["k1", "banded"])
+def test_the_private_jax_library_survives_a_lost_race(case, private_jax_lib, tmp_path):
+    """The state a lost build race leaves in the JAX package's loader (a
+    load tried and failed: _tried True, _lib None) is what the fixture
+    repairs: after it, the JAX native library is loaded and the text I/O
+    comparison passes."""
+    with jax_native._lock:
+        jax_native._tried, jax_native._lib = True, None
+    assert jax_native.get_lib() is None
+    _load_private_jax_lib(private_jax_lib)
+    assert jax_native.get_lib() is not None and jax_native._SO == private_jax_lib
+    _text_io_check(case, tmp_path)
 
 
 def test_parse_keeps_file_order_and_last_duplicate(tmp_path):

@@ -3,7 +3,9 @@ the CPU against the JAX package's spgemm_ring (on the conftest's 8 virtual
 devices, a mesh of the first n) and the field-mode oracle; plan_ring's
 arrays against the JAX package's at both mass-balance settings;
 SPGEMM_TPU_RING_OVERLAP 0 and 1 on a repeated device; the hop probe, the
-ENGINE phases and counters; SpgemmPlan.ring_schedule; the ring knobs parsed
+ENGINE phases and counters; SpgemmPlan.ring_schedule; ring_cells' CSR
+against the rank lists and tail it is built from, the plain F3 on it against
+the rank-list fold, and one F3 call a step and position; the ring knobs parsed
 as the JAX registry parses them.  The JAX side runs with SPGEMM_TPU_DELTA=0
 (ROADMAP.md, faults).  Tolerance: none; every comparison is byte
 equality."""
@@ -11,6 +13,7 @@ equality."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from spgemm_tpu.ops.symbolic import JoinResult as JaxJoin
 from spgemm_tpu.parallel.ring import RANK_UNROLL_MAX as JAX_RANK_UNROLL_MAX
@@ -18,7 +21,8 @@ from spgemm_tpu.parallel.ring import plan_ring as jax_plan_ring
 from spgemm_tpu.parallel.ring import spgemm_ring as jax_ring
 from spgemm_tpu.utils import knobs as jax_knobs
 from spgemm_tpu.utils.blockcsr import BlockSparseMatrix as JaxMatrix
-from spgemm_tpu.utils.gen import powerlaw_block_sparse, random_block_sparse
+from spgemm_tpu.utils.gen import banded_block_sparse, powerlaw_block_sparse, random_block_sparse
+from spgemm_tpu_torch.ops import cuda_field, u64
 from spgemm_tpu_torch.ops import spgemm as engine
 from spgemm_tpu_torch.ops.symbolic import JoinResult, symbolic_join
 from spgemm_tpu_torch.parallel import ring
@@ -256,3 +260,157 @@ def test_a_plans_ring_schedule_is_memoized_by_the_mass_balance_flag(monkeypatch)
     other = _port(random_block_sparse(9, 9, 8, 0.4, np.random.default_rng(764), "full"))
     with pytest.raises(ValueError):
         spgemm_ring(other, b, devices=["cpu"], plan=plan)
+
+
+def _deep_pair():
+    """A 1 x 80 row by an 80 x 1 column: one key, whose (key, slab) cells
+    hold 80 / n pairs, past RANK_UNROLL_MAX at n <= 8."""
+    rng = np.random.default_rng(765)
+    k, J = 2, 80
+    a = JaxMatrix(rows=k, cols=J * k, k=k,
+                  coords=np.stack([np.zeros(J, np.int64), np.arange(J, dtype=np.int64)], 1),
+                  tiles=rng.integers(0, 1 << 64, size=(J, k, k), dtype=np.uint64))
+    b = JaxMatrix(rows=J * k, cols=k, k=k,
+                  coords=np.stack([np.arange(J, dtype=np.int64), np.zeros(J, np.int64)], 1),
+                  tiles=rng.integers(0, 1 << 64, size=(J, k, k), dtype=np.uint64))
+    return a, b
+
+
+def _join_case(case: str):
+    if case == "deep":
+        return _deep_pair()
+    if case == "banded":
+        rng = np.random.default_rng(766)
+        return banded_block_sparse(40, 4, 3, rng, "full"), banded_block_sparse(40, 4, 3, rng, "full")
+    return _pair("powerlaw", "full")
+
+
+def _trip_pairs(sched, d: int, s: int) -> list:
+    """(row, pa, pb, rank) of every real pair of plan_ring's (d, s) lists:
+    the rank lists, then the tail."""
+    _, _, ranks, tail, _, k_max = sched
+    out = []
+    for r, (rows, pa, pb) in enumerate(ranks):
+        out += [(int(rows[d, s, c]), int(pa[d, s, c]), int(pb[d, s, c]), r)
+                for c in range(rows.shape[-1]) if rows[d, s, c] != k_max]
+    if tail is not None:
+        rows, pa, pb = tail
+        out += [(int(rows[d, s, c]), int(pa[d, s, c, p]), int(pb[d, s, c, p]),
+                 RANK_UNROLL_MAX + p)
+                for c in range(rows.shape[-1]) for p in range(pa.shape[-1]) if pa[d, s, c, p] >= 0]
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("case", ["banded", "powerlaw", "deep"])
+def test_ring_cells_hold_the_rank_lists_and_tail_pairs(case, n):
+    """Each (position, slab) list of the CSR holds the same (row, pa, pb)
+    multiset as plan_ring's rank lists and tail there, each cell's pairs in
+    rank order, its rows unique and never the dummy row."""
+    a, b = (_port(m) for m in _join_case(case))
+    sched = plan_ring(symbolic_join(a.coords, b.coords), b.nnzb, n)
+    cells = ring.ring_cells(sched[2], sched[3], n, sched[5])
+    if case == "deep" and n == 8:
+        assert sched[3] is not None
+    assert cells.group_ptr.shape == (n * n + 1,) and cells.group_ptr[-1] == len(cells.rows)
+    assert cells.cell_ptr[0] == 0 and cells.cell_ptr[-1] == len(cells.pa) == len(cells.pb)
+    assert (np.diff(cells.cell_ptr) >= 1).all() and (np.diff(cells.group_ptr) >= 0).all()
+    assert cells.rows.dtype == cells.pa.dtype == cells.pb.dtype == np.int32
+    for d in range(n):
+        for s in range(n):
+            want = _trip_pairs(sched, d, s)
+            c0, c1 = cells.group_ptr[d * n + s], cells.group_ptr[d * n + s + 1]
+            rows = cells.rows[c0:c1]
+            assert len(set(rows.tolist())) == len(rows) and (rows != sched[5]).all()
+            got = [(int(rows[c - c0]), int(cells.pa[p]), int(cells.pb[p]))
+                   for c in range(c0, c1) for p in range(cells.cell_ptr[c], cells.cell_ptr[c + 1])]
+            assert sorted(got) == sorted(w[:3] for w in want)
+            # within a cell, the pairs come in rank order
+            assert got == [w[:3] for w in sorted(want, key=lambda w: (w[0], w[3]))]
+
+
+def _acc_start(rng, rows: int, k: int) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 1 << 64, (rows, k, k), dtype=np.uint64).view(np.int64))
+
+
+def _rank_list_fold(acc, a_slab, b_slab, trip, d: int, s: int, dummy: int, a_sent: int):
+    """The fold of plan_ring's trip at (d, s) as separate scatter-adds: one
+    field_fold_ref of its real cells, added into their rows."""
+    rows, pa, pb = (np.asarray(x[d, s]) for x in trip)
+    keep = rows != dummy
+    pa = np.where(pa < 0, a_sent, pa).astype(np.int32)
+    pa, pb = (torch.from_numpy(np.ascontiguousarray(x[keep] if x.ndim == 2 else x[keep, None]))
+              for x in (pa, pb))
+    folded = cuda_field.field_fold_ref(a_slab, b_slab, pa, pb)
+    idx = torch.from_numpy(rows[keep]).long()
+    acc.index_copy_(0, idx, u64.collapse_max(u64.addmod_field(acc.index_select(0, idx), folded)))
+
+
+@pytest.mark.parametrize("overlap", ["0", "1"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_the_csr_fold_is_the_rank_list_fold_and_the_jax_ring(n, overlap, monkeypatch):
+    """The plain F3 on each (position, slab) CSR list gives the bits of
+    plan_ring's rank lists and tail folded one trip at a time, and the ring
+    that runs it gives the JAX package's bytes."""
+    monkeypatch.setenv("SPGEMM_TPU_RING_OVERLAP", overlap)
+    ja, jb = _deep_pair() if n == 4 else _pair("powerlaw", "full")
+    a, b = _port(ja), _port(jb)
+    key_chunks, slab_bounds, ranks, tail, s_max, k_max = sched = \
+        plan_ring(symbolic_join(a.coords, b.coords), b.nnzb, n)
+    cells = ring.ring_cells(ranks, tail, n, k_max)
+    k = a.k
+    a_slab = torch.from_numpy(np.concatenate([a.tiles, np.zeros((1, k, k), np.uint64)])
+                              .view(np.int64))
+    rng = np.random.default_rng(780 + n)
+    for d in range(n):
+        rows, cell_ptr, pa, pb, bounds = cells.position(d)
+        for s in range(n):
+            b_np = np.zeros((s_max + 1, k, k), np.uint64)
+            b_np[: slab_bounds[s + 1] - slab_bounds[s]] = b.tiles[slab_bounds[s]: slab_bounds[s + 1]]
+            b_slab = torch.from_numpy(b_np.view(np.int64))
+            start = _acc_start(rng, k_max + 1, k)
+            got, want = start.clone(), start.clone()
+            c0, c1 = bounds[s], bounds[s + 1]
+            cuda_field.field_fold_scatter(got, a_slab, b_slab, torch.from_numpy(rows[c0:c1]),
+                                          torch.from_numpy(cell_ptr[c0: c1 + 1]),
+                                          torch.from_numpy(pa), torch.from_numpy(pb))
+            for trip in ranks + ([tail] if tail is not None else []):
+                _rank_list_fold(want, a_slab, b_slab, trip, d, s, k_max, a.nnzb)
+            assert torch.equal(got, want) and torch.equal(got[-1], start[-1])
+    assert n != 4 or sched[3] is not None
+    got = spgemm_ring(a, b, devices=["cpu"] * n)
+    assert _same(got, jax_ring(ja, jb, mesh=_mesh(n)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_f3_runs_once_a_step_and_position_with_cells(n, monkeypatch):
+    """One F3 call a (step, position) whose list has cells, none for an
+    empty list: at most n^2 a multiply."""
+    a, b = (_port(m) for m in _pair("powerlaw", "small"))
+    calls = []
+    real = cuda_field.field_fold_scatter
+    monkeypatch.setattr(cuda_field, "field_fold_scatter",
+                        lambda *args, **kw: calls.append(args[3].shape[0]) or real(*args, **kw))
+    got = spgemm_ring(a, b, devices=["cpu"] * n)
+    assert got.prune_zeros() == _oracle(a, b).prune_zeros()
+    sched = plan_ring(symbolic_join(a.coords, b.coords), b.nnzb, n)
+    cells = ring.ring_cells(sched[2], sched[3], n, sched[5])
+    sizes = np.diff(cells.group_ptr)
+    assert len(calls) == int((sizes > 0).sum()) <= n * n
+    assert sorted(calls) == sorted(sizes[sizes > 0].tolist())
+
+
+def test_ring_cells_are_memoized_with_the_schedule_and_frozen_with_the_plan(monkeypatch):
+    monkeypatch.setenv("SPGEMM_TPU_PLAN_ESTIMATE", "0")
+    a, b = (_port(m) for m in _pair("powerlaw", "full"))
+    plan = engine.plan(a, b, route="ladder")
+    cells = plan.ring_cells(b.nnzb, 4)
+    assert plan.ring_cells(b.nnzb, 4) is cells
+    sched = plan.ring_schedule(b.nnzb, 4)
+    want = ring.ring_cells(sched[2], sched[3], 4, sched[5])
+    assert all(np.array_equal(x, y) for x, y in zip(cells.arrays(), want.arrays()))
+    frozen = plan.freeze().ring_cells(b.nnzb, 3)
+    assert plan.ring_cells(b.nnzb, 3) is frozen
+    assert not any(x.flags.writeable for x in frozen.arrays())
+    assert spgemm_ring(a, b, devices=["cpu"] * 3, plan=plan).prune_zeros() == \
+        _oracle(a, b).prune_zeros()
