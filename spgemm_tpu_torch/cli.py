@@ -4,7 +4,8 @@
         [--backend exact|mxu|hybrid|oracle] [--output matrix] [--threads N]
         [--round-size N] [--stream | --out-of-core]
         [--shard none|keys|inner|ring|chain]
-        [--ranks P] [--checkpoint-dir DIR] [--failover] [--profile DIR] [-v]
+        [--ranks P] [--checkpoint-dir DIR] [--failover] [--profile DIR]
+        [--distributed] [-v]
 
 reads `<folder>/size` (N, k) and `<folder>/matrix1..matrixN`, computes the
 chain product, prunes all-zero tiles, writes `./matrix` byte-identically to
@@ -60,6 +61,17 @@ seconds` (sparse_matrix_mult.cu:402-682).  The flags are the JAX package's
                   Each fallback prints one line to stderr.  Only this flag
                   falls back.
   --profile DIR   a torch.profiler Chrome trace of the run into DIR.
+  --distributed   one process of P (parallel/multihost.py): set
+                  JAX_COORDINATOR=host:port (rank 0's), JAX_NUM_PROCESSES=P
+                  and JAX_PROCESS_ID=r for each; without them P = 1.  Each
+                  rank reduces its slice of --ranks P's partition on
+                  --device, the partials are exchanged on gloo in chunks of
+                  SPGEMM_TPU_DCN_CHUNK_MB, every rank runs the combine and
+                  rank 0 writes ./matrix: --ranks P's bytes.  The exact fold
+                  (hybrid and oracle give its bytes: one stderr line; --backend
+                  mxu is refused); --ranks, --shard, --checkpoint-dir,
+                  --failover, --stream and --out-of-core are ignored, one
+                  stderr line each.
 
 `-v` logs the seconds of load, chain and prune+write, and the engine's host
 phases and counters (utils/timers.ENGINE).
@@ -193,6 +205,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference sparse_matrix_mult.cu:438-456)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace to DIR")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process mode: partition the chain across processes "
+                        "(set JAX_COORDINATOR/JAX_NUM_PROCESSES/JAX_PROCESS_ID per "
+                        "process; replaces `mpirun -np P`). Partial products exchange "
+                        "on gloo in bounded chunks of SPGEMM_TPU_DCN_CHUNK_MB (default "
+                        "64) per rank; 0 = legacy padded all-gather")
     p.add_argument("--verbose", "-v", action="store_true")
     return p
 
@@ -560,6 +578,9 @@ def run(argv: list[str] | None = None) -> int:
     if args.shard == "keys" and args.backend == "mxu":
         parser.error("--shard keys runs the exact fold; --backend mxu's field-mode bytes "
                      "differ from it")
+    if args.distributed and args.backend == "mxu":
+        parser.error("--distributed runs the exact fold; --backend mxu's field-mode bytes "
+                     "differ from it")
     restore = knobs.pin_unless_exported("SPGEMM_TPU_DELTA", "0")
     try:
         return _run_chain(args)
@@ -568,53 +589,104 @@ def run(argv: list[str] | None = None) -> int:
 
 
 def _run_chain(args) -> int:
-    """The chain run of run(), inside its delta pin."""
+    """The chain run of run(), inside its delta pin.  --distributed joins
+    the group init_from_env makes (parallel/multihost.py): this rank loads
+    and reduces its slice, every rank prints its `multiplying` lines and
+    `time taken`, and rank 0 writes ./matrix."""
     from spgemm_tpu_torch.ops.device import resolve_device  # noqa: PLC0415
     from spgemm_tpu_torch.utils import backend_probe, io_text  # noqa: PLC0415
     from spgemm_tpu_torch.utils.timers import ENGINE, PhaseTimers, maybe_profile  # noqa: PLC0415
 
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(name)s %(message)s")
-    if (args.stream or args.out_of_core) and args.shard in ("keys", "inner", "ring"):
-        print(f"--shard {args.shard} already keeps chain partials host-resident; "
-              "--out-of-core per-round staging does not apply to the sharded multiply",
-              file=sys.stderr, flush=True)
-    if (args.stream or args.out_of_core) and args.shard == "chain":
-        print("--stream/--out-of-core ignored with --shard chain (per-rank partials are "
-              "device-resident by design)", file=sys.stderr, flush=True)
-    if args.shard in ("inner", "ring") and args.backend in ("exact", "hybrid"):
-        print(f"--shard {args.shard} folds in clean arithmetic mod 2^64 - 1 whatever "
-              f"--backend says: --backend {args.backend}'s bytes differ where a product or "
-              "sum reaches 2^64 - 1", file=sys.stderr, flush=True)
+    for note in _notes(args):
+        print(note, file=sys.stderr, flush=True)
     device = None
-    if args.backend == "oracle":
-        if args.stream or args.out_of_core:
-            print("--stream/--out-of-core ignored: the oracle backend is "
-                  "host-only and the distributed path manages residency per "
-                  "process", file=sys.stderr, flush=True)
-    else:
+    if args.backend != "oracle" or args.distributed:
         # stderr only: stdout keeps the reference's bytes
-        if args.failover and args.device == "cuda" \
+        if args.failover and not args.distributed and args.device == "cuda" \
                 and backend_probe.failover_to_cpu("--failover"):
             args.device = "cpu"
-        device = resolve_device(args.device)
+        device = resolve_device(args.device)  # no card: fails before joining a group
     t_start = time.perf_counter()
     timers = PhaseTimers()
     ENGINE.reset()
-    with maybe_profile(args.profile, device):
-        with timers.phase("load"):
-            n, k = io_text.read_size(args.folder)
-            matrices = io_text.read_chain(args.folder, 0, n - 1, k,
-                                          max_workers=args.threads)
-        with timers.phase("chain"):
-            result = _chain(args, matrices, k, device)
-        with timers.phase("prune+write"):
-            io_text.write_matrix(args.output, result.prune_zeros())
+    if args.distributed:
+        from spgemm_tpu_torch.parallel import multihost  # noqa: PLC0415
+
+        multihost.init_from_env()
+    try:
+        with maybe_profile(args.profile, device):
+            if args.distributed:
+                n, k = io_text.read_size(args.folder)
+
+                def loader(start, end):
+                    with timers.phase("load"):
+                        return io_text.read_chain(args.folder, start, end, k,
+                                                  max_workers=args.threads)
+
+                result = multihost.run_distributed(args.folder, k, n, loader, device=device,
+                                                   round_size=args.round_size)
+            else:
+                with timers.phase("load"):
+                    n, k = io_text.read_size(args.folder)
+                    matrices = io_text.read_chain(args.folder, 0, n - 1, k,
+                                                  max_workers=args.threads)
+                with timers.phase("chain"):
+                    result = _chain(args, matrices, k, device)
+            if not args.distributed or multihost.world()[1] == 0:
+                with timers.phase("prune+write"):
+                    io_text.write_matrix(args.output, result.prune_zeros())
+    finally:
+        if args.distributed:
+            import torch.distributed as dist  # noqa: PLC0415
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
     timers.log_report()
     ENGINE.log_report()  # the engine's host phases and counters
     # byte-parity with the reference's only surviving print (:679)
     print(f"time taken {time.perf_counter() - t_start} seconds")
     return 0
+
+
+# the JAX CLI's note on --stream/--out-of-core where they do not apply
+_RESIDENCY_NOTE = ("--stream/--out-of-core ignored: the oracle backend is host-only and the "
+                   "distributed path manages residency per process")
+
+
+def _notes(args) -> list[str]:
+    """The stderr lines of the flags a run ignores or overrides."""
+    ooc = args.stream or args.out_of_core
+    if args.distributed:
+        notes = [_RESIDENCY_NOTE] if ooc else []
+        if args.backend in ("hybrid", "oracle"):
+            notes.append(f"--backend {args.backend} with --distributed runs the exact fold, "
+                         "whose bytes it gives")
+        if args.ranks > 1:
+            notes.append("--ranks ignored with --distributed: P is JAX_NUM_PROCESSES")
+        if args.shard != "none":
+            notes.append(f"--shard {args.shard} ignored with --distributed: each process "
+                         "reduces its sub-chain on --device")
+        if args.checkpoint_dir:
+            notes.append("--checkpoint-dir ignored with --distributed: recovery is a rerun")
+        if args.failover:
+            notes.append("--failover ignored with --distributed: a failed rank fails the run")
+        return notes
+    notes = []
+    if ooc and args.shard in ("keys", "inner", "ring"):
+        notes.append(f"--shard {args.shard} already keeps chain partials host-resident; "
+                     "--out-of-core per-round staging does not apply to the sharded multiply")
+    if ooc and args.shard == "chain":
+        notes.append("--stream/--out-of-core ignored with --shard chain (per-rank partials are "
+                     "device-resident by design)")
+    if args.shard in ("inner", "ring") and args.backend in ("exact", "hybrid"):
+        notes.append(f"--shard {args.shard} folds in clean arithmetic mod 2^64 - 1 whatever "
+                     f"--backend says: --backend {args.backend}'s bytes differ where a product "
+                     "or sum reaches 2^64 - 1")
+    if args.backend == "oracle" and ooc:
+        notes.append(_RESIDENCY_NOTE)
+    return notes
 
 
 def main() -> None:

@@ -65,6 +65,11 @@ ENGINE_PHASES: dict[str, str] = {
     "ring_hop": "ring multiply: one hop of every position's B slab, timed alone once "
                 "per device list and slab shape, recorded on every call",
     "ring_fold": "ring multiply: the n steps' field-fold launches and hops queued",
+    "dcn_chain": "multihost: this rank's sub-chain reduced and its partial fetched to "
+                 "the host (parallel/multihost.py)",
+    "dcn_exchange": "multihost partial exchange over DCN",
+    "dcn_combine": "multihost: the combine over the gathered partials, replicated on "
+                   "every rank",
     "tune_trial": "autotuner: one timed trial leg (one knob vector of the per-class "
                   "enumeration) run on an idle slice (tune/)",
     "tune_apply": "autotuner: activating a class's tuned override at job pickup, and "
@@ -87,6 +92,7 @@ ENGINE_COUNTERS: dict[str, str] = {
                                    "F3: a ring step's list at one position)",
     "launches_field_add": "field-mode add launches (csrc/field_fold.cu, F2: the all-reduce)",
     "ring_steps": "ring multiply steps (n a multiply over n positions)",
+    "dcn_chunks": "bounded DCN exchange chunks shipped",
     "route_dense": "rounds dispatched on the dense accumulator route",
     "rowshard_round": "shards of a round dispatched by the output-sharded multiply "
                       "(parallel/rowshard.py): one kernel-1 fold each",

@@ -143,6 +143,23 @@ _KNOBS = (
          "probe when the phase registry is not consumed.  Read by "
          "parallel/ring.py.",
          default="1"),
+    Knob("SPGEMM_TPU_DCN_CHUNK_MB", "float",
+         "Multi-process partial-exchange chunk budget (MiB per rank): bounds the "
+         "transient exchange buffer at P x chunk; 0 = one padded round as wide as "
+         "the largest partial, behind a loud warning.  Every rank must set the "
+         "same value.  "
+         "Read by parallel/multihost.py.",
+         default="64", minimum=0),
+    Knob("SPGEMM_TPU_DCN_HEARTBEAT_S", "int",
+         "Multi-process partner-loss window, seconds: a rank waiting at the "
+         "partial exchange fails the run once a missing partner's heartbeat "
+         "(a counter on the rendezvous store) stands still this long, however "
+         "long a beating partner's sub-chain runs; it is also the gloo group's "
+         "timeout, so it bounds joining the group and, once every rank is at "
+         "the exchange, each collective's wait (a partner killed there is seen "
+         "at once).  Unset: 100 s, jax's default window, not gloo's 30 "
+         "minutes.  Read by parallel/multihost.py.",
+         minimum=1),
     Knob("SPGEMM_TPU_CROSSOVER_CACHE", "path",
          "Crossover-measurement cache directory (unset: "
          "~/.cache/spgemm_tpu_torch).  Read by ops/crossover.py."),

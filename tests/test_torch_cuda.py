@@ -26,8 +26,8 @@ to 64 with 31 and 33, sentinel-heavy lists, P = 0, K = 0, P * k > 2^17 and
 F3 cells of 1 to 300 pairs with every other row untouched, spgemm_inner and
 spgemm_ring over [cuda:0] * n (overlap on and off; F3 at most n^2 launches
 a multiply) against the same on ["cpu"] * n, chain_product_on_devices against
-chain_product_partitioned, and `--shard inner|ring|chain` on the golden
-data.  Tolerance: exact (torch.equal)
+chain_product_partitioned, `--shard inner|ring|chain` on the golden
+data, and `--distributed` as two processes on cuda:0 against `--ranks 2`.  Tolerance: exact (torch.equal)
 for the integer kernels and between the two bsmm kernels; for bsmm against
 bsmm_ref 1e-5 in float32 and one bf16 ulp (2^-7 relative) in bfloat16, since
 both sum the same products in float32 in another order and round once.
@@ -40,6 +40,8 @@ There, the shared tests/conftest.py (which imports jax) is skipped:
 Without a card each test skips."""
 
 import os
+import re
+import socket
 import subprocess
 import sys
 from functools import partial
@@ -1348,6 +1350,51 @@ def test_chain_on_devices_on_card_equals_partitioned(cuda):
     want = chain_product_partitioned(mats, 8, device=cuda)
     assert chain_product_on_devices(mats, [cuda], num_parts=8) == want
     assert chain_product_on_devices(mats, ["cpu"], num_parts=8) == want
+
+
+@pytest.mark.cuda
+def test_cli_distributed_on_card_matches_ranks(cuda, tmp_path):
+    """`--distributed` as two processes sharing cuda:0 (gloo on host
+    tensors): rank 0's ./matrix is `--ranks 2`'s on the card, each rank's
+    sub-chain and combine launch kernel 1, rank 1 writes nothing."""
+    from spgemm_tpu_torch.utils import io_text
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    folder = str(tmp_path / "chain")
+    io_text.write_chain_dir(folder, random_chain(6, 8, 8, 0.4, np.random.default_rng(92),
+                                                 "adversarial"), 8)
+    env = {**os.environ, "PYTHONPATH": repo}
+    want = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.cli", folder, "--ranks", "2",
+                           "--output", str(tmp_path / "ranks2")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert want.returncode == 0, want.stderr
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    cwds = [tmp_path / f"r{r}" for r in range(2)]
+    procs = []
+    for r, cwd in enumerate(cwds):
+        cwd.mkdir()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "spgemm_tpu_torch.cli", folder, "--distributed", "-v"],
+            cwd=cwd, env={**env, "JAX_COORDINATOR": coord, "JAX_NUM_PROCESSES": "2",
+                          "JAX_PROCESS_ID": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], errs
+    assert (cwds[0] / "matrix").read_bytes() == (tmp_path / "ranks2").read_bytes()
+    assert not (cwds[1] / "matrix").exists()
+    for err in errs:
+        assert int(re.search(r"counter launches_numeric_round: (\d+)", err).group(1)) >= 1, err
 
 
 @pytest.mark.cuda

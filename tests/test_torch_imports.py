@@ -34,7 +34,8 @@ for name in ("cli", "ops.crossover", "ops.cuda_mxu", "ops.mxu_spgemm",
              "serve.daemon", "serve.smoke", "serve.obs_smoke", "obs", "obs.trace", "obs.events",
              "obs.metrics", "obs.profile", "obs.slo", "tune", "tune.tuner", "fleet",
              "fleet.router", "fleet.pricebook", "fleet.fleet_smoke", "parallel.rowshard",
-             "serve.chaos_smoke", "ops.cuda_field", "parallel.innershard", "parallel.ring"):
+             "serve.chaos_smoke", "ops.cuda_field", "parallel.innershard", "parallel.ring",
+             "parallel.multihost"):
     assert f"spgemm_tpu_torch.{name}" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spgemm_tpu"))
