@@ -22,7 +22,7 @@ MEMFLAG = $(MEMFLAG_$(MEM))
 NATIVE_SRC = spgemm_tpu/native/smmio.cpp spgemm_tpu/native/symbolic.cpp
 NATIVE_SO  = spgemm_tpu/native/libsmmio.so
 
-.PHONY: all native run test lint lint-fast lint-sarif lint-cache-clean bench bench-large warm serve-smoke obs-smoke chaos-smoke chaos-smoke-torch fleet-smoke clean
+.PHONY: all native run test lint lint-fast lint-torch lint-torch-fast lint-sarif lint-cache-clean bench bench-large warm serve-smoke obs-smoke chaos-smoke chaos-smoke-torch fleet-smoke clean
 
 all: native
 
@@ -64,6 +64,17 @@ lint:
 # (knob/metrics/thread-inventory table diffs + CLI help imports)
 lint-fast:
 	$(PY) -m spgemm_tpu.analysis --json --no-doc
+
+# the PyTorch/CUDA port's own spgemm-lint (spgemm_tpu_torch/analysis/):
+# the same rule ids and escapes, aimed at torch idioms and the port's
+# registries, over spgemm_tpu_torch/ and chip_smoke.py, with the DOC
+# tables in spgemm_tpu_torch/ARCHITECTURE.md; torch-free, cached under
+# build/lint_cache/
+lint-torch:
+	$(PY) -m spgemm_tpu_torch.analysis --json
+
+lint-torch-fast:
+	$(PY) -m spgemm_tpu_torch.analysis --json --no-doc
 
 # drop the content-hash cache (next run is fully cold)
 lint-cache-clean:

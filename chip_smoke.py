@@ -8,6 +8,12 @@ the script exits non-zero without printing a result:
 
   1. device  -- the card, and `nvidia-smi --query-gpu=name,power.limit`;
   2. build   -- every kernel in spgemm_tpu_torch/csrc, built with nvcc;
+     lint    -- at the same time, `python -m spgemm_tpu_torch.analysis --json
+               --no-cache` (the port's spgemm-lint over spgemm_tpu_torch/
+               and this script, on a machine without jax) in a subprocess
+               with a LINT_TIMEOUT_S limit: rc 0 and `clean` or the run
+               fails; one line with the files linted, the findings, the
+               escapes and the subprocess's wall;
   3. kernel  -- each kernel against its plain PyTorch version on the card,
                exact equality: kernel 1 in both variants (EDGE values,
                sentinel padding, an empty round, stacked rounds, hub
@@ -63,7 +69,7 @@ the script exits non-zero without printing a result:
                spgemm_tpu_torch.cli <dir> -v` with the default loader
                threads (the --threads 1 run was cut to make room for
                [rowshard] and [chaos]), its ./matrix read back equal to the
-               in-memory result after prune_zeros; then, cut in depth to Medium's first 3
+               in-memory result after prune_zeros; then, cut in depth to Medium's first 2
                matrices (links to the same files), natively and with
                SPGEMM_TPU_NO_NATIVE=1, the two ./matrix files byte-equal;
                about 4 GB under TMPDIR, deleted after) and `[medium] parity
@@ -84,22 +90,25 @@ the script exits non-zero without printing a result:
                matrices at SPGEMM_TPU_OOC_DEPTH 1, 2 and 4: wall, peak device
                memory against the resident path's, rounds, bytes uploaded,
                ENGINE stage_prep / dispatch / assembly; bytes equal to the
-               resident result) and, in `[medium-cli]`, `--ranks 8`: time
-               taken, the tiles that differ from P = 1, ./matrix equal to
-               chain_product_partitioned(mats, 8, multiply=spgemm_outofcore)
-               in memory; then `[multihost]` on the same directory: `cli
-               --distributed -v` as P = 2 and P = 8 processes sharing cuda:0
-               (gloo; JAX_COORDINATOR on a free port), rank 0's ./matrix
-               equal to --ranks 8's file byte for byte at P = 8 and to
-               chain_product_partitioned(mats, 2) and `--ranks 2`'s at P = 2,
-               each rank's split (load, dcn_chain, dcn_exchange, dcn_combine,
+               resident result) and, in `[medium-cli]`, [multihost]'s
+               references in memory (chain_product_partitioned(mats, 8,
+               multiply=spgemm_outofcore) and (mats, 2)); `[multihost]` itself
+               runs in `[lane]` below, over [serve]'s Medium directory (the
+               same files): `--ranks 8` (time taken, the tiles that differ
+               from P = 1, ./matrix equal to its reference) and `--ranks 2`,
+               then `cli --distributed -v` as P = 2 and P = 8 processes
+               sharing cuda:0 (gloo; JAX_COORDINATOR on a free port), rank
+               0's ./matrix equal to --ranks 8's file byte for byte at P = 8
+               and to its reference and `--ranks 2`'s at P = 2, each rank's
+               split (load, dcn_chain, dcn_exchange, dcn_combine,
                prune+write), dcn_chunks, bytes sent, logged peak against its
                bound and kernel-1 launches (at least one a rank), the wall
-               beside --ranks P's; then P = 2 under a 10 s heartbeat window
-               with rank 1 killed once it owns its slice: rank 0 out with
-               PartnerLostError within the window plus 30 s, no ./matrix;
-               every phase so far runs with SPGEMM_TPU_DELTA=0 (and the
-               estimator off, the port's default); then, on the Medium chain of distinct
+               beside --ranks P's; and its killed-partner leg: P = 2 under a
+               10 s heartbeat window with rank 1 killed once it owns its
+               slice: rank 0 out with PartnerLostError within the window
+               plus 30 s, no ./matrix; every phase so far runs with
+               SPGEMM_TPU_DELTA=0 (and the estimator off, the port's
+               default); then, on the Medium chain of distinct
                structures, `[delta]` (four submits from host leaves with delta on
                in one process: first contact, unchanged, 11 contiguous tile rows
                of M5 given new values, 11 rows spread evenly; each equal to the
@@ -111,10 +120,11 @@ the script exits non-zero without printing a result:
                against splice_ref on the splices of the two edited submits, timed
                beside the plain version and index_copy_ on a clone; the Medium
                chain of one structure twice: the hits its shared keys allow),
-               `[warm]` (this script as two subprocesses, `--warm-child first`
-               and `second`, on one SPGEMM_TPU_WARM_DIR: the second must find
-               every plan and delta entry, recompute no row and give the first's
-               bytes), `[estimate]` (the estimator on and off from an empty
+               `[warm]` (run in `[lane]` below: this script as two
+               subprocesses, `--warm-child first` and `second`, on one
+               SPGEMM_TPU_WARM_DIR: the second must find every plan and delta
+               entry, recompute no row and give the first's bytes),
+               `[estimate]` (the estimator on and off from an empty
                plan cache, in turns; the bytes equal) and `[dense]`, the dense
                accumulator route (SPGEMM_TPU_ACCUM_ROUTE; every earlier phase
                runs at its default, auto): (a) the segmented fold against its
@@ -198,8 +208,13 @@ the script exits non-zero without printing a result:
                warm Medium chain in this process with SPGEMM_TPU_OBS_TRACE 1
                and 0 in turns (on, off, off, on, four times), its spans per
                chain counted; `[estimate]` also holds obs/profile's estimator
-               count to the estimated plans that landed; then `[tune]`, the
-               autotuner (tune/) in a daemon on the card with a private warm
+               count to the estimated plans that landed; then `[lane]`:
+               `[tune]` on the main thread while four tracks run on threads
+               of their own: `[fleet]`; `[chaos]`; `[warm]`, then
+               `[multihost]`'s killed partner; and `[multihost]` (each drives
+               processes of its own and holds no wall to a limit; the line
+               gives the lane's wall beside the sum of the phases'):
+               `[tune]`, the autotuner (tune/) in a daemon on the card with a private warm
                directory, SPGEMM_TPU_TUNE=1, SPGEMM_TPU_TUNE_TRIAL_S=0.5 and
                SPGEMM_TPU_TUNE_MIN_WIN=1 (so that the promotion path runs;
                what the default 1.1 decides on the same walls is printed):
@@ -207,10 +222,10 @@ the script exits non-zero without printing a result:
                idle until the class leaves trialing: each leg's vector, wall,
                plan seconds, kernel-1 and dense-fold launches and its digest,
                which must equal the in-memory result's, the ladder leg
-               launching kernel 1 and the dense leg the fold; a class that
-               settles untuned is trialled again by a new daemon on a fresh
-               warm directory, up to three trials, and if all settle untuned
-               the phase fails; (t2) Medium as the tuned canary (half its deadline,
+               launching kernel 1 and the dense leg the fold; two daemons,
+               each on a fresh warm directory, trial at once, in up to three
+               rounds until one promotes its class, and if all six settle
+               untuned the phase fails; (t2) Medium as the tuned canary (half its deadline,
                the golden bytes, one tune_canary_passed, the class live); (t3) the chain of distinct structures twice (a new
                class), and Medium submitted while its first leg runs: the
                tune_trial_preempted event and Medium's serve_queue_wait;
@@ -262,7 +277,8 @@ the script exits non-zero without printing a result:
                or failed with a structured error, the wedged slice
                reinstated, the torn journal counted by a second daemon,
                SIGTERM drained; beside it [serve]'s pool rows (width 1,
-               steals 0); then `[rowshard]`, the Medium chain from its host
+               steals 0); `[warm]` and `[multihost]` as above; then
+               `[rowshard]`, the Medium chain from its host
                leaves through parallel/rowshard.spgemm_sharded over [cuda:0]
                * 1, 2 and 4, each a main path byte-equal to the main path's
                result, kernel 1 launched once a shard of a round (n times the
@@ -408,6 +424,7 @@ from spgemm_tpu_torch.utils.timers import ENGINE
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 SEED = 20260
+LINT_TIMEOUT_S = 120  # [lint]: the spgemm-lint subprocess, from its start
 MAX = (1 << 64) - 1
 # the SURVEY.md section 2.9 trigger set: products and sums straddling 2^32/2^64
 EDGE = [0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
@@ -1549,7 +1566,7 @@ def _write_text_dir(folder: str, mats: list) -> None:
                                                      mats[i]), range(len(mats))))
 
 
-MEDIUM_CLI_NUMPY_N = 3  # [medium-cli]: the numpy leg runs on Medium's first 3 matrices
+MEDIUM_CLI_NUMPY_N = 2  # [medium-cli]: the numpy leg runs on Medium's first 2 matrices
 
 
 def phase_medium_cli(medium) -> dict:
@@ -1559,7 +1576,9 @@ def phase_medium_cli(medium) -> dict:
     parser, equal to the in-memory result after prune_zeros; then on a directory of Medium's
     first MEDIUM_CLI_NUMPY_N matrices (links to the same files) natively and
     with SPGEMM_TPU_NO_NATIVE=1 (the numpy paths), the two ./matrix files
-    byte-equal.  Needs about 4 GB of disk under TMPDIR and deletes it."""
+    byte-equal; last, [multihost]'s references in memory (medium.ranks_refs:
+    the digests of chain_product_partitioned at P = 8 out of core and at P
+    = 2).  Needs about 4 GB of disk under TMPDIR and deletes it."""
     t0 = time.perf_counter()
     want = medium.res_host.prune_zeros()
     k = want.k
@@ -1622,8 +1641,19 @@ def phase_medium_cli(medium) -> dict:
                 raise RuntimeError(f"cli ./matrix on the Medium directory ({name}) differs "
                                    "from the in-memory chain result after prune_zeros")
             os.remove(matrix)
-        out["ranks_8"] = _medium_cli_ranks(medium, folder, tmp, env, want)
-        out["multihost"] = phase_multihost(medium, folder, tmp, env, out["ranks_8"])
+    # the references of [multihost] (run in [lane]) in memory, here, where no
+    # other thread prints: --ranks 8's chain_product_partitioned(mats, 8,
+    # multiply=spgemm_outofcore) (a data path that shares no slab with the
+    # CLI's) and P = 2's chain_product_partitioned(mats, 2), by digest
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = chain_product_partitioned(medium.mats, 8, multiply=spgemm_outofcore,
+                                        device=DEVICE).prune_zeros()
+    medium.ranks_refs = {8: _digest(ref), "ooc8_s": time.perf_counter() - t1}
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = chain_product_partitioned(medium.mats, 2, device=DEVICE).prune_zeros()
+    medium.ranks_refs[2] = _digest(ref)
+    del ref
     d, h, n = out["default"], out["native_head"], out["no_native"]
     _phase("medium-cli", t0, f"wrote {len(medium.mats)} files, {out['text_bytes'] / 1e9:.3f} "
            f"GB of text in {out['write_dir_s']:.3f} s (native writer, a thread per file); "
@@ -1638,20 +1668,17 @@ def phase_medium_cli(medium) -> dict:
            f"{h['phases'].get('load')}, prune+write {h['phases'].get('prune+write')} s), "
            f"./matrix ({n['matrix_bytes'] / 1e9:.3f} GB) byte-equal; "
            f"./matrix ({d['matrix_bytes'] / 1e9:.3f} GB) read back in {d['read_back_s']:.3f} s "
-           "equals the in-memory result after prune_zeros; --ranks 8: time "
-           f"taken {out['ranks_8']['time_taken_s']:.6f} s (chain "
-           f"{out['ranks_8']['phases'].get('chain')} s), "
-           f"{out['ranks_8']['tiles_differing_from_p1']} of {out['ranks_8']['tiles']} tiles "
-           "differ from P = 1, ./matrix == chain_product_partitioned(mats, 8, "
-           f"multiply=spgemm_outofcore) in memory ({out['ranks_8']['in_memory_ooc_s']:.3f} s)")
+           "equals the in-memory result after prune_zeros; [multihost]'s references in memory: "
+           "chain_product_partitioned(mats, 8, multiply=spgemm_outofcore) in "
+           f"{medium.ranks_refs['ooc8_s']:.3f} s, chain_product_partitioned(mats, 2)")
     return out
 
 
 def _medium_cli_ranks(medium, folder: str, tmp: str, env: dict, p1) -> dict:
-    """`--ranks 8` on the Medium text directory: its ./matrix against
-    chain_product_partitioned(mats, 8, multiply=spgemm_outofcore) run in
-    memory (a data path that shares no slab with the CLI's), and the tiles
-    whose bytes differ from the P = 1 result."""
+    """`--ranks 8` on the Medium text directory, in tmp: its ./matrix against
+    [medium-cli]'s chain_product_partitioned(mats, 8,
+    multiply=spgemm_outofcore) in memory (by digest), and the tiles whose
+    bytes differ from the P = 1 result."""
     proc = subprocess.run(
         [sys.executable, "-m", "spgemm_tpu_torch.cli", folder, "-v", "--device", DEVICE,
          "--ranks", "8"], cwd=tmp, env=env, capture_output=True, text=True, timeout=900)
@@ -1667,12 +1694,7 @@ def _medium_cli_ranks(medium, folder: str, tmp: str, env: dict, p1) -> dict:
     matrix = os.path.join(tmp, "matrix")
     got = io_text.read_matrix(matrix, p1.k)
     os.replace(matrix, os.path.join(tmp, "matrix.ranks8"))  # [multihost] holds P = 8 to it
-    t1 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        mem = chain_product_partitioned(medium.mats, 8, multiply=spgemm_outofcore,
-                                        device=DEVICE).prune_zeros()
-    mem_s = time.perf_counter() - t1
-    if not _host_equal(got, mem):
+    if _digest(got) != medium.ranks_refs[8]:
         raise RuntimeError("cli --ranks 8 ./matrix differs from chain_product_partitioned "
                            "with spgemm_outofcore in memory")
     medium.ranks8_digest = _digest(got)  # [inner-ring] holds --shard chain's P = 8 to it
@@ -1680,7 +1702,7 @@ def _medium_cli_ranks(medium, folder: str, tmp: str, env: dict, p1) -> dict:
               for m in re.finditer(r"phase (\S+): ([0-9.]+)s", proc.stderr)}
     return {"time_taken_s": float(taken.group(1)), "phases": phases,
             "tiles": got.nnzb, "tiles_differing_from_p1": _differing_tiles(got, p1),
-            "in_memory_ooc_s": mem_s}
+            "in_memory_ooc_s": medium.ranks_refs["ooc8_s"]}
 
 
 MULTIHOST_P = (2, 8)        # [multihost]: processes of --distributed, all on cuda:0
@@ -1773,26 +1795,34 @@ def _rank_report(p: int, r: int, stdout: str, stderr: str) -> dict:
             "multiplying": stdout.count("multiplying ")}
 
 
-def phase_multihost(medium, folder: str, tmp: str, env: dict, ranks8: dict) -> dict:
-    """[multihost]: `cli --distributed` on the Medium text directory as P = 2
-    and P = 8 processes sharing cuda:0 (gloo on host tensors, the default
-    chunk budget and heartbeat).  P = 8's ./matrix must equal [medium-cli]'s
-    --ranks 8 file byte for byte, P = 2's chain_product_partitioned(mats, 2)
-    after prune_zeros and `--ranks 2`'s ./matrix; every rank must launch
-    kernel 1 and log a peak within its bound.  Each rank's split (load,
-    dcn_chain, dcn_exchange, dcn_combine, prune+write), dcn_chunks, bytes
-    sent and peak, and the run's wall beside --ranks P's.  Then P = 2 again
-    under a 10 s heartbeat window, with rank 1 killed (SIGKILL) once it owns
-    its slice: rank 0 must exit non-zero with PartnerLostError within the
-    window plus 30 s, and no ./matrix may be written."""
+def phase_multihost(medium, folder: str, tmp: str) -> dict:
+    """[multihost], run in [lane] over [serve]'s Medium text directory (the
+    files [medium-cli] wrote, written again by the same writer), in
+    tmp/multihost: `cli --ranks 8` (_medium_cli_ranks) and `--ranks 2`, then
+    `cli --distributed` as P = 2 and P = 8 processes sharing cuda:0 (gloo on
+    host tensors, the default chunk budget and heartbeat).  P = 8's ./matrix
+    must equal --ranks 8's file byte for byte, P = 2's
+    chain_product_partitioned(mats, 2) after prune_zeros (by digest, made in
+    [medium-cli]) and `--ranks 2`'s ./matrix; every rank must launch kernel
+    1 and log a peak within its bound.  Each rank's split (load, dcn_chain,
+    dcn_exchange, dcn_combine, prune+write), dcn_chunks, bytes sent and
+    peak, and the run's wall beside --ranks P's, all taken beside the rest
+    of the lane.  Its killed-partner leg is phase_multihost_kill."""
     t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    env = {k: v for k, v in env.items() if not k.startswith("SPGEMM_TPU_DCN")}
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SPGEMM_TPU_DCN")}
+    env["PYTHONPATH"] = REPO
+    tmp = os.path.join(tmp, "multihost")
+    os.makedirs(tmp)
     k = medium.mats[0].k
     out = {"runs": {}, "launches": {}}
-    with contextlib.redirect_stdout(io.StringIO()):
-        want2 = chain_product_partitioned(medium.mats, 2, device=DEVICE).prune_zeros()
+    ranks8 = out["ranks_8"] = _medium_cli_ranks(medium, folder, tmp, env,
+                                                medium.res_host.prune_zeros())
+    print(f"[multihost] --ranks 8: time taken {ranks8['time_taken_s']:.6f} s (chain "
+          f"{ranks8['phases'].get('chain')} s), {ranks8['tiles_differing_from_p1']} of "
+          f"{ranks8['tiles']} tiles differ from P = 1, ./matrix == "
+          "chain_product_partitioned(mats, 8, multiply=spgemm_outofcore) in memory", flush=True)
     proc = subprocess.run(
         [sys.executable, "-m", "spgemm_tpu_torch.cli", folder, "-v", "--device", DEVICE,
          "--ranks", "2", "--output", "matrix.ranks2"], cwd=tmp, env=env, capture_output=True,
@@ -1811,7 +1841,7 @@ def phase_multihost(medium, folder: str, tmp: str, env: dict, ranks8: dict) -> d
         matrix = os.path.join(run_dir, "matrix")
         if p == 8 and not _same_bytes(matrix, os.path.join(tmp, "matrix.ranks8")):
             raise RuntimeError("[multihost] P = 8 ./matrix differs from --ranks 8's")
-        if p == 2 and not (_host_equal(io_text.read_matrix(matrix, k), want2)
+        if p == 2 and not (_digest(io_text.read_matrix(matrix, k)) == medium.ranks_refs[2]
                            and _same_bytes(matrix, os.path.join(tmp, "matrix.ranks2"))):
             raise RuntimeError("[multihost] P = 2 ./matrix differs from "
                                "chain_product_partitioned(mats, 2) or from --ranks 2's")
@@ -1839,12 +1869,25 @@ def phase_multihost(medium, folder: str, tmp: str, env: dict, ranks8: dict) -> d
               + ("--ranks 8's byte for byte" if p == 8 else
                  "chain_product_partitioned(mats, 2) and --ranks 2's"), flush=True)
         shutil.rmtree(run_dir)
-    # a partner killed mid-run: the survivor, waiting at the exchange, sees its
-    # heartbeat stand still for the window, fails and writes nothing
+    walls = ", ".join(f"{out['runs'][p]['wall_s']:.3f}" for p in MULTIHOST_P)
+    clis = ", ".join(f"{ranks_s[p]:.3f}" for p in MULTIHOST_P)
+    shutil.rmtree(tmp)
+    _phase("multihost", t0, f"--distributed at P = {MULTIHOST_P} on one card: walls {walls} s "
+           f"against --ranks P's time taken {clis} s; kernel 1 launches {out['launches']}")
+    return out
+
+
+def phase_multihost_kill(folder: str, tmp: str) -> dict:
+    """[multihost] (killed partner), run in [lane] over [serve]'s Medium text
+    directory: `cli --distributed` at P = 2 under a MULTIHOST_KILL_HEARTBEAT_S
+    heartbeat window, rank 1 killed (SIGKILL) once it owns its slice.  The
+    survivor, waiting at the exchange, sees its partner's heartbeat stand
+    still for the window: rank 0 must exit non-zero with PartnerLostError
+    within the window plus 30 s, and no ./matrix may be written."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SPGEMM_TPU_DCN")}
+    env.update(PYTHONPATH=REPO, SPGEMM_TPU_DCN_HEARTBEAT_S=str(MULTIHOST_KILL_HEARTBEAT_S))
     run_dir = os.path.join(tmp, "distributed_kill")
-    rcs, logs, ends, killed_at = _distributed(
-        folder, run_dir, {**env, "SPGEMM_TPU_DCN_HEARTBEAT_S": str(MULTIHOST_KILL_HEARTBEAT_S)},
-        2, kill_rank=1)
+    rcs, logs, ends, killed_at = _distributed(folder, run_dir, env, 2, kill_rank=1)
     after = ends[0] - killed_at
     if rcs[1] != -signal.SIGKILL or rcs[0] == 0 or "PartnerLostError" not in logs[0][1] \
             or after > MULTIHOST_KILL_HEARTBEAT_S + 30 \
@@ -1853,18 +1896,12 @@ def phase_multihost(medium, folder: str, tmp: str, env: dict, ranks8: dict) -> d
                            f"after the kill, ./matrix "
                            f"{os.path.exists(os.path.join(run_dir, 'matrix'))}:\n"
                            f"{logs[0][1][-3000:]}")
-    out["kill"] = {"killed_at_s": killed_at, "survivor_exit_after_s": after, "rc": rcs[0]}
     print(f"[multihost] P = 2, rank 1 killed (SIGKILL) {killed_at:.3f} s after the spawn, once "
           f"it owned its slice: rank 0 exited {rcs[0]} with PartnerLostError {after:.3f} s "
           f"later (window {MULTIHOST_KILL_HEARTBEAT_S} s, limit "
           f"{MULTIHOST_KILL_HEARTBEAT_S + 30} s), no ./matrix", flush=True)
     shutil.rmtree(run_dir)
-    walls = ", ".join(f"{out['runs'][p]['wall_s']:.3f}" for p in MULTIHOST_P)
-    clis = ", ".join(f"{ranks_s[p]:.3f}" for p in MULTIHOST_P)
-    _phase("multihost", t0, f"--distributed at P = {MULTIHOST_P} on one card: walls {walls} s "
-           f"against --ranks P's time taken {clis} s; kernel 1 launches {out['launches']}; the "
-           f"killed partner's survivor out in {after:.3f} s")
-    return out
+    return {"killed_at_s": killed_at, "survivor_exit_after_s": after, "rc": rcs[0]}
 
 
 def _digest(m: BlockSparseMatrix) -> str:
@@ -4715,7 +4752,8 @@ def phase_serve(medium, cli: dict, tmp: str) -> dict:
 TUNE_TRIAL_S = 0.5   # [tune]: the daemon's idle-trial cadence
 TUNE_WAIT_S = 300.0  # [tune]: the longest wait for a class to leave trialing
 TUNE_KERNELS = ("launches_numeric_round", "launches_dense_fold")
-TUNE_ATTEMPTS = 3    # [tune]: (t1) trials, each in a new daemon, until one promotes
+TUNE_PAIR = 2        # [tune]: (t1) daemons trialled at once, each on its own warm directory
+TUNE_ROUNDS = 3      # [tune]: (t1) rounds of TUNE_PAIR trials, until one promotes
 
 
 def _tune_rows(client, sock: str) -> dict:
@@ -4752,13 +4790,14 @@ def _tune_cli(sub: list, env: dict) -> dict:
     return json.loads(r.stdout)
 
 
-def _tune_legs(legs: list, want_digest: str, smi: str) -> dict:
-    """(t1)'s legs: one line each, the digest check, the kernels each route
-    must launch on the card, and what the default SPGEMM_TPU_TUNE_MIN_WIN
-    decides on these walls."""
+def _tune_legs(legs: list, want_digest: str, smi: str, trial: int) -> dict:
+    """(t1)'s legs of one trial: one line each, the digest check, the kernels
+    each route must launch on the card, and what the default
+    SPGEMM_TPU_TUNE_MIN_WIN decides on these walls."""
     for e in legs:
         c = e["counters"]
-        print(f"[tune] (t1) leg {e['knobs'] or 'base'} on {smi}: wall {e['seconds']:.6f} s, "
+        print(f"[tune] (t1) trial {trial} leg {e['knobs'] or 'base'} on {smi}: wall "
+              f"{e['seconds']:.6f} s, "
               f"plan {e['phases_s'].get('plan', 0.0):.4f} s, plan_wait "
               f"{e['phases_s'].get('plan_wait', 0.0):.4f} s, kernel 1 "
               f"{c.get('launches_numeric_round', 0)}, dense fold "
@@ -4775,7 +4814,8 @@ def _tune_legs(legs: list, want_digest: str, smi: str) -> dict:
     base = legs[0]["seconds"]
     best = min(legs[1:], key=lambda e: e["seconds"])
     win = base / best["seconds"]
-    print(f"[tune] (t1) best candidate {best['knobs']}: win {win:.4f} (baseline / best wall); "
+    print(f"[tune] (t1) trial {trial} best candidate {best['knobs']}: win {win:.4f} (baseline / "
+          "best wall); "
           f"the default SPGEMM_TPU_TUNE_MIN_WIN=1.1 would "
           f"{'promote it' if win >= 1.1 else 'settle the class untuned'}; this daemon runs "
           "with SPGEMM_TPU_TUNE_MIN_WIN=1 to drive the promotion path", flush=True)
@@ -4799,7 +4839,6 @@ def phase_tune(medium, tmp: str) -> dict:
     medium_dir, distinct_dir = os.path.join(tmp, "medium"), os.path.join(tmp, "distinct")
     golden, golden_c = os.path.join(tmp, "result_a"), os.path.join(tmp, "result_c")
     want_digest = result_digest(medium.res_host)
-    sock, log_path, res = (os.path.join(tmp, n) for n in ("t.sock", "t.log", "t.result"))
     both = TUNE_KERNELS
     out = {"legs_launches": dict.fromkeys(TUNE_KERNELS, 0), "t1_attempts": []}
 
@@ -4815,49 +4854,73 @@ def phase_tune(medium, tmp: str) -> dict:
         out[leg] = _serve_report(f"tune {leg}", job, wall, smi)
         return job
 
-    def count_legs() -> list:
+    def count_legs(sock: str) -> list:
         legs = _tune_events(client, sock, "tune_trial")
         for e in legs:
             for k in TUNE_KERNELS:
                 out["legs_launches"][k] += e["counters"].get(k, 0)
         return legs
 
-    proc = None
+    def trial(n: int) -> dict:
+        """(t1) in a new daemon on a fresh warm directory: the first job
+        records Medium's structure, so the second has a class; then idle
+        until the class leaves trialing."""
+        d = {k: os.path.join(tmp, f"t{n}.{k}") for k in ("sock", "log", "result")}
+        d["warm"] = os.path.join(tmp, f"tune.warm{n}")
+        d["env"] = daemon_env(d["warm"])
+        d["proc"], d["start"] = _serve_start(d["sock"], d["env"], d["log"])
+        started.append(d["proc"])
+        for leg in ("t1.0", "t1.1"):
+            job, wall = _serve_job(client, d["sock"], medium_dir, d["result"], timeout_s=0)
+            _serve_check(leg, job, d["result"], golden, kernels=both)
+            _serve_idle(client, d["sock"])
+            out[f"{leg} trial {n + 1}"] = _serve_report(f"tune {leg}, trial {n + 1}", job, wall,
+                                                        smi)
+        t_idle = time.perf_counter()
+        d["row"] = _tune_settle(client, d["sock"], None)
+        d["settle_s"] = time.perf_counter() - t_idle
+        ck = d["row"]["class"]
+        legs = _tune_events(client, d["sock"], "tune_trial", ck)
+        if [e["knobs"] for e in legs] != [{}, {"SPGEMM_TPU_ACCUM_ROUTE": "ladder"},
+                                          {"SPGEMM_TPU_ACCUM_ROUTE": "dense"},
+                                          {"SPGEMM_TPU_PLAN_AHEAD": "0"}]:
+            raise RuntimeError(f"[tune] (t1) the legs are not the trial plan: {legs}")
+        d["t1"] = _tune_legs(legs, want_digest, smi, n + 1)
+        d["t1"].update(state=d["row"]["state"], class_key=ck, knobs=d["row"]["knobs"],
+                       win_row=d["row"]["win"])
+        print(f"[tune] (t1) trial {n + 1} of at most {TUNE_PAIR * TUNE_ROUNDS}: class {ck}: "
+              f"{d['row']['state']}, win {d['row']['win']}, knobs {d['row']['knobs']} "
+              f"({d['settle_s']:.3f} s from idle to settled)", flush=True)
+        return d
+
+    started, proc = [], None
     try:
-        # (t1): the first job records Medium's structure, so the second has a
-        # class.  The trial decides on one wall a leg, which read noise can
-        # flip: a class that settled untuned is trialled again by a new
-        # daemon on a fresh warm directory, and (t2) must run
-        for attempt in range(TUNE_ATTEMPTS):
-            warm = os.path.join(tmp, f"tune.warm{attempt}")
-            env = daemon_env(warm)
-            proc, out["start"] = _serve_start(sock, env, log_path)
-            medium_job("t1.0", timeout_s=0)
-            medium_job("t1.1", timeout_s=0)
-            t_idle = time.perf_counter()
-            row = _tune_settle(client, sock, None)
-            ck = row["class"]
-            out["t1_settle_s"] = time.perf_counter() - t_idle
-            legs = _tune_events(client, sock, "tune_trial", ck)
-            if [e["knobs"] for e in legs] != [{}, {"SPGEMM_TPU_ACCUM_ROUTE": "ladder"},
-                                              {"SPGEMM_TPU_ACCUM_ROUTE": "dense"},
-                                              {"SPGEMM_TPU_PLAN_AHEAD": "0"}]:
-                raise RuntimeError(f"[tune] (t1) the legs are not the trial plan: {legs}")
-            out["t1"] = _tune_legs(legs, want_digest, smi)
-            out["t1"].update(state=row["state"], class_key=ck, knobs=row["knobs"],
-                             win_row=row["win"])
-            out["t1_attempts"].append({"state": row["state"], "win": out["t1"]["win"]})
-            print(f"[tune] (t1) trial {attempt + 1} of at most {TUNE_ATTEMPTS}: class {ck}: "
-                  f"{row['state']}, win {row['win']}, knobs {row['knobs']} "
-                  f"({out['t1_settle_s']:.3f} s from idle to settled)", flush=True)
-            if row["state"] == "canary":
+        # (t1): the trial decides on one wall a leg, which read noise can
+        # flip, so TUNE_PAIR daemons trial at once, a round after another
+        # until a class is promoted, and (t2) must run
+        winner = None
+        for r in range(TUNE_ROUNDS):
+            with ThreadPoolExecutor(max_workers=TUNE_PAIR,
+                                    thread_name_prefix="chip-smoke-tune") as pool:
+                runs = [pool.submit(trial, r * TUNE_PAIR + i) for i in range(TUNE_PAIR)]
+            pair = [run.result() for run in runs]
+            out["t1_attempts"] += [{"state": d["row"]["state"], "win": d["t1"]["win"]}
+                                   for d in pair]
+            winner = next((d for d in pair if d["row"]["state"] == "canary"), None)
+            for d in pair:
+                if d is not winner:
+                    count_legs(d["sock"])
+                    _serve_stop(d["proc"], d["sock"], client, d["log"])
+            if winner is not None:
                 break
-            count_legs()
-            _serve_stop(proc, sock, client, log_path)
-        if row["state"] != "canary":
-            raise RuntimeError(f"[tune] (t2) nothing was promoted in {TUNE_ATTEMPTS} trials "
-                               f"(wins {[a['win'] for a in out['t1_attempts']]} below "
+        if winner is None:
+            raise RuntimeError(f"[tune] (t2) nothing was promoted in {TUNE_PAIR * TUNE_ROUNDS} "
+                               f"trials (wins {[a['win'] for a in out['t1_attempts']]} below "
                                "SPGEMM_TPU_TUNE_MIN_WIN=1): the canary path did not run")
+        sock, log_path, res, warm, env = (winner[k] for k in ("sock", "log", "result", "warm",
+                                                              "env"))
+        proc, row, ck = winner["proc"], winner["row"], winner["row"]["class"]
+        out.update(start=winner["start"], t1=winner["t1"], t1_settle_s=winner["settle_s"])
         # (t2): the tuned canary
         job = medium_job("t2", timeout_s=600)
         passed = _tune_events(client, sock, "tune_canary_passed", ck)
@@ -4894,7 +4957,7 @@ def phase_tune(medium, tmp: str) -> dict:
         print(f"[tune] (t3) Medium submitted while the new class's leg {pre[-1]['knobs'] or 'base'} "
               f"ran: tune_trial_preempted (preempted), its serve_queue_wait {qwait:.4f} s "
               f"(a leg's read plus one multiply at most), submit wall {wall:.6f} s", flush=True)
-        count_legs()
+        count_legs(sock)
         _serve_stop(proc, sock, client, log_path)
         # (t4): the restart adopts the persisted records
         proc, out["restart"] = _serve_start(sock, env, log_path)
@@ -4919,11 +4982,12 @@ def phase_tune(medium, tmp: str) -> dict:
         medium_job("t4.0", timeout_s=0)  # the restarted daemon's first contact
         job = medium_job("t4.1", timeout_s=0)  # under the adopted vector
         out["t4"]["launches"] = {k: job["detail"].get(k, 0) for k in TUNE_KERNELS}
-        count_legs()
+        count_legs(sock)
         _serve_stop(proc, sock, client, log_path)
     finally:
-        if proc is not None and proc.poll() is None:
-            proc.kill()
+        for p in [*started, proc]:
+            if p is not None and p.poll() is None:
+                p.kill()
     if DEVICE == "cuda" and (out["legs_launches"]["launches_numeric_round"] < 1
                              or out["legs_launches"]["launches_dense_fold"] < 1):
         raise RuntimeError(f"[tune] the legs launched {out['legs_launches']}")
@@ -4968,6 +5032,18 @@ def _fleet_job_check(leg: str, job: dict, out: str, want, procs) -> int:
                                  "from the wanted bytes")
     os.remove(out)
     return launches
+
+
+def _router_backends(raddr: str) -> dict:
+    """The router's `backends` rows from one stats request with no connect
+    retry (the fleet may still be coming up); {} while it does not answer."""
+    from spgemm_tpu_torch.serve import client  # noqa: PLC0415
+
+    try:
+        resp = client.request({"op": "stats"}, raddr, timeout=10, retry_total_s=0.0)
+    except (client.ServeError, OSError):
+        return {}
+    return resp.get("backends") or {}
 
 
 def phase_fleet(medium, tmp: str, serve_out: dict, medium_launches: int) -> dict:
@@ -5021,11 +5097,7 @@ def phase_fleet(medium, tmp: str, serve_out: dict, medium_launches: int) -> dict
             for i in (0, 1):
                 if i not in started and os.path.exists(socks[i]):
                     started[i] = time.perf_counter() - tw
-            try:
-                st = client.request({"op": "stats"}, raddr, timeout=10, retry_total_s=0.0)
-            except (client.ServeError, OSError):
-                st = {}
-            rows = st.get("backends") or {}
+            rows = _router_backends(raddr)
             if len(rows) == 2 and all(b["up"] and not b["degraded"] for b in rows.values()):
                 healthy_s = time.perf_counter() - tw
             elif time.time() > deadline:
@@ -5715,6 +5787,117 @@ def phase_chaos(tmp: str, serve_out: dict) -> dict:
     return out
 
 
+def phase_lane(medium, tmp: str, row: dict) -> dict:
+    """[tune] on this thread while four tracks run at once on threads of
+    their own: [fleet]; [chaos]; [warm], then [multihost]'s killed-partner
+    leg; and [multihost].  Each phase drives processes of its own (daemons,
+    a router, chaos_smoke, --warm-child, --ranks and --distributed ranks)
+    over [serve]'s directories under tmp or a directory of its own, and no
+    check of theirs holds a wall to a limit, so they share the card and the
+    host to keep the script inside its time limit; each wall they print is
+    taken beside the others' load ([warm] and the killed partner share a
+    track, and P = 8's ranks come last on theirs, to bound the host memory
+    in use at once).  Every phase runs to its end (a track stops at its first
+    failure); each failure is printed to stderr and the first raised.  One
+    line: the lane's wall beside the sum of the phases'."""
+    t0 = time.perf_counter()
+    folder = os.path.join(tmp, "medium")
+    walls, out, errors = {}, {}, {}
+    tracks = {
+        "fleet": [("fleet", phase_fleet, (medium, tmp, row["serve"], row["launches"]))],
+        "chaos": [("chaos", phase_chaos, (tmp, row["serve"]))],
+        "warm": [("warm", phase_warm, ()),
+                 ("multihost_kill", phase_multihost_kill, (folder, tmp))],
+        "multihost": [("multihost", phase_multihost, (medium, folder, tmp))],
+    }
+
+    def run(steps: list) -> None:
+        for name, fn, args in steps:
+            t = time.perf_counter()
+            try:
+                out[name] = fn(*args)
+            except Exception as e:  # noqa: BLE001 -- raised below, once the lane has ended
+                errors[name] = e
+                return
+            finally:
+                walls[name] = time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=len(tracks), thread_name_prefix="chip-smoke") as pool:
+        for steps in tracks.values():
+            pool.submit(run, steps)
+        run([("tune", phase_tune, (medium, tmp))])
+    for name, e in errors.items():
+        print(f"[lane] [{name}] failed: {e!r}", file=sys.stderr, flush=True)
+    if errors:
+        raise next(iter(errors.values()))
+    _phase("lane", t0, "[tune] beside [fleet], [chaos], [warm] then [multihost]'s killed "
+           "partner, and [multihost]: their walls "
+           + ", ".join(f"{n} {w:.3f}" for n, w in walls.items())
+           + f" s, sum {sum(walls.values()):.3f} s")
+    return out
+
+
+def _lint_start(tmp: str) -> SimpleNamespace:
+    """[lint]'s subprocess, started beside the kernels' build: the port's
+    spgemm-lint over its default scope, the DOC checks included, no cache.
+    A watcher thread stamps the moment it exits, so its own wall is read
+    even when the build outlasts it."""
+    out = os.path.join(tmp, "lint.json")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    with open(out, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "spgemm_tpu_torch.analysis", "--json",
+                                 "--no-cache"], cwd=REPO, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    lint = SimpleNamespace(proc=proc, out=out, started=time.perf_counter(), ended={})
+
+    def watch() -> None:
+        proc.wait()
+        lint.ended["t"] = time.perf_counter()
+
+    lint.watcher = threading.Thread(target=watch, name="lint-watch", daemon=True)
+    lint.watcher.start()
+    return lint
+
+
+def phase_lint(lint: SimpleNamespace) -> dict:
+    """[lint]: waits for _lint_start's subprocess (LINT_TIMEOUT_S from its
+    start) and fails unless it exited 0 with a clean report.  One line:
+    files linted, findings, escapes (all in use), the subprocess's wall."""
+    from spgemm_tpu_torch.analysis import core as lint_core  # noqa: PLC0415
+
+    lint.watcher.join(timeout=max(1.0, LINT_TIMEOUT_S - (time.perf_counter() - lint.started)))
+    if lint.watcher.is_alive():
+        lint.proc.kill()
+        lint.proc.wait(timeout=30)
+        raise RuntimeError(f"[lint] spgemm-lint still running after {LINT_TIMEOUT_S} s")
+    rc, wall = lint.proc.returncode, lint.ended["t"] - lint.started
+    text = open(lint.out, errors="replace").read()
+    try:
+        report = json.loads(text)
+    except ValueError:
+        raise RuntimeError(f"[lint] exited {rc} without a JSON report:\n{text[-4000:]}") from None
+    findings = report["findings"]
+    if rc != 0 or report.get("clean") is not True or findings:
+        shown = "\n".join(f"{f['file']}:{f['line']}: [{f['rule']}] {f['message']}"
+                          for f in findings[:40])
+        raise RuntimeError(f"[lint] exited {rc}, clean {report.get('clean')}, "
+                           f"{len(findings)} finding(s):\n{shown}")
+    files = 0
+    for path in lint_core.default_paths():
+        files += 1 if os.path.isfile(path) else sum(
+            n.endswith(".py") for _, _, names in os.walk(path) for n in names)
+    escapes = report["suppressions"]
+    by_rule = {}
+    for s in escapes:
+        by_rule[s["rule"]] = by_rule.get(s["rule"], 0) + 1
+    print(f"[lint] spgemm-lint: {files} files linted, {len(findings)} findings, "
+          f"{len(escapes)} escapes ({', '.join(f'{r} {n}' for r, n in sorted(by_rule.items()))}; "
+          f"{sum(s['stale'] for s in escapes)} stale), exit {rc}, subprocess wall "
+          f"{wall:.3f} s (beside the build)", flush=True)
+    return {"files": files, "findings": len(findings), "escapes": len(escapes),
+            "wall_s": wall}
+
+
 def _kernels_so_far(rows: list) -> None:
     """The kernels line as far as the run has come, printed (not as the
     bare JSON object the last lines carry) and written to KERNELS_FILE, so
@@ -5755,8 +5938,15 @@ def main() -> int:
            f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
+    lint_tmp = tempfile.mkdtemp(prefix="chip_smoke_lint_")
+    lint = _lint_start(lint_tmp)
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    try:
+        libs = _build.build_all()
+    except BaseException:
+        lint.proc.kill()
+        lint.proc.wait(timeout=30)
+        raise
     for lib in libs.values():
         log = lib.with_suffix(".log")
         if log.exists():
@@ -5766,6 +5956,10 @@ def main() -> int:
     for lib in libs:
         _build.load(lib)  # loaded here, so no timed launch pays the first load
     _phase("build", t0, f"built {', '.join(sorted(libs))} with nvcc")
+    try:
+        phase_lint(lint)
+    finally:
+        shutil.rmtree(lint_tmp, ignore_errors=True)
     if only:
         rows = phase_ffn() if only == "ffn" else phase_ffn_train()
         print(json.dumps({"kernels": rows}), flush=True)
@@ -5782,20 +5976,20 @@ def main() -> int:
     medium.res_host = medium.res.to_host()
     row["ooc"] = phase_medium_ooc(medium, row["peak_bytes"], row["peak_above_inputs_bytes"])
     row["cli"] = phase_medium_cli(medium)
-    # the [multihost] path's own counts: kernel 1's launches over every rank at each P
-    row["multihost_launches"] = row["cli"]["multihost"]["launches"]
     row["parity_fold"] = phase_medium_parity(medium)
     _kernels_so_far([row])
     splice_row = phase_delta(medium)
-    splice_row["warm"] = phase_warm()
     splice_row["estimate"] = phase_estimate(medium)
     dense_row = phase_dense(medium, row["ms"])
     _kernels_so_far([row, splice_row, dense_row])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         row["serve"] = phase_serve(medium, row["cli"], tmp)
-        row["tune"] = phase_tune(medium, tmp)
-        row["fleet"] = phase_fleet(medium, tmp, row["serve"], row["launches"])
-        row["chaos"] = phase_chaos(tmp, row["serve"])
+        lane = phase_lane(medium, tmp, row)
+        row["tune"], row["fleet"], row["chaos"] = lane["tune"], lane["fleet"], lane["chaos"]
+        splice_row["warm"] = lane["warm"]
+        row["cli"]["multihost"] = {**lane["multihost"], "kill": lane["multihost_kill"]}
+    # the [multihost] path's own counts: kernel 1's launches over every rank at each P
+    row["multihost_launches"] = row["cli"]["multihost"]["launches"]
     row["rowshard"] = phase_rowshard(medium)
     field_rows = phase_inner_ring(medium, row)
     for r in field_rows:

@@ -81,6 +81,7 @@ class _PlanAheadWorker:
                                         name="chain-planner", daemon=True)
         self._thread.start()
 
+    @backend_probe.host_only
     def _work(self, pairs, planner):
         try:
             with ENGINE.attributed(self._attr):
@@ -92,10 +93,11 @@ class _PlanAheadWorker:
                         return
                     self._outq.put((i, planner(a, b), None))
                     pairs[i] = None  # drop operand references once planned
-        except BaseException as e:  # re-raised on the consumer
+        except Exception as e:  # noqa: BLE001 -- re-raised on the consumer (get)
             self._outq.put((None, None, e))
-            if not isinstance(e, Exception):
-                raise
+        except BaseException as e:  # an abort: the consumer sees it too
+            self._outq.put((None, None, e))
+            raise
 
     def get(self):
         """The next pair's (index, plan); re-raises a worker failure.  The

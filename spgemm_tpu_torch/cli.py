@@ -151,12 +151,16 @@ from spgemm_tpu_torch.utils import knobs
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from spgemm_tpu_torch.ops.spgemm import BACKENDS  # noqa: PLC0415
+    from spgemm_tpu_torch.ops import BACKENDS  # noqa: PLC0415 -- torch-free
 
     p = argparse.ArgumentParser(
         prog="spgemm_tpu_torch",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
         description="Block-sparse uint64 matrix chain product on an NVIDIA "
-                    "GPU (reference-compatible output).")
+                    "GPU (reference-compatible output).",
+        # the epilog is GENERATED from the knob registry, so --help can
+        # never drift from the knobs the code reads (spgemm-lint DOC)
+        epilog=knobs.cli_epilog())
     p.add_argument("folder", help="input directory containing `size` and `matrix1..N`")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the chain runs (default: cuda; cpu runs the "

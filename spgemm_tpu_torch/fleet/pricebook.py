@@ -31,10 +31,10 @@ class PriceBook:
     def __init__(self, cap: int = CAP):
         self._cap = cap
         self._lock = threading.Lock()
-        self._book: "OrderedDict[str, float]" = OrderedDict()  # guarded by _lock
-        self._merged = 0  # guarded by _lock
-        self._hits = 0    # guarded by _lock
-        self._misses = 0  # guarded by _lock
+        self._book: "OrderedDict[str, float]" = OrderedDict()  # spgemm-lint: guarded-by(_lock)
+        self._merged = 0  # spgemm-lint: guarded-by(_lock)
+        self._hits = 0    # spgemm-lint: guarded-by(_lock)
+        self._misses = 0  # spgemm-lint: guarded-by(_lock)
 
     def merge(self, placement_block) -> int:
         """Fold one backend's stats `placement` block in (the newest sighting

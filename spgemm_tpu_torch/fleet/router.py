@@ -106,7 +106,7 @@ class Router:
         # backend name (the canonical address) -> its state, written by the
         # poll thread (health) and the conn threads (mark-down on a failed
         # forward)
-        self._backends: dict[str, dict] = {}  # guarded by _lock
+        self._backends: dict[str, dict] = {}  # spgemm-lint: guarded-by(_lock)
         for spec in backends:
             name = protocol.format_addr(protocol.parse_addr(spec))
             if name in self._backends:
@@ -117,11 +117,11 @@ class Router:
         self.book = PriceBook()
         # fleet id -> the routed job; its forwarded submit message rides along
         # so that a failover re-submits it verbatim
-        self._jobs: dict[str, dict] = {}      # guarded by _lock
-        self._tenant_rr: dict[str, int] = {}  # guarded by _lock
-        self._failovers = 0                   # guarded by _lock
-        self._next_id = 1                     # guarded by _lock
-        self._conn_count = 0                  # guarded by _lock
+        self._jobs: dict[str, dict] = {}      # spgemm-lint: guarded-by(_lock)
+        self._tenant_rr: dict[str, int] = {}  # spgemm-lint: guarded-by(_lock)
+        self._failovers = 0                   # spgemm-lint: guarded-by(_lock)
+        self._next_id = 1                     # spgemm-lint: guarded-by(_lock)
+        self._conn_count = 0                  # spgemm-lint: guarded-by(_lock)
         self._started_at = time.time()
         self._stop = threading.Event()
         self._lock = threading.Lock()

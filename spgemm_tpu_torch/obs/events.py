@@ -145,22 +145,22 @@ class EventLog:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._ring: deque = deque()   # guarded by _lock
-        self._pending: deque = deque()  # guarded by _lock
-        self._seq = 0                 # guarded by _lock
-        self._emitted = 0             # guarded by _lock
-        self._dropped = 0             # guarded by _lock
-        self._io_dropped = 0          # guarded by _lock
-        self._rotations = 0           # guarded by _lock
-        self._write_errors = 0        # guarded by _lock
-        self._path = None             # guarded by _lock
-        self._size = 0                # guarded by _lock
-        self._writer = None           # guarded by _lock
+        self._ring: deque = deque()   # spgemm-lint: guarded-by(_lock)
+        self._pending: deque = deque()  # spgemm-lint: guarded-by(_lock)
+        self._seq = 0                 # spgemm-lint: guarded-by(_lock)
+        self._emitted = 0             # spgemm-lint: guarded-by(_lock)
+        self._dropped = 0             # spgemm-lint: guarded-by(_lock)
+        self._io_dropped = 0          # spgemm-lint: guarded-by(_lock)
+        self._rotations = 0           # spgemm-lint: guarded-by(_lock)
+        self._write_errors = 0        # spgemm-lint: guarded-by(_lock)
+        self._path = None             # spgemm-lint: guarded-by(_lock)
+        self._size = 0                # spgemm-lint: guarded-by(_lock)
+        self._writer = None           # spgemm-lint: guarded-by(_lock)
         # lines POPPED from pending but not yet on disk: flush()'s drain
         # contract must cover them too, or a caller (test asserting file
         # bytes, daemon shutdown) can observe the rotation's mid-air
         # window -- old file replaced away, new one not yet created
-        self._in_flight = 0           # guarded by _lock
+        self._in_flight = 0           # spgemm-lint: guarded-by(_lock)
         self._wake = threading.Event()
 
     def configure(self, path: str | None) -> None:

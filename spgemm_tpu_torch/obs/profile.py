@@ -91,21 +91,21 @@ class Hist:
 COMPILE_RETAIN = 256
 
 _LOCK = threading.Lock()
-_COMPILES: list[dict] = []          # guarded by _LOCK
-_COMPILE_DROPPED = 0                # guarded by _LOCK
-_SITES: dict[str, dict] = {}        # guarded by _LOCK
+_COMPILES: list[dict] = []          # spgemm-lint: guarded-by(_LOCK)
+_COMPILE_DROPPED = 0                # spgemm-lint: guarded-by(_LOCK)
+_SITES: dict[str, dict] = {}        # spgemm-lint: guarded-by(_LOCK)
 _MEM = {"available": False, "samples": 0, "bytes_in_use": 0,
-        "peak_bytes": 0}            # guarded by _LOCK
+        "peak_bytes": 0}            # spgemm-lint: guarded-by(_LOCK)
 # per-job high-water marks keyed by the emitting thread's job_id span tag
 # (LRU-bounded), so a wedged executor's late samples land in its own job's
 # window, never its replacement's
-_MEM_JOBS: "OrderedDict[str, int]" = OrderedDict()  # guarded by _LOCK
+_MEM_JOBS: "OrderedDict[str, int]" = OrderedDict()  # spgemm-lint: guarded-by(_LOCK)
 MEM_JOB_RETAIN = 64
-_EST: dict[str, Hist] = {}          # guarded by _LOCK
-_EST_COUNT = 0                      # guarded by _LOCK
+_EST: dict[str, Hist] = {}          # spgemm-lint: guarded-by(_LOCK)
+_EST_COUNT = 0                      # spgemm-lint: guarded-by(_LOCK)
 _DELTA = {"hist": Hist(FRACTION_BUCKETS), "predicted": 0, "executed": 0,
-          "mispredictions": 0}      # guarded by _LOCK
-_PHASES: dict[str, Hist] = {}       # guarded by _LOCK
+          "mispredictions": 0}      # spgemm-lint: guarded-by(_LOCK)
+_PHASES: dict[str, Hist] = {}       # spgemm-lint: guarded-by(_LOCK)
 
 
 def clear() -> None:

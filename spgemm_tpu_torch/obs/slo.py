@@ -134,10 +134,10 @@ class SloEngine:
     def __init__(self):
         self._lock = threading.Lock()
         # (tenant, slice) -> _Window
-        self._windows: "OrderedDict[tuple, _Window]" = OrderedDict()  # guarded by _lock
-        self._tenants: "OrderedDict[str, float]" = OrderedDict()  # guarded by _lock
-        self._evicted = 0   # guarded by _lock
-        self._records = 0   # guarded by _lock
+        self._windows: "OrderedDict[tuple, _Window]" = OrderedDict()  # spgemm-lint: guarded-by(_lock)
+        self._tenants: "OrderedDict[str, float]" = OrderedDict()  # spgemm-lint: guarded-by(_lock)
+        self._evicted = 0   # spgemm-lint: guarded-by(_lock)
+        self._records = 0   # spgemm-lint: guarded-by(_lock)
 
     # ------------------------------------------------------------ ingest --
     def observe(self, tenant: str, slice_name: str, wall_s: float,

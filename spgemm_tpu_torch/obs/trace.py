@@ -64,10 +64,10 @@ class FlightRecorder:
     per phase."""
 
     def __init__(self):
-        self._spans: deque = deque()  # guarded by _lock
-        self._dropped = 0             # guarded by _lock
-        self._emitted = 0             # guarded by _lock
-        self._next_id = 1             # guarded by _lock
+        self._spans: deque = deque()  # spgemm-lint: guarded-by(_lock)
+        self._dropped = 0             # spgemm-lint: guarded-by(_lock)
+        self._emitted = 0             # spgemm-lint: guarded-by(_lock)
+        self._next_id = 1             # spgemm-lint: guarded-by(_lock)
         self._lock = threading.Lock()
         self._tls = threading.local()  # open-span stack + tags, thread-affine
 

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}  # guarded by _lock
+_libs: dict[str, ctypes.CDLL] = {}  # spgemm-lint: guarded-by(_lock)
 
 
 def _nvcc() -> str:
@@ -95,6 +95,7 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         t0 = time.perf_counter()
+        # spgemm-lint: blk-ok(one-shot memoized build: the lock MUST cover the nvcc run so a second thread can neither double-compile nor CDLL a half-written library; cold path, once per kernel per process, before its first launch)
         path, built = _build(name)
         lib = _libs[name] = ctypes.CDLL(str(path))
         wall = time.perf_counter() - t0

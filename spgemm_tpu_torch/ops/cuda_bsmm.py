@@ -473,7 +473,10 @@ def _launch(x: torch.Tensor, rows: torch.Tensor, tiles: torch.Tensor, block_m: i
                            f"nbc={nbc}, rpc={rpc}, k={k}, block_m={block_m}, {x.dtype}, "
                            f"resident={resident}, epilogue {epilogue}, {geo}, {extra})")
     # the launch counters, bumped here and nowhere else
-    ENGINE.incr("launches_bsmm_resident" if resident else "launches_bsmm")
+    if resident:
+        ENGINE.incr("launches_bsmm_resident")
+    else:
+        ENGINE.incr("launches_bsmm")
     return out
 
 

@@ -135,7 +135,10 @@ def numeric_round(a_slab: torch.Tensor, b_slab: torch.Tensor,
         raise RuntimeError(f"numeric_round kernel launch failed: CUDA error {err} "
                            f"(K={K}, P={P}, k={k}, no_mod={no_mod})")
     # the launch counter, bumped here and nowhere else
-    ENGINE.incr("launches_numeric_round_no_mod" if no_mod else "launches_numeric_round")
+    if no_mod:
+        ENGINE.incr("launches_numeric_round_no_mod")
+    else:
+        ENGINE.incr("launches_numeric_round")
     return out
 
 

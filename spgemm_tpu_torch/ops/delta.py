@@ -64,17 +64,17 @@ from spgemm_tpu_torch.ops import plancache
 from spgemm_tpu_torch.utils import failpoints, knobs
 
 _LOCK = threading.Lock()
-_STORE: "OrderedDict[str, DeltaEntry]" = OrderedDict()  # guarded by _LOCK
+_STORE: "OrderedDict[str, DeltaEntry]" = OrderedDict()  # spgemm-lint: guarded-by(_LOCK)
 _STATS = {"hits": 0, "full_fallbacks": 0, "evictions": 0,
-          "rows_recomputed": 0, "rows_total": 0}  # guarded by _LOCK
+          "rows_recomputed": 0, "rows_total": 0}  # spgemm-lint: guarded-by(_LOCK)
 # full fallbacks by reason: "no_entry" (first contact or an evicted entry),
 # "provenance_mismatch" (a lineage the store could not prove)
-_FALLBACK_REASONS: dict = {}  # guarded by _LOCK
-_VERSION = 0  # guarded by _LOCK; monotonic, never reset
+_FALLBACK_REASONS: dict = {}  # spgemm-lint: guarded-by(_LOCK)
+_VERSION = 0  # spgemm-lint: guarded-by(_LOCK); monotonic, never reset
 # row_digests splits an operand of at least this many tile bytes over a pool
 # of host threads (hashlib releases the GIL while it hashes a row's bytes)
 PARALLEL_MIN_BYTES = 1 << 22
-_POOL: ThreadPoolExecutor | None = None  # guarded by _LOCK, made at first use
+_POOL: ThreadPoolExecutor | None = None  # spgemm-lint: guarded-by(_LOCK), made at first use
 
 
 def enabled() -> bool:

@@ -43,7 +43,7 @@ from spgemm_tpu_torch.ops.symbolic import DENSE_MIN_CLASS, _segment_expand, _sha
 from spgemm_tpu_torch.utils import knobs
 
 _LOCK = threading.Lock()
-_STATS = {"hits": 0, "fallbacks": 0}  # guarded by _LOCK
+_STATS = {"hits": 0, "fallbacks": 0}  # spgemm-lint: guarded-by(_LOCK)
 
 
 def enabled() -> bool:
@@ -167,6 +167,7 @@ def maybe_estimate(a_coords: np.ndarray, b_coords: np.ndarray,
     lo = np.searchsorted(b_rows, cols, side="left")
     hi = np.searchsorted(b_rows, cols, side="right")
     cnt = hi - lo
+    # spgemm-lint: fld-proof(integer pair-count total for sizing only; exact int64 addition is order-free, no wrap-then-mod values involved)
     total_pairs = int(cnt.sum())
     row_mass = np.bincount(blk_seg, weights=cnt, minlength=n_take).astype(np.int64)
     scale = n_rows / n_take
@@ -194,6 +195,7 @@ def maybe_estimate(a_coords: np.ndarray, b_coords: np.ndarray,
     rse = skew / float(np.sqrt(n_take))  # relative standard error of the scaled total
     return StructureEstimate(
         total_rows=n_rows, sampled_rows=n_take, scale=scale,
+        # spgemm-lint: fld-proof(integer key total for prediction scaling only; exact int64 addition is order-free, no wrap-then-mod values involved)
         est_keys=float(keys_per_row.sum()) * scale, est_pairs=float(total_pairs) * scale,
         est_max_fanout=int(fan.max()), class_hist=class_hist, row_mass=row_mass,
         skew=skew, confidence=max(0.0, 1.0 - rse))

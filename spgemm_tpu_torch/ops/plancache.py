@@ -42,11 +42,11 @@ from spgemm_tpu_torch.utils import knobs
 from spgemm_tpu_torch.utils.timers import ENGINE
 
 LOCK = threading.RLock()
-_CACHE: "OrderedDict[str, object]" = OrderedDict()  # guarded by LOCK
-_STATS = {"hits": 0, "misses": 0, "evictions": 0}  # guarded by LOCK
-_BUILDING: "dict[str, threading.Event]" = {}  # keys in flight, guarded by LOCK
+_CACHE: "OrderedDict[str, object]" = OrderedDict()  # spgemm-lint: guarded-by(LOCK)
+_STATS = {"hits": 0, "misses": 0, "evictions": 0}  # spgemm-lint: guarded-by(LOCK)
+_BUILDING: "dict[str, threading.Event]" = {}  # keys in flight, spgemm-lint: guarded-by(LOCK)
 STRUCT_CAP = 4096  # structure-book entries (LRU past it)
-_STRUCTS: "OrderedDict[str, str]" = OrderedDict()  # guarded by LOCK
+_STRUCTS: "OrderedDict[str, str]" = OrderedDict()  # spgemm-lint: guarded-by(LOCK)
 
 
 def enabled() -> bool:

@@ -79,7 +79,8 @@ import numpy as np
 import torch
 
 from spgemm_tpu_torch.obs import events, profile
-from spgemm_tpu_torch.ops import crossover, delta, estimate, plancache, u64, warmstore
+from spgemm_tpu_torch.ops import (BACKENDS, crossover, delta, estimate,
+                                  plancache, u64, warmstore)
 from spgemm_tpu_torch.ops.cuda_dense import numeric_round_dense
 from spgemm_tpu_torch.ops.cuda_splice import source_map, splice
 from spgemm_tpu_torch.ops.cuda_mxu import limbs_for_bound, numeric_round_mxu
@@ -90,6 +91,7 @@ from spgemm_tpu_torch.ops.symbolic import (ROUTES, SpgemmPlan, _shape_class,
                                            assembly_permutation, plan_rounds, slice_join,
                                            symbolic_join)
 from spgemm_tpu_torch.utils import failpoints, knobs
+from spgemm_tpu_torch.utils.backend_probe import host_only
 from spgemm_tpu_torch.utils.blockcsr import BlockSparseMatrix
 from spgemm_tpu_torch.utils.timers import ENGINE
 
@@ -98,7 +100,6 @@ log = logging.getLogger("spgemm_tpu_torch.spgemm")
 LAUNCH_OUT_ELEMENTS = 1 << 25
 INDEX_LIMIT = 1 << 31  # slab indices are int32: a stacked slab's rows stay below it
 OOC_ROUND_SIZE = 512  # keys per out-of-core round by default (the JAX package's)
-BACKENDS = ("exact", "mxu", "hybrid")
 MAX_BOUND = (1 << 64) - 2  # any result is a canonical residue, at most 2^64 - 2
 
 # Rounds dispatched to each kernel, counted per round in execute (per launch
@@ -217,6 +218,7 @@ def _observe_memory(device) -> None:
     profile.observe_memory(stats)
 
 
+@host_only
 def _new_plan(a, b, backend: str, route: str, key_cap: int, split: int | None,
               key: str | None) -> SpgemmPlan:
     """A plan-cache miss (or the cache off, key None): the warm store's
@@ -306,7 +308,10 @@ def plan(a, b, *, backend: str = "exact", round_size: int | None = None,
         key = plancache.fingerprint(a.coords, b.coords, meta)
         p, hit = plancache.get_or_build(
             key, lambda: _new_plan(a, b, backend, route, key_cap, split, key))
-        ENGINE.incr("plan_cache_hits" if hit else "plan_cache_misses")
+        if hit:
+            ENGINE.incr("plan_cache_hits")
+        else:
+            ENGINE.incr("plan_cache_misses")
         return p
 
 

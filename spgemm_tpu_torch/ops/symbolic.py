@@ -54,6 +54,7 @@ class JoinResult:
 def _segment_expand(counts: np.ndarray):
     """Ragged expansion: for segments of the given lengths, return
     (segment_id, within_segment_offset) arrays of total length counts.sum()."""
+    # spgemm-lint: fld-proof(integer segment-length total for sizing only; exact int64 addition is order-free, no wrap-then-mod values involved)
     total = int(counts.sum())
     seg_id = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
     seg_start = np.concatenate(([0], np.cumsum(counts)[:-1]))
@@ -100,6 +101,7 @@ def symbolic_join_plain(a_coords: np.ndarray, b_coords: np.ndarray) -> JoinResul
     lo = np.searchsorted(b_rows, a_cols, side="left")
     hi = np.searchsorted(b_rows, a_cols, side="right")
     counts = hi - lo
+    # spgemm-lint: fld-proof(integer pair-count total for sizing only; exact int64 addition is order-free, no wrap-then-mod values involved)
     total = int(counts.sum())
     if total == 0:
         return empty

@@ -42,10 +42,10 @@ BOOK_CAP = 4096
 BOOK_GOSSIP_CAP = 64
 
 _LOCK = threading.Lock()
-_BOOK: "OrderedDict[str, float]" = OrderedDict()  # guarded by _LOCK
+_BOOK: "OrderedDict[str, float]" = OrderedDict()  # spgemm-lint: guarded-by(_LOCK)
 # tune class -> representative folder, the same LRU discipline
-_CLASS_BOOK: "OrderedDict[str, str]" = OrderedDict()  # guarded by _LOCK
-_STATS = {"book_hits": 0, "book_misses": 0, "routed": {}}  # guarded by _LOCK
+_CLASS_BOOK: "OrderedDict[str, str]" = OrderedDict()  # spgemm-lint: guarded-by(_LOCK)
+_STATS = {"book_hits": 0, "book_misses": 0, "routed": {}}  # spgemm-lint: guarded-by(_LOCK)
 
 
 def signature(folder: str) -> str | None:

@@ -60,7 +60,16 @@ PROTOCOL_VERSION = 4
 # `trace`, v4 the fleet router's response fields only
 ACCEPTED_VERSIONS = (1, 2, 3, 4)
 
-# op -> field -> the lowest protocol version whose daemons understand it
+# The declarative wire registry, one table per direction: op -> field ->
+# the lowest protocol version whose daemons understand it.  The PRO lint
+# rule (analysis/protorules.py) holds every literal wire-field key at the
+# call sites to these tables, the DRF audit flags a declared field no site
+# references, version_for()/strip_for_version() derive from them, and
+# ARCHITECTURE.md's generated protocol table renders them.
+
+# fields any message may carry regardless of op (the envelope)
+ENVELOPE_FIELDS = {"v": 1, "op": 1, "ok": 1, "error": 1}
+
 REQUEST_FIELDS: dict[str, dict[str, int]] = {
     "submit": {"folder": 1, "options": 1, "tenant": 2, "trace": 3},
     "status": {"id": 1},
@@ -72,6 +81,31 @@ REQUEST_FIELDS: dict[str, dict[str, int]] = {
     "events": {"n": 1},
     "slo": {},
     "shutdown": {},
+}
+
+# response fields are never stripped (the daemon answers at its own version
+# and old clients ignore unknown keys), so a min version here documents the
+# introduction point rather than driving negotiation.  stats' `device` (the
+# card the daemon runs on) and `serve` (its SERVE_COUNTERS) are the port's
+# own: its daemons answer at v4 from the start.
+RESPONSE_FIELDS: dict[str, dict[str, int]] = {
+    "submit": {"id": 1, "state": 1, "queued": 1, "trace": 3, "backend": 4},
+    "status": {"job": 1, "backend": 4},
+    "wait": {"job": 1, "backend": 4},
+    "stats": {"daemon": 1, "uptime_s": 1, "device": 4, "degraded": 1,
+              "degrade_reason": 1, "backend_probe": 1, "queue_cap": 1,
+              "job_timeout_s": 1, "jobs": 1, "jobs_terminal": 1, "serve": 4,
+              "slices": 2, "slices_degraded": 2, "tenants": 2,
+              "tenant_inflight_cap": 2, "placement": 2, "journal": 1,
+              "failpoints": 1, "trace": 3, "events": 3, "profile": 3,
+              "slo": 3, "flight_dir": 3, "plan_cache": 1, "delta": 1,
+              "warm": 1, "tune": 3, "socket": 1, "backends": 4},
+    "metrics": {"content_type": 1, "text": 1},
+    "trace": {"spans": 1, "trace_events": 1},
+    "profile": {"profile": 1},
+    "events": {"events": 1, "log": 1},
+    "slo": {"slo": 1},
+    "shutdown": {"stopping": 1},
 }
 
 # each post-v1 optional request field -> the version that carries it
@@ -162,6 +196,33 @@ E_JOB_ERROR = "job-error"
 # minted by the fleet router (fleet/router.py), never a daemon
 E_BACKEND_LOST = "backend-lost"
 E_NO_BACKEND = "no-backend"
+
+
+def protocol_table_md() -> str:
+    """The generated wire-contract table for ARCHITECTURE.md (the DOC rule
+    diffs the committed block against this; regenerate with
+    `python -m spgemm_tpu_torch.analysis --write-protocol-table`)."""
+    def cell(fields: dict[str, int]) -> str:
+        if not fields:
+            return "—"
+        return ", ".join(f"`{name}`" + (f" (v{v}+)" if v > 1 else "")
+                         for name, v in fields.items())
+
+    lines = [f"Protocol v{PROTOCOL_VERSION} (accepts "
+             f"{'/'.join(f'v{a}' for a in ACCEPTED_VERSIONS)}); every "
+             f"message also carries the envelope fields "
+             f"{', '.join(f'`{f}`' for f in ENVELOPE_FIELDS)}.",
+             "",
+             "| op | request fields | response fields |",
+             "|---|---|---|"]
+    for op in OPS:
+        lines.append(f"| `{op}` | {cell(REQUEST_FIELDS[op])} "
+                     f"| {cell(RESPONSE_FIELDS[op])} |")
+    lines += ["", "| error code | meaning |", "|---|---|"]
+    for code, doc in ERROR_CODES.items():
+        lines.append(f"| `{code}` | {doc} |")
+    return "\n".join(lines)
+
 
 # tenant names are label values: a bounded charset, no quotes or whitespace
 _TENANT_RE = re.compile(r"^[A-Za-z0-9._:-]+$")

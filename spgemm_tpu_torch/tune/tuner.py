@@ -149,10 +149,10 @@ class Tuner:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._classes: dict[str, _ClassState] = {}  # guarded by _lock
-        self._persist = None                        # guarded by _lock
-        self._trials = 0                            # guarded by _lock
-        self._reverts = 0                           # guarded by _lock
+        self._classes: dict[str, _ClassState] = {}  # spgemm-lint: guarded-by(_lock)
+        self._persist = None                        # spgemm-lint: guarded-by(_lock)
+        self._trials = 0                            # spgemm-lint: guarded-by(_lock)
+        self._reverts = 0                           # spgemm-lint: guarded-by(_lock)
 
     # -------------------------------------------------------------- wiring --
     def persist_with(self, fn) -> None:

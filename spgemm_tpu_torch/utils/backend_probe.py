@@ -65,3 +65,17 @@ def failover_to_cpu(context: str) -> bool:
     print(f"{context}: CUDA device unusable (probe: {outcome}); falling back to cpu",
           file=sys.stderr, flush=True)
     return True
+
+
+def host_only(fn):
+    """Marker for host-thread-only code: fn runs on the chain's plan-ahead
+    worker (chain._PlanAheadWorker and the planner it calls) and never
+    calls into torch's device side -- a CUDA call there serialises the
+    planner behind the main thread's launches and syncs, and a failing
+    card raises on a thread where nothing fails over.  spgemm-lint's BKD
+    rule scans the decorated function's WHOLE body (not just import time)
+    for calls that create or query a CUDA context; callers that need the
+    device must resolve it on the main thread and pass it in as data.
+    Runtime no-op beyond the attribute tag."""
+    fn.__spgemm_host_only__ = True
+    return fn

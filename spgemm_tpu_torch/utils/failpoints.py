@@ -120,9 +120,9 @@ class _Arm:
 
 
 _LOCK = threading.Lock()
-_RAW: str | None = None          # guarded by _LOCK
-_ARMS: dict[str, _Arm] = {}      # guarded by _LOCK
-_TRIGGERED: dict[str, int] = {}  # guarded by _LOCK
+_RAW: str | None = None          # spgemm-lint: guarded-by(_LOCK)
+_ARMS: dict[str, _Arm] = {}      # spgemm-lint: guarded-by(_LOCK)
+_TRIGGERED: dict[str, int] = {}  # spgemm-lint: guarded-by(_LOCK)
 
 
 def _parse_spec(spec: str) -> dict[str, tuple[float, int | None]]:
@@ -198,6 +198,7 @@ def check(name: str) -> bool:
         _hang(name)
         return False
     if fp.kind == "delay":
+        # spgemm-lint: blk-ok(chaos injection: the delay IS the injected fault, armed only under SPGEMM_TPU_FAILPOINTS -- blocking wherever the site sits, locks included, is the point)
         time.sleep(DELAY_S)
         return False
     return True  # corrupt
@@ -209,6 +210,7 @@ def _hang(name: str) -> None:
     while time.monotonic() < deadline:
         if not knobs.get("SPGEMM_TPU_FAILPOINTS") or _arm_for(name) is None:
             return
+        # spgemm-lint: blk-ok(chaos injection: the hang IS the injected wedge the watchdog must detect, armed only under SPGEMM_TPU_FAILPOINTS)
         time.sleep(HANG_POLL_S)
 
 

@@ -335,8 +335,8 @@ class _TunedOverlay:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._values: dict[str, str] = {}  # guarded by _lock
-        self._gen = 0                      # guarded by _lock
+        self._values: dict[str, str] = {}  # spgemm-lint: guarded-by(_lock)
+        self._gen = 0                      # spgemm-lint: guarded-by(_lock)
 
     def replace(self, mapping: dict[str, str]) -> None:
         validated: dict[str, str] = {}
@@ -506,3 +506,47 @@ def pin_unless_exported(name: str, value: str):
         os.environ.pop(name, None)
 
     return restore
+
+
+def _values_col(kb: Knob) -> str:
+    if kb.choices:
+        return "|".join(kb.choices)
+    if kb.kind == "bool01":
+        return "0|1"
+    if kb.kind == "flag":
+        return "set/unset"
+    if kb.minimum is not None:
+        return f"{kb.kind} >= {kb.minimum:g}"
+    return kb.kind
+
+
+def knob_table_md() -> str:
+    """The generated knob table of spgemm_tpu_torch/ARCHITECTURE.md.  The
+    linter's DOC rule diffs this text against the committed block between
+    the `<!-- knob-table:begin -->` / `<!-- knob-table:end -->` markers."""
+    lines = [
+        "| knob | values | default | tuned | what it does |",
+        "|---|---|---|---|---|",
+    ]
+
+    def md(cell: str) -> str:  # literal pipes would split the table cell
+        return cell.replace("|", "\\|")
+
+    for kb in _KNOBS:
+        default = "(unset)" if kb.default is None else f"`{kb.default}`"
+        lines.append(
+            f"| `{kb.name}` | {md(_values_col(kb))} | {default} "
+            f"| {'yes' if kb.tuned else 'no'} | {md(kb.doc)} |")
+    return "\n".join(lines)
+
+
+def cli_epilog() -> str:
+    """argparse epilog for the CLI: the registry's knob list, so `--help`
+    can never drift from the code (the DOC rule checks coverage)."""
+    lines = ["environment knobs (see `spgemm_tpu_torch.cli knobs` for live "
+             "values; central registry: spgemm_tpu_torch/utils/knobs.py):"]
+    for kb in _KNOBS:
+        default = "unset" if kb.default is None else kb.default
+        lines.append(f"  {kb.name}={_values_col(kb)} (default {default}): "
+                     f"{kb.doc}")
+    return "\n".join(lines)

@@ -42,7 +42,7 @@ SOURCES = ("smmio.cpp", "symbolic.cpp", "parityfold.cpp")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _lock = threading.Lock()
-_libs: dict[Path, ctypes.CDLL] = {}  # by source directory; guarded by _lock
+_libs: dict[Path, ctypes.CDLL] = {}  # by source directory; spgemm-lint: guarded-by(_lock)
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -127,6 +127,7 @@ def lib() -> ctypes.CDLL:
         if SRC_DIR in _libs:
             return _libs[SRC_DIR]
         t0 = time.perf_counter()
+        # spgemm-lint: blk-ok(one-shot memoized build: the lock MUST cover the g++ run so a second thread can neither double-compile nor CDLL a half-written library; cold path, once per process)
         path, built = _build()
         try:
             handle = ctypes.CDLL(str(path))

@@ -58,11 +58,11 @@ class PhaseTimers:
     with attributed(attribution())."""
 
     def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-        self.counters: dict[str, int] = {}
+        self.totals: dict[str, float] = {}    # spgemm-lint: guarded-by(_lock)
+        self.counts: dict[str, int] = {}      # spgemm-lint: guarded-by(_lock)
+        self.counters: dict[str, int] = {}    # spgemm-lint: guarded-by(_lock)
         # thread ident -> the PhaseScopes that thread's accumulation feeds
-        self._sinks: dict[int, list] = {}
+        self._sinks: dict[int, list] = {}     # spgemm-lint: guarded-by(_lock)
         self._lock = threading.Lock()
 
     def _add_phase_locked(self, name: str, dt: float) -> None:
@@ -178,9 +178,9 @@ class PhaseScope:
     def __init__(self, timers: PhaseTimers):
         self._timers = timers
         self._lock = timers._lock  # one lock: a scope is the timers' state
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-        self.counters: dict[str, int] = {}
+        self.totals: dict[str, float] = {}   # spgemm-lint: guarded-by(_lock)
+        self.counts: dict[str, int] = {}     # spgemm-lint: guarded-by(_lock)
+        self.counters: dict[str, int] = {}   # spgemm-lint: guarded-by(_lock)
         with self._lock:
             timers._sinks.setdefault(threading.get_ident(), []).append(self)
 

@@ -113,6 +113,36 @@ def test_failing_planner_reraises_and_worker_closes(monkeypatch, capsys):
     assert not [t for t in threading.enumerate() if t.name == "chain-planner"]
 
 
+class _Abort(BaseException):
+    """A control signal that is not an Exception (as serve.queue.JobAbandoned)."""
+
+
+def test_planner_abort_reaches_the_consumer_and_ends_the_worker(monkeypatch):
+    """A BaseException that is not an Exception (an abort) in the planner is
+    handed to the consumer like a failure, and also re-raised on the worker
+    thread, so it ends there and is not swallowed; an Exception is handed
+    over only (the worker's thread ends quietly)."""
+    seen = []
+    monkeypatch.setattr(threading, "excepthook", lambda args: seen.append(args.exc_type))
+
+    def abort(a, b):
+        raise _Abort()
+
+    worker = chain._PlanAheadWorker([(1, 2)] * 2, abort, 2)
+    with pytest.raises(_Abort):
+        worker.get()
+    worker.close()
+    assert not worker._thread.is_alive()
+    assert seen == [_Abort]
+
+    seen.clear()
+    worker = chain._PlanAheadWorker([(1, 2)] * 2, lambda a, b: 1 / 0, 2)
+    with pytest.raises(ZeroDivisionError):
+        worker.get()
+    worker.close()
+    assert seen == []
+
+
 def test_close_stops_a_worker_that_is_ahead():
     worker = chain._PlanAheadWorker([(i, i) for i in range(50)], lambda a, b: a, 2)
     assert worker.get() == (0, 0)
